@@ -1,0 +1,124 @@
+"""Runtime configuration: device, dtype policy, attention dispatch.
+
+Counterpart of lightdiffusion_next_tpu/config.py, for PyTorch on an NVIDIA
+GPU. What the SD1.5 path consults:
+
+- ``resolve_device``: every entry point runs on ``cuda`` unless the caller
+  asks for ``"cpu"`` (as the tests do); with no GPU it raises rather than
+  carry on quietly on the CPU.
+- ``DtypePolicy``: bf16 UNet params and compute, f32 VAE, bf16 text
+  encoder on the GPU; everything f32 on the CPU. Norms and schedules always
+  compute in f32.
+- ``RuntimeConfig``: ``attention_backend``, ``packed_attn``.
+
+The JAX package's ``qkv_fuse`` has no counterpart: the port always joins the
+q|k|v (and k|v) projection weights, once, when the UNet is built
+(``models/unet.fuse_projections``). Its ``rng_mode`` has none either: the
+port draws noise as the "torch" mode does, the only mode ported (ROADMAP
+Queue 1, item 2).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import os
+from typing import Optional, Union
+
+import torch
+
+DeviceLike = Union[str, torch.device, None]
+
+
+def configure_cuda_math() -> None:
+    """Full-f32 math on the GPU. cuDNN runs f32 convolutions in TF32 by
+    default (a 10-bit mantissa); the VAE keeps the JAX package's f32 policy
+    because its decoder is the numerically fragile part of the pipeline, so
+    TF32 is turned off for both convolutions and matmuls. The bf16 UNet and
+    text encoder are unaffected. The plain attention versions also rely on
+    f32 matmuls being f32."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+
+def resolve_device(device: DeviceLike = None) -> torch.device:
+    """``None`` means the GPU. Raises when the GPU is asked for and absent."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda":
+        if not torch.cuda.is_available():
+            raise RuntimeError(
+                "no CUDA device found; pass device='cpu' to run on the CPU"
+            )
+        configure_cuda_math()
+    elif dev.type != "cpu":
+        raise ValueError(f"unsupported device {dev}")
+    return dev
+
+
+@dataclasses.dataclass(frozen=True)
+class DtypePolicy:
+    """Static mixed-precision policy (JAX ``DtypePolicy`` parity)."""
+
+    compute_dtype: torch.dtype
+    param_dtype: torch.dtype
+    vae_dtype: torch.dtype
+    text_encoder_dtype: torch.dtype
+
+    @staticmethod
+    def for_device(device: DeviceLike = None) -> "DtypePolicy":
+        if torch.device("cuda" if device is None else device).type == "cpu":
+            f32 = torch.float32
+            return DtypePolicy(f32, f32, f32, f32)
+        return DtypePolicy(
+            torch.bfloat16, torch.bfloat16, torch.float32, torch.bfloat16
+        )
+
+
+_VALID_ATTENTION = ("flash", "sdpa")
+
+
+@dataclasses.dataclass(frozen=True)
+class RuntimeConfig:
+    """The knobs the SD1.5 path reads.
+
+    attention_backend: "flash" sends long sequences (``flash_attention
+      .supported``) to the hand-written kernels and the rest to ``sdpa``;
+      "sdpa" sends everything to ``sdpa`` (the plain reference path).
+    packed_attn: head dims up to 64 go to K1 (``packed_flash_attention``),
+      otherwise to K2.
+    """
+
+    attention_backend: str = "flash"
+    packed_attn: bool = True
+
+    def __post_init__(self):
+        if self.attention_backend not in _VALID_ATTENTION:
+            raise ValueError(f"attention_backend must be one of {_VALID_ATTENTION}")
+
+
+_current: Optional[RuntimeConfig] = None
+
+
+def get_config() -> RuntimeConfig:
+    global _current
+    if _current is None:
+        _current = RuntimeConfig()
+    return _current
+
+
+def set_config(cfg: RuntimeConfig) -> RuntimeConfig:
+    global _current
+    _current = cfg
+    return cfg
+
+
+def repo_asset(*parts: str) -> str:
+    """Path to a data file vendored in this repository (tokenizer vocab)."""
+    here = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    return os.path.join(here, "assets", *parts)
+
+
+def asset_root() -> str:
+    """Directory of model assets (the seed file of ``reuse_seed``)."""
+    return os.environ.get(
+        "LDT_ASSET_ROOT", os.path.join(os.path.expanduser("~"), ".ldt", "include")
+    )

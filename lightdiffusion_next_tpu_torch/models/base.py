@@ -1,0 +1,71 @@
+"""Diffusion model packaging: net + parameterization + latent format.
+
+Counterpart of lightdiffusion_next_tpu/models/base.py. A ``DiffusionModel``
+bundles an apply function, its flat param dict (tensors on the model's
+device, in the model's dtype), the model-sampling object and the latent
+format. ``with_options`` returns a new bundle sharing the params.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+from lightdiffusion_next_tpu_torch import config as _config
+from lightdiffusion_next_tpu_torch.models import unet as unet_mod
+from lightdiffusion_next_tpu_torch.sampling import model_sampling as ms_mod
+from lightdiffusion_next_tpu_torch.utils import latent as latent_mod
+
+
+def params_to_device(params: Dict[str, Any], dtype: torch.dtype,
+                     device: torch.device) -> Dict[str, torch.Tensor]:
+    """Every leaf to ``device`` in ``dtype`` (numpy arrays or tensors)."""
+    return {
+        k: torch.as_tensor(v).to(device=device, dtype=dtype)
+        for k, v in params.items()
+    }
+
+
+@dataclasses.dataclass
+class DiffusionModel:
+    apply_fn: Callable  # (params, x, t, context, attn1_override=None) -> out
+    params: Dict[str, torch.Tensor]
+    model_sampling: Any
+    latent_format: latent_mod.LatentFormat
+    config: Any = None
+    model_options: Dict[str, Any] = dataclasses.field(default_factory=dict)
+    device: torch.device = torch.device("cpu")
+
+    def with_options(self, **opts) -> "DiffusionModel":
+        new = dict(self.model_options)
+        new.update(opts)
+        return dataclasses.replace(self, model_options=new)
+
+
+def sd15_model(params: Dict[str, Any], cfg: Optional[unet_mod.UNetConfig] = None,
+               dtype: Optional[torch.dtype] = None,
+               device: _config.DeviceLike = None) -> DiffusionModel:
+    """Assemble an SD1.5-class EPS UNet bundle from checkpoint-keyed params
+    (numpy arrays or tensors); the attention projections are joined here,
+    once (``unet.fuse_projections``). ``dtype`` defaults to the device's
+    policy (bf16 on the GPU, f32 on the CPU); the UNet computes in
+    ``cfg.dtype``, which follows it unless ``cfg`` is given."""
+    dev = _config.resolve_device(device)
+    dtype = dtype or _config.DtypePolicy.for_device(dev).param_dtype
+    cfg = cfg or dataclasses.replace(unet_mod.SD15_CONFIG, dtype=dtype)
+    plan = unet_mod.build_plan(cfg)
+
+    def apply_fn(p, x, t, context, attn1_override=None):
+        return unet_mod.apply_unet(p, x, t, context, cfg=cfg, plan=plan,
+                                   attn1_override=attn1_override)
+
+    return DiffusionModel(
+        apply_fn=apply_fn,
+        params=unet_mod.fuse_projections(params_to_device(params, dtype, dev)),
+        model_sampling=ms_mod.ModelSamplingDiscrete(),
+        latent_format=latent_mod.SD15,
+        config=cfg,
+        device=dev,
+    )

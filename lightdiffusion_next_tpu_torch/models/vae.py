@@ -1,0 +1,171 @@
+"""SD VAE (AutoencoderKL) decoder, NHWC at the boundary.
+
+Counterpart of lightdiffusion_next_tpu/models/vae.py: the same config,
+checkpoint keys ("decoder.up.3.upsample.conv.weight", ...) and math. Conv
+weights are OIHW. The VAE computes in f32 (the dtype policy); its mid-block
+attention runs through K2 at 1024^2.
+
+Not ported yet (ROADMAP Queue 1, item 7): the encoder, ``VAE.encode``, and
+the tiled decode the JAX package falls back to when a decode runs out of
+memory.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import numpy as np
+import torch
+
+from lightdiffusion_next_tpu_torch import config as _config
+from lightdiffusion_next_tpu_torch.models.base import params_to_device
+from lightdiffusion_next_tpu_torch.ops import attention as attn_ops
+from lightdiffusion_next_tpu_torch.ops import nn
+
+
+@dataclasses.dataclass(frozen=True)
+class VAEConfig:
+    ch: int = 128
+    ch_mult: Tuple[int, ...] = (1, 2, 4, 4)
+    num_res_blocks: int = 2
+    in_channels: int = 3
+    out_ch: int = 3
+    z_channels: int = 4
+    double_z: bool = True
+    has_quant_conv: bool = True
+
+    @property
+    def downscale_ratio(self) -> int:
+        return 2 ** (len(self.ch_mult) - 1)
+
+
+SD_VAE = VAEConfig()
+
+
+def _gn(x, scale, bias):
+    """GroupNorm(32), eps 1e-6; the group count clamps to the channel count
+    so tiny test configs work."""
+    return nn.group_norm(x, scale, bias, groups=min(32, x.shape[-1]), eps=1e-6)
+
+
+def _resnet(p: nn.ParamView, x):
+    h = nn.silu(_gn(x, p("norm1.weight"), p("norm1.bias")))
+    h = nn.conv2d(h, p("conv1.weight"), p("conv1.bias"), padding=1)
+    h = nn.silu(_gn(h, p("norm2.weight"), p("norm2.bias")))
+    h = nn.conv2d(h, p("conv2.weight"), p("conv2.bias"), padding=1)
+    if p.has("nin_shortcut.weight"):
+        x = nn.conv2d(x, p("nin_shortcut.weight"), p("nin_shortcut.bias"))
+    return x + h
+
+
+def _attn_block(p: nn.ParamView, x):
+    """Mid-block single-head spatial attention; q/k/v/proj_out are 1x1
+    convs."""
+    h = _gn(x, p("norm.weight"), p("norm.bias"))
+    q = nn.conv2d(h, p("q.weight"), p("q.bias"))
+    k = nn.conv2d(h, p("k.weight"), p("k.bias"))
+    v = nn.conv2d(h, p("v.weight"), p("v.bias"))
+    out = attn_ops.vae_attention_core(q, k, v)
+    return x + nn.conv2d(out, p("proj_out.weight"), p("proj_out.bias"))
+
+
+def apply_decoder(params: dict, z, cfg: VAEConfig = SD_VAE):
+    """latent (B, h, w, z) -> pixels (B, H, W, 3) in [-1, 1]."""
+    if cfg.has_quant_conv:
+        z = nn.conv2d(z, params["post_quant_conv.weight"], params["post_quant_conv.bias"])
+    p = nn.ParamView(params, "decoder.")
+    h = nn.conv2d(z, p("conv_in.weight"), p("conv_in.bias"), padding=1)
+    h = _resnet(p.scope("mid.block_1."), h)
+    h = _attn_block(p.scope("mid.attn_1."), h)
+    h = _resnet(p.scope("mid.block_2."), h)
+    for i in reversed(range(len(cfg.ch_mult))):
+        for j in range(cfg.num_res_blocks + 1):
+            h = _resnet(p.scope(f"up.{i}.block.{j}."), h)
+        if i != 0:
+            h = nn.conv2d(nn.interpolate_nearest(h, 2),
+                          p(f"up.{i}.upsample.conv.weight"),
+                          p(f"up.{i}.upsample.conv.bias"), padding=1)
+    h = nn.silu(_gn(h, p("norm_out.weight"), p("norm_out.bias")))
+    return nn.conv2d(h, p("conv_out.weight"), p("conv_out.bias"), padding=1)
+
+
+class VAE:
+    """Decode facade: pixel-range scaling around ``apply_decoder``."""
+
+    def __init__(self, params: dict, cfg: VAEConfig = SD_VAE,
+                 dtype: Optional[torch.dtype] = None,
+                 device: _config.DeviceLike = None):
+        self.device = _config.resolve_device(device)
+        self.cfg = cfg
+        self.dtype = dtype or _config.DtypePolicy.for_device(self.device).vae_dtype
+        self.params = params_to_device(params, self.dtype, self.device)
+
+    def decode(self, samples):
+        """latent NHWC -> images NHWC float32 in [0, 1], on the VAE's device."""
+        z = torch.as_tensor(samples).to(device=self.device, dtype=self.dtype)
+        out = apply_decoder(self.params, z, self.cfg)
+        return torch.clamp((out.float() + 1.0) / 2.0, 0.0, 1.0)
+
+
+def init_params(cfg: VAEConfig = SD_VAE, seed: int = 0):
+    """Random flat param dict drawn exactly as the JAX package's
+    ``init_params`` draws it, convs laid out OIHW. Host numpy f32."""
+    rng = np.random.default_rng(seed)
+    P = {}
+
+    def conv(key, out_c, in_c, k=3):
+        hwio = rng.normal(0, (in_c * k * k) ** -0.5, (k, k, in_c, out_c))
+        P[key + ".weight"] = hwio.transpose(3, 2, 0, 1)
+        P[key + ".bias"] = np.zeros((out_c,))
+
+    def norm(key, c):
+        P[key + ".weight"] = np.ones((c,))
+        P[key + ".bias"] = np.zeros((c,))
+
+    def res(prefix, cin, cout):
+        norm(prefix + "norm1", cin)
+        conv(prefix + "conv1", cout, cin)
+        norm(prefix + "norm2", cout)
+        conv(prefix + "conv2", cout, cout)
+        if cin != cout:
+            conv(prefix + "nin_shortcut", cout, cin, k=1)
+
+    def attn(prefix, c):
+        norm(prefix + "norm", c)
+        for nme in ("q", "k", "v", "proj_out"):
+            conv(prefix + nme, c, c, k=1)
+
+    conv("encoder.conv_in", cfg.ch, cfg.in_channels)
+    ch = cfg.ch
+    for i, mult in enumerate(cfg.ch_mult):
+        out = cfg.ch * mult
+        for j in range(cfg.num_res_blocks):
+            res(f"encoder.down.{i}.block.{j}.", ch, out)
+            ch = out
+        if i != len(cfg.ch_mult) - 1:
+            conv(f"encoder.down.{i}.downsample.conv", ch, ch)
+    res("encoder.mid.block_1.", ch, ch)
+    attn("encoder.mid.attn_1.", ch)
+    res("encoder.mid.block_2.", ch, ch)
+    norm("encoder.norm_out", ch)
+    zc = cfg.z_channels * (2 if cfg.double_z else 1)
+    conv("encoder.conv_out", zc, ch)
+    if cfg.has_quant_conv:
+        conv("quant_conv", zc, zc, k=1)
+        conv("post_quant_conv", cfg.z_channels, cfg.z_channels, k=1)
+
+    conv("decoder.conv_in", ch, cfg.z_channels)
+    res("decoder.mid.block_1.", ch, ch)
+    attn("decoder.mid.attn_1.", ch)
+    res("decoder.mid.block_2.", ch, ch)
+    for i in reversed(range(len(cfg.ch_mult))):
+        out = cfg.ch * cfg.ch_mult[i]
+        for j in range(cfg.num_res_blocks + 1):
+            res(f"decoder.up.{i}.block.{j}.", ch, out)
+            ch = out
+        if i != 0:
+            conv(f"decoder.up.{i}.upsample.conv", ch, ch)
+    norm("decoder.norm_out", ch)
+    conv("decoder.conv_out", cfg.out_ch, ch)
+    return {k: np.ascontiguousarray(v, dtype=np.float32) for k, v in P.items()}

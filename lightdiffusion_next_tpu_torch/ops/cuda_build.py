@@ -1,0 +1,131 @@
+"""Build and load the port's hand-written CUDA kernels.
+
+Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
+shared library with a plain C interface and loaded with ``ctypes``. The
+build happens at first use, into ``build/kernels/`` at the repository root
+(listed in ``.gitignore``); the file name carries a hash of the sources and
+flags, so an edited kernel is rebuilt and a built one is reused. ``build()``
+starts one ``nvcc`` per source, all at once.
+
+Nothing here runs at import: the CPU tests import every module, and this
+machine may have no ``nvcc``.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+from typing import Dict, Iterable, Optional
+
+PACKAGE_DIR = Path(__file__).resolve().parent.parent
+CSRC = PACKAGE_DIR / "csrc"
+BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
+
+# library name -> (source file, exported C entry point)
+KERNELS = {
+    "flash_attention": ("flash_attention.cu", "ldt_flash_attention_fwd"),
+    "packed_flash_attention": (
+        "packed_flash_attention.cu", "ldt_packed_flash_attention_fwd",
+    ),
+}
+
+NVCC_FLAGS = (
+    "-gencode", "arch=compute_90a,code=sm_90a",
+    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
+    "-Xptxas", "-v",
+)
+
+_FLASH_ARGTYPES = (
+    [ctypes.c_void_p] * 4            # q, k, v, o
+    + [ctypes.c_int] * 6             # dtype, batch, heads, lq, lk, d
+    + [ctypes.c_longlong] * 12       # (b, h, l) strides of q, k, v, o
+    + [ctypes.c_float, ctypes.c_int]  # q_scale, vec
+    + [ctypes.c_void_p] * 2          # scratch (f32 inputs), stream
+)
+
+_LOADED: Dict[str, ctypes.CDLL] = {}
+
+
+def nvcc_path() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not os.path.exists(found):
+        raise RuntimeError(
+            "nvcc not found: the CUDA kernels are built on a machine with the "
+            "CUDA toolkit (PATH or /usr/local/cuda/bin)"
+        )
+    return found
+
+
+def library_path(name: str) -> Path:
+    source, _ = KERNELS[name]
+    digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for path in [CSRC / source] + sorted(CSRC.glob("*.cuh")):
+        digest.update(path.read_bytes())
+    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+
+
+def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
+    """Compile every listed kernel that is not built yet, one ``nvcc`` per
+    source, started together. Returns per kernel its wall seconds and the
+    compiler's register/spill report (``-Xptxas -v``). Raises with the
+    compiler's output when a build fails."""
+    names = list(KERNELS) if names is None else list(names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    report: Dict[str, dict] = {}
+    running = {}
+    t0 = time.perf_counter()
+    for name in names:
+        out = library_path(name)
+        if out.exists():
+            report[name] = {"seconds": 0.0, "log": "cached", "path": str(out)}
+            continue
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
+               str(CSRC / KERNELS[name][0])]
+        running[name] = (subprocess.Popen(
+            cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
+        ), tmp, out)
+    failed = []
+    for name, (proc, tmp, out) in running.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            failed.append(f"{name}:\n{log}")
+            continue
+        os.replace(tmp, out)
+        report[name] = {
+            "seconds": time.perf_counter() - t0, "log": log, "path": str(out),
+        }
+    if failed:
+        raise RuntimeError("nvcc failed for " + "\n".join(failed))
+    return report
+
+
+def load(name: str) -> ctypes.CDLL:
+    """The kernel's library, built first if needed, with its C signature
+    declared (every pointer and the stream as ``c_void_p``)."""
+    lib = _LOADED.get(name)
+    if lib is None:
+        path = library_path(name)
+        if not path.exists():
+            build([name])
+        lib = ctypes.CDLL(str(path))
+        fn = getattr(lib, KERNELS[name][1])
+        fn.argtypes = _FLASH_ARGTYPES
+        fn.restype = ctypes.c_int
+        lib.ldt_error_string.argtypes = [ctypes.c_int]
+        lib.ldt_error_string.restype = ctypes.c_char_p
+        _LOADED[name] = lib
+    return lib
+
+
+def entry_point(name: str):
+    return getattr(load(name), KERNELS[name][1])
+
+
+def error_string(name: str, code: int) -> str:
+    return load(name).ldt_error_string(code).decode()

@@ -1,0 +1,100 @@
+"""Classifier-free guidance denoiser.
+
+Counterpart of lightdiffusion_next_tpu/sampling/cfg.py: cond and uncond are
+batched into one UNet call, then combined by the CFG lerp. The JAX
+package's jit-argument bundle and runner cache keys exist for its compiled
+loops; eager PyTorch needs neither. The pooled text vector is carried but
+not fed to the model: SD1.5's UNet has no label embedding (the JAX package
+passes it and the UNet ignores it).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+from typing import Any, Callable, Dict, Optional
+
+import torch
+
+
+@dataclasses.dataclass
+class CondInput:
+    """One conditioning entry: cross-attention context (1 or B, L, ctx_dim)
+    and the pooled text vector."""
+
+    cross_attn: Any
+    pooled: Optional[Any] = None
+
+
+def _ctx_for_batch(c, batch: int):
+    if c.shape[0] == 1 and batch > 1:
+        c = c.repeat(batch, 1, 1)
+    return c
+
+
+def pad_cross_attn_to_match(a, b):
+    """Pad the shorter context to the LCM token length by repeating it."""
+    la, lb = a.shape[1], b.shape[1]
+    if la == lb:
+        return a, b
+    lcm = math.lcm(la, lb)
+    if la < lcm:
+        a = torch.cat([a] * (lcm // la), dim=1)
+    if lb < lcm:
+        b = torch.cat([b] * (lcm // lb), dim=1)
+    return a, b
+
+
+def cfg_result(cond_pred, uncond_pred, cond_scale: float):
+    """lerp(uncond, cond, scale), skipping the math at scale == 1."""
+    if uncond_pred is None or abs(cond_scale - 1.0) < 1e-9:
+        return cond_pred
+    return uncond_pred + (cond_pred - uncond_pred) * cond_scale
+
+
+def make_cfg_denoiser(
+    apply_model: Callable,
+    params: Dict,
+    model_sampling,
+    cond: CondInput,
+    uncond: Optional[CondInput],
+    cond_scale: float,
+    attn1_override_factory: Optional[Callable] = None,
+):
+    """``denoise(x, sigma) -> (cfg_denoised, uncond_denoised)``: EPS input
+    scaling, timestep lookup, one batched cond/uncond forward, EPS output
+    scaling, CFG lerp. ``x`` is an NHWC f32 latent, ``sigma`` a scalar or
+    (B,) f32 tensor on its device."""
+    use_uncond = uncond is not None and abs(cond_scale - 1.0) > 1e-9
+
+    def apply(x, t, context):
+        if attn1_override_factory is None:
+            return apply_model(params, x, t, context)
+        return apply_model(params, x, t, context,
+                           attn1_override=attn1_override_factory(t))
+
+    def denoise(x, sigma):
+        sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
+        if sigma.dim() == 0:
+            sigma = sigma.expand(x.shape[0])
+        xin = model_sampling.calculate_input(sigma, x)
+        t = model_sampling.timestep(sigma)
+        batch = x.shape[0]
+        c_ctx = _ctx_for_batch(cond.cross_attn, batch)
+        if use_uncond:
+            u_ctx = _ctx_for_batch(uncond.cross_attn, batch)
+            c_ctx, u_ctx = pad_cross_attn_to_match(c_ctx, u_ctx)
+            out = apply(torch.cat([xin, xin]), torch.cat([t, t]),
+                        torch.cat([c_ctx, u_ctx]))
+            den = model_sampling.calculate_denoised(
+                torch.cat([sigma, sigma]), out.float(), torch.cat([x, x])
+            )
+            cond_pred, uncond_pred = den[:batch], den[batch:]
+        else:
+            out = apply(xin, t, c_ctx)
+            cond_pred = model_sampling.calculate_denoised(sigma, out.float(), x)
+            uncond_pred = None
+        cfg_denoised = cfg_result(cond_pred, uncond_pred, cond_scale)
+        return cfg_denoised, (uncond_pred if uncond_pred is not None else cfg_denoised)
+
+    return denoise

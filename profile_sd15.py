@@ -1,0 +1,106 @@
+#!/usr/bin/env python3
+"""Where the device time of one SD1.5 1024^2 image goes, on one NVIDIA GPU.
+
+    python3 profile_sd15.py
+
+Builds the same full-width SD1.5 UNet, VAE and CLIP-L from seeded random
+weights as ``chip_smoke.py``, runs ``pipeline(prompt, 1024, 1024,
+prio_speed=True, autohdr=False)`` once to warm up, then once more under
+``torch.profiler``. Prints, for that profiled call: its wall time, the
+device's busy time (the sum of its kernels' device time) and idle share
+(1 - busy / wall: profiling slows the host, so this share is the profiled
+call's, not an unprofiled call's), the device time by class of kernel
+(matched on kernel names), and the top kernels. Writes every kernel's time
+to ``build/chip_smoke/profile.txt``. Imports nothing of JAX.
+"""
+
+from __future__ import annotations
+
+import json
+import os
+import sys
+import time
+
+import chip_smoke
+
+
+def kernel_category(name: str) -> str:
+    """Coarse class of a device kernel by its name."""
+    if "flash_fwd_kernel<__nv_bfloat16, 48" in name:
+        return "K1 packed_flash_attention (UNet d=40)"
+    if "flash_fwd_kernel<float" in name or "to_bf16_kernel" in name:
+        return "K2 flash_attention (VAE f32 d=512)"
+    if "flash_fwd_kernel" in name:
+        return "K2 flash_attention (UNet d=80, 160)"
+    if "fprop" in name:
+        return "convolutions, f32 (VAE)" if "f32f32_f32f32" in name \
+            else "convolutions, bf16 (UNet)"
+    if "gemm" in name or "nvjet" in name or "cutlass" in name:
+        return "matmuls"
+    if "reduce_kernel" in name:
+        return "norm statistics"
+    if "softmax" in name:
+        return "softmax (sdpa)"
+    if "copy" in name or "Cat" in name or "roll" in name or "hwcTo" in name:
+        return "copies, cat, roll, layout"
+    if "elementwise" in name:
+        return "other elementwise"
+    return "other"
+
+
+def main(top: int = 12) -> int:
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_sd15: no CUDA device", file=sys.stderr)
+        return 2
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from lightdiffusion_next_tpu_torch import config
+
+    os.makedirs(chip_smoke.OUT_DIR, exist_ok=True)
+    os.environ.setdefault("LDT_ASSET_ROOT", chip_smoke.OUT_DIR)
+    config.resolve_device("cuda")
+    print("gpu:", chip_smoke.gpu_line(), flush=True)
+    models = chip_smoke.build_models()
+    warm = chip_smoke.run_pipeline(models, 1234)
+    print(f"warm-up call: {warm['wall']:.3f} s/image (unprofiled)", flush=True)
+
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        chip_smoke.run_pipeline(models, 9012)
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    rows = sorted(
+        ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
+         if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+        reverse=True,
+    )
+    busy_ms = sum(r[0] for r in rows)
+    if not rows:
+        print("profile_sd15: the trace holds no device time", file=sys.stderr)
+        return 1
+    classes = {}
+    for ms, count, key in rows:
+        cls = classes.setdefault(kernel_category(key), [0.0, 0])
+        cls[0] += ms
+        cls[1] += count
+    print(f"profiled call: wall {wall_ms:.1f} ms, device busy {busy_ms:.1f} ms, idle "
+          f"{100 * (1 - busy_ms / wall_ms):.1f}% of the profiled call "
+          f"({sum(r[1] for r in rows)} device events)")
+    for name, (ms, count) in sorted(classes.items(), key=lambda kv: -kv[1][0]):
+        print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f}% x{count:<6d} {name}")
+    for ms, count, key in rows[:top]:
+        print(f"  kernel {ms:9.2f} ms x{count:<6d} {key[:90]}")
+    with open(os.path.join(chip_smoke.OUT_DIR, "profile.txt"), "w") as f:
+        for ms, count, key in rows:
+            f.write(f"{ms:.3f}\t{count}\t{key}\n")
+    print(json.dumps({"wall_ms": wall_ms, "busy_ms": busy_ms,
+                      "idle_share": 1 - busy_ms / wall_ms,
+                      "classes": {k: {"ms": v[0], "count": v[1]}
+                                  for k, v in classes.items()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

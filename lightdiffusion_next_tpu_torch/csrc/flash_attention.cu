@@ -15,12 +15,15 @@
 // bf16 rate).
 //
 // What the design does about it: every product runs on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulate). f32 inputs are rounded to
-// bf16: q while its tile is staged, k and v once per call into a bf16
-// scratch buffer, so each of the 1024 blocks of the VAE call reads 16 MB of
-// bf16 K (which stays in L2) instead of 32 MB of f32 that it converts
-// again. Softmax state and both accumulations stay f32 (the tolerance that
-// follows is stated where the kernel is checked). Above d = 160 a block
+// (mma.sync m16n8k16, bf16 in, f32 accumulate). f32 inputs keep f32
+// products, as the JAX kernel computes them: each operand is split into
+// bf16 hi and lo halves and each product is three mma (hi*hi + hi*lo +
+// lo*hi), about 16 mantissa bits; q is split while its tile is staged, k
+// and v once per call into a scratch buffer of four bf16 arrays (each of
+// the 1024 blocks of the VAE call then reads 32 MB of bf16 halves, which
+// stay in L2, instead of f32 it converts again), p in registers. That
+// triples the VAE call's tensor-core work, the price of the JAX semantics.
+// Softmax state and both accumulations stay f32. Above d = 160 a block
 // computes a slice of 128 output columns and recomputes q k^T over the full
 // head dim, so the accumulator stays at 64 registers a thread; at d = 512
 // that repeats q k^T four times (2.5x the minimal FLOP), which is the price

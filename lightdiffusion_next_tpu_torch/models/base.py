@@ -4,6 +4,7 @@ Counterpart of lightdiffusion_next_tpu/models/base.py. A ``DiffusionModel``
 bundles an apply function, its flat param dict (tensors on the model's
 device, in the model's dtype), the model-sampling object and the latent
 format. ``with_options`` returns a new bundle sharing the params.
+``sd15_model`` and ``flux_model`` assemble the two model families.
 """
 
 from __future__ import annotations
@@ -14,7 +15,10 @@ from typing import Any, Callable, Dict, Optional
 import torch
 
 from lightdiffusion_next_tpu_torch import config as _config
+from lightdiffusion_next_tpu_torch.models import flux as flux_mod
 from lightdiffusion_next_tpu_torch.models import unet as unet_mod
+from lightdiffusion_next_tpu_torch.ops import ggml
+from lightdiffusion_next_tpu_torch.sampling import fbcache as fb_mod
 from lightdiffusion_next_tpu_torch.sampling import model_sampling as ms_mod
 from lightdiffusion_next_tpu_torch.utils import latent as latent_mod
 
@@ -37,6 +41,7 @@ class DiffusionModel:
     config: Any = None
     model_options: Dict[str, Any] = dataclasses.field(default_factory=dict)
     device: torch.device = torch.device("cpu")
+    model_type: str = "sd1"
 
     def with_options(self, **opts) -> "DiffusionModel":
         new = dict(self.model_options)
@@ -57,7 +62,7 @@ def sd15_model(params: Dict[str, Any], cfg: Optional[unet_mod.UNetConfig] = None
     cfg = cfg or dataclasses.replace(unet_mod.SD15_CONFIG, dtype=dtype)
     plan = unet_mod.build_plan(cfg)
 
-    def apply_fn(p, x, t, context, attn1_override=None):
+    def apply_fn(p, x, t, context, y=None, attn1_override=None):
         return unet_mod.apply_unet(p, x, t, context, cfg=cfg, plan=plan,
                                    attn1_override=attn1_override)
 
@@ -68,4 +73,35 @@ def sd15_model(params: Dict[str, Any], cfg: Optional[unet_mod.UNetConfig] = None
         latent_format=latent_mod.SD15,
         config=cfg,
         device=dev,
+    )
+
+
+def flux_model(params: Dict[str, Any], cfg: Optional[flux_mod.FluxConfig] = None,
+               dtype: Optional[torch.dtype] = None,
+               device: _config.DeviceLike = None) -> DiffusionModel:
+    """Assemble a Flux DiT bundle from checkpoint-keyed params (numpy
+    arrays, tensors or Q8_0 records, e.g. from ``ggml.gguf_sd_loader`` or
+    ``flux.random_params``): Q8_0 matmul weights as ``QTensor8T``, dense
+    leaves in ``dtype`` (the device's compute dtype by default), the RoPE
+    basis permuted once for the fused attention (K3), the QKNorm scales
+    in f32 (the kernel's), ``ModelSamplingFlux``, the FLUX1 latent format
+    and FBCache at threshold 0.120 in the options."""
+    dev = _config.resolve_device(device)
+    dtype = dtype or _config.DtypePolicy.for_device(dev).compute_dtype
+    p = ggml.to_device_quantized(params, dtype=dtype, device=dev)
+    cfg = dataclasses.replace(cfg or flux_mod.detect_config(p), dtype=dtype,
+                              fused_attn=True)
+    p = flux_mod.permute_rope_basis(p, cfg)
+    for key in p:
+        if key.endswith(("query_norm.scale", "key_norm.scale")):
+            p[key] = p[key].float().contiguous()
+    return DiffusionModel(
+        apply_fn=flux_mod.make_apply_fn(cfg),
+        params=p,
+        model_sampling=ms_mod.ModelSamplingFlux(),
+        latent_format=latent_mod.FLUX1,
+        config=cfg,
+        model_options={"fbcache": fb_mod.FBCacheConfig(0.120)},
+        device=dev,
+        model_type="flux",
     )

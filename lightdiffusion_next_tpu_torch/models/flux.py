@@ -1,0 +1,460 @@
+"""Flux.1 DiT as plain functions over a flat param dict.
+
+Counterpart of lightdiffusion_next_tpu/models/flux.py in the configuration
+this port runs: unrolled blocks, Q8_0 weights (no W8A8, so no fused
+elementwise kernels) and the fused-prologue attention (K3,
+``ops.flash_attention.fused_qkv_attention``) with the params in the
+permuted half-split RoPE basis (``permute_rope_basis``). The same BFL
+checkpoint keys ("double_blocks.0.img_attn.qkv.weight", ...), NHWC latent
+in and out, LayerNorm eps 1e-6, f32 norms.
+
+Not ported yet (ROADMAP Queue 1, item 9): the unfused attention path with
+``ops/rope.py``, the stacked scan layout (K6), W8A8 and the fused
+elementwise path (K7-K11), the tensor-parallel layouts, LoRA.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from lightdiffusion_next_tpu_torch import config as _config
+from lightdiffusion_next_tpu_torch.ops import flash_attention as fa
+from lightdiffusion_next_tpu_torch.ops import ggml, nn
+from lightdiffusion_next_tpu_torch.sampling.schedules import timestep_embedding_flux
+
+
+@dataclasses.dataclass(frozen=True)
+class FluxConfig:
+    in_channels: int = 16
+    hidden_size: int = 3072
+    mlp_ratio: float = 4.0
+    num_heads: int = 24
+    depth: int = 19
+    depth_single_blocks: int = 38
+    axes_dim: Tuple[int, ...] = (16, 56, 56)
+    theta: int = 10000
+    qkv_bias: bool = True
+    guidance_embed: bool = True
+    vec_in_dim: int = 768
+    context_in_dim: int = 4096
+    patch_size: int = 2
+    dtype: Any = torch.float32
+    # the params are in the permuted RoPE basis and attention runs through
+    # K3; set by models.base.flux_model, which permutes
+    fused_attn: bool = False
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+
+FLUX_DEV = FluxConfig()
+
+# the Q8_0 matmul weights of the published GGUF checkpoints; the other 2-D
+# weights are dense
+Q8_0_SUFFIXES = ("qkv.weight", "proj.weight", "mlp.0.weight", "mlp.2.weight",
+                 "linear1.weight", "linear2.weight")
+
+
+def _mlp_embedder(p: nn.ParamView, x):
+    """in_layer -> silu -> out_layer."""
+    h = nn.linear(x, p("in_layer.weight"), p("in_layer.bias"))
+    return nn.linear(nn.silu(h), p("out_layer.weight"), p("out_layer.bias"))
+
+
+def _modulation(p: nn.ParamView, vec, n: int):
+    """silu(vec) -> lin -> 3 * (n // 3) chunks (shift, scale, gate groups),
+    each (B, 1, hidden)."""
+    out = nn.linear(nn.silu(vec), p("lin.weight"), p("lin.bias"))
+    return torch.chunk(out[:, None, :], 3 * (n // 3), dim=-1)
+
+
+def rope_pair_permutation(d: int) -> np.ndarray:
+    """NEW -> OLD index map from interleaved RoPE pairs to the half-split
+    layout: new lane j holds old feature 2j for j < d/2 and 2(j - d/2) + 1
+    above, so lane j's rotation partner is lane j + d/2."""
+    half = d // 2
+    idx = np.empty((d,), np.int64)
+    idx[:half] = np.arange(half) * 2
+    idx[half:] = np.arange(half) * 2 + 1
+    return idx
+
+
+def _qk_out_index(out_dim: int, hidden: int, head_dim: int) -> np.ndarray:
+    """Output-column permutation of a fused [q; k; v (; mlp)] projection:
+    the rope pair permutation inside every head's segment of the q and k
+    sections; v and mlp columns stay put."""
+    idx = np.arange(out_dim, dtype=np.int64)
+    pi = rope_pair_permutation(head_dim)
+    for sec in (0, hidden):
+        for h0 in range(sec, sec + hidden, head_dim):
+            idx[h0:h0 + head_dim] = h0 + pi
+    return idx
+
+
+def permute_rope_basis(params: Dict, cfg: FluxConfig) -> Dict:
+    """Permute the q/k output columns of every qkv and single-block linear1
+    projection (weights, biases and QKNorm scales) into the half-split RoPE
+    basis. Attention logits are invariant (the same permutation hits q and
+    k); v and every other weight are untouched. Returns a new dict."""
+    hidden, d = cfg.hidden_size, cfg.head_dim
+
+    def take(t, idx, dim):
+        return torch.index_select(t, dim, torch.as_tensor(idx, device=t.device))
+
+    def permute_out(leaf, idx):
+        if isinstance(leaf, ggml.QTensor8T):
+            return ggml.QTensor8T(qt=take(leaf.qt, idx, 1),
+                                  scales_t=take(leaf.scales_t, idx, 1), shape=leaf.shape)
+        if isinstance(leaf, ggml.QTensor8):
+            return ggml.QTensor8(q=take(leaf.q, idx, 0), scales=take(leaf.scales, idx, 0),
+                                 shape=leaf.shape)
+        return take(leaf, idx, 0)
+
+    out = dict(params)
+    pi = rope_pair_permutation(d)
+    qkv_idx = _qk_out_index(3 * hidden, hidden, d)
+    lin1_idx = _qk_out_index(3 * hidden + int(hidden * cfg.mlp_ratio), hidden, d)
+
+    def do(prefix, idx):
+        out[prefix + ".weight"] = permute_out(params[prefix + ".weight"], idx)
+        if prefix + ".bias" in params:
+            out[prefix + ".bias"] = take(params[prefix + ".bias"], idx, 0)
+
+    for i in range(cfg.depth):
+        for s in ("img", "txt"):
+            do(f"double_blocks.{i}.{s}_attn.qkv", qkv_idx)
+            for nk in ("query_norm", "key_norm"):
+                key = f"double_blocks.{i}.{s}_attn.norm.{nk}.scale"
+                out[key] = take(params[key], pi, 0)
+    for i in range(cfg.depth_single_blocks):
+        do(f"single_blocks.{i}.linear1", lin1_idx)
+        for nk in ("query_norm", "key_norm"):
+            key = f"single_blocks.{i}.norm.{nk}.scale"
+            out[key] = take(params[key], pi, 0)
+    return out
+
+
+def rope_cos_sin(ids, axes_dim, theta: int = 10000):
+    """(cos, sin) for K3 in the half-split layout: C = [cos; cos],
+    S = [-sin; sin], each (L, sum(axes_dim)) f32 and contiguous. ``ids`` is
+    (B, L, n_axes); positions are the same for every batch entry, so row 0
+    serves all."""
+    pos = ids[0].float()
+    parts_c, parts_s = [], []
+    for ax, dim in enumerate(axes_dim):
+        scale = torch.arange(0, dim, 2, dtype=torch.float32, device=pos.device) / dim
+        omega = 1.0 / (theta ** scale)
+        ang = pos[:, ax][:, None] * omega[None]
+        parts_c.append(torch.cos(ang))
+        parts_s.append(torch.sin(ang))
+    c = torch.cat(parts_c, dim=-1)
+    s = torch.cat(parts_s, dim=-1)
+    return torch.cat([c, c], dim=-1).contiguous(), torch.cat([-s, s], dim=-1).contiguous()
+
+
+def _mod_linear(p: nn.ParamView, key: str, x, scale, shift):
+    """layer_norm(x, 1e-6) * (1 + scale) + shift -> linear."""
+    xm = nn.layer_norm(x, eps=1e-6) * (1 + scale) + shift
+    return nn.linear(xm, p(key + ".weight"), p.get(key + ".bias"))
+
+
+def _gated_out_linear(x_res, h, w, b, gate, gelu: bool = False):
+    """x_res + gate * linear(gelu?(h), w, b)."""
+    if gelu:
+        h = nn.gelu(h, approximate=True)
+    return x_res + gate * nn.linear(h, w, b)
+
+
+def _fused_attention(*args, **kw):
+    """K3, or its plain version when ``attention_backend`` is "sdpa" (the
+    plain reference path, as for the UNet's attention)."""
+    if _config.get_config().attention_backend == "flash":
+        return fa.fused_qkv_attention(*args, **kw)
+    return fa.fused_qkv_attention_plain(*args, **kw)
+
+
+def _require_fused(cfg: FluxConfig):
+    if not cfg.fused_attn:
+        raise NotImplementedError(
+            "the unfused Flux attention (ops/rope.py) is not ported yet (ROADMAP "
+            "Queue 1, item 9): build the model with models.base.flux_model, which "
+            "permutes the RoPE basis for the fused kernel"
+        )
+
+
+def _double_block(p: nn.ParamView, img, txt, vec, pe, cfg: FluxConfig):
+    """DoubleStreamBlock with the fused-prologue attention; text rows come
+    first in the joint sequence."""
+    _require_fused(cfg)
+    im1_shift, im1_scale, im1_gate, im2_shift, im2_scale, im2_gate = _modulation(
+        p.scope("img_mod."), vec, 6)
+    tx1_shift, tx1_scale, tx1_gate, tx2_shift, tx2_scale, tx2_gate = _modulation(
+        p.scope("txt_mod."), vec, 6)
+
+    img_qkv = _mod_linear(p, "img_attn.qkv", img, im1_scale, im1_shift)
+    txt_qkv = _mod_linear(p, "txt_attn.qkv", txt, tx1_scale, tx1_shift)
+    cos, sin = pe
+    attn = _fused_attention(
+        torch.cat([txt_qkv, img_qkv], dim=1),
+        p("img_attn.norm.query_norm.scale"), p("img_attn.norm.key_norm.scale"),
+        cos, sin, num_heads=cfg.num_heads, txt_len=txt.shape[1],
+        txt_q_scale=p("txt_attn.norm.query_norm.scale"),
+        txt_k_scale=p("txt_attn.norm.key_norm.scale"),
+    )
+    txt_attn, img_attn = attn[:, :txt.shape[1]], attn[:, txt.shape[1]:]
+
+    img = _gated_out_linear(img, img_attn, p("img_attn.proj.weight"),
+                            p("img_attn.proj.bias"), im1_gate)
+    h = _mod_linear(p, "img_mlp.0", img, im2_scale, im2_shift)
+    img = _gated_out_linear(img, h, p("img_mlp.2.weight"), p("img_mlp.2.bias"),
+                            im2_gate, gelu=True)
+
+    txt = _gated_out_linear(txt, txt_attn, p("txt_attn.proj.weight"),
+                            p("txt_attn.proj.bias"), tx1_gate)
+    h = _mod_linear(p, "txt_mlp.0", txt, tx2_scale, tx2_shift)
+    txt = _gated_out_linear(txt, h, p("txt_mlp.2.weight"), p("txt_mlp.2.bias"),
+                            tx2_gate, gelu=True)
+    return img, txt
+
+
+def _single_block(p: nn.ParamView, x, vec, pe, cfg: FluxConfig):
+    """SingleStreamBlock: K3 reads the q/k/v stripes straight out of the
+    full linear1 output (its MLP lanes are never touched)."""
+    _require_fused(cfg)
+    shift, scale, gate = _modulation(p.scope("modulation."), vec, 3)
+    hidden = cfg.hidden_size
+    proj = _mod_linear(p, "linear1", x, scale, shift)
+    cos, sin = pe
+    attn = _fused_attention(
+        proj, p("norm.query_norm.scale"), p("norm.key_norm.scale"), cos, sin,
+        num_heads=cfg.num_heads,
+    )
+    mlp = proj[..., 3 * hidden:]
+    out = nn.linear(torch.cat([attn, nn.gelu(mlp, approximate=True)], dim=-1),
+                    p("linear2.weight"), p("linear2.bias"))
+    return x + gate * out
+
+
+def patchify(x, patch: int = 2):
+    """NHWC (B, H, W, C) -> tokens (B, H/2 * W/2, C * 4), channel-major per
+    patch."""
+    b, h, w, c = x.shape
+    hh, ww = h // patch, w // patch
+    x = x.reshape(b, hh, patch, ww, patch, c).permute(0, 1, 3, 5, 2, 4)
+    return x.reshape(b, hh * ww, c * patch * patch)
+
+
+def unpatchify(tokens, h: int, w: int, patch: int = 2):
+    """Inverse of patchify -> NHWC (B, H, W, C)."""
+    b, l, d = tokens.shape
+    hh, ww = h // patch, w // patch
+    c = d // (patch * patch)
+    x = tokens.reshape(b, hh, ww, c, patch, patch).permute(0, 1, 4, 2, 5, 3)
+    return x.reshape(b, hh * patch, ww * patch, c)
+
+
+def img_ids(batch: int, h: int, w: int, patch: int = 2, device=None):
+    """3-axis position ids of the image tokens: (B, h/2 * w/2, 3) f32."""
+    hh, ww = h // patch, w // patch
+    ids = np.zeros((hh, ww, 3), dtype=np.float32)
+    ids[..., 1] = np.arange(hh, dtype=np.float32)[:, None]
+    ids[..., 2] = np.arange(ww, dtype=np.float32)[None, :]
+    ids = np.tile(ids.reshape(1, hh * ww, 3), (batch, 1, 1))
+    return torch.from_numpy(ids).to(device)
+
+
+def apply_flux(params: Dict, x, timesteps, context, y, guidance=None,
+               cfg: FluxConfig = FLUX_DEV, first_block_hook=None):
+    """Flux forward. x: NHWC latent (B, H, W, 16); timesteps (B,) sigmas in
+    [0, 1]; context (B, L, 4096) T5 sequence; y (B, 768) CLIP pooled;
+    guidance (B,). ``first_block_hook(img_before, img_after_block0,
+    run_rest)`` is FBCache's boundary after double block 0. Returns the
+    NHWC f32 prediction."""
+    b, h, w, c = x.shape
+    dtype = cfg.dtype
+
+    img = nn.linear(patchify(x.to(dtype), cfg.patch_size),
+                    params["img_in.weight"], params["img_in.bias"])
+    txt = nn.linear(context.to(dtype), params["txt_in.weight"], params["txt_in.bias"])
+
+    vec = _mlp_embedder(nn.ParamView(params, "time_in."),
+                        timestep_embedding_flux(timesteps, 256).to(dtype))
+    if cfg.guidance_embed:
+        if guidance is None:
+            guidance = torch.full((b,), 3.5, dtype=torch.float32, device=x.device)
+        vec = vec + _mlp_embedder(nn.ParamView(params, "guidance_in."),
+                                  timestep_embedding_flux(guidance, 256).to(dtype))
+    vec = vec + _mlp_embedder(nn.ParamView(params, "vector_in."), y.to(dtype))
+
+    txt_ids = torch.zeros((b, txt.shape[1], 3), dtype=torch.float32, device=x.device)
+    ids = torch.cat([txt_ids, img_ids(b, h, w, cfg.patch_size, device=x.device)], dim=1)
+    pe = rope_cos_sin(ids, cfg.axes_dim, cfg.theta)
+
+    img_prev = img
+    img, txt = _double_block(nn.ParamView(params, "double_blocks.0."), img, txt,
+                             vec, pe, cfg)
+
+    def run_rest(img):
+        """The remaining double blocks and all single blocks; returns the
+        image tokens before the final layer."""
+        txt_ = txt
+        for i in range(1, cfg.depth):
+            img, txt_ = _double_block(nn.ParamView(params, f"double_blocks.{i}."),
+                                      img, txt_, vec, pe, cfg)
+        xx = torch.cat([txt_, img], dim=1)
+        for i in range(cfg.depth_single_blocks):
+            xx = _single_block(nn.ParamView(params, f"single_blocks.{i}."), xx, vec,
+                               pe, cfg)
+        return xx[:, txt_.shape[1]:]
+
+    if first_block_hook is not None:
+        img_out = first_block_hook(img_prev, img, run_rest)
+    else:
+        img_out = run_rest(img)
+
+    pl = nn.ParamView(params, "final_layer.")
+    mod = nn.linear(nn.silu(vec), pl("adaLN_modulation.1.weight"),
+                    pl("adaLN_modulation.1.bias"))
+    shift, scale = torch.chunk(mod, 2, dim=-1)
+    img_out = nn.layer_norm(img_out, eps=1e-6) * (1 + scale[:, None]) + shift[:, None]
+    tokens = nn.linear(img_out, pl("linear.weight"), pl("linear.bias"))
+    return unpatchify(tokens.float(), h, w, cfg.patch_size)
+
+
+def detect_config(sd: Dict, dtype=None) -> FluxConfig:
+    """FluxConfig from state-dict shapes (leaves may be quantized records:
+    only ``.shape``, logical (out, in), is read)."""
+    def shape(k):
+        return tuple(sd[k].shape)
+
+    hidden = shape("img_in.weight")[0]
+    patch = FLUX_DEV.patch_size
+    head_dim = shape("double_blocks.0.img_attn.norm.key_norm.scale")[0]
+    if hidden % head_dim:
+        raise ValueError(f"hidden {hidden} not divisible by head_dim {head_dim}")
+    depth = 0
+    while f"double_blocks.{depth}.img_attn.qkv.weight" in sd:
+        depth += 1
+    depth_single = 0
+    while (f"single_blocks.{depth_single}.linear2.weight" in sd
+           or f"single_blocks.{depth_single}.linear1.weight" in sd):
+        depth_single += 1
+    if head_dim == 128:
+        axes = (16, 56, 56)
+    else:
+        axes = tuple(a * head_dim // 128 for a in (16, 56, 56))
+        if sum(axes) != head_dim or any(a % 2 for a in axes):
+            raise ValueError(f"cannot derive axes_dim for head_dim {head_dim}; "
+                             "pass an explicit FluxConfig")
+    return dataclasses.replace(
+        FLUX_DEV,
+        in_channels=shape("img_in.weight")[1] // patch**2,
+        hidden_size=hidden,
+        mlp_ratio=shape("double_blocks.0.img_mlp.0.weight")[0] / hidden,
+        num_heads=hidden // head_dim,
+        depth=depth,
+        depth_single_blocks=depth_single,
+        axes_dim=axes,
+        qkv_bias="double_blocks.0.img_attn.qkv.bias" in sd,
+        guidance_embed="guidance_in.in_layer.weight" in sd,
+        vec_in_dim=shape("vector_in.in_layer.weight")[1],
+        context_in_dim=shape("txt_in.weight")[1],
+        dtype=dtype or FLUX_DEV.dtype,
+    )
+
+
+def make_apply_fn(cfg: FluxConfig):
+    def apply_fn(p, x, t, context, y=None, guidance=None, first_block_hook=None, **_):
+        return apply_flux(p, x, t, context, y, guidance=guidance, cfg=cfg,
+                          first_block_hook=first_block_hook)
+
+    return apply_fn
+
+
+def _layout(cfg: FluxConfig):
+    """(key, shape, kind) of every param in ``init_params``' order; kind is
+    "lin" (normal(0, in^-0.5)), "bias" (zeros) or "scale" (ones)."""
+    H = cfg.hidden_size
+    out = []
+
+    def lin(key, out_d, in_d, bias=True):
+        out.append((key + ".weight", (out_d, in_d), "lin"))
+        if bias:
+            out.append((key + ".bias", (out_d,), "bias"))
+
+    def scale(key, d):
+        out.append((key, (d,), "scale"))
+
+    lin("img_in", H, cfg.in_channels * cfg.patch_size**2)
+    lin("txt_in", H, cfg.context_in_dim)
+    lin("time_in.in_layer", H, 256)
+    lin("time_in.out_layer", H, H)
+    lin("vector_in.in_layer", H, cfg.vec_in_dim)
+    lin("vector_in.out_layer", H, H)
+    if cfg.guidance_embed:
+        lin("guidance_in.in_layer", H, 256)
+        lin("guidance_in.out_layer", H, H)
+    mlp_hidden = int(H * cfg.mlp_ratio)
+    for i in range(cfg.depth):
+        pre = f"double_blocks.{i}."
+        for s in ("img", "txt"):
+            lin(pre + f"{s}_mod.lin", 6 * H, H)
+            lin(pre + f"{s}_attn.qkv", 3 * H, H, bias=cfg.qkv_bias)
+            scale(pre + f"{s}_attn.norm.query_norm.scale", cfg.head_dim)
+            scale(pre + f"{s}_attn.norm.key_norm.scale", cfg.head_dim)
+            lin(pre + f"{s}_attn.proj", H, H)
+            lin(pre + f"{s}_mlp.0", mlp_hidden, H)
+            lin(pre + f"{s}_mlp.2", H, mlp_hidden)
+    for i in range(cfg.depth_single_blocks):
+        pre = f"single_blocks.{i}."
+        lin(pre + "linear1", 3 * H + mlp_hidden, H)
+        lin(pre + "linear2", H, H + mlp_hidden)
+        scale(pre + "norm.query_norm.scale", cfg.head_dim)
+        scale(pre + "norm.key_norm.scale", cfg.head_dim)
+        lin(pre + "modulation.lin", 3 * H, H)
+    lin("final_layer.linear", cfg.patch_size**2 * cfg.in_channels, H)
+    lin("final_layer.adaLN_modulation.1", 2 * H, H)
+    return out
+
+
+def init_params(cfg: FluxConfig = FLUX_DEV, seed: int = 0) -> Dict[str, np.ndarray]:
+    """Random params drawn exactly as the JAX package's ``init_params``
+    draws them (numpy float64, then f32). For the tests' small widths."""
+    rng = np.random.default_rng(seed)
+    P = {}
+    for key, shape, kind in _layout(cfg):
+        if kind == "lin":
+            P[key] = rng.normal(0, shape[1] ** -0.5, shape)
+        else:
+            P[key] = (np.ones if kind == "scale" else np.zeros)(shape)
+    return {k: np.asarray(v, dtype=np.float32) for k, v in P.items()}
+
+
+def random_params(cfg: FluxConfig = FLUX_DEV, seed: int = 0, device="cuda",
+                  dtype=torch.bfloat16):
+    """Seeded params at any width, drawn on ``device`` by a
+    ``torch.Generator`` with ``init_params``' distributions (not its
+    numbers): the weights named by ``Q8_0_SUFFIXES`` are quantized there to
+    Q8_0 (``QTensor8T``), the other 2-D weights and biases are ``dtype``,
+    the QKNorm scales f32. At Flux.1-dev's width that is about 12.7 GB of
+    Q8_0 and 0.9 GB of dense weights."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    P = {}
+    for key, shape, kind in _layout(cfg):
+        if kind == "lin":
+            w = torch.randn(shape, generator=gen, device=device) * shape[1] ** -0.5
+            if key.endswith(Q8_0_SUFFIXES):
+                P[key] = ggml.transpose_for_matmul(ggml.quantize(w))
+            else:
+                P[key] = w.to(dtype)
+            del w
+        elif kind == "bias":
+            P[key] = torch.zeros(shape, dtype=dtype, device=device)
+        else:
+            P[key] = torch.ones(shape, dtype=torch.float32, device=device)
+    return P

@@ -1,9 +1,10 @@
 """SD VAE (AutoencoderKL) decoder, NHWC at the boundary.
 
 Counterpart of lightdiffusion_next_tpu/models/vae.py: the same config,
-checkpoint keys ("decoder.up.3.upsample.conv.weight", ...) and math. Conv
-weights are OIHW. The VAE computes in f32 (the dtype policy); its mid-block
-attention runs through K2 at 1024^2.
+checkpoint keys ("decoder.up.3.upsample.conv.weight", ...) and math, for
+the SD VAE and the Flux AE (``FLUX_AE``: 16 latent channels, no quant
+convs). Conv weights are OIHW. The VAE computes in f32 (the dtype policy);
+its mid-block attention runs through K2 at 1024^2.
 
 Not ported yet (ROADMAP Queue 1, item 7): the encoder, ``VAE.encode``, and
 the tiled decode the JAX package falls back to when a decode runs out of
@@ -41,6 +42,32 @@ class VAEConfig:
 
 
 SD_VAE = VAEConfig()
+FLUX_AE = VAEConfig(z_channels=16, has_quant_conv=False)
+
+
+def detect_vae_config(sd: dict) -> VAEConfig:
+    """VAEConfig from state-dict shapes (OIHW or HWIO convs)."""
+
+    def ch_of(key, axis_out=True):
+        w = sd[key]
+        hwio = w.shape[0] == w.shape[1] and w.shape[0] <= 7
+        if hwio:
+            return w.shape[-1] if axis_out else w.shape[-2]
+        return w.shape[0] if axis_out else w.shape[1]
+
+    ch = ch_of("encoder.conv_in.weight")
+    z_channels = ch_of("decoder.conv_in.weight", axis_out=False)
+    mults = []
+    i = 0
+    while f"encoder.down.{i}.block.0.conv1.weight" in sd:
+        mults.append(ch_of(f"encoder.down.{i}.block.0.conv1.weight") // ch)
+        i += 1
+    nrb = 0
+    while f"encoder.down.0.block.{nrb}.conv1.weight" in sd:
+        nrb += 1
+    return VAEConfig(ch=ch, ch_mult=tuple(mults) or (1, 2, 4, 4),
+                     num_res_blocks=nrb or 2, z_channels=z_channels,
+                     has_quant_conv="quant_conv.weight" in sd)
 
 
 def _gn(x, scale, bias):

@@ -26,11 +26,44 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR.parent / "build" / "kernels"
 
-# library name -> (source file, exported C entry point)
+_FLASH_ARGTYPES = (
+    [ctypes.c_void_p] * 4            # q, k, v, o
+    + [ctypes.c_int] * 6             # dtype, batch, heads, lq, lk, d
+    + [ctypes.c_longlong] * 12       # (b, h, l) strides of q, k, v, o
+    + [ctypes.c_float, ctypes.c_int]  # q_scale, vec
+    + [ctypes.c_void_p] * 2          # scratch (f32 inputs), stream
+)
+
+_FUSED_QKV_ARGTYPES = (
+    [ctypes.c_void_p] * 9            # qkv, out, k scratch, 4 scales, cos, sin
+    + [ctypes.c_int] * 4             # batch, heads, l, lk
+    + [ctypes.c_longlong, ctypes.c_int]  # row width, txt_len
+    + [ctypes.c_float] * 2           # eps, q_scale
+    + [ctypes.c_void_p]              # stream
+)
+
+_QUANT_MATMUL_ARGTYPES = (
+    [ctypes.c_void_p] * 4            # x, qt, scales_t, out
+    + [ctypes.c_int] * 3             # m, n, k
+    + [ctypes.c_longlong]            # row stride of x
+    + [ctypes.c_void_p]              # stream
+)
+
+# library name -> (source file, exported C entry point, its argtypes)
 KERNELS = {
-    "flash_attention": ("flash_attention.cu", "ldt_flash_attention_fwd"),
+    "flash_attention": (
+        "flash_attention.cu", "ldt_flash_attention_fwd", _FLASH_ARGTYPES,
+    ),
     "packed_flash_attention": (
         "packed_flash_attention.cu", "ldt_packed_flash_attention_fwd",
+        _FLASH_ARGTYPES,
+    ),
+    "fused_qkv_attention": (
+        "fused_qkv_attention.cu", "ldt_fused_qkv_attention_fwd",
+        _FUSED_QKV_ARGTYPES,
+    ),
+    "quant_matmul": (
+        "quant_matmul.cu", "ldt_quant_matmul_fwd", _QUANT_MATMUL_ARGTYPES,
     ),
 }
 
@@ -38,14 +71,6 @@ NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
-)
-
-_FLASH_ARGTYPES = (
-    [ctypes.c_void_p] * 4            # q, k, v, o
-    + [ctypes.c_int] * 6             # dtype, batch, heads, lq, lk, d
-    + [ctypes.c_longlong] * 12       # (b, h, l) strides of q, k, v, o
-    + [ctypes.c_float, ctypes.c_int]  # q_scale, vec
-    + [ctypes.c_void_p] * 2          # scratch (f32 inputs), stream
 )
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
@@ -62,7 +87,7 @@ def nvcc_path() -> str:
 
 
 def library_path(name: str) -> Path:
-    source, _ = KERNELS[name]
+    source = KERNELS[name][0]
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in [CSRC / source] + sorted(CSRC.glob("*.cuh")):
         digest.update(path.read_bytes())
@@ -115,7 +140,7 @@ def load(name: str) -> ctypes.CDLL:
             build([name])
         lib = ctypes.CDLL(str(path))
         fn = getattr(lib, KERNELS[name][1])
-        fn.argtypes = _FLASH_ARGTYPES
+        fn.argtypes = KERNELS[name][2]
         fn.restype = ctypes.c_int
         lib.ldt_error_string.argtypes = [ctypes.c_int]
         lib.ldt_error_string.restype = ctypes.c_char_p

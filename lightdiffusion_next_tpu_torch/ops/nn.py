@@ -18,8 +18,13 @@ import torch.nn.functional as F
 
 
 def linear(x, w, b=None):
-    """x: (..., in), w: (out, in), b: (out,)."""
-    y = torch.matmul(x, w.t())
+    """x: (..., in), w: (out, in) or a Q8_0 record, b: (out,)."""
+    if isinstance(w, torch.Tensor):
+        y = torch.matmul(x, w.t())
+    elif hasattr(w, "fused_matmul"):
+        y = w.fused_matmul(x)
+    else:
+        y = torch.matmul(x, w.dequantize(x.dtype).t())
     if b is not None:
         y = y + b.to(y.dtype)
     return y
@@ -59,8 +64,39 @@ def layer_norm(x, scale=None, bias=None, eps: float = 1e-5):
     return xf.to(x.dtype)
 
 
+def rms_norm(x, scale=None, eps: float = 1e-6):
+    """RMSNorm over the last dim, in f32."""
+    xf = x.float()
+    xf = xf * torch.rsqrt((xf * xf).mean(dim=-1, keepdim=True) + eps)
+    if scale is not None:
+        xf = xf * scale.float()
+    return xf.to(x.dtype)
+
+
 def silu(x):
     return F.silu(x)
+
+
+def gelu(x, approximate: bool = False):
+    """GELU; ``approximate`` is the tanh form (``jax.nn.gelu``'s)."""
+    return F.gelu(x, approximate="tanh" if approximate else "none")
+
+
+def embedding_lookup(ids, table, dtype=None):
+    """ids: int (...,), table: (vocab, dim) or a row-layout Q8_0
+    ``QTensor8``, dequantized after the gather (only the looked-up rows are
+    formed) to ``dtype`` (bf16 by default for a quantized table)."""
+    if isinstance(table, torch.Tensor):
+        rows = table[ids]
+        return rows if dtype is None else rows.to(dtype)
+    if hasattr(table, "qt"):
+        raise TypeError(
+            "embedding table was laid out as a matmul QTensor8T; keep its key "
+            "in to_device_quantized(embed_keys=...) so it stays row-major"
+        )
+    rows = table.q[ids].float() * table.scales[ids].float()[..., None]
+    rows = rows.reshape(tuple(ids.shape) + (table.shape[-1],))
+    return rows.to(dtype or torch.bfloat16)
 
 
 def geglu(x, w, b):
@@ -94,6 +130,9 @@ class ParamView:
 
     def __call__(self, key: str):
         return self.params[self.prefix + key]
+
+    def get(self, key: str, default=None):
+        return self.params.get(self.prefix + key, default)
 
     def has(self, key: str) -> bool:
         return (self.prefix + key) in self.params

@@ -1,26 +1,41 @@
-"""pipeline(): SD1.5 txt2img on the GPU.
+"""pipeline(): SD1.5 and Flux.1 txt2img on the GPU.
 
 Counterpart of lightdiffusion_next_tpu/pipelines/pipeline.py ``pipeline``
-with its ``_sd15_generate`` flow: CLIP-L with clip-skip -2 encodes the
-prompt and the negative prompt, the UNet runs ``dpmpp_2m_cfgpp`` for 20
-karras steps under the batched CFG denoiser with the multi-scale plan and
-MSW-MSA windowing, the VAE decodes, and the image is saved as a PNG.
+with two of its flows:
+
+- ``_sd15_generate``: CLIP-L with clip-skip -2 encodes the prompt and the
+  negative prompt, the UNet runs ``dpmpp_2m_cfgpp`` for 20 karras steps
+  under the batched CFG denoiser with the multi-scale plan and MSW-MSA
+  windowing, the VAE decodes, and the image is saved under "Classic/LD";
+- ``_flux_txt2img`` (``flux_enabled=True``): CLIP-L's projected pooled
+  vector and T5-XXL's sequence (at least 256 tokens) with guidance 3.0
+  (``encode_flux_conditioning``), a zero 16-channel latent, 20 steps of
+  ``euler_cfgpp`` at cfg 1.0 over the "beta" schedule with FBCache (the
+  model's option), the Flux AE decodes, and the image is saved under
+  "Flux/LD".
 
 It takes the JAX function's arguments plus the models, built from params
-(``model``, ``clip``, ``vae``), since checkpoint loading is not ported yet,
-and an optional ``seed``. Arguments whose modules are not ported raise
-``NotImplementedError`` naming their ROADMAP item.
+(``model``, ``clip``, ``vae`` and, for Flux, ``t5``), since checkpoint
+loading is not ported yet, and an optional ``seed``. Arguments whose
+modules are not ported raise ``NotImplementedError`` naming their ROADMAP
+item.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import random
 from typing import List, Optional
 
+import torch
+
 from lightdiffusion_next_tpu_torch import config as _config
 from lightdiffusion_next_tpu_torch.models.clip import facade as clip_facade
+from lightdiffusion_next_tpu_torch.models.clip import t5_tokenizer
+from lightdiffusion_next_tpu_torch.models.clip import tokenizer as clip_tokenizer
 from lightdiffusion_next_tpu_torch.ops import window
+from lightdiffusion_next_tpu_torch.sampling import cfg as cfg_mod
 from lightdiffusion_next_tpu_torch.sampling import ksampler as ks
 from lightdiffusion_next_tpu_torch.sampling import samplers as samplers_mod
 from lightdiffusion_next_tpu_torch.utils import image as image_utils
@@ -36,7 +51,6 @@ _NOT_PORTED = {
     "hires_fix": "hires-fix (ROADMAP Queue 1, item 8)",
     "adetailer": "ADetailer (ROADMAP Queue 1, item 8)",
     "img2img": "img2img / UltimateSDUpscale (ROADMAP Queue 1, item 8)",
-    "flux_enabled": "Flux (ROADMAP Queue 1, item 9)",
     "autohdr": "AutoHDR (ROADMAP Queue 1, item 7)",
     "enhance_prompt": "prompt enhancement (ROADMAP Queue 1, item 10)",
 }
@@ -90,23 +104,28 @@ def pipeline(
     model,
     clip,
     vae,
+    t5=None,
     seed: Optional[int] = None,
 ) -> List[str]:
-    """Run SD1.5 txt2img; returns the saved image paths. ``model`` is a
-    ``models.base.DiffusionModel``, ``clip`` a ``models.clip.facade.CLIP``,
-    ``vae`` a ``models.vae.VAE``. With ``seed`` given, no seed file is read
-    or written; otherwise the JAX package's seed handling applies.
-    ``progress_callback`` is called after every sampler step with the
-    step's dict (``x``, ``i``, ``sigma``, ``denoised``)."""
+    """Run txt2img; returns the saved image paths. ``model`` is a
+    ``models.base.DiffusionModel`` (``sd15_model``, or ``flux_model`` with
+    ``flux_enabled=True``), ``vae`` a ``models.vae.VAE``. SD1.5: ``clip`` is
+    a ``models.clip.facade.CLIP``. Flux: ``clip`` is a CLIP-L
+    ``models.clip.text_encoder.SDClipModel`` (its projected pooled vector is
+    used) and ``t5`` a ``models.clip.t5.T5XXLModel``. With ``seed`` given,
+    no seed file is read or written; otherwise the JAX package's seed
+    handling applies. ``progress_callback`` is called after every sampler
+    step with the step's dict (``x``, ``i``, ``sigma``, ``denoised``)."""
     requested = {
         "hires_fix": hires_fix, "adetailer": adetailer, "img2img": img2img,
-        "flux_enabled": flux_enabled, "autohdr": autohdr,
-        "enhance_prompt": enhance_prompt,
+        "autohdr": autohdr, "enhance_prompt": enhance_prompt,
     }
     for name, on in requested.items():
         if on:
             raise NotImplementedError(f"{name}=True: {_NOT_PORTED[name]} is not ported yet")
-    if not prio_speed:
+    if flux_enabled and t5 is None:
+        raise ValueError("flux_enabled=True needs the T5-XXL encoder: pass t5=")
+    if not prio_speed and not flux_enabled:
         raise NotImplementedError(
             "prio_speed=False runs dpmpp_sde_cfgpp, which is not ported yet "
             "(ROADMAP Queue 1, item 5)"
@@ -132,9 +151,13 @@ def pipeline(
     saver = image_utils.SaveImage(output_dir=output_dir)
     saved: List[str] = []
     for _ in range(number):
-        saved += _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms,
-                                saver, progress_callback, hidiffusion,
-                                model, clip, vae)
+        if flux_enabled:
+            saved += _flux_txt2img(prompt, w, h, batch, seed, saver,
+                                   progress_callback, model, clip, vae, t5)
+        else:
+            saved += _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms,
+                                    saver, progress_callback, hidiffusion,
+                                    model, clip, vae)
         seed = random.randint(1, 2**63 - 1)
     return saved
 
@@ -169,3 +192,40 @@ def _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms, saver,
     )
     images = vae.decode(result.latent).cpu().numpy()
     return saver.save_images(images, "Classic/LD", prompt=prompt)
+
+
+def _flux_txt2img(prompt, w, h, batch, seed, saver, callback, model, clip, vae, t5):
+    positive = encode_flux_conditioning(prompt, prompt, guidance=3.0,
+                                        t5_model=t5, clip_model=clip)
+    negative = dataclasses.replace(  # ConditioningZeroOut
+        positive, cross_attn=torch.zeros_like(positive.cross_attn),
+        pooled=torch.zeros_like(positive.pooled),
+    )
+    result = ks.ksample(
+        model,
+        seed=seed,
+        steps=20,
+        cfg_scale=1.0,
+        sampler_name="euler_cfgpp",
+        scheduler="beta",
+        positive=positive,
+        negative=negative,
+        latent_image=latent_mod.empty_latent(w, h, batch, channels=16,
+                                             device=model.device),
+        denoise=1.0,
+        callback=callback,
+    )
+    images = vae.decode(result.latent).cpu().numpy()
+    return saver.save_images(images, "Flux/LD", prompt=prompt)
+
+
+def encode_flux_conditioning(clip_l_text: str, t5xxl_text: str, guidance: float = 3.0,
+                             t5_model=None, clip_model=None) -> cfg_mod.CondInput:
+    """T5 sequence as the cross-attention context and CLIP-L's projected
+    pooled vector, with the distilled guidance strength. ``clip_model`` is
+    an ``SDClipModel`` with its own defaults (last layer, projected pooled),
+    not the SD1.5 facade's clip-skip."""
+    clip_rows = clip_tokenizer.SDTokenizer().tokenize_with_weights(clip_l_text)
+    _, pooled = clip_model.encode_token_weights(clip_rows)
+    t5_out, _ = t5_model.encode_token_weights([t5_tokenizer.flux_t5_tokenize(t5xxl_text)])
+    return cfg_mod.CondInput(cross_attn=t5_out, pooled=pooled, guidance=guidance)

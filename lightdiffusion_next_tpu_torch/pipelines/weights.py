@@ -2,7 +2,9 @@
 
 The JAX package keeps a flat dict of numpy arrays keyed by checkpoint names,
 with conv kernels as HWIO. The port keeps the same keys with conv weights
-as OIHW. This holds for the UNet, the VAE and CLIP alike (CLIP has no conv).
+as OIHW. This holds for the UNet, the VAE, CLIP, T5 and the Flux DiT alike.
+The JAX package's Q8_0 records (``QTensor8``, ``QTensor8T``) become the
+port's, with the same layout: codes int8, scales f32.
 """
 
 from __future__ import annotations
@@ -12,12 +14,30 @@ from typing import Dict
 import numpy as np
 import torch
 
+from lightdiffusion_next_tpu_torch.ops import ggml
 
-def from_jax(params_np: Dict[str, np.ndarray]) -> Dict[str, torch.Tensor]:
-    """JAX-layout params -> the port's: 4-D HWIO -> OIHW, the rest as is
-    (f32 CPU tensors; the model constructors cast and place them)."""
+
+def _tensor(x, dtype):
+    return torch.from_numpy(np.ascontiguousarray(np.asarray(x, dtype=dtype)))
+
+
+def from_jax(params_np: Dict) -> Dict:
+    """JAX-layout params -> the port's: 4-D HWIO -> OIHW, Q8_0 records as
+    the port's records (matched by their fields, so this module needs no
+    JAX), the rest as is (f32 CPU tensors; the model constructors cast and
+    place them)."""
     out = {}
     for key, value in params_np.items():
+        if hasattr(value, "qt") and hasattr(value, "scales_t"):
+            out[key] = ggml.QTensor8T(qt=_tensor(value.qt, np.int8),
+                                      scales_t=_tensor(value.scales_t, np.float32),
+                                      shape=tuple(value.shape))
+            continue
+        if hasattr(value, "q") and hasattr(value, "scales"):
+            out[key] = ggml.QTensor8(q=_tensor(value.q, np.int8),
+                                     scales=_tensor(value.scales, np.float32),
+                                     shape=tuple(value.shape))
+            continue
         arr = np.asarray(value, dtype=np.float32)
         if arr.ndim == 4:
             arr = arr.transpose(3, 2, 0, 1)

@@ -1,11 +1,12 @@
 """Classifier-free guidance denoiser.
 
 Counterpart of lightdiffusion_next_tpu/sampling/cfg.py: cond and uncond are
-batched into one UNet call, then combined by the CFG lerp. The JAX
-package's jit-argument bundle and runner cache keys exist for its compiled
-loops; eager PyTorch needs neither. The pooled text vector is carried but
-not fed to the model: SD1.5's UNet has no label embedding (the JAX package
-passes it and the UNet ignores it).
+batched into one model call, then combined by the CFG lerp; at cfg 1.0 only
+the cond branch runs. The pooled text vector goes to the model as ``y``
+(Flux's vector input; SD1.5's UNet ignores it, as in the JAX package), and
+Flux's distilled guidance strength as ``guidance``. The JAX package's
+jit-argument bundle and runner cache keys exist for its compiled loops;
+eager PyTorch needs neither.
 """
 
 from __future__ import annotations
@@ -19,11 +20,12 @@ import torch
 
 @dataclasses.dataclass
 class CondInput:
-    """One conditioning entry: cross-attention context (1 or B, L, ctx_dim)
-    and the pooled text vector."""
+    """One conditioning entry: cross-attention context (1 or B, L, ctx_dim),
+    the pooled text vector and Flux's distilled guidance strength."""
 
     cross_attn: Any
     pooled: Optional[Any] = None
+    guidance: Optional[float] = None
 
 
 def _ctx_for_batch(c, batch: int):
@@ -52,6 +54,11 @@ def cfg_result(cond_pred, uncond_pred, cond_scale: float):
     return uncond_pred + (cond_pred - uncond_pred) * cond_scale
 
 
+def _pool_for_batch(p, batch: int):
+    p = torch.as_tensor(p)
+    return p.expand((batch,) + tuple(p.shape[-1:]))
+
+
 def make_cfg_denoiser(
     apply_model: Callable,
     params: Dict,
@@ -60,18 +67,25 @@ def make_cfg_denoiser(
     uncond: Optional[CondInput],
     cond_scale: float,
     attn1_override_factory: Optional[Callable] = None,
+    first_block_hook: Optional[Callable] = None,
 ):
-    """``denoise(x, sigma) -> (cfg_denoised, uncond_denoised)``: EPS input
-    scaling, timestep lookup, one batched cond/uncond forward, EPS output
-    scaling, CFG lerp. ``x`` is an NHWC f32 latent, ``sigma`` a scalar or
-    (B,) f32 tensor on its device."""
+    """``denoise(x, sigma) -> (cfg_denoised, uncond_denoised)``: input
+    scaling, timestep lookup, one (batched cond/uncond, or cond-only at
+    cfg 1.0) forward, output scaling, CFG lerp. ``x`` is an NHWC f32 latent,
+    ``sigma`` a scalar, or a (B,) f32 tensor on its device."""
     use_uncond = uncond is not None and abs(cond_scale - 1.0) > 1e-9
+    has_pooled = cond.pooled is not None and (
+        not use_uncond or uncond.pooled is not None)
 
-    def apply(x, t, context):
-        if attn1_override_factory is None:
-            return apply_model(params, x, t, context)
-        return apply_model(params, x, t, context,
-                           attn1_override=attn1_override_factory(t))
+    def apply(x, t, context, y, guidance):
+        extra = {}
+        if attn1_override_factory is not None:
+            extra["attn1_override"] = attn1_override_factory(t)
+        if first_block_hook is not None:
+            extra["first_block_hook"] = first_block_hook
+        if guidance is not None:
+            extra["guidance"] = guidance
+        return apply_model(params, x, t, context, y=y, **extra)
 
     def denoise(x, sigma):
         sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
@@ -81,17 +95,27 @@ def make_cfg_denoiser(
         t = model_sampling.timestep(sigma)
         batch = x.shape[0]
         c_ctx = _ctx_for_batch(cond.cross_attn, batch)
+        guidance = None
+        if cond.guidance is not None:
+            guidance = torch.full((batch,), cond.guidance, dtype=torch.float32,
+                                  device=x.device)
         if use_uncond:
             u_ctx = _ctx_for_batch(uncond.cross_attn, batch)
             c_ctx, u_ctx = pad_cross_attn_to_match(c_ctx, u_ctx)
+            y = None
+            if has_pooled:
+                y = torch.cat([_pool_for_batch(cond.pooled, batch),
+                               _pool_for_batch(uncond.pooled, batch)])
             out = apply(torch.cat([xin, xin]), torch.cat([t, t]),
-                        torch.cat([c_ctx, u_ctx]))
+                        torch.cat([c_ctx, u_ctx]), y,
+                        None if guidance is None else torch.cat([guidance, guidance]))
             den = model_sampling.calculate_denoised(
                 torch.cat([sigma, sigma]), out.float(), torch.cat([x, x])
             )
             cond_pred, uncond_pred = den[:batch], den[batch:]
         else:
-            out = apply(xin, t, c_ctx)
+            y = _pool_for_batch(cond.pooled, batch) if has_pooled else None
+            out = apply(xin, t, c_ctx, y, guidance)
             cond_pred = model_sampling.calculate_denoised(sigma, out.float(), x)
             uncond_pred = None
         cfg_denoised = cfg_result(cond_pred, uncond_pred, cond_scale)

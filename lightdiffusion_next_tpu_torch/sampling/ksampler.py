@@ -1,7 +1,8 @@
 """KSampler facade: schedule, noise, CFG denoiser, sampler loop.
 
-Counterpart of lightdiffusion_next_tpu/sampling/ksampler.py ``ksample``
-without denoise masks, differential diffusion and FBCache (ROADMAP Queue 1,
+Counterpart of lightdiffusion_next_tpu/sampling/ksampler.py ``ksample``,
+with the FBCache dispatch (``fbcache=`` or the model's ``"fbcache"``
+option), without denoise masks and differential diffusion (ROADMAP Queue 1,
 item 8). Latents are NHWC in and out.
 """
 
@@ -15,6 +16,7 @@ import torch
 
 from lightdiffusion_next_tpu_torch.models.base import DiffusionModel
 from lightdiffusion_next_tpu_torch.sampling import cfg as cfg_mod
+from lightdiffusion_next_tpu_torch.sampling import fbcache as fb_mod
 from lightdiffusion_next_tpu_torch.sampling import noise as noise_mod
 from lightdiffusion_next_tpu_torch.sampling import samplers as samplers_mod
 from lightdiffusion_next_tpu_torch.sampling import schedules
@@ -77,6 +79,7 @@ def ksample(
     ms: Optional[samplers_mod.MultiScale] = None,
     sampler_opts: Optional[samplers_mod.SamplerOptions] = None,
     callback: Optional[Callable] = None,
+    fbcache: Optional[fb_mod.FBCacheConfig] = None,
 ) -> KSampleResult:
     """Returns the latent in decoded (VAE) space, on the model's device."""
     lf = model.latent_format
@@ -110,13 +113,20 @@ def ksample(
     def on_device(c):
         if c is None:
             return None
-        return dataclasses.replace(c, cross_attn=torch.as_tensor(c.cross_attn).to(device))
+        pooled = None if c.pooled is None else torch.as_tensor(c.pooled).to(device)
+        return dataclasses.replace(
+            c, cross_attn=torch.as_tensor(c.cross_attn).to(device), pooled=pooled)
 
-    denoise_fn = cfg_mod.make_cfg_denoiser(
-        model.apply_fn, model.params, msampling, on_device(positive),
-        on_device(negative), cfg_scale,
-        attn1_override_factory=model.model_options.get("attn1_override_factory"),
-    )
+    fbcache = fbcache or model.model_options.get("fbcache")
+    if fbcache is not None:
+        denoise_fn = fb_mod.for_model(model, on_device(positive), on_device(negative),
+                                      cfg_scale, fbcache)
+    else:
+        denoise_fn = cfg_mod.make_cfg_denoiser(
+            model.apply_fn, model.params, msampling, on_device(positive),
+            on_device(negative), cfg_scale,
+            attn1_override_factory=model.model_options.get("attn1_override_factory"),
+        )
     out = samplers_mod.sample(
         denoise_fn, x, sigmas, sampler=sampler_name,
         ms=ms if ms is not None else samplers_mod.MultiScale(),

@@ -1,12 +1,14 @@
 """Model-sampling parameterization: EPS over the discrete 1000-step table.
 
-Counterpart of lightdiffusion_next_tpu/sampling/model_sampling.py (``EPS``
-and ``ModelSamplingDiscrete``). The sigma table is host numpy; the per-call
-math runs on torch tensors in f32.
+Counterpart of lightdiffusion_next_tpu/sampling/model_sampling.py: ``EPS``
+with ``ModelSamplingDiscrete`` (SD1.5) and the rectified-flow ``CONST``
+with ``ModelSamplingFlux`` (Flux). The sigma tables are host numpy; the
+per-call math runs on torch tensors in f32.
 """
 
 from __future__ import annotations
 
+import math
 from typing import Dict
 
 import numpy as np
@@ -104,3 +106,61 @@ class ModelSamplingDiscrete(EPS):
             return 0.0
         percent = 1.0 - percent
         return float(self.sigma(np.asarray(percent * 999.0)))
+
+
+class CONST:
+    """Rectified-flow parameterization (Flux)."""
+
+    def calculate_input(self, sigma, noise):
+        return noise
+
+    def calculate_denoised(self, sigma, model_output, model_input):
+        sigma = _bcast(sigma, model_output)
+        return model_input - model_output * sigma
+
+    def noise_scaling(self, sigma, noise, latent_image, max_denoise: bool = False):
+        return sigma * noise + (1.0 - sigma) * latent_image
+
+    def inverse_noise_scaling(self, sigma, latent):
+        return latent / (1.0 - sigma)
+
+
+def flux_time_shift(mu: float, sigma: float, t):
+    return math.exp(mu) / (math.exp(mu) + (1 / t - 1) ** sigma)
+
+
+class ModelSamplingFlux(CONST):
+    """Flux's sigma table, sigma(t) = e^mu / (e^mu + (1/t - 1)), shift mu
+    1.15 by default, over 10000 steps."""
+
+    def __init__(self, shift: float = 1.15, timesteps: int = 10000):
+        self.shift = shift
+        ts = np.arange(1, timesteps + 1, dtype=np.float64) / timesteps
+        self.sigmas = np.asarray(
+            [flux_time_shift(shift, 1.0, float(t)) for t in ts], dtype=np.float32
+        )
+
+    @property
+    def sigma_max(self) -> float:
+        return float(self.sigmas[-1])
+
+    @property
+    def sigma_min(self) -> float:
+        return float(self.sigmas[0])
+
+    def timestep(self, sigma):
+        return sigma
+
+    def sigma(self, timestep):
+        t = np.asarray(timestep, dtype=np.float64)
+        return np.asarray(
+            math.exp(self.shift) / (math.exp(self.shift) + (1 / t - 1) ** 1.0),
+            dtype=np.float32,
+        )
+
+    def percent_to_sigma(self, percent: float) -> float:
+        if percent <= 0.0:
+            return 1.0
+        if percent >= 1.0:
+            return 0.0
+        return 1.0 - percent

@@ -1,4 +1,5 @@
-"""Sampler loop: DPM++(2M) with its CFG++ name, and the multi-scale plan.
+"""Sampler loop: DPM++(2M) with its CFG++ name, Euler with its dy CFG++
+variant (``euler_cfgpp``), and the multi-scale plan.
 
 Counterpart of lightdiffusion_next_tpu/sampling/samplers.py. Every
 schedule-derived scalar is computed on the host from the numpy sigma table
@@ -10,7 +11,16 @@ full resolution and only the model call is resized, bilinear down and up.
 CFG++ parity: ``true_cfgpp=False`` (the default) is the reference's
 effective behaviour, the plain CFG output; ``old_denoised`` starts as NaN.
 
-Not ported yet: euler, euler_ancestral and the dy/ancestral CFG++ variants,
+``euler_dy_cfg_pp`` (alias ``euler_cfgpp``, the Flux path's) runs every
+step at full resolution and, at steps 2 and 3, an extra Euler update of the
+(1, 1) pixel of every 2x2 block with the model at half resolution
+(``_dy_extra_step``). A stateful denoiser (FBCache: ``init_state`` and a
+``(x, sigma, state)`` call) has its state threaded through the loop, made
+anew when the model-call resolution changes; each dy extra call gets a
+fresh state of its own and leaves the loop's untouched, as in the JAX
+driver.
+
+Not ported yet: euler, euler_ancestral and the ancestral CFG++ variants,
 dpmpp_sde and dpmpp_sde_cfgpp (ROADMAP Queue 1, item 5).
 """
 
@@ -24,7 +34,8 @@ import torch
 
 from lightdiffusion_next_tpu_torch.ops import nn
 
-SAMPLER_NAMES = ("dpmpp_2m", "dpmpp_2m_cfgpp")
+SAMPLER_NAMES = ("euler_dy_cfg_pp", "dpmpp_2m", "dpmpp_2m_cfgpp")
+SAMPLER_ALIASES = {"euler_cfgpp": "euler_dy_cfg_pp"}
 
 
 class SampleInterrupted(Exception):
@@ -95,7 +106,8 @@ def _step_consts(sigmas: np.ndarray) -> dict:
     (the subset of the JAX package's table that this sampler reads,
     computed the same way)."""
     sig = np.asarray(sigmas, dtype=np.float64)
-    c = {"sigma": sig[:-1], "is_last": (sig[1:] == 0).astype(np.float64)}
+    c = {"sigma": sig[:-1], "sigma_next": sig[1:],
+         "is_last": (sig[1:] == 0).astype(np.float64)}
     with np.errstate(divide="ignore", over="ignore", invalid="ignore"):
         t = -np.log(np.maximum(sig, 1e-38))
         h = t[1:] - t[:-1]
@@ -117,6 +129,35 @@ def _cfg_combine(denoised, uncond, old_den, old_unc, cs, cfg_w, true_cfgpp,
     if bool(torch.isnan(old_unc.sum())) or cs["is_last"] > 0:
         return denoised
     return cfgpp
+
+
+def to_d(x, sigma, denoised):
+    """Euler derivative."""
+    return (x - denoised) / sigma
+
+
+def _euler_step(carry, cs, denoise, *, true_cfgpp, cfg_w):
+    x, old_den, old_unc = carry
+    denoised, uncond = denoise(x, cs["sigma"])
+    cfg_den = _cfg_combine(
+        denoised, uncond, old_den, old_unc, cs, cfg_w, true_cfgpp,
+        momentum_fn=lambda d, od: d,
+    )
+    x = x + to_d(x, cs["sigma"], cfg_den) * (cs["sigma_next"] - cs["sigma"])
+    return (x, denoised, uncond)
+
+
+def _dy_extra_step(x, denoise_half, cs):
+    """Euler update of the (1, 1) pixel of every 2x2 block, with the model
+    at half resolution; an odd trailing row or column is left as it is."""
+    b, h, w, ch = x.shape
+    m, n = h // 2, w // 2
+    c = x[:, 1:2 * m:2, 1:2 * n:2, :]
+    denoised, _ = denoise_half(c, cs["sigma"])
+    c = c + to_d(c, cs["sigma"], denoised) * (cs["sigma_next"] - cs["sigma"])
+    x = x.clone()
+    x[:, 1:2 * m:2, 1:2 * n:2, :] = c
+    return x
 
 
 def _dpmpp_2m_step(carry, cs, denoise, *, true_cfgpp, cfg_w):
@@ -150,8 +191,10 @@ def sample(
     callback: Optional[Callable] = None,
 ):
     """Run the sampler loop. ``denoise_fn(x, sigma) -> (denoised, uncond)``
-    is the CFG guider; ``x`` is the NHWC latent at full resolution. Returns
-    the final latent (f32)."""
+    is the CFG guider, or a stateful one (``init_state``; ``(x, sigma,
+    state) -> (denoised, uncond, state)``); ``x`` is the NHWC latent at full
+    resolution. Returns the final latent (f32)."""
+    sampler = SAMPLER_ALIASES.get(sampler, sampler)
     if sampler not in SAMPLER_NAMES:
         raise NotImplementedError(
             f"sampler {sampler!r} is not ported yet (ROADMAP Queue 1, item 5): "
@@ -163,30 +206,65 @@ def sample(
         return x
 
     b, h, w, ch = x.shape
-    flags = fullres_flags(n_steps, ms, h, w)
+    is_dy = sampler == "euler_dy_cfg_pp"
+    flags = (np.ones(n_steps, dtype=bool) if is_dy
+             else fullres_flags(n_steps, ms, h, w))
     sh, sw = scaled_dims(h, w, ms.factor) if ms.enabled else (h, w)
     consts = _step_consts(sigmas)
     steps = np.arange(n_steps, dtype=np.float32)
     cfg_sched = (
         opts.cfg_scale + (opts.cfg_min - opts.cfg_scale) * steps / max(n_steps, 1)
     ) * opts.cfg_x0_scale
+    stateful = hasattr(denoise_fn, "init_state")
+    dy_extra_steps = {
+        i for i in range(n_steps)
+        if is_dy and sigmas[i + 1] > 0 and i // 2 == 1
+    }
 
-    def scaled(xx, ss):
-        xd = nn.interpolate_bilinear(xx, (sh, sw))
-        d, u = denoise_fn(xd, ss)
-        return nn.interpolate_bilinear(d, (h, w)), nn.interpolate_bilinear(u, (h, w))
+    def with_state(box):
+        """denoise(x, sigma) over a stateful denoiser's state in box[0]."""
+        if not stateful:
+            return denoise_fn
+
+        def den(xx, ss):
+            d, u, box[0] = denoise_fn(xx, ss, box[0])
+            return d, u
+
+        return den
+
+    def scaled(den):
+        def run(xx, ss):
+            d, u = den(nn.interpolate_bilinear(xx, (sh, sw)), ss)
+            return nn.interpolate_bilinear(d, (h, w)), nn.interpolate_bilinear(u, (h, w))
+
+        return run
+
+    def fresh_state(shape):
+        return denoise_fn.init_state(torch.zeros(shape, device=x.device)) if stateful else None
 
     x = x.float()
     nanfill = torch.full_like(x, float("nan"))
     inner = (x, nanfill, nanfill)
+    box, box_fullres = [None], None
     for i in range(n_steps):
-        # f32 scalars, exactly the values the JAX scan reads per step
-        cs = {k: float(v[i]) for k, v in consts.items()}
-        cs["sigma"] = torch.tensor(cs["sigma"], dtype=torch.float32, device=x.device)
-        inner = _dpmpp_2m_step(
-            inner, cs, denoise_fn if flags[i] else scaled,
-            true_cfgpp=opts.true_cfgpp, cfg_w=float(cfg_sched[i]),
-        )
+        fullres = bool(flags[i])
+        if fullres != box_fullres:
+            box = [fresh_state((b, h, w, ch) if fullres else (b, sh, sw, ch))]
+            box_fullres = fullres
+        den = with_state(box) if fullres else scaled(with_state(box))
+        if is_dy:
+            # f32 host scalars: the values the JAX scan reads per step
+            cs = {k: np.float32(v[i]) for k, v in consts.items()}
+            inner = _euler_step(inner, cs, den, true_cfgpp=opts.true_cfgpp,
+                                cfg_w=float(cfg_sched[i]))
+            if i in dy_extra_steps:
+                half = [fresh_state((b, h // 2, w // 2, ch))]
+                inner = (_dy_extra_step(inner[0], with_state(half), cs),) + inner[1:]
+        else:
+            cs = {k: float(v[i]) for k, v in consts.items()}
+            cs["sigma"] = torch.tensor(cs["sigma"], dtype=torch.float32, device=x.device)
+            inner = _dpmpp_2m_step(inner, cs, den, true_cfgpp=opts.true_cfgpp,
+                                   cfg_w=float(cfg_sched[i]))
         if callback is not None:
             try:
                 callback({"x": inner[0], "i": i, "sigma": float(sigmas[i]),

@@ -1,7 +1,8 @@
 """Latent formats and the empty latent.
 
-Counterpart of lightdiffusion_next_tpu/utils/latent.py (the SD1.5 format;
-the preview colour factors come with the previews, ROADMAP Queue 1, item 8).
+Counterpart of lightdiffusion_next_tpu/utils/latent.py (the SD1.5 and Flux
+formats; the preview colour factors come with the previews, ROADMAP
+Queue 1, item 8).
 Latents are NHWC, as in the JAX package.
 """
 
@@ -33,6 +34,7 @@ class LatentFormat:
 
 
 SD15 = LatentFormat(scale_factor=0.18215, latent_channels=4)
+FLUX1 = LatentFormat(scale_factor=0.3611, shift_factor=0.1159, latent_channels=16)
 
 
 def empty_latent(width: int, height: int, batch_size: int = 1, channels: int = 4,

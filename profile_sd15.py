@@ -1,12 +1,14 @@
 #!/usr/bin/env python3
-"""Where the device time of one SD1.5 1024^2 image goes, on one NVIDIA GPU.
+"""Where the device time of one SD1.5 (or Flux) 1024^2 image goes, on one
+NVIDIA GPU.
 
-    python3 profile_sd15.py
+    python3 profile_sd15.py            # SD1.5
+    python3 profile_sd15.py --flux     # Flux.1-dev
 
-Builds the same full-width SD1.5 UNet, VAE and CLIP-L from seeded random
-weights as ``chip_smoke.py``, runs ``pipeline(prompt, 1024, 1024,
-prio_speed=True, autohdr=False)`` once to warm up, then once more under
-``torch.profiler``. Prints, for that profiled call: its wall time, the
+Builds the same full-width models from seeded random weights as
+``chip_smoke.py`` (SD1.5: UNet, VAE, CLIP-L; Flux: the Q8_0 DiT and T5-XXL,
+CLIP-L, the AE), runs the pipeline at 1024^2 once to warm up, then once more
+under ``torch.profiler``. Prints, for that profiled call: its wall time, the
 device's busy time (the sum of its kernels' device time) and idle share
 (1 - busy / wall: profiling slows the host, so this share is the profiled
 call's, not an unprofiled call's), the device time by class of kernel
@@ -28,8 +30,12 @@ def kernel_category(name: str) -> str:
     """Coarse class of a device kernel by its name."""
     if "flash_fwd_kernel<__nv_bfloat16, 48" in name:
         return "K1 packed_flash_attention (UNet d=40)"
-    if "flash_fwd_kernel<float" in name or "to_bf16_kernel" in name:
+    if "flash_fwd_kernel<float" in name or "split_kernel" in name:
         return "K2 flash_attention (VAE f32 d=512)"
+    if "norm_rope_k_kernel" in name or ("flash_fwd_kernel" in name and "true>" in name):
+        return "K3 fused_qkv_attention (Flux)"
+    if "quant_matmul_kernel" in name:
+        return "K5 quant_matmul (Flux, T5)"
     if "flash_fwd_kernel" in name:
         return "K2 flash_attention (UNet d=80, 160)"
     if "fprop" in name:
@@ -48,7 +54,7 @@ def kernel_category(name: str) -> str:
     return "other"
 
 
-def main(top: int = 12) -> int:
+def main(top: int = 12, flux: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -63,13 +69,16 @@ def main(top: int = 12) -> int:
     os.environ.setdefault("LDT_ASSET_ROOT", chip_smoke.OUT_DIR)
     config.resolve_device("cuda")
     print("gpu:", chip_smoke.gpu_line(), flush=True)
-    models = chip_smoke.build_models()
-    warm = chip_smoke.run_pipeline(models, 1234)
+    if flux:
+        models, run = chip_smoke.build_flux_models(), chip_smoke.run_flux_pipeline
+    else:
+        models, run = chip_smoke.build_models(), chip_smoke.run_pipeline
+    warm = run(models, 1234)
     print(f"warm-up call: {warm['wall']:.3f} s/image (unprofiled)", flush=True)
 
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        chip_smoke.run_pipeline(models, 9012)
+        run(models, 9012)
         wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(
         ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
@@ -92,7 +101,8 @@ def main(top: int = 12) -> int:
         print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f}% x{count:<6d} {name}")
     for ms, count, key in rows[:top]:
         print(f"  kernel {ms:9.2f} ms x{count:<6d} {key[:90]}")
-    with open(os.path.join(chip_smoke.OUT_DIR, "profile.txt"), "w") as f:
+    name = "profile_flux.txt" if flux else "profile.txt"
+    with open(os.path.join(chip_smoke.OUT_DIR, name), "w") as f:
         for ms, count, key in rows:
             f.write(f"{ms:.3f}\t{count}\t{key}\n")
     print(json.dumps({"wall_ms": wall_ms, "busy_ms": busy_ms,
@@ -103,4 +113,4 @@ def main(top: int = 12) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    sys.exit(main(flux="--flux" in sys.argv[1:]))

@@ -122,7 +122,7 @@ def test_png_writer_round_trip(tmp_path):
 @pytest.mark.parametrize(
     "kwargs",
     [dict(hires_fix=True), dict(adetailer=True), dict(img2img=True),
-     dict(flux_enabled=True), dict(autohdr=True), dict(prio_speed=False),
+     dict(flux_enabled=True, autohdr=True), dict(autohdr=True), dict(prio_speed=False),
      dict(enhance_prompt=True)],
 )
 def test_unported_pipeline_arguments_raise(kwargs):
@@ -156,13 +156,16 @@ def test_dtype_policy():
 def test_port_imports_without_jax():
     """Every module of the port, and chip_smoke.py, import with JAX and the
     JAX package made unimportable, in a fresh process (this one has JAX
-    loaded already)."""
+    loaded already); the Flux slice's modules are among them."""
     code = (
         "import sys, pkgutil, importlib\n"
         "sys.modules['jax'] = None\n"
         "sys.modules['lightdiffusion_next_tpu'] = None\n"
         "import lightdiffusion_next_tpu_torch as pkg\n"
         "names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + '.')]\n"
+        "flux = ['ops.ggml', 'ops.quant_matmul', 'models.flux', 'models.clip.t5',\n"
+        "        'models.clip.t5_tokenizer', 'sampling.fbcache']\n"
+        "assert all(pkg.__name__ + '.' + m in names for m in flux), names\n"
         "for n in names + ['chip_smoke']: importlib.import_module(n)\n"
         "assert not any(k == 'jax' or k.startswith(('jax.', 'lightdiffusion_next_tpu.'))\n"
         "               for k, v in sys.modules.items() if v is not None)\n"
@@ -171,4 +174,4 @@ def test_port_imports_without_jax():
     out = subprocess.run([sys.executable, "-c", code], cwd=REPO, capture_output=True,
                          text=True, timeout=120)
     assert out.returncode == 0, out.stderr
-    assert int(out.stdout.strip()) >= 20
+    assert int(out.stdout.strip()) >= 34

@@ -35,16 +35,34 @@ Phases, in order; any failure exits non-zero:
    to a PNG; every launch counter set to 0 before and checked after against
    the plan derived from the counted FBCache hits, the two dy calls and the
    T5 encode; then a second, timed run and the time of one missed DiT call.
+   The DiT is held to Q8_0 (``RuntimeConfig(w8a8=False)``), so K5 runs it;
+9. W8A8 kernels: K9 (all three prologues) and K10 at every row-quantize
+   shape, K11 (with and without residual) and K7 at every matmul shape of
+   the W8A8 Flux 1024^2 path, each against its plain version, with two
+   planted faults each, timed beside the plain version and (K7, K11)
+   ``torch._int_mm`` on the same codes;
+10. W8A8 Flux reference: one double and one single block at full width and
+   1024^2 token counts on W8A8 weights, through the kernels in bf16 against
+   the plain versions in f32 (and, logged only, against phase 7's Q8_0
+   plain block on the same seeded weights);
+11. W8A8 Flux pipeline: the phase 8 DiT requantized by ``ggml.to_w8a8``
+   (the Q8_0 codes freed leaf by leaf), the same pipeline call with the
+   launch counters checked against the W8A8 plan (K9, K10, K11 with the
+   fused elementwise path, K5 for T5, K3, K2), a timed run, and one missed
+   DiT call with ``fused_ew`` on and one with it off (K9 "none" and K7 on
+   every matmul, counted).
 
 Prints one ``{"kernels": [...]}`` JSON line (``ms``: the kernel's time per
-image, summed over its main-path shapes and over the paths it runs on), the
-card's name and power limit, and as its last line ``{"ok": true, "device":
-{...}}``. Imports nothing of JAX. Needs one CUDA device; exits non-zero
-without one.
+image, summed over its main-path shapes and over the paths it runs on; K7's
+path is one missed DiT call with ``fused_ew`` off), the card's name and
+power limit, and as its last line ``{"ok": true, "device": {...}}``.
+Imports nothing of JAX. Needs one CUDA device; exits non-zero without one.
 """
 
 from __future__ import annotations
 
+import contextlib
+import dataclasses
 import gc
 import json
 import math
@@ -61,6 +79,7 @@ OUT_DIR = os.path.join(REPO, "build", "chip_smoke")  # git-ignored
 # rates assume): bf16 tensor cores, HBM3, and the special-function units'
 # exp2 rate (132 SMs x 16 per clock x 1.83 GHz).
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 PEAK_EXP2 = 132 * 16 * 1.83e9
 
@@ -71,6 +90,11 @@ PEAK_EXP2 = 132 * 16 * 1.83e9
 PLANTED_FAULTS = ("q scale without LOG2E", "last kv tile of 64 rows skipped")
 Q8_FAULTS = ("last K tile of 64 rows skipped", "neighbouring 32-block's scale row")
 FUSED_FAULTS = ("last kv tile of 64 rows skipped", "RoPE sine's sign flipped")
+W8A8_FAULTS = ("last K tile of 128 skipped", "neighbouring column's scale")
+ROWQ_FAULTS = {"ln_mod": "LayerNorm without the mean subtracted",
+               "none": "GELU applied", "gelu": "GELU dropped"}
+ROWQ_SCALE_FAULT = "scale of absmax/128"
+CONCAT_FAULTS = ("window shifted by 128 lanes", "GELU dropped")
 # rel RMSE of the bf16 kernel UNet against the f32 plain-attention UNet
 TOL_UNET_REL_RMSE = 5e-2
 # rel RMSE of a bf16 Flux block through the kernels against the same block
@@ -97,6 +121,26 @@ KERNELS = {
         "route": "cuda",
         "source": "lightdiffusion_next_tpu_torch/csrc/quant_matmul.cu",
         "replaces": "lightdiffusion_next_tpu/ops/quant_matmul.py:258",
+    },
+    "w8a8_matmul": {
+        "route": "cuda",
+        "source": "lightdiffusion_next_tpu_torch/csrc/w8a8_matmul.cu",
+        "replaces": "lightdiffusion_next_tpu/ops/quant_matmul.py:623",
+    },
+    "row_quantize_fused": {
+        "route": "cuda",
+        "source": "lightdiffusion_next_tpu_torch/csrc/row_quantize.cu",
+        "replaces": "lightdiffusion_next_tpu/ops/quant_matmul.py:926",
+    },
+    "row_quantize_concat_gelu": {
+        "route": "cuda",
+        "source": "lightdiffusion_next_tpu_torch/csrc/row_quantize.cu",
+        "replaces": "lightdiffusion_next_tpu/ops/quant_matmul.py:1014",
+    },
+    "w8a8_matmul_ep": {
+        "route": "cuda",
+        "source": "lightdiffusion_next_tpu_torch/csrc/w8a8_matmul.cu",
+        "replaces": "lightdiffusion_next_tpu/ops/quant_matmul.py:1155",
     },
 }
 
@@ -176,42 +220,89 @@ FLUX_TXT = 256
 FLUX_H, FLUX_MLP, FLUX_HEADS = 3072, 12288, 24
 
 
-def flux_dit_calls(img, add, n=1):
-    """K5 and K3 calls of one DiT call at ``img`` image tokens that misses
-    the cache (all 57 blocks), added ``n`` times to the dict ``add``."""
+# A double block's matmuls, per stream: (K, N, the prologue fused into its
+# row quantization, whether its epilogue adds the residual); then the single
+# block's linear1 and linear2
+DOUBLE_MATMULS = ((FLUX_H, 3 * FLUX_H, "ln_mod", False),   # qkv
+                  (FLUX_H, FLUX_H, "none", True),          # proj
+                  (FLUX_H, FLUX_MLP, "ln_mod", False),     # mlp.0
+                  (FLUX_MLP, FLUX_H, "gelu", True))        # mlp.2
+LINEAR1 = (FLUX_H, 3 * FLUX_H + FLUX_MLP)
+LINEAR2 = (FLUX_H + FLUX_MLP, FLUX_H)
+
+
+def w8a8_matmul_calls(add, rows, k, n, prologue, residual, n_calls, fused_ew):
+    """One W8A8 matmul's launches: with ``fused_ew``, K9 with its prologue
+    and K11; without it, K9 "none" (K7's row quantization) and K7."""
+    if fused_ew:
+        add(("row_quantize_fused", prologue, rows, k), n_calls)
+        add(("w8a8_matmul_ep", rows, k, n, residual), n_calls)
+    else:
+        add(("row_quantize_fused", "none", rows, k), n_calls)
+        add(("w8a8_matmul", rows, k, n), n_calls)
+
+
+def flux_dit_calls(img, add, n=1, w8a8=False, fused_ew=True):
+    """Kernel calls of one DiT call at ``img`` image tokens that misses the
+    cache (all 57 blocks), added ``n`` times to the dict ``add``: K5 on
+    Q8_0 weights, the W8A8 kernels on W8A8 weights; K3."""
     joint = img + FLUX_TXT
     for rows in (img, FLUX_TXT):  # 19 double blocks, image and text streams
-        for k, nn_ in ((FLUX_H, 3 * FLUX_H), (FLUX_H, FLUX_H), (FLUX_H, FLUX_MLP),
-                       (FLUX_MLP, FLUX_H)):
-            add(("quant_matmul", rows, k, nn_), 19 * n)
-    add(("quant_matmul", joint, FLUX_H, 3 * FLUX_H + FLUX_MLP), 38 * n)  # linear1
-    add(("quant_matmul", joint, FLUX_H + FLUX_MLP, FLUX_H), 38 * n)      # linear2
+        for k, nn_, prologue, res in DOUBLE_MATMULS:
+            if w8a8:
+                w8a8_matmul_calls(add, rows, k, nn_, prologue, res, 19 * n, fused_ew)
+            else:
+                add(("quant_matmul", rows, k, nn_), 19 * n)
+    if not w8a8:
+        add(("quant_matmul", joint, *LINEAR1), 38 * n)
+        add(("quant_matmul", joint, *LINEAR2), 38 * n)
+    else:
+        w8a8_matmul_calls(add, joint, *LINEAR1, "ln_mod", False, 38 * n, fused_ew)
+        if fused_ew:  # K10 reads linear1's MLP window
+            add(("row_quantize_concat_gelu", joint, FLUX_H, LINEAR1[1], 3 * FLUX_H), 38 * n)
+            add(("w8a8_matmul_ep", joint, *LINEAR2, True), 38 * n)
+        else:
+            w8a8_matmul_calls(add, joint, *LINEAR2, "none", True, 38 * n, False)
     add(("fused_qkv_attention", joint, 3 * FLUX_H, FLUX_TXT), 19 * n)
     add(("fused_qkv_attention", joint, 3 * FLUX_H + FLUX_MLP, 0), 38 * n)
 
 
-def flux_calls(hits=0, misses=20, dy_calls=2):
-    """{(kernel, *shape): calls per image} for the Flux path at 1024^2:
-    ``misses`` full-res DiT calls that run every block, ``hits`` that FBCache
-    serves after double block 0 (8 K5 and 1 K3 launches), ``dy_calls``
-    half-res calls (always misses), the T5-XXL encode (24 layers x 7 K5) and
-    the AE decode (one K2 call)."""
-    calls = {}
-
+def _adder(calls):
     def add(key, n):
         if n:
             calls[key] = calls.get(key, 0) + n
+    return add
 
-    flux_dit_calls(4096, add, misses)
-    flux_dit_calls(1024, add, dy_calls)
+
+def flux_calls(hits=0, misses=20, dy_calls=2, w8a8=False):
+    """{(kernel, *shape): calls per image} for the Flux path at 1024^2:
+    ``misses`` full-res DiT calls that run every block, ``hits`` that FBCache
+    serves after double block 0 (8 matmuls and 1 K3 launch), ``dy_calls``
+    half-res calls (always misses), the T5-XXL encode (24 layers x 7 K5) and
+    the AE decode (one K2 call). ``w8a8``: the DiT on W8A8 weights with the
+    fused elementwise path."""
+    calls = {}
+    add = _adder(calls)
+    flux_dit_calls(4096, add, misses, w8a8)
+    flux_dit_calls(1024, add, dy_calls, w8a8)
     for rows in (4096, FLUX_TXT):  # a hit: double block 0 only
-        for k, nn_ in ((FLUX_H, 3 * FLUX_H), (FLUX_H, FLUX_H), (FLUX_H, FLUX_MLP),
-                       (FLUX_MLP, FLUX_H)):
-            add(("quant_matmul", rows, k, nn_), hits)
+        for k, nn_, prologue, res in DOUBLE_MATMULS:
+            if w8a8:
+                w8a8_matmul_calls(add, rows, k, nn_, prologue, res, hits, True)
+            else:
+                add(("quant_matmul", rows, k, nn_), hits)
     add(("fused_qkv_attention", 4096 + FLUX_TXT, 3 * FLUX_H, FLUX_TXT), hits)
     for k, nn_, n in ((4096, 4096, 4), (4096, 10240, 2), (10240, 4096, 1)):
         add(("quant_matmul", FLUX_TXT, k, nn_), 24 * n)
     add(("flash_attention", 1, 1, 16384, 512, "f32"), 1)
+    return calls
+
+
+def unfused_dit_calls():
+    """Kernel calls of one missed W8A8 DiT call at 1024^2 with ``fused_ew``
+    off: K9 "none" and K7 on each of the 228 matmuls, K3."""
+    calls = {}
+    flux_dit_calls(4096, _adder(calls), 1, w8a8=True, fused_ew=False)
     return calls
 
 
@@ -339,9 +430,7 @@ def record_shape(per_kernel, key, check, faults, shape):
     """Log one kernel shape's check, planted faults and times; fold them
     into ``per_kernel[name]``."""
     name = key[0]
-    shape = {"key": list(key), **shape,
-             **{k: check[k] for k in ("max_abs_err", "tol", "max_abs_plain",
-                                      "rel_rmse", "rel_rmse_limit")},
+    shape = {"key": list(key), **shape, **{k: v for k, v in check.items() if k != "ok"},
              "planted_faults": faults}
     log(f"kernel {name} {shape}")
     entry = per_kernel.setdefault(name, {"shapes": [], "max_abs_err": 0.0, "ok": True})
@@ -356,7 +445,8 @@ def record_shape(per_kernel, key, check, faults, shape):
 
 
 def fault_entry(bad):
-    return {"max_abs_err": bad["max_abs_err"], "rel_rmse": bad["rel_rmse"],
+    return {**{k: bad[k] for k in ("max_abs_err", "rel_rmse", "mismatches",
+                                   "code_diff_share", "scale_rel_err") if k in bad},
             "caught": not bad["ok"]}
 
 
@@ -486,7 +576,11 @@ def kernel_wrappers():
     return {"packed_flash_attention": fa.packed_flash_attention,
             "flash_attention": fa.flash_attention,
             "fused_qkv_attention": fa.fused_qkv_attention,
-            "quant_matmul": qm.quant_matmul}
+            "quant_matmul": qm.quant_matmul,
+            "w8a8_matmul": qm.w8a8_matmul,
+            "row_quantize_fused": qm.row_quantize_fused,
+            "row_quantize_concat_gelu": qm.row_quantize_concat_gelu,
+            "w8a8_matmul_ep": qm.w8a8_matmul_ep}
 
 
 def reset_launches():
@@ -512,8 +606,8 @@ def phase_pipeline(calls):
     predicted = predicted_launches(calls)
     ok = True
     for name in KERNELS:
-        good = launches[name] == predicted[name] and (launches[name] > 0 or name in (
-            "fused_qkv_attention", "quant_matmul"))
+        good = launches[name] == predicted[name] and (launches[name] > 0 or name not in (
+            "packed_flash_attention", "flash_attention"))
         ok = ok and good
         log(f"launches SD1.5 {name}: {launches[name]} (plan predicts {predicted[name]}) "
             f"{'ok' if good else 'FAIL'}")
@@ -687,11 +781,7 @@ def phase_flux_reference():
     cfg = dataclasses.replace(flux.FLUX_DEV, depth=1, depth_single_blocks=1,
                               fused_attn=True)
     params = flux.permute_rope_basis(flux.random_params(cfg, seed=30), cfg)
-    gen = torch.Generator(device="cuda").manual_seed(31)
-    img = torch.randn((1, 4096, FLUX_H), generator=gen, device="cuda")
-    txt = torch.randn((1, FLUX_TXT, FLUX_H), generator=gen, device="cuda")
-    vec = torch.randn((1, FLUX_H), generator=gen, device="cuda")
-    pe = flux_rope(4096 + FLUX_TXT)
+    img, txt, vec, pe = flux_block_inputs()
     outs = {}
     saved = config.get_config()
     try:
@@ -713,32 +803,52 @@ def phase_flux_reference():
             torch.cuda.empty_cache()
     finally:
         config.set_config(saved)
-    rels = []
-    for a, b in zip(outs["kernels"], outs["plain"]):
-        rels.append(((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item())
+    rels = block_rel_rmse(outs["kernels"], outs["plain"])
     ok = all(math.isfinite(r) and r <= TOL_FLUX_BLOCK_REL_RMSE for r in rels)
     log(f"flux reference: double block img/txt and single block, bf16 kernels vs f32 "
         f"plain: rel RMSE {[f'{r:.4g}' for r in rels]} (tol {TOL_FLUX_BLOCK_REL_RMSE}) "
         f"{'ok' if ok else 'FAIL'}")
+    plain = outs["plain"]
     del params, outs
     gc.collect()
     torch.cuda.empty_cache()
-    return ok, rels
+    return ok, rels, plain
 
 
-def build_flux_models():
-    """Flux.1-dev DiT and T5-XXL (Q8_0, drawn and quantized on the card),
-    CLIP-L and the Flux AE at full width from seeded random weights (seeds
-    20-23): (model, clip, vae, t5)."""
+def block_rel_rmse(outs, refs):
+    return [((a - b).pow(2).mean().sqrt() / b.pow(2).mean().sqrt()).item()
+            for a, b in zip(outs, refs)]
+
+
+def flux_block_inputs():
+    """The reference blocks' inputs (seed 31): image and text tokens, the
+    vector, the RoPE tables of 4096 + 256 tokens."""
     import torch
 
+    gen = torch.Generator(device="cuda").manual_seed(31)
+    img = torch.randn((1, 4096, FLUX_H), generator=gen, device="cuda")
+    txt = torch.randn((1, FLUX_TXT, FLUX_H), generator=gen, device="cuda")
+    vec = torch.randn((1, FLUX_H), generator=gen, device="cuda")
+    return img, txt, vec, flux_rope(4096 + FLUX_TXT)
+
+
+def build_flux_models(w8a8=False):
+    """Flux.1-dev DiT and T5-XXL (Q8_0, drawn and quantized on the card),
+    CLIP-L and the Flux AE at full width from seeded random weights (seeds
+    20-23): (model, clip, vae, t5). The DiT is built with
+    ``RuntimeConfig.w8a8`` off, so it stays Q8_0 (K5); with ``w8a8`` it is
+    then requantized (``to_w8a8_models``)."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch import config
     from lightdiffusion_next_tpu_torch.models import base, flux
     from lightdiffusion_next_tpu_torch.models import vae as vae_mod
     from lightdiffusion_next_tpu_torch.models.clip import t5 as t5_mod
     from lightdiffusion_next_tpu_torch.models.clip import text_encoder as te
 
     t0 = time.perf_counter()
-    model = base.flux_model(flux.random_params(flux.FLUX_DEV, seed=20), cfg=flux.FLUX_DEV)
+    with runtime_config(w8a8=False):
+        model = base.flux_model(flux.random_params(flux.FLUX_DEV, seed=20), cfg=flux.FLUX_DEV)
     t5 = t5_mod.T5XXLModel(t5_mod.random_params(t5_mod.T5_XXL, seed=21), cfg=t5_mod.T5_XXL)
     clip = te.SDClipModel(te.init_params(num_layers=12, width=768, heads=12, seed=22,
                                          with_projection=True), num_layers=12, heads=12)
@@ -747,7 +857,42 @@ def build_flux_models():
     log(f"flux pipeline: built the DiT, T5-XXL, CLIP-L and the AE from seeds in "
         f"{time.perf_counter() - t0:.1f} s; {torch.cuda.memory_allocated() / 2**30:.1f} GiB "
         "on the card")
-    return model, clip, vae, t5
+    models = (model, clip, vae, t5)
+    return to_w8a8_models(models) if w8a8 else models
+
+
+def to_w8a8_models(models):
+    """The Flux models with the DiT requantized per output column to W8A8
+    (``ggml.to_w8a8``, which commutes with the RoPE permutation already
+    applied). The Q8_0 DiT's params are consumed: each Q8_0 leaf is freed as
+    it converts, so one DiT is resident at a time. T5 stays Q8_0."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.ops import ggml
+
+    model, clip, vae, t5 = models
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    w8 = dataclasses.replace(model, params=ggml.to_w8a8(model.params))
+    torch.cuda.synchronize()
+    log(f"flux W8A8: DiT requantized in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card, peak "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB during the requant")
+    return w8, clip, vae, t5
+
+
+@contextlib.contextmanager
+def runtime_config(**fields):
+    """The port's ``RuntimeConfig`` with ``fields`` replaced; restored after."""
+    from lightdiffusion_next_tpu_torch import config
+
+    saved = config.get_config()
+    config.set_config(dataclasses.replace(saved, **fields))
+    try:
+        yield
+    finally:
+        config.set_config(saved)
 
 
 def run_flux_pipeline(models, seed):
@@ -778,80 +923,361 @@ def run_flux_pipeline(models, seed):
             "step_times": step_times, "last": last, "hits": list(fbcache.history)}
 
 
-def phase_flux_pipeline():
-    """Returns (ok, launches, e2e, flux calls per image from the counted
-    FBCache hits)."""
+def check_flux_output(run, model, vae, label):
+    """What came out of a Flux pipeline call: a finite latent of the right
+    shape, finite pixels, and the PNG holding exactly those pixels."""
     import numpy as np
     import torch
 
     from lightdiffusion_next_tpu_torch.utils import image as image_utils
 
-    models = build_flux_models()
-    model, clip, vae, t5 = models
-    reset_launches()
-    first = run_flux_pipeline(models, 4321)
-    launches = read_launches()
-    hist = first["hits"]
-    # calls in order: steps 0-2, the dy call of step 2, step 3, its dy call, steps 4-19
-    main = [h for i, h in enumerate(hist) if i not in (3, 5)]
-    dy = [hist[i] for i in (3, 5) if i < len(hist)]
-    hits = sum(main)
-    calls = flux_calls(hits=hits, misses=len(main) - hits, dy_calls=len(dy))
-    predicted = predicted_launches(calls)
-    ok = len(hist) == 22 and not any(dy)
-    log(f"flux FBCache: {''.join('H' if h else '.' for h in hist)} ({hits} hits of "
-        f"{len(main)} main-loop calls; the dy calls are the 4th and 6th)")
-    for name in KERNELS:
-        good = launches[name] == predicted[name]
-        ok = ok and good
-        log(f"launches Flux {name}: {launches[name]} (plan predicts {predicted[name]}) "
-            f"{'ok' if good else 'FAIL'}")
-
-    x = first["last"]["x"]
+    x = run["last"]["x"]
     latent_ok = tuple(x.shape) == (1, 128, 128, 16) and bool(torch.isfinite(x).all())
     with torch.no_grad():
         pixels = vae.decode(model.latent_format.process_out(x))
     pixels_ok = bool(torch.isfinite(pixels).all())
-    png = read_png(first["paths"][0])
+    png = read_png(run["paths"][0])
     png_ok = png.shape == (1024, 1024, 3) and np.array_equal(
         png, image_utils.to_uint8(pixels.cpu().numpy())[0])
-    log(f"flux output: latent {tuple(x.shape)} finite={latent_ok}, pixels finite="
+    log(f"{label} output: latent {tuple(x.shape)} finite={latent_ok}, pixels finite="
         f"{pixels_ok}, png {png.shape} matches decode={png_ok}, "
-        f"pixel mean {png.mean():.2f} std {png.std():.2f}, {first['paths'][0]}")
-    ok = ok and latent_ok and pixels_ok and png_ok
+        f"pixel mean {png.mean():.2f} std {png.std():.2f}, {run['paths'][0]}")
+    return latent_ok and pixels_ok and png_ok
 
-    torch.cuda.reset_peak_memory_stats()
-    timed = run_flux_pipeline(models, 8765)
-    peak = torch.cuda.max_memory_allocated() / 2**30
-    steps = timed["step_times"]
-    it_s = (len(steps) - 1) / (steps[-1] - steps[0])
 
-    # one DiT call that runs every block (no cache), at 1024^2
+def check_flux_launches(run, launches, w8a8, label):
+    """The pipeline call's launches against the plan derived from its
+    counted FBCache hits. Returns (ok, the plan's calls per image)."""
+    hist = run["hits"]
+    # calls in order: steps 0-2, the dy call of step 2, step 3, its dy call, steps 4-19
+    main = [h for i, h in enumerate(hist) if i not in (3, 5)]
+    dy = [hist[i] for i in (3, 5) if i < len(hist)]
+    hits = sum(main)
+    calls = flux_calls(hits=hits, misses=len(main) - hits, dy_calls=len(dy), w8a8=w8a8)
+    predicted = predicted_launches(calls)
+    ok = len(hist) == 22 and not any(dy)
+    log(f"{label} FBCache: {''.join('H' if h else '.' for h in hist)} ({hits} hits of "
+        f"{len(main)} main-loop calls; the dy calls are the 4th and 6th)")
+    for name in KERNELS:
+        good = launches[name] == predicted[name]
+        ok = ok and good
+        log(f"launches {label} {name}: {launches[name]} (plan predicts {predicted[name]}) "
+            f"{'ok' if good else 'FAIL'}")
+    return ok, calls
+
+
+def missed_dit_calls(model, n=2):
+    """Wall seconds of ``n`` Flux forwards at 1024^2 that run every block
+    (no cache), each synced; the launch counters are set to 0 before the
+    last one and read after it. Returns (seconds, launches of the last)."""
+    import torch
+
     gen = torch.Generator(device="cuda").manual_seed(40)
     args = (torch.randn((1, 128, 128, 16), generator=gen, device="cuda"),
             torch.tensor([0.5], device="cuda"),
             torch.randn((1, FLUX_TXT, 4096), generator=gen, device="cuda"))
     kw = dict(y=torch.randn((1, 768), generator=gen, device="cuda"),
               guidance=torch.tensor([3.0], device="cuda"))
-    miss = []
-    for _ in range(2):
+    seconds = []
+    for i in range(n):
+        if i == n - 1:
+            reset_launches()
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
             model.apply_fn(model.params, *args, **kw)
         torch.cuda.synchronize()
-        miss.append(time.perf_counter() - t0)
-    log(f"flux pipeline timed run: {timed['wall']:.3f} s/image end to end; sampler "
+        seconds.append(time.perf_counter() - t0)
+    return seconds, read_launches()
+
+
+def timed_flux_run(models, label):
+    """A second pipeline call (seed 8765), timed: its e2e numbers."""
+    import torch
+
+    torch.cuda.reset_peak_memory_stats()
+    timed = run_flux_pipeline(models, 8765)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = timed["step_times"]
+    it_s = (len(steps) - 1) / (steps[-1] - steps[0])
+    log(f"{label} timed run: {timed['wall']:.3f} s/image end to end; sampler "
         f"steps 2..{len(steps)}: {it_s:.3f} it/s; FBCache "
         f"{''.join('H' if h else '.' for h in timed['hits'])} "
-        f"({sum(timed['hits'])} hits); first run {first['wall']:.3f} s/image; one "
-        f"missed DiT call {miss[-1] * 1e3:.1f} ms wall (first {miss[0] * 1e3:.1f}); "
-        f"peak memory {peak:.1f} GiB")
-    e2e = {"s_per_image": timed["wall"], "it_per_s": it_s,
-           "first_run_s_per_image": first["wall"], "fbcache_hits": sum(timed["hits"]),
-           "fbcache_history": timed["hits"], "missed_dit_call_s": miss[-1],
-           "peak_gib": peak}
-    return ok, launches, e2e, calls
+        f"({sum(timed['hits'])} hits); peak memory {peak:.1f} GiB")
+    return {"s_per_image": timed["wall"], "it_per_s": it_s,
+            "fbcache_hits": sum(timed["hits"]), "fbcache_history": timed["hits"],
+            "peak_gib": peak}
+
+
+def phase_flux_pipeline():
+    """The Q8_0 Flux pipeline. Returns (ok, launches, e2e, flux calls per
+    image from the counted FBCache hits, the models, the first run's final
+    latent)."""
+    models = build_flux_models()
+    model, clip, vae, t5 = models
+    reset_launches()
+    first = run_flux_pipeline(models, 4321)
+    launches = read_launches()
+    ok, calls = check_flux_launches(first, launches, False, "Flux")
+    ok = check_flux_output(first, model, vae, "flux") and ok
+    e2e = timed_flux_run(models, "flux pipeline")
+    miss, _ = missed_dit_calls(model)
+    log(f"flux: first run {first['wall']:.3f} s/image; one missed DiT call "
+        f"{miss[-1] * 1e3:.1f} ms wall (first {miss[0] * 1e3:.1f})")
+    e2e.update(first_run_s_per_image=first["wall"], missed_dit_call_s=miss[-1])
+    return ok, launches, e2e, calls, models, first["last"]["x"]
+
+
+# --------------------------------------------------------------------------
+# Flux on W8A8 weights
+# --------------------------------------------------------------------------
+
+
+def int8_bound(m, k, n, bias, residual):
+    flops = 2.0 * m * k * n
+    nbytes = (m * k + k * n + 4.0 * n * (2 if bias else 1) + 4.0 * m
+              + 2.0 * m * n * (2 if residual else 1))
+    t_ops, t_bytes = flops / PEAK_INT8_OPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def rowquant_bound(m, k, prologue="none"):
+    """Bytes: each bf16 element read once, its code written once, one f32
+    scale per row (and ln_mod's (K,) f32 scale and shift)."""
+    nbytes = 3.0 * m * k + 4.0 * m + (8.0 * k if prologue == "ln_mod" else 0.0)
+    return nbytes / PEAK_HBM_BYTES * 1e3, "bytes"
+
+
+def activations(m, k, gen):
+    """bf16 rows with a mean of their own, as the DiT's activations have."""
+    import torch
+
+    x = 2 * torch.randn((m, k), generator=gen, device="cuda")
+    return (x + torch.randn((m, 1), generator=gen, device="cuda")).bfloat16()
+
+
+def w8_weight(k, n, gen):
+    """A (N, K) weight drawn as ``flux.random_params`` draws it, quantized
+    to Q8_0 and requantized to W8A8 on the card."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.ops import ggml
+
+    w = torch.randn((n, k), generator=gen, device="cuda") * k**-0.5
+    return ggml.to_w8a8({"w": ggml.transpose_for_matmul(ggml.quantize(w))})["w"]
+
+
+def phase_w8a8_kernels(calls, per_kernel):
+    """K9, K10, K11 and K7 at every shape of ``calls`` (the W8A8 Flux path
+    and the unfused DiT call): agreement with the plain version, two planted
+    faults each, times."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(2)
+
+    for key in sorted(k for k in calls if k[0] == "row_quantize_fused"):
+        _, prologue, m, k = key
+        x = activations(m, k, gen)
+        s = 1 + 0.2 * torch.randn((1, k), generator=gen, device="cuda")
+        t = 0.1 * torch.randn((1, k), generator=gen, device="cuda")
+        codes, sx = qm.row_quantize_fused(x, s, t, prologue=prologue)
+        torch.cuda.synchronize()
+        ref = qm.row_quantize_fused_plain(x, s, t, prologue=prologue)
+        check = qm.codes_agreement(codes, sx, *ref, exact=prologue == "none")
+        if prologue == "ln_mod":
+            bad = qm._launch_rowquant(x, prologue, s, t, 1e-6, center=0)
+        else:
+            bad = qm._launch_rowquant(x, "gelu" if prologue == "none" else "none", s, t, 1e-6)
+        faults = {
+            ROWQ_FAULTS[prologue]: fault_entry(qm.codes_agreement(*bad, *ref)),
+            ROWQ_SCALE_FAULT: fault_entry(qm.codes_agreement(
+                *qm._launch_rowquant(x, prologue, s, t, 1e-6, inv_qmax=1.0 / 128), *ref)),
+        }
+        run = lambda: qm.row_quantize_fused(x, s, t, prologue=prologue)  # noqa: E731
+        ms = cuda_ms(run, repeats_for(run))
+        plain_ms = cuda_ms(lambda: qm.row_quantize_fused_plain(x, s, t, prologue=prologue), 2)
+        bound_ms, bound_by = rowquant_bound(m, k, prologue)
+        record_shape(per_kernel, key, check, faults, {
+            "shape": [m, k], "dtype": f"bf16 in, {prologue} prologue", "ms": ms,
+            "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by})
+        del x, codes, sx, ref, bad
+        torch.cuda.empty_cache()
+
+    for key in sorted(k for k in calls if k[0] == "row_quantize_concat_gelu"):
+        _, m, ka, width, lo = key
+        a, b = activations(m, ka, gen), activations(m, width, gen)
+        codes, sx = qm.row_quantize_concat_gelu(a, b, lo, width)
+        torch.cuda.synchronize()
+        ref = qm.row_quantize_concat_gelu_plain(a, b, lo, width)
+        check = qm.codes_agreement(codes, sx, *ref)
+        faults = {
+            CONCAT_FAULTS[0]: fault_entry(qm.codes_agreement(
+                *qm._launch_concat(a, b, lo - 128, width - 128), *ref)),
+            CONCAT_FAULTS[1]: fault_entry(qm.codes_agreement(
+                *qm._launch_concat(a, b, lo, width, gelu=0), *ref)),
+        }
+        run = lambda: qm.row_quantize_concat_gelu(a, b, lo, width)  # noqa: E731
+        ms = cuda_ms(run, repeats_for(run))
+        plain_ms = cuda_ms(lambda: qm.row_quantize_concat_gelu_plain(a, b, lo, width), 2)
+        bound_ms, bound_by = rowquant_bound(m, ka + width - lo)
+        record_shape(per_kernel, key, check, faults, {
+            "shape": [m, ka, width, lo], "dtype": "bf16 in, window read through its stride",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": None, "bound_ms": bound_ms,
+            "bound_by": bound_by})
+        del a, b, codes, sx, ref
+        torch.cuda.empty_cache()
+
+    matmuls = {}
+    for key in calls:
+        if key[0] in ("w8a8_matmul", "w8a8_matmul_ep"):
+            matmuls.setdefault(tuple(key[1:4]), []).append(key)
+    for (m, k, n), keys in sorted(matmuls.items()):
+        w = w8_weight(k, n, gen)
+        x = activations(m, k, gen)
+        xq, sx = qm.row_quantize_fused(x)
+        sx1 = sx.reshape(-1)
+        lib = lambda: torch._int_mm(xq, w.q.t())  # noqa: E731
+        try:
+            library_ms = cuda_ms(lib, repeats_for(lib))
+        except RuntimeError as e:  # the yardstick only; the port never calls it
+            log(f"torch._int_mm at {(m, k, n)}: {e}")
+            library_ms = None
+        for key in sorted(keys, key=str):
+            if key[0] == "w8a8_matmul":
+                cs, bias, r = w.col_scales.reshape(-1).contiguous(), None, None
+                out = qm.w8a8_matmul(x, w.q, w.col_scales)
+                torch.cuda.synchronize()
+                ref = qm.w8a8_matmul_plain(x, w.q, w.col_scales)
+                run = lambda: qm._launch_w8a8(xq, sx1, w.q, cs)  # noqa: E731  K7 alone
+            else:
+                gate = torch.randn((1, n), generator=gen, device="cuda")
+                cs = (w.col_scales * gate).reshape(-1).contiguous()
+                bias = (0.1 * torch.randn((1, n), generator=gen, device="cuda") * gate).reshape(-1)
+                r = activations(m, n, gen) if key[4] else None
+                out = qm.w8a8_matmul_ep(xq, sx, w.q, cs, bias, residual=r)
+                torch.cuda.synchronize()
+                ref = qm.w8a8_matmul_ep_plain(xq, sx, w.q, cs, bias, residual=r)
+                run = lambda: qm.w8a8_matmul_ep(xq, sx, w.q, cs, bias, residual=r)  # noqa: E731
+            ep = bias is not None
+            check = qm.matmul_agreement(out, ref)
+            faults = {
+                W8A8_FAULTS[0]: fault_entry(qm.matmul_agreement(qm._launch_w8a8(
+                    xq, sx1, w.q, cs, bias, r, k=k - 128, ep=ep), ref)),
+                W8A8_FAULTS[1]: fault_entry(qm.matmul_agreement(qm._launch_w8a8(
+                    xq, sx1, w.q, torch.roll(cs, -1).contiguous(), bias, r, ep=ep), ref)),
+            }
+            ms = cuda_ms(run, repeats_for(run))
+            plain_ms = cuda_ms(lambda: qm._epilogue_plain(xq, sx, w.q, cs, bias, r), 2)
+            bound_ms, bound_by = int8_bound(m, k, n, ep, r is not None)
+            record_shape(per_kernel, key, check, faults, {
+                "shape": [m, k, n], "dtype": "int8 codes, bf16 out"
+                + (", bf16 residual" if r is not None else ""),
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by})
+            del out, ref, r
+        del w, x, xq, sx, sx1
+        torch.cuda.empty_cache()
+    return per_kernel
+
+
+@contextlib.contextmanager
+def plain_w8a8():
+    """The W8A8 wrappers of ``ops.quant_matmul`` replaced by their plain
+    versions (the modules that call them look them up at call time), so a
+    forward on the card runs the plain versions in f32; restored after."""
+    from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
+
+    names = ("w8a8_matmul", "w8a8_matmul_ep", "row_quantize_fused",
+             "row_quantize_concat_gelu")
+    saved = {name: getattr(qm, name) for name in names}
+    for name in names:
+        setattr(qm, name, getattr(qm, name + "_plain"))
+    try:
+        yield
+    finally:
+        for name, fn in saved.items():
+            setattr(qm, name, fn)
+
+
+def phase_flux_w8a8_reference(q8_plain):
+    """One double block and one single block of Flux.1-dev at full width and
+    1024^2 token counts on W8A8 weights (the Q8_0 weights of phase 7,
+    requantized): bf16 through K9, K10 and K11 (and K3), against f32 through
+    the plain versions. The drift against phase 7's f32 Q8_0 blocks is
+    logged, not held to a limit."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.models import flux
+    from lightdiffusion_next_tpu_torch.ops import ggml, nn
+
+    cfg = dataclasses.replace(flux.FLUX_DEV, depth=1, depth_single_blocks=1,
+                              fused_attn=True)
+    params = flux.permute_rope_basis(ggml.to_w8a8(flux.random_params(cfg, seed=30)), cfg)
+    img, txt, vec, pe = flux_block_inputs()
+    outs = {}
+    for label, dtype, backend in (("kernels", torch.bfloat16, "flash"),
+                                  ("plain", torch.float32, "sdpa")):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        p = {k: v if isinstance(v, ggml.QTensor8W) or k.endswith("norm.scale")
+             else v.to(dtype) for k, v in params.items()}
+        plain = plain_w8a8() if dtype == torch.float32 else contextlib.nullcontext()
+        with runtime_config(attention_backend=backend, fused_ew=True), plain, torch.no_grad():
+            im, tx = flux._double_block(nn.ParamView(p, "double_blocks.0."),
+                                        img.to(dtype), txt.to(dtype), vec.to(dtype), pe, c)
+            xx = flux._single_block(nn.ParamView(p, "single_blocks.0."),
+                                    torch.cat([tx, im], dim=1), vec.to(dtype), pe, c)
+        outs[label] = (im.float(), tx.float(), xx.float())
+        del p
+        torch.cuda.empty_cache()
+    rels = block_rel_rmse(outs["kernels"], outs["plain"])
+    drift = block_rel_rmse(outs["kernels"], q8_plain)
+    ok = all(math.isfinite(r) and r <= TOL_FLUX_BLOCK_REL_RMSE for r in rels)
+    log(f"flux W8A8 reference: double block img/txt and single block, bf16 kernels vs f32 "
+        f"plain: rel RMSE {[f'{r:.4g}' for r in rels]} (tol {TOL_FLUX_BLOCK_REL_RMSE}) "
+        f"{'ok' if ok else 'FAIL'}; against the f32 Q8_0 blocks (logged only): "
+        f"{[f'{r:.4g}' for r in drift]}")
+    del params, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, rels, drift
+
+
+def phase_flux_w8a8_pipeline(models, q8_latent):
+    """The phase 8 models with the DiT requantized to W8A8 (``fused_ew`` on,
+    the default on the card), the same pipeline call, then a timed one and
+    one missed DiT call with ``fused_ew`` on and one with it off. Returns
+    (ok, launches, e2e, calls per image, launches of the unfused DiT call)."""
+    models = to_w8a8_models(models)
+    model, clip, vae, t5 = models
+    with runtime_config(fused_ew="auto"):
+        reset_launches()
+        first = run_flux_pipeline(models, 4321)
+        launches = read_launches()
+        ok, calls = check_flux_launches(first, launches, True, "Flux W8A8")
+        ok = check_flux_output(first, model, vae, "flux W8A8") and ok
+        x = first["last"]["x"]
+        drift = ((x - q8_latent).pow(2).mean().sqrt() / q8_latent.pow(2).mean().sqrt()).item()
+        log(f"flux W8A8: final latent against the Q8_0 run of the same seed: rel RMSE "
+            f"{drift:.4g} (logged only)")
+        e2e = timed_flux_run(models, "flux W8A8 pipeline")
+        miss_on, _ = missed_dit_calls(model)
+    with runtime_config(fused_ew=False):
+        miss_off, off_launches = missed_dit_calls(model)
+    predicted = predicted_launches(unfused_dit_calls())
+    for name in KERNELS:
+        good = off_launches[name] == predicted[name]
+        ok = ok and good
+        log(f"launches W8A8 DiT call, fused_ew off, {name}: {off_launches[name]} "
+            f"(plan predicts {predicted[name]}) {'ok' if good else 'FAIL'}")
+    log(f"flux W8A8: first run {first['wall']:.3f} s/image; one missed DiT call "
+        f"{miss_on[-1] * 1e3:.1f} ms wall with fused_ew on (first {miss_on[0] * 1e3:.1f}), "
+        f"{miss_off[-1] * 1e3:.1f} ms with it off (first {miss_off[0] * 1e3:.1f})")
+    e2e.update(first_run_s_per_image=first["wall"], missed_dit_call_s=miss_on[-1],
+               missed_dit_call_fused_ew_off_s=miss_off[-1], latent_drift_vs_q8_0=drift)
+    return ok, launches, e2e, calls, off_launches
 
 
 def main() -> int:
@@ -892,13 +1318,28 @@ def main() -> int:
     log("plan Flux (no FBCache hit):",
         {f"{k[0]} {k[1:]}": v for k, v in sorted(flux_calls().items())})
     timed("flux kernels", phase_flux_kernels, flux_calls(), per_kernel)
-    flux_ref_ok, _ = timed("flux reference", phase_flux_reference)
-    flux_ok, flux_launches, flux_e2e, fcalls = timed("flux pipeline", phase_flux_pipeline)
+    flux_ref_ok, _, q8_blocks = timed("flux reference", phase_flux_reference)
+    flux_ok, flux_launches, flux_e2e, fcalls, flux_models, q8_latent = timed(
+        "flux pipeline", phase_flux_pipeline)
+    w8_plan, off_plan = flux_calls(w8a8=True), unfused_dit_calls()
+    log("plan Flux W8A8 (no FBCache hit):",
+        {f"{k[0]} {k[1:]}": v for k, v in sorted(w8_plan.items())})
+    log("plan W8A8 DiT call, fused_ew off:",
+        {f"{k[0]} {k[1:]}": v for k, v in sorted(off_plan.items())})
+    timed("w8a8 kernels", phase_w8a8_kernels, {**w8_plan, **off_plan}, per_kernel)
+    w8_ref_ok, _, _ = timed("flux w8a8 reference", phase_flux_w8a8_reference, q8_blocks)
+    w8_ok, w8_launches, w8_e2e, w8_calls, off_launches = timed(
+        "flux w8a8 pipeline", phase_flux_w8a8_pipeline, flux_models, q8_latent)
+    del flux_models
 
     # calls per image of each path, summed over the paths a kernel runs on
+    # (the unfused DiT call counts once)
     all_calls = dict(sd_calls)
-    for key, n in fcalls.items():
-        all_calls[key] = all_calls.get(key, 0) + n
+    for path_calls in (fcalls, w8_calls, off_plan):
+        for key, n in path_calls.items():
+            all_calls[key] = all_calls.get(key, 0) + n
+    paths = {"sd15": sd_launches, "flux": flux_launches, "flux_w8a8": w8_launches,
+             "w8a8_dit_call_fused_ew_off": off_launches}
     kernels_line = []
     for name, meta in KERNELS.items():
         entry = per_kernel[name]
@@ -915,19 +1356,20 @@ def main() -> int:
         bound_shapes = [s_["bound_by"] for s_ in shapes]
         kernels_line.append({
             "name": name, **meta,
-            "launches": sd_launches[name] + flux_launches[name],
-            "launches_by_path": {"sd15": sd_launches[name], "flux": flux_launches[name]},
+            "launches": sum(launches[name] for launches in paths.values()),
+            "launches_by_path": {path: launches[name] for path, launches in paths.items()},
             "max_abs_err": entry["max_abs_err"],
             "ms": per_image("ms"),
             "plain_ms": per_image("plain_ms"), "bound_ms": per_image("bound_ms"),
             "bound_by": max(set(bound_shapes), key=bound_shapes.count),
             "library_ms": per_image("library_ms"), "ok": entry["ok"],
             "per": "image: the sum over its main-path shapes of calls x time, over one "
-                   "image of each path it runs on (SD1.5 and Flux)",
+                   "image of each path it runs on (SD1.5, Flux Q8_0, Flux W8A8) and one "
+                   "missed W8A8 DiT call with fused_ew off",
             "shapes": shapes,
         })
-    e2e = {"sd15": sd_e2e, "flux": flux_e2e}
-    ok = (ref_ok and pipe_ok and flux_ref_ok and flux_ok
+    e2e = {"sd15": sd_e2e, "flux": flux_e2e, "flux_w8a8": w8_e2e}
+    ok = (ref_ok and pipe_ok and flux_ref_ok and flux_ok and w8_ref_ok and w8_ok
           and all(k["ok"] for k in kernels_line))
     record = {"gpu": line, "kernels": kernels_line, "e2e": e2e, "phase_seconds": seconds,
               "seconds": time.perf_counter() - t_start}

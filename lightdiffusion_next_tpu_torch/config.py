@@ -1,7 +1,7 @@
 """Runtime configuration: device, dtype policy, attention dispatch.
 
 Counterpart of lightdiffusion_next_tpu/config.py, for PyTorch on an NVIDIA
-GPU. What the SD1.5 path consults:
+GPU. What the port consults:
 
 - ``resolve_device``: every entry point runs on ``cuda`` unless the caller
   asks for ``"cpu"`` (as the tests do); with no GPU it raises rather than
@@ -9,13 +9,16 @@ GPU. What the SD1.5 path consults:
 - ``DtypePolicy``: bf16 UNet params and compute, f32 VAE, bf16 text
   encoder on the GPU; everything f32 on the CPU. Norms and schedules always
   compute in f32.
-- ``RuntimeConfig``: ``attention_backend``, ``packed_attn``.
+- ``RuntimeConfig``: ``attention_backend``, ``packed_attn`` (the UNet's
+  attention), ``w8a8`` and ``fused_ew`` (the Flux DiT's int8 path).
 
 The JAX package's ``qkv_fuse`` has no counterpart: the port always joins the
 q|k|v (and k|v) projection weights, once, when the UNet is built
 (``models/unet.fuse_projections``). Its ``rng_mode`` has none either: the
 port draws noise as the "torch" mode does, the only mode ported (ROADMAP
-Queue 1, item 2).
+Queue 1, item 2). Its ``int8_mxu=False`` variant of the W8A8 matmuls (int8
+codes multiplied at the bf16 rate) has none: only the int8 tensor-core
+path is in use, and K7 and K11 implement that one.
 """
 
 from __future__ import annotations
@@ -76,23 +79,53 @@ class DtypePolicy:
 _VALID_ATTENTION = ("flash", "sdpa")
 
 
+_TRI_STATE = (True, False, "auto")
+
+
+def _on_gpu(device: DeviceLike) -> bool:
+    return torch.device(device).type == "cuda"
+
+
 @dataclasses.dataclass(frozen=True)
 class RuntimeConfig:
-    """The knobs the SD1.5 path reads.
+    """The knobs of the port's runtime.
 
     attention_backend: "flash" sends long sequences (``flash_attention
       .supported``) to the hand-written kernels and the rest to ``sdpa``;
       "sdpa" sends everything to ``sdpa`` (the plain reference path).
     packed_attn: head dims up to 64 go to K1 (``packed_flash_attention``),
       otherwise to K2.
+    w8a8: the Flux DiT's Q8_0 matmul weights are requantized once, per
+      output column, to int8 when the model is built (``ggml.to_w8a8``),
+      and each of those matmuls row-quantizes its input and multiplies
+      int8 by int8 (K7, ``quant_matmul.w8a8_matmul``). T5 stays Q8_0.
+    fused_ew: on W8A8 weights, the LayerNorm + modulation or GELU before a
+      matmul runs inside its row quantization (K9, K10) and the bias, gate
+      and residual inside the matmul's epilogue (K11); models/flux.py.
+    ``w8a8`` and ``fused_ew`` take True, False or "auto"; "auto" is on for
+    a model (``w8a8``) or an activation (``fused_ew``) on the GPU and off
+    on the CPU, as the JAX package's is on for the TPU and off on the CPU.
     """
 
     attention_backend: str = "flash"
     packed_attn: bool = True
+    w8a8: object = "auto"
+    fused_ew: object = "auto"
 
     def __post_init__(self):
         if self.attention_backend not in _VALID_ATTENTION:
             raise ValueError(f"attention_backend must be one of {_VALID_ATTENTION}")
+        for name in ("w8a8", "fused_ew"):
+            if getattr(self, name) not in _TRI_STATE:
+                raise ValueError(f'{name} must be True, False or "auto"')
+
+    def resolve_w8a8(self, device: DeviceLike) -> bool:
+        """Whether a Flux model built on ``device`` converts to W8A8."""
+        return _on_gpu(device) if self.w8a8 == "auto" else bool(self.w8a8)
+
+    def resolve_fused_ew(self, device: DeviceLike) -> bool:
+        """Whether an activation on ``device`` takes the fused path."""
+        return _on_gpu(device) if self.fused_ew == "auto" else bool(self.fused_ew)
 
 
 _current: Optional[RuntimeConfig] = None

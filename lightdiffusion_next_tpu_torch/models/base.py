@@ -82,15 +82,21 @@ def flux_model(params: Dict[str, Any], cfg: Optional[flux_mod.FluxConfig] = None
     """Assemble a Flux DiT bundle from checkpoint-keyed params (numpy
     arrays, tensors or Q8_0 records, e.g. from ``ggml.gguf_sd_loader`` or
     ``flux.random_params``): Q8_0 matmul weights as ``QTensor8T``, dense
-    leaves in ``dtype`` (the device's compute dtype by default), the RoPE
-    basis permuted once for the fused attention (K3), the QKNorm scales
-    in f32 (the kernel's), ``ModelSamplingFlux``, the FLUX1 latent format
-    and FBCache at threshold 0.120 in the options."""
+    leaves in ``dtype`` (the device's compute dtype by default), requantized
+    per output column to W8A8 (``ggml.to_w8a8``) when
+    ``RuntimeConfig.w8a8`` resolves on for the device (on the GPU by
+    default), the RoPE basis permuted once for the fused attention (K3,
+    after the requant, as the JAX loader does), the QKNorm scales in f32
+    (the kernel's), ``ModelSamplingFlux``, the FLUX1 latent format and
+    FBCache at threshold 0.120 in the options."""
     dev = _config.resolve_device(device)
     dtype = dtype or _config.DtypePolicy.for_device(dev).compute_dtype
     p = ggml.to_device_quantized(params, dtype=dtype, device=dev)
+    del params  # so that to_w8a8 frees each Q8_0 leaf nothing else holds
     cfg = dataclasses.replace(cfg or flux_mod.detect_config(p), dtype=dtype,
                               fused_attn=True)
+    if _config.get_config().resolve_w8a8(dev):
+        p = ggml.to_w8a8(p)
     p = flux_mod.permute_rope_basis(p, cfg)
     for key in p:
         if key.endswith(("query_norm.scale", "key_norm.scale")):

@@ -1,16 +1,19 @@
 """Flux.1 DiT as plain functions over a flat param dict.
 
-Counterpart of lightdiffusion_next_tpu/models/flux.py in the configuration
-this port runs: unrolled blocks, Q8_0 weights (no W8A8, so no fused
-elementwise kernels) and the fused-prologue attention (K3,
+Counterpart of lightdiffusion_next_tpu/models/flux.py in the configurations
+this port runs: unrolled blocks, the fused-prologue attention (K3,
 ``ops.flash_attention.fused_qkv_attention``) with the params in the
-permuted half-split RoPE basis (``permute_rope_basis``). The same BFL
+permuted half-split RoPE basis (``permute_rope_basis``), and the matmul
+weights as Q8_0 (``QTensor8T``, K5) or W8A8 (``QTensor8W``, K7). On W8A8
+weights with ``RuntimeConfig.fused_ew`` on, the LayerNorm + modulation or
+the GELU before a matmul runs in its row quantization (K9, K10) and the
+bias, gate and residual in the matmul's epilogue (K11). The same BFL
 checkpoint keys ("double_blocks.0.img_attn.qkv.weight", ...), NHWC latent
 in and out, LayerNorm eps 1e-6, f32 norms.
 
 Not ported yet (ROADMAP Queue 1, item 9): the unfused attention path with
-``ops/rope.py``, the stacked scan layout (K6), W8A8 and the fused
-elementwise path (K7-K11), the tensor-parallel layouts, LoRA.
+``ops/rope.py``, the stacked scan layout (K6, K8), the tensor-parallel
+layouts, LoRA.
 """
 
 from __future__ import annotations
@@ -24,6 +27,7 @@ import torch
 from lightdiffusion_next_tpu_torch import config as _config
 from lightdiffusion_next_tpu_torch.ops import flash_attention as fa
 from lightdiffusion_next_tpu_torch.ops import ggml, nn
+from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
 from lightdiffusion_next_tpu_torch.sampling.schedules import timestep_embedding_flux
 
 
@@ -110,6 +114,9 @@ def permute_rope_basis(params: Dict, cfg: FluxConfig) -> Dict:
         if isinstance(leaf, ggml.QTensor8T):
             return ggml.QTensor8T(qt=take(leaf.qt, idx, 1),
                                   scales_t=take(leaf.scales_t, idx, 1), shape=leaf.shape)
+        if isinstance(leaf, ggml.QTensor8W):  # codes (N, K): output columns are rows
+            return ggml.QTensor8W(q=take(leaf.q, idx, 0),
+                                  col_scales=take(leaf.col_scales, idx, 1), shape=leaf.shape)
         if isinstance(leaf, ggml.QTensor8):
             return ggml.QTensor8(q=take(leaf.q, idx, 0), scales=take(leaf.scales, idx, 0),
                                  shape=leaf.shape)
@@ -157,14 +164,39 @@ def rope_cos_sin(ids, axes_dim, theta: int = 10000):
     return torch.cat([c, c], dim=-1).contiguous(), torch.cat([-s, s], dim=-1).contiguous()
 
 
+def _fused_ew(x) -> bool:
+    """Whether ``x``'s matmul takes the fused-elementwise W8A8 path
+    (``RuntimeConfig.fused_ew``, "auto": on the GPU)."""
+    return _config.get_config().resolve_fused_ew(x.device)
+
+
 def _mod_linear(p: nn.ParamView, key: str, x, scale, shift):
-    """layer_norm(x, 1e-6) * (1 + scale) + shift -> linear."""
+    """layer_norm(x, 1e-6) * (1 + scale) + shift -> linear; on the fused
+    W8A8 path the norm and modulation run in the row quantization (K9
+    "ln_mod") and the bias in K11's epilogue (``modulated_matmul`` returns
+    None where it does not apply, and the unfused ops run)."""
+    w = p(key + ".weight")
+    b = p.get(key + ".bias")
+    fm = getattr(w, "modulated_matmul", None) if _fused_ew(x) else None
+    if fm is not None:
+        y = fm(x, prologue="ln_mod", mod_scale=1.0 + scale.float(), mod_shift=shift,
+               bias=b)
+        if y is not None:
+            return y
     xm = nn.layer_norm(x, eps=1e-6) * (1 + scale) + shift
-    return nn.linear(xm, p(key + ".weight"), p.get(key + ".bias"))
+    return nn.linear(xm, w, b)
 
 
 def _gated_out_linear(x_res, h, w, b, gate, gelu: bool = False):
-    """x_res + gate * linear(gelu?(h), w, b)."""
+    """x_res + gate * linear(gelu?(h), w, b); on the fused W8A8 path the
+    GELU runs in the row quantization (K9) and the gate, bias and residual
+    in K11's epilogue."""
+    fm = getattr(w, "modulated_matmul", None) if _fused_ew(h) else None
+    if fm is not None:
+        y = fm(h, prologue="gelu" if gelu else "none", gate=gate, bias=b,
+               residual=x_res)
+        if y is not None:
+            return y
     if gelu:
         h = nn.gelu(h, approximate=True)
     return x_res + gate * nn.linear(h, w, b)
@@ -235,8 +267,19 @@ def _single_block(p: nn.ParamView, x, vec, pe, cfg: FluxConfig):
         num_heads=cfg.num_heads,
     )
     mlp = proj[..., 3 * hidden:]
-    out = nn.linear(torch.cat([attn, nn.gelu(mlp, approximate=True)], dim=-1),
-                    p("linear2.weight"), p("linear2.bias"))
+    w2, b2 = p("linear2.weight"), p("linear2.bias")
+    fm = getattr(w2, "modulated_matmul", None) if _fused_ew(x) else None
+    if fm is not None and qm.supported_rowquant(attn.shape[-1] + mlp.shape[-1]):
+        # K10 reads attn and the MLP window of the full linear1 projection
+        # (the qkv lanes are never read) and the concat is never built; the
+        # gate, bias and residual ride K11's epilogue. Where K11 declines (a
+        # batched gate), K10's launch was spent for nothing, as the JAX
+        # package traces it and drops it.
+        pq = qm.row_quantize_concat_gelu(attn, proj, 3 * hidden, proj.shape[-1])
+        y = fm(None, prequant=pq, gate=gate, bias=b2, residual=x)
+        if y is not None:
+            return y
+    out = nn.linear(torch.cat([attn, nn.gelu(mlp, approximate=True)], dim=-1), w2, b2)
     return x + gate * out
 
 

@@ -1,11 +1,13 @@
 """Build and load the port's hand-written CUDA kernels.
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
-shared library with a plain C interface and loaded with ``ctypes``. The
-build happens at first use, into ``build/kernels/`` at the repository root
-(listed in ``.gitignore``); the file name carries a hash of the sources and
-flags, so an edited kernel is rebuilt and a built one is reused. ``build()``
-starts one ``nvcc`` per source, all at once.
+shared library with a plain C interface and loaded with ``ctypes``; a source
+may export several kernels' entry points (``w8a8_matmul.cu``: K7 and K11;
+``row_quantize.cu``: K9 and K10). The build happens at first use, into
+``build/kernels/`` at the repository root (listed in ``.gitignore``); the
+file name carries a hash of the sources and flags, so an edited kernel is
+rebuilt and a built one is reused. ``build()`` starts one ``nvcc`` per
+source, all at once.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
@@ -49,7 +51,38 @@ _QUANT_MATMUL_ARGTYPES = (
     + [ctypes.c_void_p]              # stream
 )
 
-# library name -> (source file, exported C entry point, its argtypes)
+_W8A8_ARGTYPES = (
+    [ctypes.c_void_p] * 5            # xq, sx, q, cs, out
+    + [ctypes.c_int] * 3             # m, n, k
+    + [ctypes.c_longlong] * 2        # row strides of xq, q
+    + [ctypes.c_void_p]              # stream
+)
+
+_W8A8_EP_ARGTYPES = (
+    [ctypes.c_void_p] * 7            # xq, sx, q, cs, bias, residual, out
+    + [ctypes.c_int] * 3             # m, n, k
+    + [ctypes.c_longlong] * 3        # row strides of xq, q, residual
+    + [ctypes.c_void_p]              # stream
+)
+
+_ROW_QUANTIZE_ARGTYPES = (
+    [ctypes.c_void_p] * 5            # x, s, t, codes, sx
+    + [ctypes.c_int] * 2             # m, k
+    + [ctypes.c_longlong]            # row stride of x
+    + [ctypes.c_int] * 2             # prologue, center
+    + [ctypes.c_float] * 2           # eps, inv_qmax
+    + [ctypes.c_void_p]              # stream
+)
+
+_ROW_QUANTIZE_CONCAT_ARGTYPES = (
+    [ctypes.c_void_p] * 4            # a, b window, codes, sx
+    + [ctypes.c_int] * 3             # m, ka, kb
+    + [ctypes.c_longlong] * 2        # row strides of a, b
+    + [ctypes.c_int, ctypes.c_float]  # prologue of the window, inv_qmax
+    + [ctypes.c_void_p]              # stream
+)
+
+# kernel name -> (source file, exported C entry point, its argtypes)
 KERNELS = {
     "flash_attention": (
         "flash_attention.cu", "ldt_flash_attention_fwd", _FLASH_ARGTYPES,
@@ -64,6 +97,19 @@ KERNELS = {
     ),
     "quant_matmul": (
         "quant_matmul.cu", "ldt_quant_matmul_fwd", _QUANT_MATMUL_ARGTYPES,
+    ),
+    "w8a8_matmul": (
+        "w8a8_matmul.cu", "ldt_w8a8_matmul_fwd", _W8A8_ARGTYPES,
+    ),
+    "w8a8_matmul_ep": (
+        "w8a8_matmul.cu", "ldt_w8a8_matmul_ep_fwd", _W8A8_EP_ARGTYPES,
+    ),
+    "row_quantize_fused": (
+        "row_quantize.cu", "ldt_row_quantize_fwd", _ROW_QUANTIZE_ARGTYPES,
+    ),
+    "row_quantize_concat_gelu": (
+        "row_quantize.cu", "ldt_row_quantize_concat_fwd",
+        _ROW_QUANTIZE_CONCAT_ARGTYPES,
     ),
 }
 
@@ -86,43 +132,47 @@ def nvcc_path() -> str:
     return found
 
 
-def library_path(name: str) -> Path:
-    source = KERNELS[name][0]
+def _source_library(source: str) -> Path:
     digest = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
     for path in [CSRC / source] + sorted(CSRC.glob("*.cuh")):
         digest.update(path.read_bytes())
-    return BUILD_DIR / f"lib{name}-{digest.hexdigest()[:12]}.so"
+    return BUILD_DIR / f"lib{Path(source).stem}-{digest.hexdigest()[:12]}.so"
+
+
+def library_path(name: str) -> Path:
+    """The built library of kernel ``name``'s source."""
+    return _source_library(KERNELS[name][0])
 
 
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
-    """Compile every listed kernel that is not built yet, one ``nvcc`` per
-    source, started together. Returns per kernel its wall seconds and the
-    compiler's register/spill report (``-Xptxas -v``). Raises with the
-    compiler's output when a build fails."""
+    """Compile the sources of every listed kernel that are not built yet,
+    one ``nvcc`` per source, started together. Returns per source its wall
+    seconds and the compiler's register/spill report (``-Xptxas -v``).
+    Raises with the compiler's output when a build fails."""
     names = list(KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     report: Dict[str, dict] = {}
     running = {}
     t0 = time.perf_counter()
-    for name in names:
-        out = library_path(name)
+    for source in dict.fromkeys(KERNELS[name][0] for name in names):
+        out = _source_library(source)
         if out.exists():
-            report[name] = {"seconds": 0.0, "log": "cached", "path": str(out)}
+            report[source] = {"seconds": 0.0, "log": "cached", "path": str(out)}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
-               str(CSRC / KERNELS[name][0])]
-        running[name] = (subprocess.Popen(
+               str(CSRC / source)]
+        running[source] = (subprocess.Popen(
             cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True,
         ), tmp, out)
     failed = []
-    for name, (proc, tmp, out) in running.items():
+    for source, (proc, tmp, out) in running.items():
         log, _ = proc.communicate()
         if proc.returncode != 0:
-            failed.append(f"{name}:\n{log}")
+            failed.append(f"{source}:\n{log}")
             continue
         os.replace(tmp, out)
-        report[name] = {
+        report[source] = {
             "seconds": time.perf_counter() - t0, "log": log, "path": str(out),
         }
     if failed:

@@ -1,23 +1,27 @@
-"""GGUF reader and Q8_0 quantized weights.
+"""GGUF reader and quantized weights.
 
-Counterpart of lightdiffusion_next_tpu/ops/ggml.py, its Q8_0 part: the
-GGUF v2/v3 reader (``parse_gguf``, ``gguf_sd_loader``, the T5 key map of
-``gguf_clip_loader``), the ``QTensor8`` record (int8 codes (rows, nb, 32)
-and f32 scales (rows, nb), one scale per 32 elements along the input axis)
-and the ``QTensor8T`` matmul layout (codes transposed to (K, N), scales to
+Counterpart of lightdiffusion_next_tpu/ops/ggml.py, its single-device part:
+the GGUF v2/v3 reader (``parse_gguf``, ``gguf_sd_loader``, the T5 key map
+of ``gguf_clip_loader``), the ``QTensor8`` record (int8 codes (rows, nb, 32)
+and f32 scales (rows, nb), one scale per 32 elements along the input axis),
+the ``QTensor8T`` matmul layout (codes transposed to (K, N), scales to
 (K/32, N)) whose ``fused_matmul`` sends the shapes K5 takes to the kernel
-(``ops/quant_matmul.py``) and the rest to dequantize + ``torch.matmul``.
-Q8_0's 34-byte blocks (f16 scale, 32 int8 codes) are split in numpy.
+(``ops/quant_matmul.py``) and the rest to dequantize + ``torch.matmul``,
+and the W8A8 record ``QTensor8W`` (``to_w8a8``: int8 codes with one f32
+scale per output column) with K7 in ``fused_matmul`` and the fused
+K9/K10 + K11 path in ``modulated_matmul``. Q8_0's 34-byte blocks (f16
+scale, 32 int8 codes) are split in numpy.
 
 Leaves are torch tensors; a record's ``to`` moves both of its tensors.
-Not ported: ``QTensor8W`` and ``to_w8a8`` (W8A8), the stacked records of
-the scan layout, ``QTensorLoRA`` and ``write_gguf`` (the tests use the JAX
-package's writer).
+Not ported: the stacked records of the scan layout, the tensor-parallel
+flag, ``QTensorLoRA`` and ``write_gguf`` (the tests use the JAX package's
+writer).
 """
 
 from __future__ import annotations
 
 import dataclasses
+import math
 import mmap
 import struct
 from typing import Any, Dict, Tuple
@@ -160,8 +164,127 @@ class QTensor8T:
         return QTensor8T(self.qt.to(device), self.scales_t.to(device), self.shape)
 
 
+def _modulated_matmul_impl(q, col_scales, x, *, prologue="none", mod_scale=None,
+                           mod_shift=None, gate=None, bias=None, residual=None,
+                           out_dtype=None, prequant=None):
+    """The fused-elementwise W8A8 matmul (K9, then K11), or None when this
+    call cannot take it, as in the JAX package: a shape the kernels do not
+    take, or batched or mismatched modulation, gate or bias vectors (the
+    kernels fold them as one (1, K) or (1, N) row); the caller then runs the
+    unfused ops. ``q`` is the (N, K) codes, ``col_scales`` (1, N) f32;
+    ``prequant`` (codes, scales) replaces the row quantization of ``x``."""
+    n, k = q.shape
+    ref = x if prequant is None else prequant[0]
+    if not (qm.supported_w8a8(math.prod(ref.shape[:-1]), k, n)
+            and qm.supported_rowquant(k)):
+        return None
+
+    def _vec(v, size):
+        """(..., size) -> (1, size) f32, or None if batched or mismatched."""
+        if v is None:
+            return None
+        if math.prod(v.shape[:-1]) != 1 or v.shape[-1] != size:
+            return None
+        return v.float().reshape(1, size)
+
+    if prologue == "ln_mod":
+        mod_scale = _vec(mod_scale, k)
+        mod_shift = _vec(mod_shift, k)
+        if mod_scale is None or mod_shift is None:
+            return None
+    gate_v = _vec(gate, n)
+    if gate is not None and gate_v is None:
+        return None
+    bias_v = _vec(bias, n)
+    if bias is not None and bias_v is None:
+        return None
+
+    if prequant is None:
+        codes, sx = qm.row_quantize_fused(x, mod_scale, mod_shift, prologue=prologue)
+    else:
+        codes, sx = prequant
+        if codes.shape[-1] != k:
+            return None
+    cs_eff = col_scales.reshape(1, n)
+    b_eff = bias_v if bias_v is not None else torch.zeros(
+        (1, n), dtype=torch.float32, device=cs_eff.device)
+    if gate_v is not None:
+        cs_eff = cs_eff * gate_v
+        b_eff = b_eff * gate_v
+    out_dtype = out_dtype or (residual.dtype if residual is not None else ref.dtype)
+    if out_dtype == torch.int8:  # prequant codes as the dtype ref
+        out_dtype = torch.bfloat16
+    return qm.w8a8_matmul_ep(codes, sx, q, cs_eff, b_eff, residual=residual,
+                             out_dtype=out_dtype)
+
+
+@dataclasses.dataclass
+class QTensor8W:
+    """Per-output-column int8 weight of the W8A8 path (``to_w8a8``): codes
+    ``q`` int8 (N, K) and ``col_scales`` f32 (1, N); value = q * scale of
+    its column.
+
+    The codes are (N, K), K-contiguous: the JAX record's ``qt`` (K, N)
+    transposed. Hopper's int8 tensor-core instructions take both operands
+    K-major (``mma.sync`` m16n8k32 wants B K-contiguous per column, 8-bit
+    ``wgmma`` takes K-major operands only, and ``ldmatrix`` transposes only
+    16-bit elements), and ``torch._int_mm`` wants the same. ``dequantize``
+    returns the same logical (N, K) weight as the JAX record's."""
+
+    q: torch.Tensor
+    col_scales: torch.Tensor
+    shape: Tuple[int, ...]  # logical (out=N, in=K)
+
+    def dequantize(self, dtype=torch.bfloat16):
+        """The logical (N, K) weight in ``dtype``: f32(q) * scale, rounded
+        once."""
+        return (self.q.float() * self.col_scales.reshape(-1, 1)).to(dtype)
+
+    def fused_matmul(self, x, out_dtype=None):
+        """x (..., K) -> (..., N): K7 for the shapes it takes, otherwise
+        dequantize to x's dtype and ``torch.matmul``."""
+        n, k = self.q.shape
+        if qm.supported_w8a8(math.prod(x.shape[:-1]), k, n):
+            return qm.w8a8_matmul(x, self.q, self.col_scales, out_dtype)
+        return torch.matmul(x, self.dequantize(x.dtype).t())
+
+    def modulated_matmul(self, x, **kw):
+        """The fused-elementwise path (``_modulated_matmul_impl``); None
+        when the caller must run the unfused ops."""
+        return _modulated_matmul_impl(self.q, self.col_scales, x, **kw)
+
+    def to(self, device):
+        return QTensor8W(self.q.to(device), self.col_scales.to(device), self.shape)
+
+
 def is_quantized(x) -> bool:
-    return isinstance(x, (QTensor8, QTensor8T))
+    return isinstance(x, (QTensor8, QTensor8T, QTensor8W))
+
+
+def requant_col(t: QTensor8T) -> QTensor8W:
+    """A Q8_0 ``QTensor8T`` requantized per output column, on its device:
+    the weight dequantized in f32, ``cs = max(max_k |w|, 1e-12) * (1/127)``
+    per column, codes ``clip(round(w / cs), +-127)`` (the JAX package's
+    law), laid out (N, K)."""
+    w = qm.dequantize_t(t.qt, t.scales_t, torch.float32)
+    cs = torch.clamp(w.abs().amax(dim=0, keepdim=True), min=1e-12) * qm.INV_QMAX
+    codes = torch.clamp(torch.round(w / cs), -qm.QMAX, qm.QMAX).to(torch.int8)
+    del w
+    return QTensor8W(q=codes.t().contiguous(), col_scales=cs, shape=t.shape)
+
+
+def to_w8a8(params: Dict[str, Any]) -> Dict[str, Any]:
+    """Every ``QTensor8T`` leaf of a flat param dict as its per-column
+    ``QTensor8W``; embeddings (row-layout ``QTensor8``) and dense leaves pass
+    through. ``params`` is consumed: each leaf is taken out of it as it
+    converts, so the old codes are freed leaf by leaf (when nothing else
+    holds them) and the 12 GB of a Flux DiT's codes never exist twice."""
+    out = {}
+    for key in list(params):
+        leaf = params.pop(key)
+        out[key] = requant_col(leaf) if isinstance(leaf, QTensor8T) else leaf
+        del leaf
+    return out
 
 
 def quantize_q8_0(w: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -291,7 +414,8 @@ def to_device_quantized(sd: Dict[str, Any], dtype=torch.bfloat16, device=None,
                         embed_keys: Tuple[str, ...] = EMBED_KEYS) -> Dict[str, Any]:
     """Place a state dict on ``device``: 2-D Q8_0 matmul weights as
     ``QTensor8T``, Q8_0 embedding tables (``embed_keys``) and other Q8_0
-    leaves as row-layout ``QTensor8``, dense tensors cast to ``dtype``."""
+    leaves as row-layout ``QTensor8``, W8A8 records as they are, dense
+    tensors cast to ``dtype``."""
     out = {}
     for k, v in sd.items():
         if isinstance(v, QTensor8):
@@ -299,7 +423,7 @@ def to_device_quantized(sd: Dict[str, Any], dtype=torch.bfloat16, device=None,
                 out[k] = transpose_for_matmul(v.to(device))
             else:
                 out[k] = v.to(device)
-        elif isinstance(v, QTensor8T):
+        elif isinstance(v, (QTensor8T, QTensor8W)):
             out[k] = v.to(device)
         else:
             out[k] = torch.as_tensor(v).to(device=device, dtype=dtype)

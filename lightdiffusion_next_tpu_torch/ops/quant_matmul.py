@@ -1,20 +1,35 @@
-"""Q8_0 dequant-matmul: the hand-written CUDA kernel (K5) and its plain
-version.
+"""Quantized matmuls: the hand-written CUDA kernels and their plain
+versions.
 
-Counterpart of lightdiffusion_next_tpu/ops/quant_matmul.py, its Q8_0 part
-(``supported``, ``quant_matmul``). The weight is stored transposed, as
-there: codes ``qt`` int8 (K, N) and scales ``scales_t`` f32 (K/32, N), one
-scale per 32 consecutive K rows of a column. ``x`` (..., K) -> (..., N).
+Counterpart of lightdiffusion_next_tpu/ops/quant_matmul.py:
 
-The kernel (``csrc/quant_matmul.cu``) dequantizes each weight element as
-f32(q) * scale rounded to x's dtype (bf16), multiplies on the tensor cores
-and accumulates in f32, like the Pallas kernel. ``quant_matmul`` takes the
-plain version for a tensor on the CPU (the tests) and launches the kernel
-for a CUDA tensor, or raises; it counts its launches in
-``quant_matmul.launches``.
+- Q8_0 (``supported``, ``quant_matmul``, K5): the weight stored transposed,
+  as there: codes ``qt`` int8 (K, N) and scales ``scales_t`` f32 (K/32, N),
+  one scale per 32 consecutive K rows of a column. The kernel
+  (``csrc/quant_matmul.cu``) dequantizes each weight element as f32(q) *
+  scale rounded to x's dtype (bf16), multiplies on the tensor cores and
+  accumulates in f32, like the Pallas kernel.
+- W8A8 (``quantize_rows``, ``supported_w8a8``, ``w8a8_matmul``, K7): x is
+  row-quantized to int8 with one f32 scale per row, the weight holds int8
+  codes with one f32 scale per output column (``ggml.QTensor8W``), the
+  product is int8 x int8 with an exact int32 accumulator, and
+  ``o = (f32(acc) * sx) * cs``. The weight's codes are (N, K),
+  K-contiguous: the JAX record's ``qt`` transposed (``csrc/w8a8_matmul.cu``
+  says why).
+- The fused-elementwise W8A8 path (``supported_rowquant``,
+  ``row_quantize_fused`` K9, ``row_quantize_concat_gelu`` K10,
+  ``w8a8_matmul_ep`` K11): the LayerNorm + modulation or the GELU runs
+  inside the row quantization, and the bias, gate and residual inside the
+  matmul's epilogue (``csrc/row_quantize.cu``, ``csrc/w8a8_matmul.cu``).
 
-Not ported here: the stacked (K6), W8A8 (K7, K8) and fused-elementwise
-(K9-K11) kernels (ROADMAP Queue 2).
+Each wrapper takes the plain version for a tensor on the CPU (the tests)
+and launches its kernel for a CUDA tensor, or raises; it counts its
+launches in ``<wrapper>.launches``. K7's row quantization is K9's "none"
+law, so on the card ``w8a8_matmul`` launches K9 and then K7.
+
+Not ported here: the stacked operands of the scan layout (K6, K8, the
+stacked K11) (ROADMAP Queue 2), and the TPU's tile tables and VMEM
+estimators, which are not semantics.
 """
 
 from __future__ import annotations
@@ -100,3 +115,323 @@ def quant_matmul(x, qt, scales_t, out_dtype=None):
 
 
 quant_matmul.launches = 0
+
+
+# --------------------------------------------------------------------------
+# W8A8: row-quantized int8 activations times per-column int8 weights
+# --------------------------------------------------------------------------
+
+# The row-quantization law (quantize_rows): sx = max(absmax, 1e-12) * INV_QMAX
+# in f32, codes = clip(round_half_even(x / sx), -127, 127).
+INV_QMAX = 1.0 / 127.0
+QMAX = 127
+PROLOGUES = ("none", "gelu", "ln_mod")
+
+# The kernels against their plain versions. K7 and K11 compute the int32
+# accumulator exactly and the epilogue in the same order of rounded f32
+# operations, so their bf16 outputs are equal bit for bit; so are K9's codes
+# and scales with the "none" prologue. With "gelu" (tanhf against torch's
+# formula) and "ln_mod" (sums in another order, rsqrtf) a code can land on
+# the other side of a rounding boundary: every code within CODE_MAX_DIFF,
+# at most CODE_DIFF_SHARE of them different, scales within SCALE_REL.
+CODE_MAX_DIFF = 1
+CODE_DIFF_SHARE = 1e-3
+SCALE_REL = 1e-6
+
+
+def matmul_agreement(out, ref) -> dict:
+    """K7's or K11's output against its plain version's: equal bit for bit
+    (``ok``); the largest difference and the count of differing elements."""
+    diff = (out.float() - ref.float()).abs()
+    return {"max_abs_err": diff.max().item(), "tol": 0.0,
+            "max_abs_plain": ref.float().abs().max().item(),
+            "mismatches": int((out != ref).sum().item()), "ok": torch.equal(out, ref)}
+
+
+def codes_agreement(codes, sx, ref_codes, ref_sx, exact=False) -> dict:
+    """K9's or K10's codes and scales against the plain version's: equal
+    bit for bit with ``exact`` (the "none" prologue), otherwise within the
+    limits above."""
+    d = (codes.int() - ref_codes.int()).abs()
+    share = (d > 0).float().mean().item()
+    scale_rel = ((sx.float() - ref_sx.float()).abs() / ref_sx.float().abs()).max().item()
+    if exact:
+        ok = torch.equal(codes, ref_codes) and torch.equal(sx, ref_sx)
+    else:
+        ok = (d.max().item() <= CODE_MAX_DIFF and share <= CODE_DIFF_SHARE
+              and scale_rel <= SCALE_REL)
+    return {"max_abs_err": d.max().item(), "tol": 0 if exact else CODE_MAX_DIFF,
+            "code_diff_share": share, "code_diff_share_limit": 0.0 if exact else CODE_DIFF_SHARE,
+            "scale_rel_err": scale_rel, "scale_rel_limit": 0.0 if exact else SCALE_REL,
+            "ok": bool(ok)}
+
+
+def quantize_rows(x):
+    """Per-row symmetric int8 quantization of x (..., K): (codes int8
+    (..., K), scales f32 (..., 1)) with x ~= codes * scales."""
+    return _quantize_f32(x.float())
+
+
+def _quantize_f32(xf):
+    absmax = xf.abs().amax(dim=-1, keepdim=True)
+    sx = torch.clamp(absmax, min=1e-12) * INV_QMAX
+    codes = torch.clamp(torch.round(xf / sx), -QMAX, QMAX).to(torch.int8)
+    return codes, sx
+
+
+def supported_w8a8(m: int, k: int, n: int) -> bool:
+    """Shapes the W8A8 kernels take (the JAX package's gate): K and N in
+    128-multiples."""
+    return k % 128 == 0 and n % 128 == 0 and m >= 1
+
+
+def supported_rowquant(k: int) -> bool:
+    return k % 128 == 0
+
+
+def _epilogue_plain(xq, sx, q, cs, bias=None, residual=None, out_dtype=torch.bfloat16):
+    """The W8A8 matmul on codes, in plain PyTorch: the int32 accumulator
+    exactly (a float64 product of the codes: every partial sum is an integer
+    below 2^53), then in f32 ``(acc * sx) * cs``, ``+ bias``, or ``(residual
+    + (acc * sx) * cs) + bias``, each operation rounded."""
+    k = xq.shape[-1]
+    n = q.shape[0]
+    acc = torch.matmul(xq.reshape(-1, k).double(), q.double().t()).float()
+    o = acc * sx.reshape(-1, 1).float() * cs.reshape(1, n).float()
+    if residual is not None:
+        o = residual.reshape(-1, n).float() + o
+    if bias is not None:
+        o = o + bias.reshape(1, n).float()
+    return o.to(out_dtype).reshape(xq.shape[:-1] + (n,))
+
+
+def w8a8_matmul_plain(x, q, col_scales, out_dtype=None):
+    """Plain PyTorch version of ``w8a8_matmul``."""
+    codes, sx = quantize_rows(x)
+    return _epilogue_plain(codes, sx, q, col_scales, out_dtype=out_dtype or x.dtype)
+
+
+def _check_matmul_operands(xq, sx, q, cs):
+    if not (xq.is_cuda and sx.is_cuda and q.is_cuda and cs.is_cuda):
+        raise ValueError(f"w8a8 matmul: no kernel for device {xq.device}")
+    if xq.dtype != torch.int8 or q.dtype != torch.int8 or sx.dtype != torch.float32 \
+            or cs.dtype != torch.float32:
+        raise TypeError("w8a8 matmul: the kernel takes int8 codes and f32 scales")
+    m, k = xq.shape
+    n, kq = q.shape
+    if k != kq or sx.numel() != m or cs.numel() != n or not supported_w8a8(m, k, n):
+        raise ValueError(f"w8a8 matmul: shapes xq {tuple(xq.shape)}, q {tuple(q.shape)}")
+    if not (xq.is_contiguous() and q.is_contiguous() and sx.is_contiguous()
+            and cs.is_contiguous()) or xq.data_ptr() % 16 or q.data_ptr() % 16:
+        raise ValueError("w8a8 matmul: codes and scales must be contiguous, the codes "
+                         "16-byte aligned")
+
+
+def _launch_w8a8(xq, sx, q, cs, bias=None, residual=None, k=None, ep=False):
+    """Launch K7 (``ep=False``) or K11 on 2-D codes xq (M, K) and q (N, K).
+    ``k`` (default K) is the number of K bytes summed."""
+    _check_matmul_operands(xq, sx, q, cs)
+    m, kx = xq.shape
+    n = q.shape[0]
+    out = torch.empty((m, n), dtype=torch.bfloat16, device=xq.device)
+    stream = torch.cuda.current_stream(xq.device).cuda_stream
+    k = kx if k is None else k
+    if not ep:
+        name = "w8a8_matmul"
+        rc = cuda_build.entry_point(name)(
+            xq.data_ptr(), sx.data_ptr(), q.data_ptr(), cs.data_ptr(), out.data_ptr(),
+            m, n, k, kx, kx, stream)
+    else:
+        name = "w8a8_matmul_ep"
+        if bias is None or bias.dtype != torch.float32 or bias.numel() != n \
+                or not bias.is_contiguous():
+            raise ValueError("w8a8_matmul_ep: the kernel takes a contiguous f32 (N,) bias")
+        res_ptr, ldr = None, 0
+        if residual is not None:
+            if residual.dtype != torch.bfloat16 or residual.shape != (m, n) \
+                    or residual.stride(1) != 1 or residual.stride(0) % 2 \
+                    or residual.data_ptr() % 4:
+                raise ValueError("w8a8_matmul_ep: the residual must be bf16 (M, N) rows")
+            res_ptr, ldr = residual.data_ptr(), residual.stride(0)
+        rc = cuda_build.entry_point(name)(
+            xq.data_ptr(), sx.data_ptr(), q.data_ptr(), cs.data_ptr(), bias.data_ptr(),
+            res_ptr, out.data_ptr(), m, n, k, kx, kx, ldr, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel failed: " + cuda_build.error_string(name, rc))
+    return out
+
+
+def w8a8_matmul(x, q, col_scales, out_dtype=None):
+    """K7: x (..., K) float times the W8A8 weight (codes q (N, K) int8,
+    ``col_scales`` (1, N) f32) -> (..., N) in ``out_dtype`` (x's dtype). On
+    the GPU, bf16 in and out; x is row-quantized by K9 ("none") first."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return w8a8_matmul_plain(x, q, col_scales, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise TypeError("w8a8_matmul: the kernel writes bf16")
+    k = x.shape[-1]
+    codes, sx = row_quantize_fused(x)
+    out = _launch_w8a8(codes.reshape(-1, k), sx.reshape(-1), q, col_scales.reshape(-1))
+    w8a8_matmul.launches += 1
+    return out.reshape(x.shape[:-1] + (q.shape[0],))
+
+
+w8a8_matmul.launches = 0
+
+
+def w8a8_matmul_ep_plain(xq, sx, q, cs_eff, b_eff, residual=None, out_dtype=torch.bfloat16):
+    """Plain PyTorch version of K11 (``_epilogue_plain`` with the bias)."""
+    return _epilogue_plain(xq, sx, q, cs_eff, b_eff, residual, out_dtype)
+
+
+def w8a8_matmul_ep(xq, sx, q, cs_eff, b_eff, residual=None, out_dtype=torch.bfloat16):
+    """K11: prequantized xq (..., K) int8 with scales sx (..., 1) times the
+    W8A8 codes q (N, K) -> (..., N), epilogue ``(f32(acc) * sx) * cs_eff +
+    b_eff`` or ``(residual + (f32(acc) * sx) * cs_eff) + b_eff``. ``cs_eff``
+    and ``b_eff`` are (1, N) f32 with the gate folded in by the caller. The
+    stacked ``(q3, idx)`` operand of the scan layout is not ported."""
+    if isinstance(q, tuple):
+        raise NotImplementedError(
+            "the stacked W8A8 operand (scan layout) is not ported yet (ROADMAP "
+            "Queue 2, items 3 and 6)")
+    n, k = q.shape
+    if xq.device.type == "cpu":
+        return w8a8_matmul_ep_plain(xq, sx, q, cs_eff, b_eff, residual, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise TypeError("w8a8_matmul_ep: the kernel writes bf16")
+    res2 = None
+    if residual is not None:
+        res2 = residual.reshape(-1, n)
+        if res2.stride(1) != 1 or res2.stride(0) % 2 or res2.data_ptr() % 4:
+            res2 = res2.contiguous()
+    out = _launch_w8a8(xq.reshape(-1, k), sx.reshape(-1), q, cs_eff.reshape(-1),
+                       b_eff.reshape(-1), res2, ep=True)
+    w8a8_matmul_ep.launches += 1
+    return out.reshape(xq.shape[:-1] + (n,))
+
+
+w8a8_matmul_ep.launches = 0
+
+
+# --------------------------------------------------------------------------
+# Row quantization with a fused prologue (K9) and of [a ; gelu(b window)] (K10)
+# --------------------------------------------------------------------------
+
+
+def row_quantize_fused_plain(x, mod_scale=None, mod_shift=None, *, prologue="none",
+                             eps=1e-6):
+    """Plain PyTorch version of K9, in the JAX kernels' f32 operations."""
+    xf = x.float()
+    if prologue == "gelu":
+        xf = torch.nn.functional.gelu(xf, approximate="tanh")
+    elif prologue == "ln_mod":
+        k = xf.shape[-1]
+        mean = xf.mean(dim=-1, keepdim=True)
+        xc = xf - mean
+        var = (xc * xc).mean(dim=-1, keepdim=True)
+        xf = (xc * torch.rsqrt(var + eps) * mod_scale.float().reshape(k)
+              + mod_shift.float().reshape(k))
+    return _quantize_f32(xf)
+
+
+def _rows(x):
+    """x (..., K) as 2-D rows with unit column stride, 16-byte aligned rows."""
+    x2 = x.reshape(-1, x.shape[-1])
+    if x2.stride(1) != 1 or x2.stride(0) % 8 or x2.data_ptr() % 16:
+        x2 = x2.contiguous()
+    return x2
+
+
+def _launch_rowquant(x2, prologue, mod_scale, mod_shift, eps, center=1, inv_qmax=INV_QMAX):
+    """Launch K9 on 2-D rows; ``center`` and ``inv_qmax`` other than 1 and
+    1/127 plant a fault (for the checks)."""
+    if not x2.is_cuda:
+        raise ValueError(f"row_quantize_fused: no kernel for device {x2.device}")
+    if x2.dtype != torch.bfloat16:
+        raise TypeError("row_quantize_fused: the kernel takes bf16 x")
+    m, k = x2.shape
+    if not supported_rowquant(k):
+        raise ValueError(f"row_quantize_fused: K = {k} is not a multiple of 128")
+    s = t = None
+    if prologue == "ln_mod":
+        s = mod_scale.float().reshape(k).contiguous()
+        t = mod_shift.float().reshape(k).contiguous()
+    codes = torch.empty((m, k), dtype=torch.int8, device=x2.device)
+    sx = torch.empty((m, 1), dtype=torch.float32, device=x2.device)
+    rc = cuda_build.entry_point("row_quantize_fused")(
+        x2.data_ptr(), None if s is None else s.data_ptr(),
+        None if t is None else t.data_ptr(), codes.data_ptr(), sx.data_ptr(),
+        m, k, x2.stride(0), PROLOGUES.index(prologue), center, eps, inv_qmax,
+        torch.cuda.current_stream(x2.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("row_quantize_fused kernel failed: "
+                           + cuda_build.error_string("row_quantize_fused", rc))
+    return codes, sx
+
+
+def row_quantize_fused(x, mod_scale=None, mod_shift=None, *, prologue="none", eps=1e-6):
+    """K9: x (..., K) -> (codes int8 (..., K), scales f32 (..., 1)) with the
+    prologue ("none", "gelu" (tanh form) or "ln_mod") fused into the
+    quantization. For "ln_mod", ``mod_scale`` and ``mod_shift`` are (1, K)
+    f32 and the row is ``layer_norm(x, eps) * mod_scale + mod_shift`` (the
+    caller folds the +1 into the scale)."""
+    if prologue not in PROLOGUES:
+        raise ValueError(f"prologue must be one of {PROLOGUES}")
+    if x.device.type == "cpu":
+        return row_quantize_fused_plain(x, mod_scale, mod_shift, prologue=prologue, eps=eps)
+    k = x.shape[-1]
+    codes, sx = _launch_rowquant(_rows(x), prologue, mod_scale, mod_shift, eps)
+    row_quantize_fused.launches += 1
+    return codes.reshape(x.shape[:-1] + (k,)), sx.reshape(x.shape[:-1] + (1,))
+
+
+row_quantize_fused.launches = 0
+
+
+def row_quantize_concat_gelu_plain(a, b, b_lo, b_hi):
+    """Plain PyTorch version of K10 (it builds the concat)."""
+    bf = torch.nn.functional.gelu(b[..., b_lo:b_hi].float(), approximate="tanh")
+    return _quantize_f32(torch.cat([a.float(), bf], dim=-1))
+
+
+def _launch_concat(a2, b2, b_lo, b_hi, gelu=1):
+    """Launch K10 on 2-D rows; the window [b_lo, b_hi) of b2 is read through
+    b2's row stride. ``gelu=0`` plants a fault (for the checks)."""
+    if not (a2.is_cuda and b2.is_cuda):
+        raise ValueError(f"row_quantize_concat_gelu: no kernel for device {a2.device}")
+    if a2.dtype != torch.bfloat16 or b2.dtype != torch.bfloat16:
+        raise TypeError("row_quantize_concat_gelu: the kernel takes bf16 a and b")
+    m, ka = a2.shape
+    kb = b_hi - b_lo
+    if b2.shape[0] != m or not (0 <= b_lo < b_hi <= b2.shape[1]) \
+            or not supported_rowquant(ka + kb) or ka % 8 or b_lo % 8 or kb % 8:
+        raise ValueError(f"row_quantize_concat_gelu: shapes a {tuple(a2.shape)}, "
+                         f"b {tuple(b2.shape)}, window [{b_lo}, {b_hi})")
+    window = b2[:, b_lo:b_hi]
+    codes = torch.empty((m, ka + kb), dtype=torch.int8, device=a2.device)
+    sx = torch.empty((m, 1), dtype=torch.float32, device=a2.device)
+    rc = cuda_build.entry_point("row_quantize_concat_gelu")(
+        a2.data_ptr(), window.data_ptr(), codes.data_ptr(), sx.data_ptr(), m, ka, kb,
+        a2.stride(0), b2.stride(0), gelu, INV_QMAX,
+        torch.cuda.current_stream(a2.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("row_quantize_concat_gelu kernel failed: "
+                           + cuda_build.error_string("row_quantize_concat_gelu", rc))
+    return codes, sx
+
+
+def row_quantize_concat_gelu(a, b, b_lo: int, b_hi: int):
+    """K10: codes and scales of the rows ``[a ; gelu(b[..., b_lo:b_hi])]``
+    (the Flux single block's linear2 input: ``a`` the attention output, ``b``
+    the full linear1 projection whose MLP window is [b_lo, b_hi)); the
+    kernel reads only the window and never builds the concat."""
+    if a.device.type == "cpu":
+        return row_quantize_concat_gelu_plain(a, b, b_lo, b_hi)
+    lead = a.shape[:-1]
+    codes, sx = _launch_concat(_rows(a), _rows(b), b_lo, b_hi)
+    row_quantize_concat_gelu.launches += 1
+    return codes.reshape(lead + (codes.shape[-1],)), sx.reshape(lead + (1,))
+
+
+row_quantize_concat_gelu.launches = 0

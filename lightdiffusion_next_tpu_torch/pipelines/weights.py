@@ -4,7 +4,9 @@ The JAX package keeps a flat dict of numpy arrays keyed by checkpoint names,
 with conv kernels as HWIO. The port keeps the same keys with conv weights
 as OIHW. This holds for the UNet, the VAE, CLIP, T5 and the Flux DiT alike.
 The JAX package's Q8_0 records (``QTensor8``, ``QTensor8T``) become the
-port's, with the same layout: codes int8, scales f32.
+port's, with the same layout: codes int8, scales f32. Its W8A8 record
+(``QTensor8W``: codes (K, N), ``col_scales`` (1, N)) becomes the port's,
+whose codes are (N, K), K-contiguous.
 """
 
 from __future__ import annotations
@@ -22,12 +24,19 @@ def _tensor(x, dtype):
 
 
 def from_jax(params_np: Dict) -> Dict:
-    """JAX-layout params -> the port's: 4-D HWIO -> OIHW, Q8_0 records as
-    the port's records (matched by their fields, so this module needs no
+    """JAX-layout params -> the port's: 4-D HWIO -> OIHW, Q8_0 and W8A8
+    records as the port's records (matched by their fields, so this module needs no
     JAX), the rest as is (f32 CPU tensors; the model constructors cast and
     place them)."""
     out = {}
     for key, value in params_np.items():
+        if hasattr(value, "qt") and hasattr(value, "col_scales"):
+            # W8A8: the JAX record's codes are (K, N); the port's (N, K)
+            q = np.ascontiguousarray(np.asarray(value.qt, np.int8).T)
+            out[key] = ggml.QTensor8W(q=torch.from_numpy(q),
+                                      col_scales=_tensor(value.col_scales, np.float32),
+                                      shape=tuple(value.shape))
+            continue
         if hasattr(value, "qt") and hasattr(value, "scales_t"):
             out[key] = ggml.QTensor8T(qt=_tensor(value.qt, np.int8),
                                       scales_t=_tensor(value.scales_t, np.float32),

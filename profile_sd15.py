@@ -3,11 +3,12 @@
 NVIDIA GPU.
 
     python3 profile_sd15.py            # SD1.5
-    python3 profile_sd15.py --flux     # Flux.1-dev
+    python3 profile_sd15.py --flux     # Flux.1-dev, W8A8 DiT (the card's default)
 
 Builds the same full-width models from seeded random weights as
-``chip_smoke.py`` (SD1.5: UNet, VAE, CLIP-L; Flux: the Q8_0 DiT and T5-XXL,
-CLIP-L, the AE), runs the pipeline at 1024^2 once to warm up, then once more
+``chip_smoke.py`` (SD1.5: UNet, VAE, CLIP-L; Flux: the DiT requantized to
+W8A8 from its seeded Q8_0 weights, with the fused elementwise path, the Q8_0
+T5-XXL, CLIP-L, the AE), runs the pipeline at 1024^2 once to warm up, then once more
 under ``torch.profiler``. Prints, for that profiled call: its wall time, the
 device's busy time (the sum of its kernels' device time) and idle share
 (1 - busy / wall: profiling slows the host, so this share is the profiled
@@ -35,7 +36,15 @@ def kernel_category(name: str) -> str:
     if "norm_rope_k_kernel" in name or ("flash_fwd_kernel" in name and "true>" in name):
         return "K3 fused_qkv_attention (Flux)"
     if "quant_matmul_kernel" in name:
-        return "K5 quant_matmul (Flux, T5)"
+        return "K5 quant_matmul (Flux Q8_0, T5)"
+    if "w8a8_matmul_kernel" in name:
+        # template <BM, MODE>: MODE 0 is K7's plain epilogue, 1 and 2 K11's
+        return ("K7 w8a8_matmul (Flux W8A8, fused_ew off)" if ", 0>" in name
+                else "K11 w8a8_matmul_ep (Flux W8A8)")
+    if "row_quantize_kernel<true>" in name:
+        return "K10 row_quantize_concat_gelu (Flux W8A8)"
+    if "row_quantize_kernel" in name:
+        return "K9 row_quantize_fused (Flux W8A8)"
     if "flash_fwd_kernel" in name:
         return "K2 flash_attention (UNet d=80, 160)"
     if "fprop" in name:
@@ -70,7 +79,7 @@ def main(top: int = 12, flux: bool = False) -> int:
     config.resolve_device("cuda")
     print("gpu:", chip_smoke.gpu_line(), flush=True)
     if flux:
-        models, run = chip_smoke.build_flux_models(), chip_smoke.run_flux_pipeline
+        models, run = chip_smoke.build_flux_models(w8a8=True), chip_smoke.run_flux_pipeline
     else:
         models, run = chip_smoke.build_models(), chip_smoke.run_pipeline
     warm = run(models, 1234)

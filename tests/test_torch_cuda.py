@@ -239,3 +239,147 @@ def test_new_kernels_refuse_what_they_do_not_take(cuda):
         fa.fused_qkv_attention(qkv, one, one, cs, cs, num_heads=2)  # width < 3*H*128
     with pytest.raises(TypeError):
         fa.fused_qkv_attention(qkv.float(), one, one, cs, cs, num_heads=1)
+
+
+# --- W8A8: K7, K9, K10, K11 -------------------------------------------------
+# K7 and K11 are held to their plain versions bit for bit, as is K9 with the
+# "none" prologue; K9 "gelu" / "ln_mod" and K10 to the code limits stated in
+# ops/quant_matmul.py (``codes_agreement``).
+
+
+def _w8_weight(k, n, gen):
+    return ggml.to_w8a8({"w": _q8_weight(k, n, gen)})["w"]
+
+
+def _activations(m, k, gen):
+    """bf16 rows with a mean of their own, as the DiT's activations have."""
+    x = 2 * torch.randn((m, k), generator=gen, device="cuda")
+    return (x + torch.randn((m, 1), generator=gen, device="cuda")).bfloat16()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,mode", [
+    (4352, 3072, 21504, "bias"),       # single block linear1
+    (4352, 15360, 3072, "residual"),   # single block linear2, the deepest K
+    (256, 12288, 3072, "residual"),    # txt mlp.2: few row tiles
+    (1000, 3072, 3072, "k7"),          # ragged M through K9 + K7
+    (1, 3072, 9216, "k7"),             # one row
+    (1281, 3072, 9216, "bias"),        # ragged M
+])
+def test_w8a8_matmuls_match_plain(cuda, m, k, n, mode):
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    w = _w8_weight(k, n, gen)
+    x = _activations(m, k, gen)
+    if mode == "k7":
+        before = (qm.w8a8_matmul.launches, qm.row_quantize_fused.launches)
+        out = qm.w8a8_matmul(x, w.q, w.col_scales)
+        torch.cuda.synchronize()
+        assert (qm.w8a8_matmul.launches, qm.row_quantize_fused.launches) == (
+            before[0] + 1, before[1] + 1)
+        ref = qm.w8a8_matmul_plain(x, w.q, w.col_scales)
+    else:
+        xq, sx = qm.row_quantize_fused(x)
+        gate = torch.randn((1, n), generator=gen, device="cuda")
+        cs, b = w.col_scales * gate, 0.1 * torch.randn((1, n), generator=gen, device="cuda") * gate
+        r = _activations(m, n, gen) if mode == "residual" else None
+        launches = qm.w8a8_matmul_ep.launches
+        out = qm.w8a8_matmul_ep(xq, sx, w.q, cs, b, residual=r)
+        torch.cuda.synchronize()
+        assert qm.w8a8_matmul_ep.launches == launches + 1
+        ref = qm.w8a8_matmul_ep_plain(xq, sx, w.q, cs, b, residual=r)
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    check = qm.matmul_agreement(out, ref)
+    assert check["ok"], check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("ep", [False, True])
+def test_w8a8_matmul_planted_faults_fail_the_check(cuda, ep):
+    """The last K tile of 128 skipped, and every column scaled by its
+    neighbour's scale: both fail the check, at the deepest K."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    m, k, n = 4352, 15360, 3072
+    w = _w8_weight(k, n, gen)
+    xq, sx = qm.row_quantize_fused(_activations(m, k, gen))
+    cs = w.col_scales.reshape(-1).contiguous()
+    kw = {}
+    if ep:
+        kw = dict(bias=0.1 * torch.randn((n,), generator=gen, device="cuda"),
+                  residual=_activations(m, n, gen), ep=True)
+    ref = qm._epilogue_plain(xq, sx, w.q, cs, kw.get("bias"), kw.get("residual"))
+    assert qm.matmul_agreement(qm._launch_w8a8(xq, sx.reshape(-1), w.q, cs, **kw), ref)["ok"]
+    skipped = qm._launch_w8a8(xq, sx.reshape(-1), w.q, cs, k=k - 128, **kw)
+    assert not qm.matmul_agreement(skipped, ref)["ok"]
+    rolled = torch.roll(cs, -1).contiguous()
+    assert not qm.matmul_agreement(qm._launch_w8a8(xq, sx.reshape(-1), w.q, rolled, **kw),
+                                   ref)["ok"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prologue,m,k", [
+    ("ln_mod", 4352, 3072), ("none", 4096, 3072), ("gelu", 1024, 12288),
+    ("ln_mod", 1000, 3072), ("gelu", 1, 12288), ("none", 4352, 15360)])
+def test_row_quantize_matches_plain(cuda, prologue, m, k):
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    x = _activations(m, k, gen)
+    s = 1 + 0.2 * torch.randn((1, k), generator=gen, device="cuda")
+    t = 0.1 * torch.randn((1, k), generator=gen, device="cuda")
+    launches = qm.row_quantize_fused.launches
+    codes, sx = qm.row_quantize_fused(x, s, t, prologue=prologue)
+    torch.cuda.synchronize()
+    assert qm.row_quantize_fused.launches == launches + 1
+    assert codes.shape == (m, k) and codes.dtype == torch.int8 and sx.shape == (m, 1)
+    ref = qm.row_quantize_fused_plain(x, s, t, prologue=prologue)
+    check = qm.codes_agreement(codes, sx, *ref, exact=prologue == "none")
+    assert check["ok"], check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m", [4352, 1281])
+def test_row_quantize_concat_gelu_matches_plain(cuda, m):
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    a, b = _activations(m, 3072, gen), _activations(m, 21504, gen)
+    launches = qm.row_quantize_concat_gelu.launches
+    codes, sx = qm.row_quantize_concat_gelu(a, b, 9216, 21504)
+    torch.cuda.synchronize()
+    assert qm.row_quantize_concat_gelu.launches == launches + 1
+    assert codes.shape == (m, 15360)
+    check = qm.codes_agreement(codes, sx, *qm.row_quantize_concat_gelu_plain(a, b, 9216, 21504))
+    assert check["ok"], check
+
+
+@pytest.mark.cuda
+def test_row_quantize_planted_faults_fail_the_check(cuda):
+    """K9: LayerNorm without the mean subtracted, and a scale of absmax /
+    128; K10: the window shifted by 128 lanes, and the GELU dropped."""
+    gen = torch.Generator(device="cuda").manual_seed(12)
+    m, k = 4352, 3072
+    x = _activations(m, k, gen)
+    s = 1 + 0.2 * torch.randn((1, k), generator=gen, device="cuda")
+    t = 0.1 * torch.randn((1, k), generator=gen, device="cuda")
+    ref = qm.row_quantize_fused_plain(x, s, t, prologue="ln_mod")
+    assert qm.codes_agreement(*qm._launch_rowquant(x, "ln_mod", s, t, 1e-6), *ref)["ok"]
+    for fault in (dict(center=0), dict(inv_qmax=1.0 / 128)):
+        bad = qm._launch_rowquant(x, "ln_mod", s, t, 1e-6, **fault)
+        assert not qm.codes_agreement(*bad, *ref)["ok"], fault
+    a, b = _activations(m, 3072, gen), _activations(m, 21504, gen)
+    ref = qm.row_quantize_concat_gelu_plain(a, b, 9216, 21504)
+    assert qm.codes_agreement(*qm._launch_concat(a, b, 9216, 21504), *ref)["ok"]
+    assert not qm.codes_agreement(*qm._launch_concat(a, b, 9216 - 128, 21504 - 128), *ref)["ok"]
+    assert not qm.codes_agreement(*qm._launch_concat(a, b, 9216, 21504, gelu=0), *ref)["ok"]
+
+
+@pytest.mark.cuda
+def test_w8a8_kernels_refuse_what_they_do_not_take(cuda):
+    xq = torch.zeros((8, 192), dtype=torch.int8, device="cuda")
+    q = torch.zeros((128, 192), dtype=torch.int8, device="cuda")
+    ones = torch.ones((128,), device="cuda")
+    with pytest.raises(ValueError):
+        qm._launch_w8a8(xq, torch.ones((8,), device="cuda"), q, ones)  # K % 128
+    with pytest.raises(TypeError):
+        qm.row_quantize_fused(torch.zeros((8, 256), device="cuda"))  # f32 x
+    with pytest.raises(ValueError):
+        qm.row_quantize_fused(torch.zeros((8, 200), device="cuda", dtype=torch.bfloat16))
+    with pytest.raises(TypeError):
+        qm.w8a8_matmul(torch.zeros((8, 256), device="cuda", dtype=torch.bfloat16),
+                       q[:, :128].repeat(1, 2).contiguous(), ones, out_dtype=torch.float32)

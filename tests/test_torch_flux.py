@@ -84,10 +84,12 @@ def _flux_params(seed):
     return cfg, params
 
 
-def _jax_flux(path, cfg):
+def _jax_flux(path, cfg, w8a8=False):
     """The JAX package's unrolled fused-attention Flux on Q8_0 weights read
-    from ``path``, f32 compute."""
+    from ``path`` (requantized to W8A8 with ``w8a8``), f32 compute."""
     sd = jggml.to_device_quantized(jggml.gguf_sd_loader(path), dtype=jnp.float32)
+    if w8a8:
+        sd = jggml.to_w8a8(sd)
     cfg = dataclasses.replace(cfg, fused_attn=True)
     return jflux.permute_rope_basis(sd, cfg), cfg
 
@@ -309,6 +311,15 @@ def test_flux_slice_matches_jax_composition(tmp_path, monkeypatch):
     seeded params, against the JAX package's functions composed as its
     _flux_txt2img: same tokens, same conditioning, the same FBCache hits
     and misses, the final latent within 1e-3 and the image within 1 level."""
+    run_flux_slice_against_jax(tmp_path, monkeypatch)
+
+
+def run_flux_slice_against_jax(tmp_path, monkeypatch, w8a8=False, latent_tol=1e-3):
+    """The whole tiny Flux slice through the port's ``pipeline`` and through
+    the JAX package's functions; ``w8a8``: the DiT requantized to W8A8 in
+    both packages (``to_w8a8`` before the RoPE permutation, as the JAX
+    loader does), the run under each package's current ``RuntimeConfig``.
+    The final latent is held to ``latent_tol`` (relative RMS error)."""
     prompt = "a castle on a hill, ﬁne détails"
     cfg, fparams = _flux_params(7)
     fpath = _write_flux_gguf(tmp_path, fparams)
@@ -341,6 +352,7 @@ def test_flux_slice_matches_jax_composition(tmp_path, monkeypatch):
     fb_cfg = tfb.FBCacheConfig(0.5)
     model = tbase.flux_model(tggml.gguf_sd_loader(fpath), cfg=tflux.FluxConfig(**TINY),
                              device="cpu").with_options(fbcache=fb_cfg)
+    assert isinstance(model.params["single_blocks.0.linear1.weight"], tggml.QTensor8W) == w8a8
     t5 = tt5.T5XXLModel(tggml.gguf_clip_loader(t5path), device="cpu")
     clip = tte.SDClipModel(from_jax(clip_p), num_layers=2, heads=4, device="cpu")
     vcfg_t = tvae.VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1, z_channels=16,
@@ -357,7 +369,7 @@ def test_flux_slice_matches_jax_composition(tmp_path, monkeypatch):
     assert "Flux" in paths[0] and os.path.basename(paths[0]) == "LD_00001_.png"
 
     # --- the JAX package's functions, composed as its _flux_txt2img
-    jp, jcfg = _jax_flux(fpath, cfg)
+    jp, jcfg = _jax_flux(fpath, cfg, w8a8=w8a8)
     t5sd = jggml.to_device_quantized(jggml.gguf_clip_loader(t5path), dtype=jnp.float32)
     jt5m = jt5.T5XXLModel(t5sd, cfg=jt5.detect_config(t5sd), compute_dtype=jnp.float32)
     jclip = jte.SDClipModel(clip_p, heads=4)
@@ -399,7 +411,7 @@ def test_flux_slice_matches_jax_composition(tmp_path, monkeypatch):
 
     assert port_hits == jax_hits
     assert any(port_hits) and not all(port_hits)
-    assert _rel_rmse(latents[-1].numpy(), res.raw) <= 1e-3
+    assert _rel_rmse(latents[-1].numpy(), res.raw) <= latent_tol
     port_img = _read_png(paths[0])
     assert port_img.shape == jimg.shape
     diff = np.abs(port_img.astype(np.int32) - jimg.astype(np.int32))

@@ -50,12 +50,37 @@ Phases, in order; any failure exits non-zero:
    launch counters checked against the W8A8 plan (K9, K10, K11 with the
    fused elementwise path, K5 for T5, K3, K2), a timed run, and one missed
    DiT call with ``fused_ew`` on and one with it off (K9 "none" and K7 on
-   every matmul, counted).
+   every matmul, counted);
+12. SD1.5 int8 attention kernel: K4 at every shape the SD1.5 path gives K1
+   and K2 in the UNet, and one ragged shape, against its plain version,
+   with two planted faults, timed beside the plain version and
+   ``scaled_dot_product_attention``;
+13. SD1.5 sage pipeline: phase 5's models with ``RuntimeConfig(
+   sage_attention=True)``, the same pipeline call with the launches checked
+   (every UNet K1 and K2 call on K4; the VAE's K2), the image checked, its
+   final latent against phase 5's logged, then a timed run;
+14. stacked kernels: K6 at the Q8_0 DiT's and T5's shapes, K8 and the
+   stacked K11 at the W8A8 DiT's, on stacks of the real depths (19, 38,
+   24), each at its first and last block (the 2.5 GB linear1 stack's last
+   block lies past 2^31 bytes), against its plain version and bit for bit
+   against the unstacked kernel on a copy of the block, with two planted
+   faults (the neighbouring block, the last K tile skipped), timed beside
+   the plain version and the library yardstick; and the stacked requant
+   against the unstacked one;
+15. W8A8 Flux scan pipeline: the phase 11 DiT and T5 stacked in place into
+   the scan layout (the port's default on the card), the same pipeline call
+   with the launches checked against the scan plan (the stacked K11, K9,
+   K10, K6 for T5, K3, K2; no K5, K7, K8 or unstacked K11), its final latent
+   and one missed DiT call with ``fused_ew`` on and off (K8 and K9 on every
+   matmul) held bit for bit to phase 11's, a timed run.
+
+Phases 5 to 11 pin ``RuntimeConfig(flux_scan=False)``, so their launch plans
+are the unrolled layout's.
 
 Prints one ``{"kernels": [...]}`` JSON line (``ms``: the kernel's time per
 image, summed over its main-path shapes and over the paths it runs on; K7's
-path is one missed DiT call with ``fused_ew`` off), the card's name and
-power limit, and as its last line ``{"ok": true, "device": {...}}``.
+and K8's paths are one missed DiT call with ``fused_ew`` off), the card's
+name and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX. Needs one CUDA device; exits non-zero without one.
 """
 
@@ -91,6 +116,8 @@ PLANTED_FAULTS = ("q scale without LOG2E", "last kv tile of 64 rows skipped")
 Q8_FAULTS = ("last K tile of 64 rows skipped", "neighbouring 32-block's scale row")
 FUSED_FAULTS = ("last kv tile of 64 rows skipped", "RoPE sine's sign flipped")
 W8A8_FAULTS = ("last K tile of 128 skipped", "neighbouring column's scale")
+STACK_FAULTS = ("neighbouring block of the stack", "last K tile skipped")
+SAGE_FAULTS = ("last kv tile of 64 skipped", "sk not applied")
 ROWQ_FAULTS = {"ln_mod": "LayerNorm without the mean subtracted",
                "none": "GELU applied", "gelu": "GELU dropped"}
 ROWQ_SCALE_FAULT = "scale of absmax/128"
@@ -100,6 +127,14 @@ TOL_UNET_REL_RMSE = 5e-2
 # rel RMSE of a bf16 Flux block through the kernels against the same block
 # in f32 through the plain versions
 TOL_FLUX_BLOCK_REL_RMSE = 5e-2
+# rel RMSE of the scan layout's outputs against the unrolled layout's at the
+# same seed (bit for bit expected and logged; this limit catches a wrong
+# block, which moves them by O(1))
+TOL_SCAN_REL_RMSE = 1e-2
+# device memory the in-place stacking may take above the unrolled models:
+# one family's stack at a time (the largest, linear1's, is 2.3 GiB), not a
+# second copy of the 12 GB of codes
+TOL_STACK_PEAK_GIB = 3.0
 
 KERNELS = {
     "packed_flash_attention": {
@@ -142,7 +177,31 @@ KERNELS = {
         "source": "lightdiffusion_next_tpu_torch/csrc/w8a8_matmul.cu",
         "replaces": "lightdiffusion_next_tpu/ops/quant_matmul.py:1155",
     },
+    "sage_attention": {
+        "route": "cuda",
+        "source": "lightdiffusion_next_tpu_torch/csrc/sage_attention.cu",
+        "replaces": "lightdiffusion_next_tpu/ops/sage_attention.py:152",
+    },
+    "quant_matmul_stacked": {
+        "route": "cuda",
+        "source": "lightdiffusion_next_tpu_torch/csrc/quant_matmul.cu",
+        "replaces": "lightdiffusion_next_tpu/ops/quant_matmul.py:447",
+    },
+    "w8a8_matmul_stacked": {
+        "route": "cuda",
+        "source": "lightdiffusion_next_tpu_torch/csrc/w8a8_matmul.cu",
+        "replaces": "lightdiffusion_next_tpu/ops/quant_matmul.py:742",
+    },
+    "w8a8_matmul_ep_stacked": {
+        "route": "cuda",
+        "source": "lightdiffusion_next_tpu_torch/csrc/w8a8_matmul.cu",
+        "replaces": "lightdiffusion_next_tpu/ops/quant_matmul.py:1284",
+    },
 }
+
+# The kernel names of the scan layout's stacked operands
+STACKED_NAMES = {"quant_matmul": "quant_matmul_stacked", "w8a8_matmul": "w8a8_matmul_stacked",
+                 "w8a8_matmul_ep": "w8a8_matmul_ep_stacked"}
 
 
 def log(*args):
@@ -161,11 +220,11 @@ def gpu_line() -> str:
 # --------------------------------------------------------------------------
 
 
-def attention_calls(width=1024, height=1024, batch=1, steps=20):
+def attention_calls(width=1024, height=1024, batch=1, steps=20, sage=False):
     """{(kernel, B, H, L, D, dtype): calls per image} for the pipeline's
     SD1.5 txt2img at width x height: 20 karras steps, the default
     multi-scale plan, MSW-MSA with its sigma gate, CFG batch 2, the VAE's
-    mid-block attention."""
+    mid-block attention. ``sage``: the UNet's calls go to K4."""
     import torch
 
     from lightdiffusion_next_tpu_torch import config
@@ -202,6 +261,8 @@ def attention_calls(width=1024, height=1024, batch=1, steps=20):
             if tokens >= 512 and d <= 512:
                 name = "packed_flash_attention" if packed and fa.pack_group(d) >= 2 \
                     else "flash_attention"
+                if sage:
+                    name = "sage_attention"
                 add((name, b, heads, tokens, d, "bf16"), depth)
     add(("flash_attention", batch, 1, lh * lw, 512, "f32"))
     return calls
@@ -274,13 +335,29 @@ def _adder(calls):
     return add
 
 
-def flux_calls(hits=0, misses=20, dy_calls=2, w8a8=False):
+def stacked(calls):
+    """``calls`` in the scan layout: every quantized matmul on its stacked
+    kernel (K6, K8, the stacked K11)."""
+    return {(STACKED_NAMES.get(key[0], key[0]),) + key[1:]: n for key, n in calls.items()}
+
+
+def stack_depth(k, n):
+    """The depth of the stack a (K, N) weight lies in: T5's 24 blocks, the 38
+    single blocks' linear1 and linear2, the 19 double blocks'."""
+    if k in (4096, 10240):
+        return 24
+    return 38 if (k, n) in (LINEAR1, LINEAR2) else 19
+
+
+def flux_calls(hits=0, misses=20, dy_calls=2, w8a8=False, scan=False):
     """{(kernel, *shape): calls per image} for the Flux path at 1024^2:
     ``misses`` full-res DiT calls that run every block, ``hits`` that FBCache
     serves after double block 0 (8 matmuls and 1 K3 launch), ``dy_calls``
     half-res calls (always misses), the T5-XXL encode (24 layers x 7 K5) and
     the AE decode (one K2 call). ``w8a8``: the DiT on W8A8 weights with the
-    fused elementwise path."""
+    fused elementwise path; ``scan``: the DiT and T5 in the scan layout."""
+    if scan:
+        return stacked(flux_calls(hits, misses, dy_calls, w8a8))
     calls = {}
     add = _adder(calls)
     flux_dit_calls(4096, add, misses, w8a8)
@@ -298,12 +375,12 @@ def flux_calls(hits=0, misses=20, dy_calls=2, w8a8=False):
     return calls
 
 
-def unfused_dit_calls():
+def unfused_dit_calls(scan=False):
     """Kernel calls of one missed W8A8 DiT call at 1024^2 with ``fused_ew``
-    off: K9 "none" and K7 on each of the 228 matmuls, K3."""
+    off: K9 "none" and K7 (``scan``: K8) on each of the 228 matmuls, K3."""
     calls = {}
     flux_dit_calls(4096, _adder(calls), 1, w8a8=True, fused_ew=False)
-    return calls
+    return stacked(calls) if scan else calls
 
 
 # --------------------------------------------------------------------------
@@ -572,6 +649,7 @@ def run_pipeline(models, seed):
 def kernel_wrappers():
     from lightdiffusion_next_tpu_torch.ops import flash_attention as fa
     from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
+    from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
 
     return {"packed_flash_attention": fa.packed_flash_attention,
             "flash_attention": fa.flash_attention,
@@ -580,7 +658,11 @@ def kernel_wrappers():
             "w8a8_matmul": qm.w8a8_matmul,
             "row_quantize_fused": qm.row_quantize_fused,
             "row_quantize_concat_gelu": qm.row_quantize_concat_gelu,
-            "w8a8_matmul_ep": qm.w8a8_matmul_ep}
+            "w8a8_matmul_ep": qm.w8a8_matmul_ep,
+            "sage_attention": sa.sage_attention,
+            "quant_matmul_stacked": qm.quant_matmul_stacked,
+            "w8a8_matmul_stacked": qm.w8a8_matmul_stacked,
+            "w8a8_matmul_ep_stacked": qm.w8a8_matmul_ep_stacked}
 
 
 def reset_launches():
@@ -592,57 +674,157 @@ def read_launches():
     return {name: fn.launches for name, fn in kernel_wrappers().items()}
 
 
-def phase_pipeline(calls):
+def check_sd15_output(run, model, vae, label):
+    """What came out of an SD1.5 pipeline call: a finite latent of the right
+    shape, finite pixels that are not all one value, and the PNG holding
+    exactly those pixels at 1024 x 1024 x 3."""
     import numpy as np
     import torch
 
     from lightdiffusion_next_tpu_torch.utils import image as image_utils
 
-    models = build_models()
-    model, vae, _ = models
-    reset_launches()
-    first = run_pipeline(models, 1234)
-    launches = read_launches()
-    predicted = predicted_launches(calls)
-    ok = True
-    for name in KERNELS:
-        good = launches[name] == predicted[name] and (launches[name] > 0 or name not in (
-            "packed_flash_attention", "flash_attention"))
-        ok = ok and good
-        log(f"launches SD1.5 {name}: {launches[name]} (plan predicts {predicted[name]}) "
-            f"{'ok' if good else 'FAIL'}")
-
-    # what came out: finite latent of the right shape, finite pixels, and the
-    # PNG holding exactly those pixels at 1024 x 1024 x 3
-    x = first["last"]["x"]
+    x = run["last"]["x"]
     latent_ok = tuple(x.shape) == (1, 128, 128, 4) and bool(torch.isfinite(x).all())
     with torch.no_grad():
         pixels = vae.decode(model.latent_format.process_out(x))
-    pixels_ok = bool(torch.isfinite(pixels).all())
-    png = read_png(first["paths"][0])
+    pixels_ok = bool(torch.isfinite(pixels).all()) and float(pixels.std()) > 0
+    png = read_png(run["paths"][0])
     png_ok = png.shape == (1024, 1024, 3) and np.array_equal(
         png, image_utils.to_uint8(pixels.cpu().numpy())[0])
-    log(f"output: latent {tuple(x.shape)} finite={latent_ok}, pixels finite="
-        f"{pixels_ok}, png {png.shape} matches decode={png_ok}, "
+    log(f"{label} output: latent {tuple(x.shape)} finite={latent_ok}, pixels finite and "
+        f"not constant={pixels_ok}, png {png.shape} matches decode={png_ok}, "
         f"pixel mean {png.mean():.2f} std {png.std():.2f}")
-    ok = ok and latent_ok and pixels_ok and png_ok
+    return latent_ok and pixels_ok and png_ok
+
+
+def check_sd15_launches(launches, calls, label, used):
+    """The launches against the plan; the kernels in ``used`` must launch."""
+    predicted = predicted_launches(calls)
+    ok = True
+    for name in KERNELS:
+        good = launches[name] == predicted[name] and (launches[name] > 0 or name not in used)
+        ok = ok and good
+        log(f"launches {label} {name}: {launches[name]} (plan predicts {predicted[name]}) "
+            f"{'ok' if good else 'FAIL'}")
+    return ok
+
+
+def timed_sd15_run(models, label):
+    import torch
 
     torch.cuda.reset_peak_memory_stats()
     timed = run_pipeline(models, 5678)
     steps = timed["step_times"]
     n = len(steps)
-    loop_s = steps[-1] - steps[0]
-    it_s = (n - 1) / loop_s
-    log(f"pipeline timed run: {timed['wall']:.3f} s/image end to end; sampler "
-        f"steps 2..{n}: {it_s:.3f} it/s; first run {first['wall']:.3f} s/image; "
-        f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.1f} GiB")
-    e2e = {"s_per_image": timed["wall"], "it_per_s": it_s,
-           "first_run_s_per_image": first["wall"],
-           "peak_gib": torch.cuda.max_memory_allocated() / 2**30}
-    del models, model, vae, first, timed
-    gc.collect()
-    torch.cuda.empty_cache()
-    return ok, launches, e2e
+    it_s = (n - 1) / (steps[-1] - steps[0])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    log(f"{label} timed run: {timed['wall']:.3f} s/image end to end; sampler "
+        f"steps 2..{n}: {it_s:.3f} it/s; peak memory {peak:.1f} GiB")
+    return {"s_per_image": timed["wall"], "it_per_s": it_s, "peak_gib": peak}
+
+
+def phase_pipeline(calls):
+    """The SD1.5 pipeline. Returns (ok, launches, e2e, the models, the first
+    run's final latent)."""
+    models = build_models()
+    model, vae, _ = models
+    reset_launches()
+    first = run_pipeline(models, 1234)
+    launches = read_launches()
+    ok = check_sd15_launches(launches, calls, "SD1.5",
+                             ("packed_flash_attention", "flash_attention"))
+    ok = check_sd15_output(first, model, vae, "SD1.5") and ok
+    e2e = timed_sd15_run(models, "pipeline")
+    log(f"pipeline: first run {first['wall']:.3f} s/image")
+    e2e["first_run_s_per_image"] = first["wall"]
+    return ok, launches, e2e, models, first["last"]["x"]
+
+
+def sage_bound(b, h, lq, lk, d):
+    """K4's least time: int8 operations at the int8 tensor-core rate and one
+    exp per score at the SFU rate, or the bytes of bf16 q, k, v and out."""
+    ops = 4.0 * b * h * lq * lk * d
+    exps = float(b * h * lq * lk)
+    nbytes = 2.0 * b * h * d * (2 * lq + 2 * lk)
+    t_ops = max(ops / PEAK_INT8_OPS, exps / PEAK_EXP2)
+    t_bytes = nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+# one ragged shape beside the path's: a masked kv tail and a partial q tile
+SAGE_RAGGED = ("sage_attention", 2, 8, 1000, 80, "bf16")
+
+
+def phase_sage_kernels(calls, per_kernel):
+    """K4 at every UNet shape of the sage path and one ragged shape: the
+    wrapper (preparation + kernel + V mean) against its plain version, two
+    faults planted through the C interface, times (the wrapper, the kernel
+    alone, the plain version, ``scaled_dot_product_attention``)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lightdiffusion_next_tpu_torch.ops import flash_attention as fa
+    from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+
+    def check(out, ref):
+        return fa.agreement(out, ref, max_ulps=sa.MAX_ULPS, rel_rmse_limit=sa.REL_RMSE_LIMIT)
+
+    for key in sorted(k for k in calls if k[0] == "sage_attention") + [SAGE_RAGGED]:
+        _, b, h, l, d, dtype = key
+        q, k, v = make_inputs(b, h, l, d, dtype, gen)
+        out = sa.sage_attention(q, k, v)
+        torch.cuda.synchronize()
+        ref = sa.sage_attention_plain(q, k, v)
+        prep = sa.prepare(q, k, v)
+        ops = sa._kernel_operands(*prep[:6])
+        vmu = prep[6].to(torch.bfloat16)
+        tiles = -(-l // sa.TILE)
+        faults = {
+            SAGE_FAULTS[0]: fault_entry(check(sa._launch(q, ops, kv_tiles=tiles - 1) + vmu, ref)),
+            SAGE_FAULTS[1]: fault_entry(check(sa._launch(q, ops, use_sk=False) + vmu, ref)),
+        }
+        run = lambda: sa.sage_attention(q, k, v)  # noqa: E731
+        ms = cuda_ms(run, repeats_for(run))
+        alone = lambda: sa._launch(q, ops)  # noqa: E731
+        kernel_ms = cuda_ms(alone, repeats_for(alone))
+        plain_ms = cuda_ms(lambda: sa.sage_attention_plain(q, k, v), 1)
+        lib = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
+        library_ms = cuda_ms(lib, repeats_for(lib))
+        bound_ms, bound_by = sage_bound(b, h, l, l, d)
+        record_shape(per_kernel, key, check(out, ref), faults, {
+            "shape": [b, h, l, d], "dtype": "bf16 in and out, int8 codes", "ms": ms,
+            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
+            "bound_ms": bound_ms, "bound_by": bound_by})
+        del q, k, v, out, ref, prep, ops
+        torch.cuda.empty_cache()
+    return per_kernel
+
+
+def phase_sage_pipeline(models, flash_latent):
+    """Phase 5's models with ``sage_attention`` on: the same pipeline call
+    (every UNet K1 and K2 call on K4, the VAE's on K2), the output checked,
+    the final latent against the flash run of the same seed (logged, not
+    held to a limit), a timed run. Returns (ok, launches, e2e, calls)."""
+    calls = attention_calls(sage=True)
+    model, vae, _ = models
+    with runtime_config(sage_attention=True):
+        reset_launches()
+        first = run_pipeline(models, 1234)
+        launches = read_launches()
+        ok = check_sd15_launches(launches, calls, "SD1.5 sage",
+                                 ("sage_attention", "flash_attention"))
+        ok = check_sd15_output(first, model, vae, "SD1.5 sage") and ok
+        x = first["last"]["x"]
+        drift = ((x - flash_latent).pow(2).mean().sqrt()
+                 / flash_latent.pow(2).mean().sqrt()).item()
+        log(f"SD1.5 sage: final latent against the flash run of the same seed: rel RMSE "
+            f"{drift:.4g} (logged only)")
+        e2e = timed_sd15_run(models, "SD1.5 sage pipeline")
+    log(f"SD1.5 sage: first run {first['wall']:.3f} s/image")
+    e2e.update(first_run_s_per_image=first["wall"], latent_drift_vs_flash=drift)
+    return ok, launches, e2e, calls
 
 
 # --------------------------------------------------------------------------
@@ -837,7 +1019,8 @@ def build_flux_models(w8a8=False):
     CLIP-L and the Flux AE at full width from seeded random weights (seeds
     20-23): (model, clip, vae, t5). The DiT is built with
     ``RuntimeConfig.w8a8`` off, so it stays Q8_0 (K5); with ``w8a8`` it is
-    then requantized (``to_w8a8_models``)."""
+    then requantized (``to_w8a8_models``). Both are built with ``flux_scan``
+    off, unrolled (``to_scan_models`` stacks them)."""
     import torch
 
     from lightdiffusion_next_tpu_torch import config
@@ -847,9 +1030,9 @@ def build_flux_models(w8a8=False):
     from lightdiffusion_next_tpu_torch.models.clip import text_encoder as te
 
     t0 = time.perf_counter()
-    with runtime_config(w8a8=False):
+    with runtime_config(w8a8=False, flux_scan=False):
         model = base.flux_model(flux.random_params(flux.FLUX_DEV, seed=20), cfg=flux.FLUX_DEV)
-    t5 = t5_mod.T5XXLModel(t5_mod.random_params(t5_mod.T5_XXL, seed=21), cfg=t5_mod.T5_XXL)
+        t5 = t5_mod.T5XXLModel(t5_mod.random_params(t5_mod.T5_XXL, seed=21), cfg=t5_mod.T5_XXL)
     clip = te.SDClipModel(te.init_params(num_layers=12, width=768, heads=12, seed=22,
                                          with_projection=True), num_layers=12, heads=12)
     vae = vae_mod.VAE(vae_mod.init_params(vae_mod.FLUX_AE, seed=23), vae_mod.FLUX_AE)
@@ -880,6 +1063,33 @@ def to_w8a8_models(models):
         f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card, peak "
         f"{torch.cuda.max_memory_allocated() / 2**30:.1f} GiB during the requant")
     return w8, clip, vae, t5
+
+
+def to_scan_models(models):
+    """The Flux models with the DiT and T5 stacked in place into the scan
+    layout (``flux.stack_block_params``, ``t5.stack_t5_block_params``), as
+    ``flux_model`` and ``T5XXLModel`` build them with ``flux_scan`` on (the
+    card's default). The unrolled params are consumed family by family:
+    returns the models and the device memory the stacking took at its peak
+    above the unrolled models, in GiB."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.models import flux
+    from lightdiffusion_next_tpu_torch.models.clip import t5 as t5_mod
+
+    model, clip, vae, t5 = models
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    before = torch.cuda.memory_allocated()
+    scan = dataclasses.replace(model, params=flux.stack_block_params(model.params, model.config))
+    t5.params = t5_mod.stack_t5_block_params(t5.params, t5.cfg)
+    torch.cuda.synchronize()
+    peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    log(f"flux scan: DiT and T5 stacked in {time.perf_counter() - t0:.1f} s; "
+        f"{torch.cuda.memory_allocated() / 2**30:.1f} GiB on the card, peak {peak:.2f} GiB "
+        "above the unrolled models during the stacking")
+    return (scan, clip, vae, t5), peak
 
 
 @contextlib.contextmanager
@@ -945,7 +1155,7 @@ def check_flux_output(run, model, vae, label):
     return latent_ok and pixels_ok and png_ok
 
 
-def check_flux_launches(run, launches, w8a8, label):
+def check_flux_launches(run, launches, w8a8, label, scan=False):
     """The pipeline call's launches against the plan derived from its
     counted FBCache hits. Returns (ok, the plan's calls per image)."""
     hist = run["hits"]
@@ -953,7 +1163,8 @@ def check_flux_launches(run, launches, w8a8, label):
     main = [h for i, h in enumerate(hist) if i not in (3, 5)]
     dy = [hist[i] for i in (3, 5) if i < len(hist)]
     hits = sum(main)
-    calls = flux_calls(hits=hits, misses=len(main) - hits, dy_calls=len(dy), w8a8=w8a8)
+    calls = flux_calls(hits=hits, misses=len(main) - hits, dy_calls=len(dy), w8a8=w8a8,
+                       scan=scan)
     predicted = predicted_launches(calls)
     ok = len(hist) == 22 and not any(dy)
     log(f"{label} FBCache: {''.join('H' if h else '.' for h in hist)} ({hits} hits of "
@@ -969,7 +1180,8 @@ def check_flux_launches(run, launches, w8a8, label):
 def missed_dit_calls(model, n=2):
     """Wall seconds of ``n`` Flux forwards at 1024^2 that run every block
     (no cache), each synced; the launch counters are set to 0 before the
-    last one and read after it. Returns (seconds, launches of the last)."""
+    last one and read after it. Returns (seconds, launches of the last, its
+    output)."""
     import torch
 
     gen = torch.Generator(device="cuda").manual_seed(40)
@@ -985,10 +1197,10 @@ def missed_dit_calls(model, n=2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         with torch.no_grad():
-            model.apply_fn(model.params, *args, **kw)
+            out = model.apply_fn(model.params, *args, **kw)
         torch.cuda.synchronize()
         seconds.append(time.perf_counter() - t0)
-    return seconds, read_launches()
+    return seconds, read_launches(), out
 
 
 def timed_flux_run(models, label):
@@ -1021,7 +1233,7 @@ def phase_flux_pipeline():
     ok, calls = check_flux_launches(first, launches, False, "Flux")
     ok = check_flux_output(first, model, vae, "flux") and ok
     e2e = timed_flux_run(models, "flux pipeline")
-    miss, _ = missed_dit_calls(model)
+    miss, _, _ = missed_dit_calls(model)
     log(f"flux: first run {first['wall']:.3f} s/image; one missed DiT call "
         f"{miss[-1] * 1e3:.1f} ms wall (first {miss[0] * 1e3:.1f})")
     e2e.update(first_run_s_per_image=first["wall"], missed_dit_call_s=miss[-1])
@@ -1249,7 +1461,9 @@ def phase_flux_w8a8_pipeline(models, q8_latent):
     """The phase 8 models with the DiT requantized to W8A8 (``fused_ew`` on,
     the default on the card), the same pipeline call, then a timed one and
     one missed DiT call with ``fused_ew`` on and one with it off. Returns
-    (ok, launches, e2e, calls per image, launches of the unfused DiT call)."""
+    (ok, launches, e2e, calls per image, launches of the unfused DiT call,
+    the models, the outputs the scan layout is held to: the first run's
+    final latent and the two missed DiT calls')."""
     models = to_w8a8_models(models)
     model, clip, vae, t5 = models
     with runtime_config(fused_ew="auto"):
@@ -1263,9 +1477,9 @@ def phase_flux_w8a8_pipeline(models, q8_latent):
         log(f"flux W8A8: final latent against the Q8_0 run of the same seed: rel RMSE "
             f"{drift:.4g} (logged only)")
         e2e = timed_flux_run(models, "flux W8A8 pipeline")
-        miss_on, _ = missed_dit_calls(model)
+        miss_on, _, out_on = missed_dit_calls(model)
     with runtime_config(fused_ew=False):
-        miss_off, off_launches = missed_dit_calls(model)
+        miss_off, off_launches, out_off = missed_dit_calls(model)
     predicted = predicted_launches(unfused_dit_calls())
     for name in KERNELS:
         good = off_launches[name] == predicted[name]
@@ -1277,6 +1491,251 @@ def phase_flux_w8a8_pipeline(models, q8_latent):
         f"{miss_off[-1] * 1e3:.1f} ms with it off (first {miss_off[0] * 1e3:.1f})")
     e2e.update(first_run_s_per_image=first["wall"], missed_dit_call_s=miss_on[-1],
                missed_dit_call_fused_ew_off_s=miss_off[-1], latent_drift_vs_q8_0=drift)
+    refs = {"latent": x, "dit_call": out_on, "dit_call_fused_ew_off": out_off}
+    return ok, launches, e2e, calls, off_launches, models, refs
+
+
+# --------------------------------------------------------------------------
+# The scan layout: K6, K8 and the stacked K11
+# --------------------------------------------------------------------------
+
+
+def q8_stack(d, k, n, gen):
+    """A Q8_0 stack of ``d`` blocks: random codes, scales of the size
+    ``flux.random_params``' weights get."""
+    import torch
+
+    qt3 = torch.randint(-127, 128, (d, k, n), generator=gen, device="cuda", dtype=torch.int8)
+    scales3 = (0.5 + torch.rand((d, k // 32, n), generator=gen, device="cuda")) * (
+        3.0 / (127 * k**0.5))
+    return qt3, scales3
+
+
+def w8_stack(d, k, n, gen):
+    """A W8A8 stack of ``d`` blocks: random (N, K) codes, column scales."""
+    import torch
+
+    q3 = torch.randint(-127, 128, (d, n, k), generator=gen, device="cuda", dtype=torch.int8)
+    cs3 = (0.5 + torch.rand((d, 1, n), generator=gen, device="cuda")) * (3.0 / (127 * k**0.5))
+    return q3, cs3
+
+
+def combine(checks, equal):
+    """The checks at a stack's first and last block as one, with whether the
+    stacked kernel equalled the unstacked one on a copy of each block."""
+    out = dict(max(checks, key=lambda c: c["max_abs_err"]))
+    out["ok"] = all(c["ok"] for c in checks) and all(equal)
+    out["equals_unstacked_on_the_block"] = all(equal)
+    return out
+
+
+def stacked_requant_check(gen):
+    """``to_w8a8`` of a Q8_0 stack (the double blocks' 19 img qkv weights,
+    quantized on the card) against ``requant_col`` of each block alone."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.ops import ggml
+
+    d, k, n = 19, FLUX_H, 3 * FLUX_H
+    leaves = [ggml.transpose_for_matmul(ggml.quantize(
+        torch.randn((n, k), generator=gen, device="cuda") * k**-0.5)) for _ in range(d)]
+    alone = [ggml.requant_col(leaf) for leaf in leaves]
+    w8 = ggml.to_w8a8({"s": ggml.stack_leaves(leaves)})["s"]
+    del leaves
+    ok = all(torch.equal(w8.q3[i], a.q) and torch.equal(w8.col_scales3[i], a.col_scales)
+             for i, a in enumerate(alone))
+    log(f"stacked requant of {d} x ({k}, {n}) against the unstacked: "
+        f"{'equal bit for bit' if ok else 'FAIL: differs'}")
+    return ok
+
+
+def phase_stacked_kernels(calls, per_kernel):
+    """K6, K8 and the stacked K11 at every shape of ``calls`` on stacks of
+    the real depths, each at its first and last block: against its plain
+    version (K6 to K5's limits, K8 and K11 bit for bit) and bit for bit
+    against the unstacked kernel on a copy of the block; two planted faults
+    at the last block (the neighbouring block, the last K tile skipped);
+    times at the last block beside the plain version and the library
+    yardstick. Then the stacked requant against the unstacked. Returns
+    whether that last check held."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.ops import flash_attention as fa
+    from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(3)
+
+    def q8_check(out, ref):
+        return fa.agreement(out, ref, max_ulps=qm.MAX_ULPS, rel_rmse_limit=qm.REL_RMSE_LIMIT)
+
+    def by_weight(name):
+        groups = {}
+        for key in calls:
+            if key[0] == name:
+                groups.setdefault(tuple(key[2:4]), []).append(key)
+        return sorted(groups.items())
+
+    for (k, n), keys in by_weight("quant_matmul_stacked"):
+        depth = stack_depth(k, n)
+        qt3, scales3 = q8_stack(depth, k, n, gen)
+        for key in sorted(keys):
+            m = key[1]
+            x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+            checks, equal, refs = [], [], {}
+            for idx in (0, depth - 1):
+                out = qm.quant_matmul_stacked(x, qt3, scales3, idx)
+                torch.cuda.synchronize()
+                refs[idx] = qm.quant_matmul_stacked_plain(x, qt3, scales3, idx)
+                checks.append(q8_check(out, refs[idx]))
+                equal.append(torch.equal(out, qm._launch(x, qt3[idx].contiguous(),
+                                                         scales3[idx].contiguous())))
+            last, ref = depth - 1, refs[depth - 1]
+            faults = {
+                STACK_FAULTS[0]: fault_entry(q8_check(qm._launch(x, qt3, scales3, idx=last - 1),
+                                                      ref)),
+                STACK_FAULTS[1]: fault_entry(q8_check(
+                    qm._launch(x, qt3, scales3, k=k - 64, idx=last), ref)),
+            }
+            run = lambda: qm.quant_matmul_stacked(x, qt3, scales3, last)  # noqa: E731
+            ms = cuda_ms(run, repeats_for(run, 100.0))
+            plain_ms = cuda_ms(lambda: qm.quant_matmul_stacked_plain(x, qt3, scales3, last), 1)
+            w_bf16 = qm.dequantize_t(qt3[last], scales3[last], torch.bfloat16)  # untimed
+            lib = lambda: torch.matmul(x, w_bf16)  # noqa: E731
+            library_ms = cuda_ms(lib, repeats_for(lib, 100.0))
+            bound_ms, bound_by = q8_bound(m, k, n)
+            record_shape(per_kernel, key, combine(checks, equal), faults, {
+                "shape": [m, k, n], "depth": depth, "blocks": [0, last],
+                "dtype": "bf16 x, Q8_0 stack", "ms": ms, "plain_ms": plain_ms,
+                "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+            del x, refs, w_bf16
+        del qt3, scales3
+        torch.cuda.empty_cache()
+
+    w8_groups = {}
+    for name in ("w8a8_matmul_stacked", "w8a8_matmul_ep_stacked"):
+        for kn, keys in by_weight(name):
+            w8_groups.setdefault(kn, []).extend(keys)
+    for (k, n), keys in sorted(w8_groups.items()):
+        depth = stack_depth(k, n)
+        last = depth - 1
+        q3, cs3 = w8_stack(depth, k, n, gen)
+        for key in sorted(keys, key=str):
+            m = key[1]
+            x = activations(m, k, gen)
+            xq, sx = qm.row_quantize_fused(x)
+            sx1 = sx.reshape(-1)
+            lib = lambda: torch._int_mm(xq, q3[last].t())  # noqa: E731
+            try:
+                library_ms = cuda_ms(lib, repeats_for(lib, 100.0))
+            except RuntimeError as e:  # the yardstick only; the port never calls it
+                log(f"torch._int_mm at {(m, k, n)}: {e}")
+                library_ms = None
+            ep = key[0] == "w8a8_matmul_ep_stacked"
+            gate = torch.randn((1, n), generator=gen, device="cuda")
+            bias = (0.1 * torch.randn((1, n), generator=gen, device="cuda") * gate).reshape(-1)
+            r = activations(m, n, gen) if ep and key[4] else None
+            checks, equal, refs = [], [], {}
+            for idx in (0, last):
+                if ep:
+                    cs = (cs3[idx] * gate).reshape(-1).contiguous()
+                    out = qm.w8a8_matmul_ep(xq, sx, (q3, idx), cs, bias, residual=r)
+                    torch.cuda.synchronize()
+                    refs[idx] = qm.w8a8_matmul_ep_plain(xq, sx, (q3, idx), cs, bias, residual=r)
+                    alone = qm._launch_w8a8(xq, sx1, q3[idx].contiguous(), cs, bias, r, ep=True)
+                else:
+                    out = qm.w8a8_matmul_stacked(x, q3, cs3, idx)
+                    torch.cuda.synchronize()
+                    refs[idx] = qm.w8a8_matmul_stacked_plain(x, q3, cs3, idx)
+                    alone = qm._launch_w8a8(xq, sx1, q3[idx].contiguous(),
+                                            cs3[idx].reshape(-1).contiguous())
+                checks.append(qm.matmul_agreement(out, refs[idx]))
+                equal.append(torch.equal(out, alone))
+                del out, alone
+            ref = refs[last]
+            cs_last = (cs3[last] * gate).reshape(-1).contiguous() if ep else cs3
+            kw = dict(bias=bias, residual=r, ep=True) if ep else {}
+            faults = {
+                STACK_FAULTS[0]: fault_entry(qm.matmul_agreement(
+                    qm._launch_w8a8(xq, sx1, q3, cs_last, idx=last - 1, **kw), ref)),
+                STACK_FAULTS[1]: fault_entry(qm.matmul_agreement(
+                    qm._launch_w8a8(xq, sx1, q3, cs_last, k=k - 128, idx=last, **kw), ref)),
+            }
+            if ep:
+                run = lambda: qm.w8a8_matmul_ep_stacked(  # noqa: E731
+                    xq, sx, q3, last, cs_last, bias, residual=r)
+            else:
+                run = lambda: qm._launch_w8a8(xq, sx1, q3, cs3, idx=last)  # noqa: E731  K8 alone
+            ms = cuda_ms(run, repeats_for(run, 100.0))
+            plain_ms = cuda_ms(lambda: qm._epilogue_plain(
+                xq, sx, q3[last], cs_last if ep else cs3[last],
+                bias if ep else None, r), 1)
+            bound_ms, bound_by = int8_bound(m, k, n, ep, r is not None)
+            record_shape(per_kernel, key, combine(checks, equal), faults, {
+                "shape": [m, k, n], "depth": depth, "blocks": [0, last],
+                "dtype": "int8 codes, bf16 out" + (", bf16 residual" if r is not None else ""),
+                "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+                "bound_ms": bound_ms, "bound_by": bound_by})
+            del x, xq, sx, sx1, r, refs
+        del q3, cs3
+        torch.cuda.empty_cache()
+    return stacked_requant_check(gen)
+
+
+def phase_flux_scan_pipeline(models, refs):
+    """Phase 11's models stacked in place into the scan layout (the port's
+    default on the card): the same pipeline call, its launches against the
+    scan plan, its output, its final latent and one missed DiT call with
+    ``fused_ew`` on and one with it off against phase 11's (bit for bit
+    expected: the same kernels on the same weights; held to
+    TOL_SCAN_REL_RMSE, the equality logged), a timed run. Returns (ok,
+    launches, e2e, calls per image, launches of the unfused DiT call)."""
+    import torch
+
+    models, stack_peak = to_scan_models(models)
+    model, clip, vae, t5 = models
+    # one family's stack at a time: the largest, linear1's, is 2.3 GiB
+    stack_ok = stack_peak <= TOL_STACK_PEAK_GIB
+    log(f"flux scan: stacking peak {stack_peak:.2f} GiB (limit {TOL_STACK_PEAK_GIB}) "
+        f"{'ok' if stack_ok else 'FAIL'}")
+
+    def against(out, ref, label):
+        equal = torch.equal(out, ref)
+        rel = ((out - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
+        log(f"flux scan: {label} against the unrolled layout's: "
+            + ("equal bit for bit" if equal else
+               f"NOT bit for bit: max |diff| {(out - ref).abs().max().item():.4g}, "
+               f"{int((out != ref).sum().item())} of {out.numel()} differ, rel RMSE {rel:.4g}"))
+        return equal, math.isfinite(rel) and rel <= TOL_SCAN_REL_RMSE
+
+    with runtime_config(fused_ew="auto"):
+        reset_launches()
+        first = run_flux_pipeline(models, 4321)
+        launches = read_launches()
+        ok, calls = check_flux_launches(first, launches, True, "Flux W8A8 scan", scan=True)
+        ok = check_flux_output(first, model, vae, "flux W8A8 scan") and ok
+        eq_latent, close = against(first["last"]["x"], refs["latent"], "final latent")
+        ok = ok and close
+        e2e = timed_flux_run(models, "flux W8A8 scan pipeline")
+        miss_on, _, out_on = missed_dit_calls(model)
+    with runtime_config(fused_ew=False):
+        miss_off, off_launches, out_off = missed_dit_calls(model)
+    eq_on, close_on = against(out_on, refs["dit_call"], "missed DiT call")
+    eq_off, close_off = against(out_off, refs["dit_call_fused_ew_off"],
+                                "missed DiT call with fused_ew off")
+    ok = ok and close_on and close_off and stack_ok
+    predicted = predicted_launches(unfused_dit_calls(scan=True))
+    for name in KERNELS:
+        good = off_launches[name] == predicted[name]
+        ok = ok and good
+        log(f"launches W8A8 scan DiT call, fused_ew off, {name}: {off_launches[name]} "
+            f"(plan predicts {predicted[name]}) {'ok' if good else 'FAIL'}")
+    log(f"flux W8A8 scan: first run {first['wall']:.3f} s/image; one missed DiT call "
+        f"{miss_on[-1] * 1e3:.1f} ms wall with fused_ew on (first {miss_on[0] * 1e3:.1f}), "
+        f"{miss_off[-1] * 1e3:.1f} ms with it off (first {miss_off[0] * 1e3:.1f})")
+    e2e.update(first_run_s_per_image=first["wall"], missed_dit_call_s=miss_on[-1],
+               missed_dit_call_fused_ew_off_s=miss_off[-1], stacking_peak_gib=stack_peak,
+               bit_for_bit_with_unrolled={"final_latent": eq_latent, "dit_call": eq_on,
+                                          "dit_call_fused_ew_off": eq_off})
     return ok, launches, e2e, calls, off_launches
 
 
@@ -1314,7 +1773,15 @@ def main() -> int:
     log("plan SD1.5:", {f"{k[0]} {k[1:]}": v for k, v in sorted(sd_calls.items())})
     per_kernel = timed("sd15 kernels", phase_kernels, sd_calls)
     ref_ok, _ = timed("sd15 reference", phase_reference)
-    pipe_ok, sd_launches, sd_e2e = timed("sd15 pipeline", phase_pipeline, sd_calls)
+    pipe_ok, sd_launches, sd_e2e, sd_models, sd_latent = timed(
+        "sd15 pipeline", phase_pipeline, sd_calls)
+    sage_plan = attention_calls(sage=True)
+    timed("sage kernels", phase_sage_kernels, sage_plan, per_kernel)
+    sage_ok, sage_launches, sage_e2e, sage_calls = timed(
+        "sd15 sage pipeline", phase_sage_pipeline, sd_models, sd_latent)
+    del sd_models
+    gc.collect()
+    torch.cuda.empty_cache()
     log("plan Flux (no FBCache hit):",
         {f"{k[0]} {k[1:]}": v for k, v in sorted(flux_calls().items())})
     timed("flux kernels", phase_flux_kernels, flux_calls(), per_kernel)
@@ -1328,18 +1795,31 @@ def main() -> int:
         {f"{k[0]} {k[1:]}": v for k, v in sorted(off_plan.items())})
     timed("w8a8 kernels", phase_w8a8_kernels, {**w8_plan, **off_plan}, per_kernel)
     w8_ref_ok, _, _ = timed("flux w8a8 reference", phase_flux_w8a8_reference, q8_blocks)
-    w8_ok, w8_launches, w8_e2e, w8_calls, off_launches = timed(
+    w8_ok, w8_launches, w8_e2e, w8_calls, off_launches, flux_models, w8_refs = timed(
         "flux w8a8 pipeline", phase_flux_w8a8_pipeline, flux_models, q8_latent)
+    scan_plan, scan_off_plan = flux_calls(w8a8=True, scan=True), unfused_dit_calls(scan=True)
+    log("plan Flux W8A8 scan (no FBCache hit):",
+        {f"{k[0]} {k[1:]}": v for k, v in sorted(scan_plan.items())})
+    # K6 at the Q8_0 DiT's full-res shapes and T5's, K8 and the stacked K11
+    # at the W8A8 scan path's
+    k6_plan = {k: n for k, n in stacked(flux_calls()).items()
+               if k[0] == "quant_matmul_stacked" and k[1] in (4096, 4096 + FLUX_TXT, FLUX_TXT)}
+    requant_ok = timed("stacked kernels", phase_stacked_kernels,
+                       {**k6_plan, **scan_plan, **scan_off_plan}, per_kernel)
+    scan_ok, scan_launches, scan_e2e, scan_calls, scan_off_launches = timed(
+        "flux w8a8 scan pipeline", phase_flux_scan_pipeline, flux_models, w8_refs)
     del flux_models
 
     # calls per image of each path, summed over the paths a kernel runs on
-    # (the unfused DiT call counts once)
+    # (the unfused DiT calls count once)
     all_calls = dict(sd_calls)
-    for path_calls in (fcalls, w8_calls, off_plan):
+    for path_calls in (sage_calls, fcalls, w8_calls, off_plan, scan_calls, scan_off_plan):
         for key, n in path_calls.items():
             all_calls[key] = all_calls.get(key, 0) + n
-    paths = {"sd15": sd_launches, "flux": flux_launches, "flux_w8a8": w8_launches,
-             "w8a8_dit_call_fused_ew_off": off_launches}
+    paths = {"sd15": sd_launches, "sd15_sage": sage_launches, "flux": flux_launches,
+             "flux_w8a8": w8_launches, "w8a8_dit_call_fused_ew_off": off_launches,
+             "flux_w8a8_scan": scan_launches,
+             "w8a8_scan_dit_call_fused_ew_off": scan_off_launches}
     kernels_line = []
     for name, meta in KERNELS.items():
         entry = per_kernel[name]
@@ -1364,13 +1844,15 @@ def main() -> int:
             "bound_by": max(set(bound_shapes), key=bound_shapes.count),
             "library_ms": per_image("library_ms"), "ok": entry["ok"],
             "per": "image: the sum over its main-path shapes of calls x time, over one "
-                   "image of each path it runs on (SD1.5, Flux Q8_0, Flux W8A8) and one "
-                   "missed W8A8 DiT call with fused_ew off",
+                   "image of each path it runs on (SD1.5 with flash or sage attention, "
+                   "Flux Q8_0, Flux W8A8 unrolled and scan) and one missed W8A8 DiT call "
+                   "with fused_ew off in each layout",
             "shapes": shapes,
         })
-    e2e = {"sd15": sd_e2e, "flux": flux_e2e, "flux_w8a8": w8_e2e}
-    ok = (ref_ok and pipe_ok and flux_ref_ok and flux_ok and w8_ref_ok and w8_ok
-          and all(k["ok"] for k in kernels_line))
+    e2e = {"sd15": sd_e2e, "sd15_sage": sage_e2e, "flux": flux_e2e, "flux_w8a8": w8_e2e,
+           "flux_w8a8_scan": scan_e2e}
+    ok = (ref_ok and pipe_ok and sage_ok and flux_ref_ok and flux_ok and w8_ref_ok and w8_ok
+          and requant_ok and scan_ok and all(k["ok"] for k in kernels_line))
     record = {"gpu": line, "kernels": kernels_line, "e2e": e2e, "phase_seconds": seconds,
               "seconds": time.perf_counter() - t_start}
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:

@@ -9,16 +9,19 @@ GPU. What the port consults:
 - ``DtypePolicy``: bf16 UNet params and compute, f32 VAE, bf16 text
   encoder on the GPU; everything f32 on the CPU. Norms and schedules always
   compute in f32.
-- ``RuntimeConfig``: ``attention_backend``, ``packed_attn`` (the UNet's
-  attention), ``w8a8`` and ``fused_ew`` (the Flux DiT's int8 path).
+- ``RuntimeConfig``: ``attention_backend``, ``packed_attn`` and
+  ``sage_attention`` (the UNet's attention), ``w8a8`` and ``fused_ew`` (the
+  Flux DiT's int8 path), ``flux_scan`` (the stacked block layout of the
+  Flux DiT and T5).
 
 The JAX package's ``qkv_fuse`` has no counterpart: the port always joins the
 q|k|v (and k|v) projection weights, once, when the UNet is built
 (``models/unet.fuse_projections``). Its ``rng_mode`` has none either: the
 port draws noise as the "torch" mode does, the only mode ported (ROADMAP
-Queue 1, item 2). Its ``int8_mxu=False`` variant of the W8A8 matmuls (int8
-codes multiplied at the bf16 rate) has none: only the int8 tensor-core
-path is in use, and K7 and K11 implement that one.
+Queue 1, item 2). Its ``int8_mxu=False`` variant of the W8A8 matmuls and
+of the int8 attention (int8 codes multiplied at the bf16 rate) has none:
+only the int8 tensor-core path is in use, and the kernels implement that
+one.
 """
 
 from __future__ import annotations
@@ -95,6 +98,10 @@ class RuntimeConfig:
       "sdpa" sends everything to ``sdpa`` (the plain reference path).
     packed_attn: head dims up to 64 go to K1 (``packed_flash_attention``),
       otherwise to K2.
+    sage_attention: opt-in, as in the JAX package. Every long-sequence
+      UNet attention goes to the int8 attention K4
+      (``ops.sage_attention``) ahead of K1 and K2; the VAE's attention
+      stays on K2 and Flux's on K3.
     w8a8: the Flux DiT's Q8_0 matmul weights are requantized once, per
       output column, to int8 when the model is built (``ggml.to_w8a8``),
       and each of those matmuls row-quantizes its input and multiplies
@@ -102,20 +109,29 @@ class RuntimeConfig:
     fused_ew: on W8A8 weights, the LayerNorm + modulation or GELU before a
       matmul runs inside its row quantization (K9, K10) and the bias, gate
       and residual inside the matmul's epilogue (K11); models/flux.py.
-    ``w8a8`` and ``fused_ew`` take True, False or "auto"; "auto" is on for
-    a model (``w8a8``) or an activation (``fused_ew``) on the GPU and off
-    on the CPU, as the JAX package's is on for the TPU and off on the CPU.
+    flux_scan: the Flux DiT built by ``models.base.flux_model`` stacks its
+      19 double and 38 single blocks' params along a depth axis
+      (``models.flux.stack_block_params``), and a T5 encoder built by
+      ``T5XXLModel`` stacks its blocks (``t5.stack_t5_block_params``);
+      every quantized matmul then reads block ``idx`` of a stack in place
+      (K6 on Q8_0 stacks, K8 and the stacked K11 on W8A8 stacks).
+    ``w8a8``, ``fused_ew`` and ``flux_scan`` take True, False or "auto";
+    "auto" is on for a model (``w8a8``, ``flux_scan``) or an activation
+    (``fused_ew``) on the GPU and off on the CPU, as the JAX package's is
+    on for the TPU and off on the CPU.
     """
 
     attention_backend: str = "flash"
     packed_attn: bool = True
+    sage_attention: bool = False
     w8a8: object = "auto"
     fused_ew: object = "auto"
+    flux_scan: object = "auto"
 
     def __post_init__(self):
         if self.attention_backend not in _VALID_ATTENTION:
             raise ValueError(f"attention_backend must be one of {_VALID_ATTENTION}")
-        for name in ("w8a8", "fused_ew"):
+        for name in ("w8a8", "fused_ew", "flux_scan"):
             if getattr(self, name) not in _TRI_STATE:
                 raise ValueError(f'{name} must be True, False or "auto"')
 
@@ -126,6 +142,11 @@ class RuntimeConfig:
     def resolve_fused_ew(self, device: DeviceLike) -> bool:
         """Whether an activation on ``device`` takes the fused path."""
         return _on_gpu(device) if self.fused_ew == "auto" else bool(self.fused_ew)
+
+    def resolve_flux_scan(self, device: DeviceLike) -> bool:
+        """Whether a Flux model or a T5 encoder built on ``device`` takes
+        the stacked scan layout."""
+        return _on_gpu(device) if self.flux_scan == "auto" else bool(self.flux_scan)
 
 
 _current: Optional[RuntimeConfig] = None

@@ -1,8 +1,15 @@
-// K5: x (M, K) bf16 times a Q8_0 weight, out (M, N) bf16.
+// K5: x (M, K) bf16 times a Q8_0 weight, out (M, N) bf16; K6: the same
+// on block idx of a stack of D Q8_0 weights.
 //
 // Replaces: lightdiffusion_next_tpu/ops/quant_matmul.py _quant_matmul_2d
-//   (pallas_call at :360, kernel body _kernel at :39; the opt-in
-//   weight-stationary grid at :319 computes the same function).
+//   (K5, pallas_call at :360, kernel body _kernel at :39; the opt-in
+//   weight-stationary grid at :319 computes the same function) and
+//   _quant_matmul_stacked_2d (K6, pallas_call at :497, body
+//   _kernel_stacked at :134, which takes the block through scalar
+//   prefetch). K6 is K5's kernel instantiated with STACKED: the block's
+//   codes and scales are read in place from the (D, K, N) and (D, K/32, N)
+//   stacks at 64-bit offsets (block 37 of the single blocks' linear1 stack
+//   starts 2.4e9 bytes in), never copied out.
 //
 // The weight is stored transposed, as on the TPU: codes qt int8 (K, N) and
 // scales_t f32 (K/32, N), one scale per 32 consecutive K rows of a column.
@@ -165,13 +172,20 @@ __device__ __forceinline__ void dequant_step(Smem<BM>& sm, int buf) {
 
 // BM rows x 128 columns per block of WARPS_M x WARPS_N warps, each warp
 // BM / WARPS_M rows x 128 / WARPS_N columns.
-template <int BM, int WARPS_M, int WARPS_N>
+// STACKED: qt and scales are stacks; block idx starts q_block codes and
+// s_block scales in.
+template <int BM, int WARPS_M, int WARPS_N, bool STACKED>
 __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
     quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                         const int8_t* __restrict__ qt,
                         const float* __restrict__ scales,
                         __nv_bfloat16* __restrict__ out, int m, int n, int k,
-                        long long lda) {
+                        long long lda, long long q_block, long long s_block,
+                        int idx) {
+  if (STACKED) {
+    qt += static_cast<long long>(idx) * q_block;
+    scales += static_cast<long long>(idx) * s_block;
+  }
   constexpr int kThreads = WARPS_M * WARPS_N * 32;
   constexpr int WM = BM / WARPS_M;   // warp tile rows
   constexpr int WN = kBN / WARPS_N;  // warp tile columns
@@ -247,30 +261,25 @@ __global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
   }
 }
 
-template <int BM, int WARPS_M, int WARPS_N>
+template <int BM, int WARPS_M, int WARPS_N, bool STACKED>
 int launch(const __nv_bfloat16* x, const int8_t* qt, const float* scales,
            __nv_bfloat16* out, int m, int n, int k, long long lda,
-           cudaStream_t stream) {
+           long long q_block, long long s_block, int idx, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(Smem<BM>));
-  auto kernel = quant_matmul_kernel<BM, WARPS_M, WARPS_N>;
+  auto kernel = quant_matmul_kernel<BM, WARPS_M, WARPS_N, STACKED>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((m + BM - 1) / BM, n / kBN);
-  kernel<<<grid, WARPS_M * WARPS_N * 32, smem, stream>>>(x, qt, scales, out, m,
-                                                          n, k, lda);
+  kernel<<<grid, WARPS_M * WARPS_N * 32, smem, stream>>>(
+      x, qt, scales, out, m, n, k, lda, q_block, s_block, idx);
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
-
-// x (M, K) bf16 with row stride lda (elements, a multiple of 8), qt (K, N)
-// int8 and scales (K/32, N) f32 contiguous, out (M, N) bf16 contiguous.
-// Every pointer 16-byte aligned.
-extern "C" int ldt_quant_matmul_fwd(const void* x, const void* qt,
-                                    const void* scales, void* out, int m,
-                                    int n, int k, long long lda,
-                                    void* stream) {
+template <bool STACKED>
+int dispatch(const void* x, const void* qt, const void* scales, void* out,
+             int m, int n, int k, long long lda, long long q_block,
+             long long s_block, int idx, void* stream) {
   if (m < 1 || n < kBN || n % kBN != 0 || k < kBK || k % kBK != 0 ||
       lda < k || lda % 8 != 0) {
     return kErrUnsupported;
@@ -280,9 +289,42 @@ extern "C" int ldt_quant_matmul_fwd(const void* x, const void* qt,
   const auto* q = static_cast<const int8_t*>(qt);
   const auto* sc = static_cast<const float*>(scales);
   auto* o = static_cast<__nv_bfloat16*>(out);
-  if (m <= 1024) return launch<64, 2, 4>(xb, q, sc, o, m, n, k, lda, s);
-  if (m <= 2048) return launch<128, 2, 4>(xb, q, sc, o, m, n, k, lda, s);
-  return launch<256, 4, 2>(xb, q, sc, o, m, n, k, lda, s);
+  if (m <= 1024) {
+    return launch<64, 2, 4, STACKED>(xb, q, sc, o, m, n, k, lda, q_block,
+                                     s_block, idx, s);
+  }
+  if (m <= 2048) {
+    return launch<128, 2, 4, STACKED>(xb, q, sc, o, m, n, k, lda, q_block,
+                                      s_block, idx, s);
+  }
+  return launch<256, 4, 2, STACKED>(xb, q, sc, o, m, n, k, lda, q_block,
+                                    s_block, idx, s);
+}
+
+}  // namespace
+
+// K5. x (M, K) bf16 with row stride lda (elements, a multiple of 8), qt
+// (K, N) int8 and scales (K/32, N) f32 contiguous, out (M, N) bf16
+// contiguous. Every pointer 16-byte aligned. ``k`` is the number of K rows
+// summed (K unless a check plants a fault).
+extern "C" int ldt_quant_matmul_fwd(const void* x, const void* qt,
+                                    const void* scales, void* out, int m,
+                                    int n, int k, long long lda,
+                                    void* stream) {
+  return dispatch<false>(x, qt, scales, out, m, n, k, lda, 0, 0, 0, stream);
+}
+
+// K6. As K5 on block idx (0 <= idx < depth) of qt3 (depth, K, N) int8 and
+// scales3 (depth, K/32, N) f32, both contiguous, with x contiguous: lda is
+// the blocks' K, from which the block strides follow (k <= K rows summed).
+extern "C" int ldt_quant_matmul_stacked_fwd(const void* x, const void* qt3,
+                                            const void* scales3, void* out,
+                                            int m, int n, int k, long long lda,
+                                            int depth, int idx, void* stream) {
+  if (idx < 0 || idx >= depth || lda % kQBlock != 0) return kErrUnsupported;
+  const long long q_block = lda * static_cast<long long>(n);
+  return dispatch<true>(x, qt3, scales3, out, m, n, k, lda, q_block,
+                        q_block / kQBlock, idx, stream);
 }
 
 extern "C" const char* ldt_error_string(int code) {

@@ -1,11 +1,15 @@
-// K7 and K11: int8 activations times int8 weights on the tensor cores, s32
-// accumulator, f32 epilogue, bf16 out.
+// K7, K8 and K11: int8 activations times int8 weights on the tensor cores,
+// s32 accumulator, f32 epilogue, bf16 out.
 //
 // Replaces: lightdiffusion_next_tpu/ops/quant_matmul.py
-//   _w8a8_matmul_2d (K7, pallas_call at :669; body _kernel_w8a8 at :89)
-//   and _w8a8_matmul_ep_2d (K11, non-stacked pallas_call at :1293; bodies
-//   _kernel_w8a8_ep and _kernel_w8a8_ep_res). The stacked K11 operand (and
-//   K8) are not ported.
+//   _w8a8_matmul_2d (K7, pallas_call at :669; body _kernel_w8a8 at :89),
+//   _w8a8_matmul_stacked_2d (K8, pallas_call at :793) and
+//   _w8a8_matmul_ep_2d (K11, pallas_call at :1293, stacked at :1284;
+//   bodies _kernel_w8a8_ep and _kernel_w8a8_ep_res). K8 and the stacked K11
+//   are K7's and K11's kernel instantiated with STACKED: the weight is block
+//   idx of a (D, N, K) stack of codes (and, for K8, of (D, 1, N) column
+//   scales), read in place at a 64-bit offset (block 37 of the single
+//   blocks' linear1 stack starts 2.4e9 bytes in), never copied out.
 //
 // Operands: xq int8 (M, K) with per-row f32 scales sx (M,), from the row
 // quantization (K9, K10); the weight's codes int8 (N, K), K-contiguous (the
@@ -116,7 +120,9 @@ __device__ __forceinline__ void load_step(Smem<BM>& sm, int buf, int step,
   }
 }
 
-template <int BM, int MODE>
+// STACKED: b (and cs, when cs_block is not 0) are stacks; block idx starts
+// b_block codes and cs_block scales in.
+template <int BM, int MODE, bool STACKED>
 __global__ void __launch_bounds__(kThreads)
     w8a8_matmul_kernel(const int8_t* __restrict__ a,
                        const float* __restrict__ sx,
@@ -125,7 +131,12 @@ __global__ void __launch_bounds__(kThreads)
                        const float* __restrict__ bias,
                        const __nv_bfloat16* __restrict__ res,
                        __nv_bfloat16* __restrict__ out, int m, int n, int k,
-                       long long lda, long long ldb, long long ldr) {
+                       long long lda, long long ldb, long long ldr,
+                       long long b_block, long long cs_block, int idx) {
+  if (STACKED) {
+    b += static_cast<long long>(idx) * b_block;
+    cs += static_cast<long long>(idx) * cs_block;
+  }
   constexpr int WM = BM / 2;  // warp tile rows
   constexpr int WN = 32;      // warp tile columns
   constexpr int MI = WM / 16;
@@ -220,26 +231,37 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <int BM, int MODE>
+// Where a launch reads the weight: a plain (N, K) matrix, or block idx of
+// a stack (b_block codes per block; cs_block scales per block, 0 for a
+// folded vector).
+struct Block {
+  long long b_block = 0;
+  long long cs_block = 0;
+  int idx = 0;
+};
+
+template <int BM, int MODE, bool STACKED>
 int launch_tile(const int8_t* a, const float* sx, const int8_t* b,
                 const float* cs, const float* bias, const __nv_bfloat16* res,
                 __nv_bfloat16* out, int m, int n, int k, long long lda,
-                long long ldb, long long ldr, cudaStream_t stream) {
+                long long ldb, long long ldr, Block blk, cudaStream_t stream) {
   const int smem = static_cast<int>(sizeof(Smem<BM>));
-  auto kernel = w8a8_matmul_kernel<BM, MODE>;
+  auto kernel = w8a8_matmul_kernel<BM, MODE, STACKED>;
   cudaError_t e = cudaFuncSetAttribute(
       kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return static_cast<int>(e);
   dim3 grid((m + BM - 1) / BM, n / kBN);
   kernel<<<grid, kThreads, smem, stream>>>(a, sx, b, cs, bias, res, out, m, n,
-                                           k, lda, ldb, ldr);
+                                           k, lda, ldb, ldr, blk.b_block,
+                                           blk.cs_block, blk.idx);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <int MODE>
+template <int MODE, bool STACKED = false>
 int launch(const void* xq, const void* sx, const void* q, const void* cs,
            const void* bias, const void* res, void* out, int m, int n, int k,
-           long long lda, long long ldb, long long ldr, void* stream) {
+           long long lda, long long ldb, long long ldr, void* stream,
+           Block blk = Block()) {
   if (m < 1 || n < kBN || n % kBN != 0 || k < 0 || k % kBK != 0 ||
       lda < k || lda % 16 != 0 || ldb < k || ldb % 16 != 0 ||
       (MODE == kResidual && (ldr < n || ldr % 2 != 0))) {
@@ -254,9 +276,21 @@ int launch(const void* xq, const void* sx, const void* q, const void* cs,
   auto* o = static_cast<__nv_bfloat16*>(out);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (m <= 1024) {
-    return launch_tile<64, MODE>(a8, s, b8, c, bb, r, o, m, n, k, lda, ldb, ldr, st);
+    return launch_tile<64, MODE, STACKED>(a8, s, b8, c, bb, r, o, m, n, k, lda,
+                                          ldb, ldr, blk, st);
   }
-  return launch_tile<128, MODE>(a8, s, b8, c, bb, r, o, m, n, k, lda, ldb, ldr, st);
+  return launch_tile<128, MODE, STACKED>(a8, s, b8, c, bb, r, o, m, n, k, lda,
+                                         ldb, ldr, blk, st);
+}
+
+// Block idx of a stack of depth blocks of n rows of ldb codes each.
+bool stack_block(int depth, int idx, int n, long long ldb, long long cs_block,
+                 Block* blk) {
+  if (idx < 0 || idx >= depth) return false;
+  blk->b_block = static_cast<long long>(n) * ldb;
+  blk->cs_block = cs_block;
+  blk->idx = idx;
+  return true;
 }
 
 }  // namespace
@@ -288,6 +322,39 @@ extern "C" int ldt_w8a8_matmul_ep_fwd(const void* xq, const void* sx,
   }
   return launch<kBias>(xq, sx, q, cs, bias, nullptr, out, m, n, k, lda, ldb,
                        0, stream);
+}
+
+// K8. As K7 on block idx (0 <= idx < depth) of q3 (depth, N, K) int8 with
+// row stride ldb, and of cs3 (depth, 1, N) f32; both contiguous.
+extern "C" int ldt_w8a8_matmul_stacked_fwd(const void* xq, const void* sx,
+                                           const void* q3, const void* cs3,
+                                           void* out, int m, int n, int k,
+                                           long long lda, long long ldb,
+                                           int depth, int idx, void* stream) {
+  Block blk;
+  if (!stack_block(depth, idx, n, ldb, n, &blk)) return kErrUnsupported;
+  return launch<kPlain, true>(xq, sx, q3, cs3, nullptr, nullptr, out, m, n, k,
+                              lda, ldb, 0, stream, blk);
+}
+
+// The stacked K11. As K11 on block idx (0 <= idx < depth) of q3 (depth, N,
+// K) int8 with row stride ldb; cs (N,) and bias (N,) are the caller's folds
+// of that block's column scales.
+extern "C" int ldt_w8a8_matmul_ep_stacked_fwd(
+    const void* xq, const void* sx, const void* q3, const void* cs,
+    const void* bias, const void* res, void* out, int m, int n, int k,
+    long long lda, long long ldb, long long ldr, int depth, int idx,
+    void* stream) {
+  Block blk;
+  if (bias == nullptr || !stack_block(depth, idx, n, ldb, 0, &blk)) {
+    return kErrUnsupported;
+  }
+  if (res != nullptr) {
+    return launch<kResidual, true>(xq, sx, q3, cs, bias, res, out, m, n, k,
+                                   lda, ldb, ldr, stream, blk);
+  }
+  return launch<kBias, true>(xq, sx, q3, cs, bias, nullptr, out, m, n, k, lda,
+                             ldb, 0, stream, blk);
 }
 
 extern "C" const char* ldt_error_string(int code) {

@@ -87,8 +87,12 @@ def flux_model(params: Dict[str, Any], cfg: Optional[flux_mod.FluxConfig] = None
     ``RuntimeConfig.w8a8`` resolves on for the device (on the GPU by
     default), the RoPE basis permuted once for the fused attention (K3,
     after the requant, as the JAX loader does), the QKNorm scales in f32
-    (the kernel's), ``ModelSamplingFlux``, the FLUX1 latent format and
-    FBCache at threshold 0.120 in the options."""
+    (the kernel's), the blocks stacked into the scan layout
+    (``flux.stack_block_params``, consuming the flat dict) when
+    ``RuntimeConfig.flux_scan`` resolves on for the device (on the GPU by
+    default), ``ModelSamplingFlux``, the FLUX1 latent format and FBCache at
+    threshold 0.120 in the options. That is the order of the JAX loader's
+    device path: requant, permute, stack."""
     dev = _config.resolve_device(device)
     dtype = dtype or _config.DtypePolicy.for_device(dev).compute_dtype
     p = ggml.to_device_quantized(params, dtype=dtype, device=dev)
@@ -101,6 +105,8 @@ def flux_model(params: Dict[str, Any], cfg: Optional[flux_mod.FluxConfig] = None
     for key in p:
         if key.endswith(("query_norm.scale", "key_norm.scale")):
             p[key] = p[key].float().contiguous()
+    if _config.get_config().resolve_flux_scan(dev):
+        p = flux_mod.stack_block_params(p, cfg)
     return DiffusionModel(
         apply_fn=flux_mod.make_apply_fn(cfg),
         params=p,

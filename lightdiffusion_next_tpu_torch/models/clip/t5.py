@@ -1,6 +1,8 @@
 """T5 encoder (T5-XXL for Flux) as plain functions over a flat param dict.
 
-Counterpart of lightdiffusion_next_tpu/models/clip/t5.py, unrolled: the
+Counterpart of lightdiffusion_next_tpu/models/clip/t5.py, unrolled or in
+the scan layout (``stack_t5_block_params``: every block family stacked
+along a depth axis, K6 reading each Q8_0 block in place): the
 same HF keys ("encoder.block.{i}.layer.0.SelfAttention.q.weight", ...),
 unscaled attention logits plus the relative position bias of block 0,
 pre-RMSNorm residual blocks and the gated tanh-GELU feed-forward. The
@@ -9,7 +11,7 @@ the JAX package computes it outside any kernel; the Q8_0 matmul weights go
 through K5 (``ops.nn.linear``) and the Q8_0 embedding table through
 ``ops.nn.embedding_lookup``.
 
-Not ported: the stacked scan layout and the attention mask.
+Not ported: the attention mask.
 """
 
 from __future__ import annotations
@@ -106,6 +108,43 @@ def _t5_block(p: nn.ParamView, x, bias, cfg: T5Config):
     return x + nn.linear(hg * hl, p("layer.1.DenseReluDense.wo.weight"))
 
 
+T5_STACK_KEY = "__t5_block_stack__"
+_BIAS_REL = "layer.0.SelfAttention.relative_attention_bias.weight"
+
+
+def is_stacked(params: Dict) -> bool:
+    return T5_STACK_KEY in params
+
+
+def stack_t5_block_params(params: Dict, cfg: T5Config) -> Dict:
+    """The scan layout of the encoder: every ``encoder.block.{i}.{rel}``
+    family stacked along a leading depth axis under ``T5_STACK_KEY``
+    (``ggml.stack_leaves``); block 0's relative-attention bias table stays
+    at its flat key (it is read once, before the blocks). Validates every
+    family first (ValueError, ``params`` untouched, for a ragged or
+    non-uniform family), then CONSUMES ``params`` one family at a time, as
+    ``models.flux.stack_block_params`` does."""
+    out: Dict = {}
+    fams: Dict[str, Dict[int, object]] = {}
+    pre = "encoder.block."
+    for k, v in params.items():
+        if k.startswith(pre):
+            idx_s, _, rel = k[len(pre):].partition(".")
+            if idx_s.isdigit() and rel and rel != _BIAS_REL:
+                fams.setdefault(rel, {})[int(idx_s)] = v
+                continue
+        out[k] = v
+    blocks = list(range(cfg.num_layers))
+    for rel in fams:
+        if sorted(fams[rel]) != blocks:
+            raise ValueError(f"encoder.block.*.{rel}: blocks {sorted(fams[rel])} != "
+                             f"0..{cfg.num_layers - 1}")
+    # moved out of ``fams``, so each family's leaves go with its stack
+    families = {rel: [fams[rel].pop(i) for i in blocks] for rel in fams}
+    out[T5_STACK_KEY] = ggml.stack_families(params, families)
+    return out
+
+
 def apply_t5(params: Dict, tokens, intermediate_output: Optional[int] = None,
              final_layer_norm_intermediate: bool = True, cfg: T5Config = T5_XXL,
              compute_dtype=torch.float32):
@@ -120,8 +159,11 @@ def apply_t5(params: Dict, tokens, intermediate_output: Optional[int] = None,
     if intermediate_output is not None and intermediate_output < 0:
         intermediate_output = cfg.num_layers + intermediate_output
     intermediate = None
+    stack = params.get(T5_STACK_KEY)
     for i in range(cfg.num_layers):
-        x = _t5_block(nn.ParamView(params, f"encoder.block.{i}."), x, bias, cfg)
+        p = (nn.StackView(stack, i) if stack is not None
+             else nn.ParamView(params, f"encoder.block.{i}."))
+        x = _t5_block(p, x, bias, cfg)
         if intermediate_output is not None and i == intermediate_output:
             intermediate = x
     x = nn.rms_norm(x, params["encoder.final_layer_norm.weight"])
@@ -136,11 +178,17 @@ def detect_config(params: Dict) -> T5Config:
         return tuple(params[k].shape)
 
     vocab, d_model = shape("shared.weight")
-    n_layers = 0
-    while f"encoder.block.{n_layers}.layer.0.layer_norm.weight" in params:
-        n_layers += 1
     buckets, heads = shape(_BIAS_KEY)
-    d_ff = shape("encoder.block.0.layer.1.DenseReluDense.wi_0.weight")[0]
+    if is_stacked(params):  # a stacked record's shape is one block's
+        stack = params[T5_STACK_KEY]
+        n_layers = stack["layer.0.layer_norm.weight"].shape[0]
+        wi = stack["layer.1.DenseReluDense.wi_0.weight"]
+        d_ff = wi.shape[1] if isinstance(wi, torch.Tensor) else wi.shape[0]
+    else:
+        n_layers = 0
+        while f"encoder.block.{n_layers}.layer.0.layer_norm.weight" in params:
+            n_layers += 1
+        d_ff = shape("encoder.block.0.layer.1.DenseReluDense.wi_0.weight")[0]
     return T5Config(d_model=d_model, d_ff=d_ff, num_heads=heads,
                     num_layers=n_layers or T5_XXL.num_layers, vocab_size=vocab,
                     relative_num_buckets=buckets)
@@ -149,16 +197,22 @@ def detect_config(params: Dict) -> T5Config:
 class T5XXLModel:
     """Encoder facade: params placed on the device (Q8_0 matmul weights as
     ``QTensor8T``, the embedding as a row-layout ``QTensor8``, dense leaves in
-    ``dtype``), activations in ``compute_dtype``."""
+    ``dtype``), activations in ``compute_dtype``. ``scan_blocks`` (default:
+    ``RuntimeConfig.resolve_flux_scan`` for the device, so on for the GPU)
+    stacks the blocks after placement (``stack_t5_block_params``)."""
 
     def __init__(self, params: Dict, cfg: Optional[T5Config] = None,
                  dtype: Optional[torch.dtype] = None, compute_dtype=None,
-                 device: _config.DeviceLike = None):
+                 device: _config.DeviceLike = None, scan_blocks: Optional[bool] = None):
         self.device = _config.resolve_device(device)
         policy = _config.DtypePolicy.for_device(self.device)
         self.dtype = dtype or policy.text_encoder_dtype
         self.params = ggml.to_device_quantized(params, dtype=self.dtype, device=self.device)
         self.cfg = cfg or detect_config(self.params)
+        if scan_blocks is None:
+            scan_blocks = _config.get_config().resolve_flux_scan(self.device)
+        if scan_blocks and not is_stacked(self.params):
+            self.params = stack_t5_block_params(self.params, self.cfg)
         self.compute_dtype = compute_dtype or self.dtype
         self.special_tokens = {"end": 1, "pad": 0}
 

@@ -1,19 +1,23 @@
 """Flux.1 DiT as plain functions over a flat param dict.
 
 Counterpart of lightdiffusion_next_tpu/models/flux.py in the configurations
-this port runs: unrolled blocks, the fused-prologue attention (K3,
+this port runs: unrolled blocks or the scan layout (``stack_block_params``:
+every block family stacked along a depth axis, the forward looping over
+block indices with ``ops.nn.StackView``), the fused-prologue attention (K3,
 ``ops.flash_attention.fused_qkv_attention``) with the params in the
 permuted half-split RoPE basis (``permute_rope_basis``), and the matmul
 weights as Q8_0 (``QTensor8T``, K5) or W8A8 (``QTensor8W``, K7). On W8A8
 weights with ``RuntimeConfig.fused_ew`` on, the LayerNorm + modulation or
 the GELU before a matmul runs in its row quantization (K9, K10) and the
-bias, gate and residual in the matmul's epilogue (K11). The same BFL
-checkpoint keys ("double_blocks.0.img_attn.qkv.weight", ...), NHWC latent
-in and out, LayerNorm eps 1e-6, f32 norms.
+bias, gate and residual in the matmul's epilogue (K11). In the scan layout
+the same matmuls read block ``idx`` of their stack in place: K6 on Q8_0
+stacks, K8 and the stacked K11 on W8A8 stacks. The same BFL checkpoint keys
+("double_blocks.0.img_attn.qkv.weight", ...), NHWC latent in and out,
+LayerNorm eps 1e-6, f32 norms.
 
 Not ported yet (ROADMAP Queue 1, item 9): the unfused attention path with
-``ops/rope.py``, the stacked scan layout (K6, K8), the tensor-parallel
-layouts, LoRA.
+``ops/rope.py``, the tensor-parallel layouts, LoRA, and the host-side
+stacker of the checkpoint loader (``stack_block_params_host``).
 """
 
 from __future__ import annotations
@@ -104,7 +108,11 @@ def permute_rope_basis(params: Dict, cfg: FluxConfig) -> Dict:
     """Permute the q/k output columns of every qkv and single-block linear1
     projection (weights, biases and QKNorm scales) into the half-split RoPE
     basis. Attention logits are invariant (the same permutation hits q and
-    k); v and every other weight are untouched. Returns a new dict."""
+    k); v and every other weight are untouched. Returns a new dict.
+    Refuses a stacked dict: permute before stacking, as the JAX loader
+    does."""
+    if is_stacked(params):
+        raise ValueError("permute before stacking (the scan layout is not permuted)")
     hidden, d = cfg.hidden_size, cfg.head_dim
 
     def take(t, idx, dim):
@@ -283,6 +291,66 @@ def _single_block(p: nn.ParamView, x, vec, pe, cfg: FluxConfig):
     return x + gate * out
 
 
+DOUBLE_STACK_KEY = "__double_stack__"
+SINGLE_STACK_KEY = "__single_stack__"
+
+
+def group_block_params(params: Dict, cfg: FluxConfig) -> Tuple[Dict, Dict[str, Dict[str, list]]]:
+    """Split a flat Flux param dict into (the non-block leaves, families)
+    where ``families[head][rel]`` is the depth-ordered leaf list of the keys
+    ``{head}.{i}.{rel}``. Raises ValueError for a ragged family (block
+    indices other than 0..depth-1)."""
+    out: Dict[str, Any] = {}
+    depths = {"double_blocks": cfg.depth, "single_blocks": cfg.depth_single_blocks}
+    per_key: Dict[str, Dict[str, Dict[int, Any]]] = {g: {} for g in depths}
+    for k, v in params.items():
+        head, _, rest = k.partition(".")
+        if head in depths and rest:
+            idx_s, _, rel = rest.partition(".")
+            if idx_s.isdigit() and rel:
+                per_key[head].setdefault(rel, {})[int(idx_s)] = v
+                continue
+        out[k] = v
+    fams: Dict[str, Dict[str, list]] = {}
+    for head, groups in per_key.items():
+        depth = depths[head]
+        fams[head] = {}
+        for rel, by_idx in groups.items():
+            if sorted(by_idx) != list(range(depth)):
+                raise ValueError(f"{head}.*.{rel}: blocks {sorted(by_idx)} != 0..{depth - 1}")
+            fams[head][rel] = [by_idx[i] for i in range(depth)]
+    return out, fams
+
+
+def stack_block_params(params: Dict, cfg: FluxConfig) -> Dict:
+    """The scan layout: every ``double_blocks.{i}.K`` and
+    ``single_blocks.{i}.K`` family stacked along a leading depth axis
+    (``ggml.stack_leaves``) under ``DOUBLE_STACK_KEY`` and
+    ``SINGLE_STACK_KEY``; the non-block keys stay flat.
+
+    Validates every family first and raises ValueError, with ``params``
+    untouched, for a ragged or non-uniform family. Then CONSUMES ``params``:
+    the dict is cleared and the families stack one at a time, each
+    family's per-block leaves dropped once its stack exists, so the extra
+    device memory peaks at one family's stack (the single blocks'
+    ``linear1``: 38 x 21504 x 3072 bytes = 2.5 GB), not a second copy of
+    the model."""
+    if is_stacked(params):
+        raise ValueError("the params are stacked already")
+    out, fams = group_block_params(params, cfg)
+    # moved out of ``fams``, so each family's leaves go with its stack
+    families = {(head, rel): fams[head].pop(rel) for head in fams for rel in list(fams[head])}
+    stacks = ggml.stack_families(params, families)
+    out[DOUBLE_STACK_KEY], out[SINGLE_STACK_KEY] = {}, {}
+    for (head, rel), stack in stacks.items():
+        out[DOUBLE_STACK_KEY if head == "double_blocks" else SINGLE_STACK_KEY][rel] = stack
+    return out
+
+
+def is_stacked(params: Dict) -> bool:
+    return DOUBLE_STACK_KEY in params
+
+
 def patchify(x, patch: int = 2):
     """NHWC (B, H, W, C) -> tokens (B, H/2 * W/2, C * 4), channel-major per
     patch."""
@@ -338,21 +406,34 @@ def apply_flux(params: Dict, x, timesteps, context, y, guidance=None,
     ids = torch.cat([txt_ids, img_ids(b, h, w, cfg.patch_size, device=x.device)], dim=1)
     pe = rope_cos_sin(ids, cfg.axes_dim, cfg.theta)
 
+    if is_stacked(params):
+        dstack, sstack = params[DOUBLE_STACK_KEY], params[SINGLE_STACK_KEY]
+
+        def double_view(i):
+            return nn.StackView(dstack, i)
+
+        def single_view(i):
+            return nn.StackView(sstack, i)
+    else:
+        def double_view(i):
+            return nn.ParamView(params, f"double_blocks.{i}.")
+
+        def single_view(i):
+            return nn.ParamView(params, f"single_blocks.{i}.")
+
     img_prev = img
-    img, txt = _double_block(nn.ParamView(params, "double_blocks.0."), img, txt,
-                             vec, pe, cfg)
+    # double block 0 on its own: FBCache's boundary needs its output
+    img, txt = _double_block(double_view(0), img, txt, vec, pe, cfg)
 
     def run_rest(img):
         """The remaining double blocks and all single blocks; returns the
         image tokens before the final layer."""
         txt_ = txt
         for i in range(1, cfg.depth):
-            img, txt_ = _double_block(nn.ParamView(params, f"double_blocks.{i}."),
-                                      img, txt_, vec, pe, cfg)
+            img, txt_ = _double_block(double_view(i), img, txt_, vec, pe, cfg)
         xx = torch.cat([txt_, img], dim=1)
         for i in range(cfg.depth_single_blocks):
-            xx = _single_block(nn.ParamView(params, f"single_blocks.{i}."), xx, vec,
-                               pe, cfg)
+            xx = _single_block(single_view(i), xx, vec, pe, cfg)
         return xx[:, txt_.shape[1]:]
 
     if first_block_hook is not None:

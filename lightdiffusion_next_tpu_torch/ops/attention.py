@@ -2,8 +2,11 @@
 
 Counterpart of lightdiffusion_next_tpu/ops/attention.py. Long sequences
 (``flash_attention.supported``: Lq, Lk >= 512 and D <= 512) go to the
-hand-written kernels: head dims up to 64 to K1 (``packed_flash_attention``)
-when ``packed_attn`` is on, the rest to K2 (``flash_attention``). Everything
+hand-written kernels: all of them to the int8 attention K4
+(``sage_attention``) when ``sage_attention`` is on, else head dims up to 64
+to K1 (``packed_flash_attention``) when ``packed_attn`` is on, the rest to
+K2 (``flash_attention``). The VAE's attention (``vae_attention_core``)
+always takes K2. Everything
 else (cross-attention over 77 text tokens, CLIP's causal attention, the
 UNet's middle block, masked calls) goes to ``sdpa``.
 
@@ -24,6 +27,7 @@ import torch
 
 from lightdiffusion_next_tpu_torch import config as _config
 from lightdiffusion_next_tpu_torch.ops import flash_attention as fa
+from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
 
 
 def _unfold_heads(x, heads: int):
@@ -54,7 +58,12 @@ def attention_xla(q, k, v, heads: int, mask: Optional[torch.Tensor] = None):
 
 
 def _flash_kernel(head_dim: int):
-    if _config.get_config().packed_attn and fa.pack_group(head_dim) >= 2:
+    """The long-sequence kernel: K4 when ``sage_attention`` is on (ahead of
+    the packed kernel, as in the JAX package), else K1 or K2."""
+    cfg = _config.get_config()
+    if cfg.sage_attention:
+        return sa.sage_attention
+    if cfg.packed_attn and fa.pack_group(head_dim) >= 2:
         return fa.packed_flash_attention
     return fa.flash_attention
 

@@ -2,8 +2,9 @@
 
 Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes``; a source
-may export several kernels' entry points (``w8a8_matmul.cu``: K7 and K11;
-``row_quantize.cu``: K9 and K10). The build happens at first use, into
+may export several kernels' entry points (``quant_matmul.cu``: K5 and K6;
+``w8a8_matmul.cu``: K7, K8, K11 and the stacked K11; ``row_quantize.cu``:
+K9 and K10). The build happens at first use, into
 ``build/kernels/`` at the repository root (listed in ``.gitignore``); the
 file name carries a hash of the sources and flags, so an edited kernel is
 rebuilt and a built one is reused. ``build()`` starts one ``nvcc`` per
@@ -51,6 +52,12 @@ _QUANT_MATMUL_ARGTYPES = (
     + [ctypes.c_void_p]              # stream
 )
 
+_STACK_ARGTYPES = [ctypes.c_int] * 2  # depth, idx
+
+_QUANT_MATMUL_STACKED_ARGTYPES = (
+    _QUANT_MATMUL_ARGTYPES[:-1] + _STACK_ARGTYPES + [ctypes.c_void_p]
+)
+
 _W8A8_ARGTYPES = (
     [ctypes.c_void_p] * 5            # xq, sx, q, cs, out
     + [ctypes.c_int] * 3             # m, n, k
@@ -62,6 +69,19 @@ _W8A8_EP_ARGTYPES = (
     [ctypes.c_void_p] * 7            # xq, sx, q, cs, bias, residual, out
     + [ctypes.c_int] * 3             # m, n, k
     + [ctypes.c_longlong] * 3        # row strides of xq, q, residual
+    + [ctypes.c_void_p]              # stream
+)
+
+_W8A8_STACKED_ARGTYPES = _W8A8_ARGTYPES[:-1] + _STACK_ARGTYPES + [ctypes.c_void_p]
+_W8A8_EP_STACKED_ARGTYPES = (
+    _W8A8_EP_ARGTYPES[:-1] + _STACK_ARGTYPES + [ctypes.c_void_p]
+)
+
+_SAGE_ARGTYPES = (
+    [ctypes.c_void_p] * 7            # qq, kq, vt, sq, sk, svs, out
+    + [ctypes.c_int] * 5             # batch, heads, lq, lk, d
+    + [ctypes.c_longlong] * 3        # (b, h, l) strides of out
+    + [ctypes.c_int] * 3             # kv tiles, softmax block in tiles, apply sk
     + [ctypes.c_void_p]              # stream
 )
 
@@ -98,11 +118,25 @@ KERNELS = {
     "quant_matmul": (
         "quant_matmul.cu", "ldt_quant_matmul_fwd", _QUANT_MATMUL_ARGTYPES,
     ),
+    "quant_matmul_stacked": (
+        "quant_matmul.cu", "ldt_quant_matmul_stacked_fwd",
+        _QUANT_MATMUL_STACKED_ARGTYPES,
+    ),
     "w8a8_matmul": (
         "w8a8_matmul.cu", "ldt_w8a8_matmul_fwd", _W8A8_ARGTYPES,
     ),
+    "w8a8_matmul_stacked": (
+        "w8a8_matmul.cu", "ldt_w8a8_matmul_stacked_fwd", _W8A8_STACKED_ARGTYPES,
+    ),
     "w8a8_matmul_ep": (
         "w8a8_matmul.cu", "ldt_w8a8_matmul_ep_fwd", _W8A8_EP_ARGTYPES,
+    ),
+    "w8a8_matmul_ep_stacked": (
+        "w8a8_matmul.cu", "ldt_w8a8_matmul_ep_stacked_fwd",
+        _W8A8_EP_STACKED_ARGTYPES,
+    ),
+    "sage_attention": (
+        "sage_attention.cu", "ldt_sage_attention_fwd", _SAGE_ARGTYPES,
     ),
     "row_quantize_fused": (
         "row_quantize.cu", "ldt_row_quantize_fwd", _ROW_QUANTIZE_ARGTYPES,

@@ -12,10 +12,16 @@ scale per output column) with K7 in ``fused_matmul`` and the fused
 K9/K10 + K11 path in ``modulated_matmul``. Q8_0's 34-byte blocks (f16
 scale, 32 int8 codes) are split in numpy.
 
+The scan layout stacks D same-shaped records along a leading depth axis
+(``stack_leaves``): ``StackedQTensor8T`` (codes (D, K, N), scales (D, K/32,
+N)) and ``StackedQTensor8W`` (codes (D, N, K): each block the port's (N, K)
+layout, the JAX record's (D, K, N) transposed per block; column scales (D,
+1, N)). ``at_index(idx)`` returns a view of block ``idx`` whose matmuls go
+to K6, K8 and the stacked K11, which read the block in place.
+
 Leaves are torch tensors; a record's ``to`` moves both of its tensors.
-Not ported: the stacked records of the scan layout, the tensor-parallel
-flag, ``QTensorLoRA`` and ``write_gguf`` (the tests use the JAX package's
-writer).
+Not ported: the tensor-parallel flag, ``QTensorLoRA`` and ``write_gguf``
+(the tests use the JAX package's writer).
 """
 
 from __future__ import annotations
@@ -171,9 +177,11 @@ def _modulated_matmul_impl(q, col_scales, x, *, prologue="none", mod_scale=None,
     call cannot take it, as in the JAX package: a shape the kernels do not
     take, or batched or mismatched modulation, gate or bias vectors (the
     kernels fold them as one (1, K) or (1, N) row); the caller then runs the
-    unfused ops. ``q`` is the (N, K) codes, ``col_scales`` (1, N) f32;
-    ``prequant`` (codes, scales) replaces the row quantization of ``x``."""
-    n, k = q.shape
+    unfused ops. ``q`` is the (N, K) codes, or ``(q3, idx)``: block ``idx``
+    of a (D, N, K) stack (the stacked K11); ``col_scales`` the block's (1,
+    N) f32; ``prequant`` (codes, scales) replaces the row quantization of
+    ``x``."""
+    n, k = q[0].shape[1:] if isinstance(q, tuple) else q.shape
     ref = x if prequant is None else prequant[0]
     if not (qm.supported_w8a8(math.prod(ref.shape[:-1]), k, n)
             and qm.supported_rowquant(k)):
@@ -261,6 +269,148 @@ def is_quantized(x) -> bool:
     return isinstance(x, (QTensor8, QTensor8T, QTensor8W))
 
 
+@dataclasses.dataclass
+class StackedQTensor8T:
+    """D same-shaped ``QTensor8T`` weights stacked for the scan layout:
+    codes ``qt3`` int8 (D, K, N), scales ``scales3`` f32 (D, K/32, N);
+    ``shape`` is one block's logical (N, K)."""
+
+    qt3: torch.Tensor
+    scales3: torch.Tensor
+    shape: Tuple[int, ...]
+
+    def at_index(self, idx: int) -> "_StackedSlice8T":
+        return _StackedSlice8T(self, idx)
+
+    def to(self, device):
+        return StackedQTensor8T(self.qt3.to(device), self.scales3.to(device), self.shape)
+
+
+@dataclasses.dataclass
+class StackedQTensor8W:
+    """D same-shaped ``QTensor8W`` weights stacked for the scan layout:
+    codes ``q3`` int8 (D, N, K), each block K-contiguous as ``QTensor8W``'s,
+    column scales ``col_scales3`` f32 (D, 1, N); ``shape`` is one block's
+    logical (N, K)."""
+
+    q3: torch.Tensor
+    col_scales3: torch.Tensor
+    shape: Tuple[int, ...]
+
+    def at_index(self, idx: int) -> "_StackedSlice8W":
+        return _StackedSlice8W(self, idx)
+
+    def to(self, device):
+        return StackedQTensor8W(self.q3.to(device), self.col_scales3.to(device), self.shape)
+
+
+class _StackedSlice8T:
+    """Block ``idx`` of a ``StackedQTensor8T``, used as a ``QTensor8T`` is
+    (``ops.nn.linear``): ``fused_matmul`` sends the shapes K6 takes to the
+    kernel, which reads the block in place, and the rest to dequantize +
+    ``torch.matmul``."""
+
+    __slots__ = ("stack", "idx")
+
+    def __init__(self, stack: StackedQTensor8T, idx: int):
+        self.stack = stack
+        self.idx = idx
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return self.stack.shape
+
+    def dequantize(self, dtype=torch.bfloat16):
+        """The block's logical (N, K) weight in ``dtype``."""
+        s = self.stack
+        return qm.dequantize_t(s.qt3[self.idx], s.scales3[self.idx], dtype).t()
+
+    def fused_matmul(self, x, out_dtype=None):
+        _, k, n = self.stack.qt3.shape
+        if qm.supported(math.prod(x.shape[:-1]), k, n):
+            return qm.quant_matmul_stacked(x, self.stack.qt3, self.stack.scales3, self.idx,
+                                           out_dtype)
+        return torch.matmul(x, self.dequantize(x.dtype).t())
+
+
+class _StackedSlice8W:
+    """Block ``idx`` of a ``StackedQTensor8W``, used as a ``QTensor8W`` is:
+    K8 in ``fused_matmul``, the fused K9/K10 + stacked K11 path in
+    ``modulated_matmul``; the kernels read the block in place."""
+
+    __slots__ = ("stack", "idx")
+
+    def __init__(self, stack: StackedQTensor8W, idx: int):
+        self.stack = stack
+        self.idx = idx
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return self.stack.shape
+
+    def dequantize(self, dtype=torch.bfloat16):
+        """The block's logical (N, K) weight in ``dtype``."""
+        s = self.stack
+        return (s.q3[self.idx].float() * s.col_scales3[self.idx].reshape(-1, 1)).to(dtype)
+
+    def fused_matmul(self, x, out_dtype=None):
+        _, n, k = self.stack.q3.shape
+        if qm.supported_w8a8(math.prod(x.shape[:-1]), k, n):
+            return qm.w8a8_matmul_stacked(x, self.stack.q3, self.stack.col_scales3, self.idx,
+                                          out_dtype)
+        return torch.matmul(x, self.dequantize(x.dtype).t())
+
+    def modulated_matmul(self, x, **kw):
+        """``_modulated_matmul_impl`` on ``(q3, idx)``; the block's (1, N)
+        column scales for the epilogue's folds are a view of the stack's."""
+        s = self.stack
+        return _modulated_matmul_impl((s.q3, self.idx), s.col_scales3[self.idx], x, **kw)
+
+
+_STACKED = (StackedQTensor8T, StackedQTensor8W)
+
+
+def _leaf_device(leaf):
+    return leaf.qt.device if isinstance(leaf, QTensor8T) else (
+        leaf.q.device if isinstance(leaf, QTensor8W) else leaf.device)
+
+
+def check_stackable(leaves) -> None:
+    """Raise ValueError unless ``leaves`` (one key's leaf of every block)
+    can stack: all ``QTensor8T`` or all ``QTensor8W`` of one shape, or all
+    tensors of one shape and dtype, on one device. Stackers call it on
+    every family before they consume anything."""
+    first = leaves[0]
+    if isinstance(first, (QTensor8T, QTensor8W)):
+        kind = type(first)
+        if any(not isinstance(leaf, kind) or leaf.shape != first.shape
+               or _leaf_device(leaf) != _leaf_device(first) for leaf in leaves):
+            raise ValueError(f"non-uniform {kind.__name__} group")
+        return
+    if is_quantized(first) or isinstance(first, _STACKED):
+        raise ValueError(f"cannot stack {type(first).__name__} leaves (matmul layouts only)")
+    if any(not isinstance(leaf, torch.Tensor) or leaf.shape != first.shape
+           or leaf.dtype != first.dtype or leaf.device != first.device for leaf in leaves):
+        raise ValueError("non-uniform dense leaf group")
+
+
+def stack_leaves(leaves):
+    """D per-block leaves (one key across the blocks) stacked along a new
+    leading depth axis on their device: ``QTensor8T`` -> ``StackedQTensor8T``,
+    ``QTensor8W`` -> ``StackedQTensor8W``, tensors -> a (D, ...) tensor."""
+    check_stackable(leaves)
+    first = leaves[0]
+    if isinstance(first, QTensor8T):
+        return StackedQTensor8T(qt3=torch.stack([leaf.qt for leaf in leaves]),
+                                scales3=torch.stack([leaf.scales_t for leaf in leaves]),
+                                shape=first.shape)
+    if isinstance(first, QTensor8W):
+        return StackedQTensor8W(q3=torch.stack([leaf.q for leaf in leaves]),
+                                col_scales3=torch.stack([leaf.col_scales for leaf in leaves]),
+                                shape=first.shape)
+    return torch.stack(leaves)
+
+
 def requant_col(t: QTensor8T) -> QTensor8W:
     """A Q8_0 ``QTensor8T`` requantized per output column, on its device:
     the weight dequantized in f32, ``cs = max(max_k |w|, 1e-12) * (1/127)``
@@ -273,16 +423,51 @@ def requant_col(t: QTensor8T) -> QTensor8W:
     return QTensor8W(q=codes.t().contiguous(), col_scales=cs, shape=t.shape)
 
 
+def stack_families(params: Dict[str, Any], families: Dict[Any, list]) -> Dict[Any, Any]:
+    """The stackers' contract: validate every family ({key: one leaf per
+    block}) first and raise ValueError with ``params`` untouched; then
+    consume ``params`` (it is cleared) and stack the families one at a time,
+    each family's leaves dropped once its stack exists, so the extra memory
+    peaks at one family's stack. Returns {key: stack}."""
+    for leaves in families.values():
+        check_stackable(leaves)
+    params.clear()
+    return {key: stack_leaves(families.pop(key)) for key in list(families)}
+
+
+def requant_col_stacked(t: StackedQTensor8T) -> StackedQTensor8W:
+    """A Q8_0 stack requantized per output column, block by block, each
+    block exactly as ``requant_col`` requantizes it (so the stacked requant
+    equals the unstacked one bit for bit); the f32 temporary is one block."""
+    d, k, n = t.qt3.shape
+    q3 = torch.empty((d, n, k), dtype=torch.int8, device=t.qt3.device)
+    cs3 = torch.empty((d, 1, n), dtype=torch.float32, device=t.qt3.device)
+    for i in range(d):
+        w = requant_col(QTensor8T(t.qt3[i], t.scales3[i], t.shape))
+        q3[i], cs3[i] = w.q, w.col_scales
+        del w
+    return StackedQTensor8W(q3=q3, col_scales3=cs3, shape=t.shape)
+
+
 def to_w8a8(params: Dict[str, Any]) -> Dict[str, Any]:
-    """Every ``QTensor8T`` leaf of a flat param dict as its per-column
-    ``QTensor8W``; embeddings (row-layout ``QTensor8``) and dense leaves pass
-    through. ``params`` is consumed: each leaf is taken out of it as it
-    converts, so the old codes are freed leaf by leaf (when nothing else
-    holds them) and the 12 GB of a Flux DiT's codes never exist twice."""
+    """Every ``QTensor8T`` leaf of a param dict as its per-column
+    ``QTensor8W``, and every ``StackedQTensor8T`` (in the nested dicts of
+    the scan layout) as its ``StackedQTensor8W``; embeddings (row-layout
+    ``QTensor8``) and dense leaves pass through. ``params`` is consumed:
+    each leaf is taken out of it as it converts, so the old codes are freed
+    leaf by leaf (when nothing else holds them) and the 12 GB of a Flux
+    DiT's codes never exist twice."""
     out = {}
     for key in list(params):
         leaf = params.pop(key)
-        out[key] = requant_col(leaf) if isinstance(leaf, QTensor8T) else leaf
+        if isinstance(leaf, dict):
+            out[key] = to_w8a8(leaf)
+        elif isinstance(leaf, QTensor8T):
+            out[key] = requant_col(leaf)
+        elif isinstance(leaf, StackedQTensor8T):
+            out[key] = requant_col_stacked(leaf)
+        else:
+            out[key] = leaf
         del leaf
     return out
 
@@ -414,16 +599,19 @@ def to_device_quantized(sd: Dict[str, Any], dtype=torch.bfloat16, device=None,
                         embed_keys: Tuple[str, ...] = EMBED_KEYS) -> Dict[str, Any]:
     """Place a state dict on ``device``: 2-D Q8_0 matmul weights as
     ``QTensor8T``, Q8_0 embedding tables (``embed_keys``) and other Q8_0
-    leaves as row-layout ``QTensor8``, W8A8 records as they are, dense
-    tensors cast to ``dtype``."""
+    leaves as row-layout ``QTensor8``, W8A8 and stacked records as they
+    are, dense tensors cast to ``dtype``; the nested dicts of the scan
+    layout likewise."""
     out = {}
     for k, v in sd.items():
-        if isinstance(v, QTensor8):
+        if isinstance(v, dict):
+            out[k] = to_device_quantized(v, dtype, device, embed_keys)
+        elif isinstance(v, QTensor8):
             if len(v.shape) == 2 and k not in embed_keys:
                 out[k] = transpose_for_matmul(v.to(device))
             else:
                 out[k] = v.to(device)
-        elif isinstance(v, (QTensor8T, QTensor8W)):
+        elif isinstance(v, (QTensor8T, QTensor8W) + _STACKED):
             out[k] = v.to(device)
         else:
             out[k] = torch.as_tensor(v).to(device=device, dtype=dtype)

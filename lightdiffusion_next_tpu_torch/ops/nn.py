@@ -4,6 +4,9 @@ Counterpart of lightdiffusion_next_tpu/ops/nn.py. Parameters are flat dicts
 keyed by the checkpoint names; forward passes are plain functions indexing
 them.
 
+``ParamView`` scopes a flat dict by key prefix; ``StackView`` does the same
+over the stacked block params of the scan layout at one block index.
+
 Layouts: activations are NHWC at every public function, as in the JAX
 package. Convolution weights are OIHW (PyTorch's own layout); ``conv2d``
 hands cuDNN an NCHW view of the NHWC tensor (channels-last strides, no
@@ -139,3 +142,33 @@ class ParamView:
 
     def scope(self, sub: str) -> "ParamView":
         return ParamView(self.params, self.prefix + sub)
+
+
+class StackView:
+    """``ParamView`` over a stacked block-param dict at block ``idx`` (an
+    int), for the scan layout's forwards (models/flux.py,
+    models/clip/t5.py): a stacked quantized leaf returns its ``at_index``
+    view, whose matmuls read block ``idx`` of the stack in place; a dense
+    stacked leaf returns ``leaf[idx]``, a view, not a copy."""
+
+    __slots__ = ("params", "idx", "prefix")
+
+    def __init__(self, params: dict, idx: int, prefix: str = ""):
+        self.params = params
+        self.idx = idx
+        self.prefix = prefix
+
+    def _slice(self, leaf):
+        if hasattr(leaf, "at_index"):
+            return leaf.at_index(self.idx)
+        return leaf[self.idx]
+
+    def __call__(self, key: str):
+        return self._slice(self.params[self.prefix + key])
+
+    def get(self, key: str, default=None):
+        leaf = self.params.get(self.prefix + key)
+        return default if leaf is None else self._slice(leaf)
+
+    def scope(self, sub: str) -> "StackView":
+        return StackView(self.params, self.idx, self.prefix + sub)

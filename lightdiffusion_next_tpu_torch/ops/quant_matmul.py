@@ -22,14 +22,25 @@ Counterpart of lightdiffusion_next_tpu/ops/quant_matmul.py:
   inside the row quantization, and the bias, gate and residual inside the
   matmul's epilogue (``csrc/row_quantize.cu``, ``csrc/w8a8_matmul.cu``).
 
+- The stacked operands of the scan layout (``quant_matmul_stacked`` K6,
+  ``w8a8_matmul_stacked`` K8, ``w8a8_matmul_ep_stacked`` the stacked K11,
+  also reached through ``w8a8_matmul_ep``'s ``(q3, idx)`` operand): the
+  weight is block ``idx`` of a stack of D same-shaped weights, read in
+  place by the same device code as K5, K7 and K11 (no copy of the block).
+  Q8_0 stacks are (D, K, N) codes and (D, K/32, N) scales; W8A8 stacks
+  (D, N, K) codes, each block the port's (N, K) layout, and (D, 1, N)
+  column scales. A block of the largest stack (the single blocks'
+  ``linear1``: 38 x 21504 x 3072 bytes) lies past 2^31 bytes, so the
+  kernels compute block offsets in 64 bits.
+
 Each wrapper takes the plain version for a tensor on the CPU (the tests)
 and launches its kernel for a CUDA tensor, or raises; it counts its
-launches in ``<wrapper>.launches``. K7's row quantization is K9's "none"
-law, so on the card ``w8a8_matmul`` launches K9 and then K7.
+launches in ``<wrapper>.launches``. K7's and K8's row quantization is K9's
+"none" law, so on the card ``w8a8_matmul`` launches K9 and then K7, and
+``w8a8_matmul_stacked`` K9 and then K8.
 
-Not ported here: the stacked operands of the scan layout (K6, K8, the
-stacked K11) (ROADMAP Queue 2), and the TPU's tile tables and VMEM
-estimators, which are not semantics.
+Not ported here: the TPU's tile tables and VMEM estimators, which are not
+semantics.
 """
 
 from __future__ import annotations
@@ -75,29 +86,34 @@ def quant_matmul_plain(x, qt, scales_t, out_dtype=None):
     return y.to(out_dtype).reshape(x.shape[:-1] + (n,))
 
 
-def _launch(x2, qt, scales_t, k=None):
+def _launch(x2, qt, scales_t, k=None, idx=None):
     """Check what the kernel takes, allocate the output and launch on the
-    2-D ``x2`` (M, K). ``k`` (default K) is the number of K rows summed."""
+    2-D ``x2`` (M, K): K5 on the (K, N) codes and (K/32, N) scales, or with
+    ``idx`` K6 on block ``idx`` of the (D, K, N) and (D, K/32, N) stacks,
+    read in place. ``k`` (default K) is the number of K rows summed."""
+    name = "quant_matmul" if idx is None else "quant_matmul_stacked"
     if not (x2.is_cuda and qt.is_cuda and scales_t.is_cuda):
-        raise ValueError(f"quant_matmul: no kernel for device {x2.device}")
+        raise ValueError(f"{name}: no kernel for device {x2.device}")
     if x2.dtype != torch.bfloat16 or qt.dtype != torch.int8 or scales_t.dtype != torch.float32:
-        raise TypeError("quant_matmul: the kernel takes bf16 x, int8 codes, f32 scales")
+        raise TypeError(f"{name}: the kernel takes bf16 x, int8 codes, f32 scales")
     m, kx = x2.shape
-    kq, n = qt.shape
-    if kx != kq or scales_t.shape != (kq // QBLOCK, n) or not supported(m, kq, n):
-        raise ValueError(f"quant_matmul: shapes x {tuple(x2.shape)}, qt {tuple(qt.shape)}, "
+    kq, n = qt.shape[-2:]
+    lead = tuple(qt.shape[:-2])
+    if qt.dim() != (2 if idx is None else 3) or kx != kq \
+            or scales_t.shape != lead + (kq // QBLOCK, n) or not supported(m, kq, n):
+        raise ValueError(f"{name}: shapes x {tuple(x2.shape)}, qt {tuple(qt.shape)}, "
                          f"scales {tuple(scales_t.shape)}")
     if not (x2.is_contiguous() and qt.is_contiguous() and scales_t.is_contiguous()):
-        raise ValueError("quant_matmul: x, qt and scales_t must be contiguous")
+        raise ValueError(f"{name}: x, qt and scales_t must be contiguous")
+    block = () if idx is None else (lead[0], _stack_index(lead[0], idx))
     out = torch.empty((m, n), dtype=torch.bfloat16, device=x2.device)
-    rc = cuda_build.entry_point("quant_matmul")(
+    rc = cuda_build.entry_point(name)(
         x2.data_ptr(), qt.data_ptr(), scales_t.data_ptr(), out.data_ptr(),
-        m, n, kq if k is None else k, kx,
+        m, n, kq if k is None else k, kx, *block,
         torch.cuda.current_stream(x2.device).cuda_stream,
     )
     if rc != 0:
-        raise RuntimeError("quant_matmul kernel failed: "
-                           + cuda_build.error_string("quant_matmul", rc))
+        raise RuntimeError(f"{name} kernel failed: " + cuda_build.error_string(name, rc))
     return out
 
 
@@ -115,6 +131,36 @@ def quant_matmul(x, qt, scales_t, out_dtype=None):
 
 
 quant_matmul.launches = 0
+
+
+def _stack_index(depth: int, idx) -> int:
+    """``idx`` as an int, checked against the stack's depth."""
+    idx = int(idx)
+    if not 0 <= idx < depth:
+        raise IndexError(f"block {idx} of a stack of depth {depth}")
+    return idx
+
+
+def quant_matmul_stacked_plain(x, qt3, scales3, idx, out_dtype=None):
+    """Plain PyTorch version of K6: K5's on block ``idx`` of the stack."""
+    idx = _stack_index(qt3.shape[0], idx)
+    return quant_matmul_plain(x, qt3[idx], scales3[idx], out_dtype)
+
+
+def quant_matmul_stacked(x, qt3, scales3, idx, out_dtype=None):
+    """K6: x (..., K) times block ``idx`` of a Q8_0 stack (codes qt3 (D, K,
+    N) int8, scales3 (D, K/32, N) f32) -> (..., N), as K5 computes it."""
+    if x.device.type == "cpu":
+        return quant_matmul_stacked_plain(x, qt3, scales3, idx, out_dtype)
+    if out_dtype not in (None, torch.bfloat16):
+        raise TypeError("quant_matmul_stacked: the kernel writes bf16")
+    k = x.shape[-1]
+    out = _launch(x.reshape(-1, k).contiguous(), qt3, scales3, idx=idx)
+    quant_matmul_stacked.launches += 1
+    return out.reshape(x.shape[:-1] + (out.shape[-1],))
+
+
+quant_matmul_stacked.launches = 0
 
 
 # --------------------------------------------------------------------------
@@ -211,38 +257,53 @@ def w8a8_matmul_plain(x, q, col_scales, out_dtype=None):
     return _epilogue_plain(codes, sx, q, col_scales, out_dtype=out_dtype or x.dtype)
 
 
-def _check_matmul_operands(xq, sx, q, cs):
+def _check_matmul_operands(xq, sx, q, cs, stacked=False):
+    """The operands K7, K8 and K11 take; ``stacked``: q is a (D, N, K) stack
+    (and, for K8, cs its (D, 1, N) column scales)."""
     if not (xq.is_cuda and sx.is_cuda and q.is_cuda and cs.is_cuda):
         raise ValueError(f"w8a8 matmul: no kernel for device {xq.device}")
     if xq.dtype != torch.int8 or q.dtype != torch.int8 or sx.dtype != torch.float32 \
             or cs.dtype != torch.float32:
         raise TypeError("w8a8 matmul: the kernel takes int8 codes and f32 scales")
     m, k = xq.shape
-    n, kq = q.shape
-    if k != kq or sx.numel() != m or cs.numel() != n or not supported_w8a8(m, k, n):
-        raise ValueError(f"w8a8 matmul: shapes xq {tuple(xq.shape)}, q {tuple(q.shape)}")
+    if q.dim() != (3 if stacked else 2):
+        raise ValueError(f"w8a8 matmul: codes of shape {tuple(q.shape)}")
+    n, kq = q.shape[-2:]
+    if k != kq or sx.numel() != m or cs.shape[-1] != n or not supported_w8a8(m, k, n):
+        raise ValueError(f"w8a8 matmul: shapes xq {tuple(xq.shape)}, q {tuple(q.shape)}, "
+                         f"cs {tuple(cs.shape)}")
     if not (xq.is_contiguous() and q.is_contiguous() and sx.is_contiguous()
             and cs.is_contiguous()) or xq.data_ptr() % 16 or q.data_ptr() % 16:
         raise ValueError("w8a8 matmul: codes and scales must be contiguous, the codes "
                          "16-byte aligned")
 
 
-def _launch_w8a8(xq, sx, q, cs, bias=None, residual=None, k=None, ep=False):
-    """Launch K7 (``ep=False``) or K11 on 2-D codes xq (M, K) and q (N, K).
-    ``k`` (default K) is the number of K bytes summed."""
-    _check_matmul_operands(xq, sx, q, cs)
+def _launch_w8a8(xq, sx, q, cs, bias=None, residual=None, k=None, ep=False, idx=None):
+    """Launch K7 (``ep=False``) or K11 on 2-D codes xq (M, K) and q (N, K);
+    with ``idx``, K8 or the stacked K11 on block ``idx`` of the (D, N, K)
+    stack q (K8: cs the stack's (D, 1, N) column scales, read at ``idx``
+    too; K11: cs the folded (N,) vector). ``k`` (default K) is the number
+    of K bytes summed."""
+    stacked = idx is not None
+    _check_matmul_operands(xq, sx, q, cs, stacked)
     m, kx = xq.shape
-    n = q.shape[0]
+    n = q.shape[-2]
     out = torch.empty((m, n), dtype=torch.bfloat16, device=xq.device)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     k = kx if k is None else k
+    depth = q.shape[0] if stacked else 1
+    if stacked:
+        idx = _stack_index(depth, idx)
+    if cs.numel() != (depth * n if stacked and not ep else n):
+        raise ValueError(f"w8a8 matmul: cs {tuple(cs.shape)} for codes {tuple(q.shape)}: K8 "
+                         "takes the stack's (D, 1, N) column scales, K7 and K11 (N,)")
     if not ep:
-        name = "w8a8_matmul"
-        rc = cuda_build.entry_point(name)(
-            xq.data_ptr(), sx.data_ptr(), q.data_ptr(), cs.data_ptr(), out.data_ptr(),
-            m, n, k, kx, kx, stream)
+        name = "w8a8_matmul_stacked" if stacked else "w8a8_matmul"
+        args = (xq.data_ptr(), sx.data_ptr(), q.data_ptr(), cs.data_ptr(), out.data_ptr(),
+                m, n, k, kx, kx)
+        rc = cuda_build.entry_point(name)(*args, *((depth, idx) if stacked else ()), stream)
     else:
-        name = "w8a8_matmul_ep"
+        name = "w8a8_matmul_ep_stacked" if stacked else "w8a8_matmul_ep"
         if bias is None or bias.dtype != torch.float32 or bias.numel() != n \
                 or not bias.is_contiguous():
             raise ValueError("w8a8_matmul_ep: the kernel takes a contiguous f32 (N,) bias")
@@ -255,7 +316,8 @@ def _launch_w8a8(xq, sx, q, cs, bias=None, residual=None, k=None, ep=False):
             res_ptr, ldr = residual.data_ptr(), residual.stride(0)
         rc = cuda_build.entry_point(name)(
             xq.data_ptr(), sx.data_ptr(), q.data_ptr(), cs.data_ptr(), bias.data_ptr(),
-            res_ptr, out.data_ptr(), m, n, k, kx, kx, ldr, stream)
+            res_ptr, out.data_ptr(), m, n, k, kx, kx, ldr,
+            *((depth, idx) if stacked else ()), stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel failed: " + cuda_build.error_string(name, rc))
     return out
@@ -280,9 +342,49 @@ def w8a8_matmul(x, q, col_scales, out_dtype=None):
 w8a8_matmul.launches = 0
 
 
+def w8a8_matmul_stacked_plain(x, q3, col_scales3, idx, out_dtype=None):
+    """Plain PyTorch version of K8: K7's on block ``idx`` of the stack."""
+    idx = _stack_index(q3.shape[0], idx)
+    return w8a8_matmul_plain(x, q3[idx], col_scales3[idx], out_dtype)
+
+
+def w8a8_matmul_stacked(x, q3, col_scales3, idx, out_dtype=None):
+    """K8: x (..., K) float times block ``idx`` of a W8A8 stack (codes q3
+    (D, N, K) int8, ``col_scales3`` (D, 1, N) f32) -> (..., N), as K7
+    computes it; x is row-quantized by K9 ("none") first."""
+    out_dtype = out_dtype or x.dtype
+    if x.device.type == "cpu":
+        return w8a8_matmul_stacked_plain(x, q3, col_scales3, idx, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise TypeError("w8a8_matmul_stacked: the kernel writes bf16")
+    k = x.shape[-1]
+    codes, sx = row_quantize_fused(x)
+    out = _launch_w8a8(codes.reshape(-1, k), sx.reshape(-1), q3, col_scales3, idx=idx)
+    w8a8_matmul_stacked.launches += 1
+    return out.reshape(x.shape[:-1] + (q3.shape[1],))
+
+
+w8a8_matmul_stacked.launches = 0
+
+
 def w8a8_matmul_ep_plain(xq, sx, q, cs_eff, b_eff, residual=None, out_dtype=torch.bfloat16):
-    """Plain PyTorch version of K11 (``_epilogue_plain`` with the bias)."""
+    """Plain PyTorch version of K11 (``_epilogue_plain`` with the bias); a
+    ``(q3, idx)`` operand is block ``idx`` of the stack."""
+    if isinstance(q, tuple):
+        q3, idx = q
+        q = q3[_stack_index(q3.shape[0], idx)]
     return _epilogue_plain(xq, sx, q, cs_eff, b_eff, residual, out_dtype)
+
+
+def _residual_rows(residual, n):
+    """The residual as 2-D (M, N) bf16 rows the kernel reads through their
+    stride (copied only when they are not 4-byte aligned pairs)."""
+    if residual is None:
+        return None
+    res2 = residual.reshape(-1, n)
+    if res2.stride(1) != 1 or res2.stride(0) % 2 or res2.data_ptr() % 4:
+        res2 = res2.contiguous()
+    return res2
 
 
 def w8a8_matmul_ep(xq, sx, q, cs_eff, b_eff, residual=None, out_dtype=torch.bfloat16):
@@ -290,28 +392,41 @@ def w8a8_matmul_ep(xq, sx, q, cs_eff, b_eff, residual=None, out_dtype=torch.bflo
     W8A8 codes q (N, K) -> (..., N), epilogue ``(f32(acc) * sx) * cs_eff +
     b_eff`` or ``(residual + (f32(acc) * sx) * cs_eff) + b_eff``. ``cs_eff``
     and ``b_eff`` are (1, N) f32 with the gate folded in by the caller. The
-    stacked ``(q3, idx)`` operand of the scan layout is not ported."""
+    scan layout's ``(q3, idx)`` operand goes to ``w8a8_matmul_ep_stacked``
+    (which counts that launch)."""
     if isinstance(q, tuple):
-        raise NotImplementedError(
-            "the stacked W8A8 operand (scan layout) is not ported yet (ROADMAP "
-            "Queue 2, items 3 and 6)")
+        return w8a8_matmul_ep_stacked(xq, sx, q[0], q[1], cs_eff, b_eff, residual, out_dtype)
     n, k = q.shape
     if xq.device.type == "cpu":
         return w8a8_matmul_ep_plain(xq, sx, q, cs_eff, b_eff, residual, out_dtype)
     if out_dtype != torch.bfloat16:
         raise TypeError("w8a8_matmul_ep: the kernel writes bf16")
-    res2 = None
-    if residual is not None:
-        res2 = residual.reshape(-1, n)
-        if res2.stride(1) != 1 or res2.stride(0) % 2 or res2.data_ptr() % 4:
-            res2 = res2.contiguous()
     out = _launch_w8a8(xq.reshape(-1, k), sx.reshape(-1), q, cs_eff.reshape(-1),
-                       b_eff.reshape(-1), res2, ep=True)
+                       b_eff.reshape(-1), _residual_rows(residual, n), ep=True)
     w8a8_matmul_ep.launches += 1
     return out.reshape(xq.shape[:-1] + (n,))
 
 
 w8a8_matmul_ep.launches = 0
+
+
+def w8a8_matmul_ep_stacked(xq, sx, q3, idx, cs_eff, b_eff, residual=None,
+                           out_dtype=torch.bfloat16):
+    """The stacked K11: ``w8a8_matmul_ep`` on block ``idx`` of the W8A8
+    codes q3 (D, N, K), read in place; ``cs_eff`` and ``b_eff`` are the
+    caller's (1, N) folds of that block's column scales."""
+    d, n, k = q3.shape
+    if xq.device.type == "cpu":
+        return w8a8_matmul_ep_plain(xq, sx, (q3, idx), cs_eff, b_eff, residual, out_dtype)
+    if out_dtype != torch.bfloat16:
+        raise TypeError("w8a8_matmul_ep_stacked: the kernel writes bf16")
+    out = _launch_w8a8(xq.reshape(-1, k), sx.reshape(-1), q3, cs_eff.reshape(-1),
+                       b_eff.reshape(-1), _residual_rows(residual, n), ep=True, idx=idx)
+    w8a8_matmul_ep_stacked.launches += 1
+    return out.reshape(xq.shape[:-1] + (n,))
+
+
+w8a8_matmul_ep_stacked.launches = 0
 
 
 # --------------------------------------------------------------------------

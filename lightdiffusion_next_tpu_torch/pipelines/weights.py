@@ -6,7 +6,11 @@ as OIHW. This holds for the UNet, the VAE, CLIP, T5 and the Flux DiT alike.
 The JAX package's Q8_0 records (``QTensor8``, ``QTensor8T``) become the
 port's, with the same layout: codes int8, scales f32. Its W8A8 record
 (``QTensor8W``: codes (K, N), ``col_scales`` (1, N)) becomes the port's,
-whose codes are (N, K), K-contiguous.
+whose codes are (N, K), K-contiguous. The scan layout's nested dicts
+(``__double_stack__``, ``__single_stack__``, ``__t5_block_stack__``) carry
+across with their stacked records: ``StackedQTensor8T`` as it is,
+``StackedQTensor8W`` with its (D, K, N) codes transposed per block to
+(D, N, K).
 """
 
 from __future__ import annotations
@@ -30,6 +34,20 @@ def from_jax(params_np: Dict) -> Dict:
     place them)."""
     out = {}
     for key, value in params_np.items():
+        if isinstance(value, dict):
+            out[key] = from_jax(value)
+            continue
+        if hasattr(value, "qt3") and hasattr(value, "col_scales3"):
+            q3 = np.ascontiguousarray(np.asarray(value.qt3, np.int8).transpose(0, 2, 1))
+            out[key] = ggml.StackedQTensor8W(q3=torch.from_numpy(q3),
+                                             col_scales3=_tensor(value.col_scales3, np.float32),
+                                             shape=tuple(value.shape))
+            continue
+        if hasattr(value, "qt3") and hasattr(value, "scales3"):
+            out[key] = ggml.StackedQTensor8T(qt3=_tensor(value.qt3, np.int8),
+                                             scales3=_tensor(value.scales3, np.float32),
+                                             shape=tuple(value.shape))
+            continue
         if hasattr(value, "qt") and hasattr(value, "col_scales"):
             # W8A8: the JAX record's codes are (K, N); the port's (N, K)
             q = np.ascontiguousarray(np.asarray(value.qt, np.int8).T)

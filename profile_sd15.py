@@ -3,12 +3,15 @@
 NVIDIA GPU.
 
     python3 profile_sd15.py            # SD1.5
-    python3 profile_sd15.py --flux     # Flux.1-dev, W8A8 DiT (the card's default)
+    python3 profile_sd15.py --sage     # SD1.5 with the int8 attention (K4)
+    python3 profile_sd15.py --flux     # Flux.1-dev, W8A8 DiT in the scan layout
+                                       # (the card's default)
 
 Builds the same full-width models from seeded random weights as
 ``chip_smoke.py`` (SD1.5: UNet, VAE, CLIP-L; Flux: the DiT requantized to
 W8A8 from its seeded Q8_0 weights, with the fused elementwise path, the Q8_0
-T5-XXL, CLIP-L, the AE), runs the pipeline at 1024^2 once to warm up, then once more
+T5-XXL, CLIP-L, the AE, the DiT and T5 then stacked into the scan layout),
+runs the pipeline at 1024^2 once to warm up, then once more
 under ``torch.profiler``. Prints, for that profiled call: its wall time, the
 device's busy time (the sum of its kernels' device time) and idle share
 (1 - busy / wall: profiling slows the host, so this share is the profiled
@@ -28,7 +31,11 @@ import chip_smoke
 
 
 def kernel_category(name: str) -> str:
-    """Coarse class of a device kernel by its name."""
+    """Coarse class of a device kernel by its name. The stacked kernels are
+    the unstacked ones' templates instantiated with STACKED = true."""
+    stacked = "true>" in name
+    if "sage_attention_kernel" in name:
+        return "K4 sage_attention (UNet, int8)"
     if "flash_fwd_kernel<__nv_bfloat16, 48" in name:
         return "K1 packed_flash_attention (UNet d=40)"
     if "flash_fwd_kernel<float" in name or "split_kernel" in name:
@@ -36,10 +43,15 @@ def kernel_category(name: str) -> str:
     if "norm_rope_k_kernel" in name or ("flash_fwd_kernel" in name and "true>" in name):
         return "K3 fused_qkv_attention (Flux)"
     if "quant_matmul_kernel" in name:
-        return "K5 quant_matmul (Flux Q8_0, T5)"
+        return ("K6 quant_matmul_stacked (T5, Q8_0 scan)" if stacked
+                else "K5 quant_matmul (Flux Q8_0, T5)")
     if "w8a8_matmul_kernel" in name:
-        # template <BM, MODE>: MODE 0 is K7's plain epilogue, 1 and 2 K11's
-        return ("K7 w8a8_matmul (Flux W8A8, fused_ew off)" if ", 0>" in name
+        # template <BM, MODE, STACKED>: MODE 0 is K7's and K8's plain
+        # epilogue, 1 and 2 K11's
+        if ", 0, " in name:
+            return ("K8 w8a8_matmul_stacked (scan, fused_ew off)" if stacked
+                    else "K7 w8a8_matmul (Flux W8A8, fused_ew off)")
+        return ("K11 stacked w8a8_matmul_ep (Flux W8A8 scan)" if stacked
                 else "K11 w8a8_matmul_ep (Flux W8A8)")
     if "row_quantize_kernel<true>" in name:
         return "K10 row_quantize_concat_gelu (Flux W8A8)"
@@ -63,7 +75,7 @@ def kernel_category(name: str) -> str:
     return "other"
 
 
-def main(top: int = 12, flux: bool = False) -> int:
+def main(top: int = 12, flux: bool = False, sage: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -79,16 +91,17 @@ def main(top: int = 12, flux: bool = False) -> int:
     config.resolve_device("cuda")
     print("gpu:", chip_smoke.gpu_line(), flush=True)
     if flux:
-        models, run = chip_smoke.build_flux_models(w8a8=True), chip_smoke.run_flux_pipeline
+        models, _ = chip_smoke.to_scan_models(chip_smoke.build_flux_models(w8a8=True))
+        run = chip_smoke.run_flux_pipeline
     else:
         models, run = chip_smoke.build_models(), chip_smoke.run_pipeline
-    warm = run(models, 1234)
-    print(f"warm-up call: {warm['wall']:.3f} s/image (unprofiled)", flush=True)
-
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        run(models, 9012)
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    with chip_smoke.runtime_config(sage_attention=sage):
+        warm = run(models, 1234)
+        print(f"warm-up call: {warm['wall']:.3f} s/image (unprofiled)", flush=True)
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            run(models, 9012)
+            wall_ms = (time.perf_counter() - t0) * 1e3
     rows = sorted(
         ((e.self_device_time_total / 1e3, e.count, e.key) for e in prof.key_averages()
          if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
@@ -110,7 +123,7 @@ def main(top: int = 12, flux: bool = False) -> int:
         print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f}% x{count:<6d} {name}")
     for ms, count, key in rows[:top]:
         print(f"  kernel {ms:9.2f} ms x{count:<6d} {key[:90]}")
-    name = "profile_flux.txt" if flux else "profile.txt"
+    name = "profile_flux.txt" if flux else ("profile_sage.txt" if sage else "profile.txt")
     with open(os.path.join(chip_smoke.OUT_DIR, name), "w") as f:
         for ms, count, key in rows:
             f.write(f"{ms:.3f}\t{count}\t{key}\n")
@@ -122,4 +135,4 @@ def main(top: int = 12, flux: bool = False) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(flux="--flux" in sys.argv[1:]))
+    sys.exit(main(flux="--flux" in sys.argv[1:], sage="--sage" in sys.argv[1:]))

@@ -383,3 +383,191 @@ def test_w8a8_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(TypeError):
         qm.w8a8_matmul(torch.zeros((8, 256), device="cuda", dtype=torch.bfloat16),
                        q[:, :128].repeat(1, 2).contiguous(), ones, out_dtype=torch.float32)
+
+
+# --- the scan layout: K6, K8 and the stacked K11 ----------------------------
+# Each reads block idx of a stack in place with K5's, K7's or K11's device
+# code: held to the same limits as those (K6 to K5's ulp limits, K8 and the
+# stacked K11 bit for bit), and bit for bit to the unstacked kernel on a copy
+# of the block. The largest stack (the single blocks' linear1, 2.5 GB) at its
+# last block checks the 64-bit block offsets.
+
+
+def _q8_stack(d, k, n, gen):
+    qt3 = torch.randint(-127, 128, (d, k, n), generator=gen, device="cuda", dtype=torch.int8)
+    scales3 = 1e-3 + 4e-4 * torch.rand((d, k // 32, n), generator=gen, device="cuda")
+    return qt3, scales3
+
+
+def _w8_stack(d, k, n, gen):
+    q3 = torch.randint(-127, 128, (d, n, k), generator=gen, device="cuda", dtype=torch.int8)
+    cs3 = (0.5 + torch.rand((d, 1, n), generator=gen, device="cuda")) / (127 * k**0.5)
+    return q3, cs3
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m,k,n,idx", [
+    (38, 4352, 3072, 21504, 37),   # single linear1: the 2.5 GB stack, last block
+    (24, 256, 4096, 10240, 0),     # T5 wi
+    (24, 256, 10240, 4096, 23),    # T5 wo
+    (19, 1000, 3072, 3072, 7),     # ragged M
+])
+def test_quant_matmul_stacked_matches_plain(cuda, d, m, k, n, idx):
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    qt3, scales3 = _q8_stack(d, k, n, gen)
+    x = torch.randn((m, k), generator=gen, device="cuda").bfloat16()
+    launches = qm.quant_matmul_stacked.launches
+    out = qm.quant_matmul_stacked(x, qt3, scales3, idx)
+    torch.cuda.synchronize()
+    assert qm.quant_matmul_stacked.launches == launches + 1
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    ref = qm.quant_matmul_stacked_plain(x, qt3, scales3, idx)
+    assert _q8_check(out, ref)["ok"]
+    assert torch.equal(out, qm._launch(x, qt3[idx].contiguous(), scales3[idx].contiguous()))
+    # planted faults: the neighbouring block, the last K tile skipped
+    assert not _q8_check(qm._launch(x, qt3, scales3, idx=idx - 1 if idx else 1), ref)["ok"]
+    assert not _q8_check(qm._launch(x, qt3, scales3, k=k - 64, idx=idx), ref)["ok"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d,m,k,n,mode,idx", [
+    (38, 4352, 3072, 21504, "bias", 37),      # single linear1: the 2.5 GB stack
+    (38, 4352, 15360, 3072, "residual", 0),   # single linear2, the deepest K
+    (19, 256, 12288, 3072, "residual", 18),   # txt mlp.2
+    (19, 1000, 3072, 3072, "k8", 5),          # ragged M through K9 + K8
+    (19, 4096, 3072, 9216, "k8", 18),
+])
+def test_w8a8_stacked_matches_plain(cuda, d, m, k, n, mode, idx):
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    q3, cs3 = _w8_stack(d, k, n, gen)
+    x = _activations(m, k, gen)
+    xq, sx = qm.row_quantize_fused(x)
+    if mode == "k8":
+        before = (qm.w8a8_matmul_stacked.launches, qm.row_quantize_fused.launches)
+        out = qm.w8a8_matmul_stacked(x, q3, cs3, idx)
+        torch.cuda.synchronize()
+        assert (qm.w8a8_matmul_stacked.launches, qm.row_quantize_fused.launches) == (
+            before[0] + 1, before[1] + 1)
+        ref = qm.w8a8_matmul_stacked_plain(x, q3, cs3, idx)
+        cs, kw = cs3, {}
+        unstacked = qm._launch_w8a8(xq, sx.reshape(-1), q3[idx].contiguous(),
+                                    cs3[idx].reshape(-1).contiguous())
+    else:
+        gate = torch.randn((1, n), generator=gen, device="cuda")
+        cs = (cs3[idx] * gate).reshape(-1).contiguous()
+        b = (0.1 * torch.randn((1, n), generator=gen, device="cuda") * gate).reshape(-1)
+        r = _activations(m, n, gen) if mode == "residual" else None
+        before = (qm.w8a8_matmul_ep_stacked.launches, qm.w8a8_matmul_ep.launches)
+        out = qm.w8a8_matmul_ep(xq, sx, (q3, idx), cs, b, residual=r)
+        torch.cuda.synchronize()
+        assert (qm.w8a8_matmul_ep_stacked.launches, qm.w8a8_matmul_ep.launches) == (
+            before[0] + 1, before[1])
+        ref = qm.w8a8_matmul_ep_plain(xq, sx, (q3, idx), cs, b, residual=r)
+        kw = dict(bias=b, residual=r, ep=True)
+        unstacked = qm._launch_w8a8(xq, sx.reshape(-1), q3[idx].contiguous(), cs, **kw)
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    check = qm.matmul_agreement(out, ref)
+    assert check["ok"], check
+    assert torch.equal(out, unstacked)
+    # planted faults: the neighbouring block, the last K tile skipped
+    sx1 = sx.reshape(-1)
+    near = idx - 1 if idx else 1
+    assert not qm.matmul_agreement(qm._launch_w8a8(xq, sx1, q3, cs, idx=near, **kw), ref)["ok"]
+    assert not qm.matmul_agreement(qm._launch_w8a8(xq, sx1, q3, cs, k=k - 128, idx=idx, **kw),
+                                   ref)["ok"]
+
+
+@pytest.mark.cuda
+def test_stacked_kernels_refuse_a_block_outside_the_stack(cuda):
+    gen = torch.Generator(device="cuda").manual_seed(15)
+    qt3, scales3 = _q8_stack(2, 256, 128, gen)
+    x = torch.zeros((8, 256), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(IndexError):
+        qm.quant_matmul_stacked(x, qt3, scales3, 2)
+    q3, cs3 = _w8_stack(2, 256, 128, gen)
+    with pytest.raises(IndexError):
+        qm.w8a8_matmul_stacked(x, q3, cs3, -1)
+
+
+# --- K4: the int8 attention --------------------------------------------------
+# Held to its plain version at the limits stated in ops/sage_attention.py
+# (``MAX_ULPS`` at max |plain|, ``REL_RMSE_LIMIT``): the same 64-token
+# tiles and f32 operations, another order of the row sums of p.
+
+
+def _sage_check(out, ref):
+    from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
+
+    return fa.agreement(out, ref, max_ulps=sa.MAX_ULPS, rel_rmse_limit=sa.REL_RMSE_LIMIT)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,h,lq,lk,d", [
+    (2, 8, 16384, 16384, 40),   # level 0 unwindowed
+    (8, 8, 1024, 1024, 40),     # level 0 under MSW windows
+    (2, 8, 1024, 1024, 80),
+    (2, 8, 256 * 2, 512, 160),
+    (1, 3, 600, 700, 80),       # ragged: masked kv tail, partial q tile
+    (1, 2, 577, 530, 40),       # d = 40: an odd count of 8-column P.V tiles
+    (1, 2, 640, 640, 128),
+])
+def test_sage_attention_matches_plain(cuda, b, h, lq, lk, d):
+    from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").bfloat16()
+               for s in ((b, h, lq, d), (b, h, lk, d), (b, h, lk, d)))
+    launches = sa.sage_attention.launches
+    out = sa.sage_attention(q, k, v)
+    torch.cuda.synchronize()
+    assert sa.sage_attention.launches == launches + 1
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    check = _sage_check(out, sa.sage_attention_plain(q, k, v))
+    assert check["ok"], check
+
+
+@pytest.mark.cuda
+def test_sage_attention_planted_faults_fail_the_check(cuda):
+    """The last kv tile skipped, and sk not applied: both fail the check at
+    the longest sequence, where a dropped tile weighs least."""
+    from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    q, k, v = (torch.randn((2, 8, 16384, 40), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    ref = sa.sage_attention_plain(q, k, v)
+    prep = sa.prepare(q, k, v)
+    ops = sa._kernel_operands(*prep[:6])
+    vmu = prep[6].to(torch.bfloat16)
+    assert _sage_check(sa._launch(q, ops) + vmu, ref)["ok"]
+    assert not _sage_check(sa._launch(q, ops, kv_tiles=16384 // 64 - 1) + vmu, ref)["ok"]
+    assert not _sage_check(sa._launch(q, ops, use_sk=False) + vmu, ref)["ok"]
+
+
+@pytest.mark.cuda
+def test_sage_dispatch_launches_k4(cuda):
+    """With ``sage_attention`` on, the UNet's long-sequence attention goes to
+    K4 at every head dim (ahead of K1), short kv to sdpa, and the VAE's
+    attention stays on K2."""
+    import dataclasses
+
+    from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    q40, q80 = (torch.randn((1, 1024, 8 * d), generator=gen, device="cuda").bfloat16()
+                for d in (40, 80))
+    vae_q = torch.randn((1, 32, 32, 512), generator=gen, device="cuda")
+    saved = config.get_config()
+    config.set_config(dataclasses.replace(saved, sage_attention=True))
+    try:
+        before = (sa.sage_attention.launches, fa.packed_flash_attention.launches,
+                  fa.flash_attention.launches)
+        attn_ops.attention(q40, q40, q40, heads=8)
+        attn_ops.attention(q80, q80, q80, heads=8)
+        attn_ops.attention(q80, q80[:, :77], q80[:, :77], heads=8)  # short kv: sdpa
+        attn_ops.vae_attention_core(vae_q, vae_q, vae_q)
+        after = (sa.sage_attention.launches, fa.packed_flash_attention.launches,
+                 fa.flash_attention.launches)
+    finally:
+        config.set_config(saved)
+    assert after == (before[0] + 2, before[1], before[2] + 1)

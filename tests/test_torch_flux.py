@@ -314,12 +314,16 @@ def test_flux_slice_matches_jax_composition(tmp_path, monkeypatch):
     run_flux_slice_against_jax(tmp_path, monkeypatch)
 
 
-def run_flux_slice_against_jax(tmp_path, monkeypatch, w8a8=False, latent_tol=1e-3):
+def run_flux_slice_against_jax(tmp_path, monkeypatch, w8a8=False, latent_tol=1e-3,
+                               scan=False):
     """The whole tiny Flux slice through the port's ``pipeline`` and through
     the JAX package's functions; ``w8a8``: the DiT requantized to W8A8 in
     both packages (``to_w8a8`` before the RoPE permutation, as the JAX
-    loader does), the run under each package's current ``RuntimeConfig``.
-    The final latent is held to ``latent_tol`` (relative RMS error)."""
+    loader does), the run under each package's current ``RuntimeConfig``;
+    ``scan``: the DiT and T5 in the scan layout in both packages (the port's
+    from its ``flux_scan``, the JAX package's stacked after the permutation,
+    as its loader does). The final latent is held to ``latent_tol``
+    (relative RMS error)."""
     prompt = "a castle on a hill, ﬁne détails"
     cfg, fparams = _flux_params(7)
     fpath = _write_flux_gguf(tmp_path, fparams)
@@ -352,8 +356,14 @@ def run_flux_slice_against_jax(tmp_path, monkeypatch, w8a8=False, latent_tol=1e-
     fb_cfg = tfb.FBCacheConfig(0.5)
     model = tbase.flux_model(tggml.gguf_sd_loader(fpath), cfg=tflux.FluxConfig(**TINY),
                              device="cpu").with_options(fbcache=fb_cfg)
-    assert isinstance(model.params["single_blocks.0.linear1.weight"], tggml.QTensor8W) == w8a8
+    if scan:
+        lin1 = model.params[tflux.SINGLE_STACK_KEY]["linear1.weight"]
+        assert isinstance(lin1, tggml.StackedQTensor8W if w8a8 else tggml.StackedQTensor8T)
+    else:
+        lin1 = model.params["single_blocks.0.linear1.weight"]
+        assert isinstance(lin1, tggml.QTensor8W if w8a8 else tggml.QTensor8T)
     t5 = tt5.T5XXLModel(tggml.gguf_clip_loader(t5path), device="cpu")
+    assert tt5.is_stacked(t5.params) == scan
     clip = tte.SDClipModel(from_jax(clip_p), num_layers=2, heads=4, device="cpu")
     vcfg_t = tvae.VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1, z_channels=16,
                             has_quant_conv=False)
@@ -370,8 +380,11 @@ def run_flux_slice_against_jax(tmp_path, monkeypatch, w8a8=False, latent_tol=1e-
 
     # --- the JAX package's functions, composed as its _flux_txt2img
     jp, jcfg = _jax_flux(fpath, cfg, w8a8=w8a8)
+    if scan:
+        jp = jflux.stack_block_params(jp, jcfg)
     t5sd = jggml.to_device_quantized(jggml.gguf_clip_loader(t5path), dtype=jnp.float32)
-    jt5m = jt5.T5XXLModel(t5sd, cfg=jt5.detect_config(t5sd), compute_dtype=jnp.float32)
+    jt5m = jt5.T5XXLModel(t5sd, cfg=jt5.detect_config(t5sd), compute_dtype=jnp.float32,
+                          scan_blocks=scan)
     jclip = jte.SDClipModel(clip_p, heads=4)
     pos = jpipe.encode_flux_conditioning(prompt, prompt, guidance=3.0, t5_model=jt5m,
                                          clip_model=jclip)

@@ -187,10 +187,17 @@ def test_k11_matches_jax(m, k, n, gated, residual):
 
 
 def test_k11_stacked_operand_is_not_ported():
-    q = torch.zeros((128, 128), dtype=torch.int8)
-    with pytest.raises(NotImplementedError, match="Queue 2"):
-        tqm.w8a8_matmul_ep(torch.zeros((4, 128), dtype=torch.int8), torch.ones((4, 1)),
-                           (q[None], 0), torch.ones((1, 128)), torch.zeros((1, 128)))
+    """The stacked ``(q3, idx)`` operand no longer raises: it is the stacked
+    K11 (``tests/test_torch_scan.py`` holds it against the JAX package), and
+    on block idx it equals K11 on that block."""
+    rng = np.random.default_rng(16)
+    q3 = torch.from_numpy(rng.integers(-127, 128, (2, 128, 256)).astype(np.int8))
+    xq = torch.from_numpy(rng.integers(-127, 128, (4, 256)).astype(np.int8))
+    args = (torch.ones((4, 1)), torch.full((1, 128), 1e-3), torch.zeros((1, 128)))
+    out = tqm.w8a8_matmul_ep(xq, args[0], (q3, 1), *args[1:])
+    assert torch.equal(out, tqm.w8a8_matmul_ep(xq, args[0], q3[1], *args[1:]))
+    with pytest.raises(IndexError):
+        tqm.w8a8_matmul_ep(xq, args[0], (q3, 2), *args[1:])
 
 
 @pytest.mark.parametrize("prologue,gated,residual", [

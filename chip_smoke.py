@@ -6,7 +6,10 @@
 Phases, in order; any failure exits non-zero:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
-2. build: every hand-written kernel from ``lightdiffusion_next_tpu_torch/csrc``;
+2. build: every hand-written kernel from ``lightdiffusion_next_tpu_torch/csrc``,
+   with each source's register and spill report; K5's and K6's kernels must
+   spill nothing and, in the built library's SASS (``cuobjdump``), run on
+   ``wgmma`` (HGMMA) with no ``mma.sync`` (HMMA) left, or the run fails;
 3. SD1.5 kernels: K1 and K2 at each shape the SD1.5 1024^2 path gives them
    (derived from the UNet plan, the multi-scale plan and the MSW-MSA gate),
    checked against their plain PyTorch version (``flash_attention
@@ -416,6 +419,60 @@ def phase_build():
                   if "spill" in ln and not ln.strip().startswith("0 bytes stack")]
         log(f"  {name}: {rep['seconds']:.1f} s; {len(regs)} instantiations; "
             f"{sorted(set(regs))}; spills: {spills or 'none'}")
+    check_quant_matmul_build(report["quant_matmul.cu"], cuda_build.nvcc_path())
+
+
+def ptxas_functions(build_log):
+    """{mangled function: [its ptxas -v lines]} from a build's report."""
+    funcs, current = {}, None
+    for ln in build_log.splitlines():
+        if "Compiling entry function" in ln:
+            current = ln.split("'")[1]
+            funcs[current] = []
+        elif "Function properties for" in ln:
+            current = ln.split("Function properties for")[-1].strip()
+            funcs.setdefault(current, [])
+        elif current is not None and ("spill" in ln or "registers" in ln):
+            funcs[current].append(ln.split("info    :")[-1].strip())
+    return funcs
+
+
+def check_quant_matmul_build(rep, nvcc):
+    """K5's and K6's kernels (``quant_matmul_kernel<WGS, MT, BN, STACKED>``):
+    log each instantiation's registers and spills as ptxas reports them,
+    then read the library's SASS (``cuobjdump --dump-sass``). Raises unless
+    every instantiation spills 0 bytes and runs its products on wgmma
+    (HGMMA) with no mma.sync (HMMA) left."""
+    funcs = {f: lines for f, lines in ptxas_functions(rep["log"]).items()
+             if "quant_matmul_kernel" in f}
+    if not funcs:
+        raise RuntimeError("quant_matmul.cu: no quant_matmul_kernel in the ptxas report")
+    spilled = []
+    for f, lines in sorted(funcs.items()):
+        config = f.split("quant_matmul_kernel")[-1].split("EEEv")[0]
+        log(f"  quant_matmul_kernel {config}: {'; '.join(lines)}")
+        if any(" 0 bytes spill stores, 0 bytes spill loads" not in ln
+               for ln in lines if "spill" in ln):
+            spilled.append(f)
+    for ln in rep["log"].splitlines():
+        if "wgmma" in ln:
+            log(f"  ptxas: {ln.strip()}")
+    cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
+    sass = subprocess.run([cuobjdump, "--dump-sass", rep["path"]], capture_output=True,
+                          text=True, check=True).stdout
+    counts = {}
+    for part in sass.split("Function : ")[1:]:
+        name = part.split(None, 1)[0]
+        if "quant_matmul_kernel" in name:
+            counts[name] = (part.count("HGMMA."), part.count(" HMMA."))
+    for name, (hgmma, hmma) in sorted(counts.items()):
+        log(f"  SASS {name.split('quant_matmul_kernel')[-1].split('EEEv')[0]}: "
+            f"{hgmma} HGMMA, {hmma} HMMA")
+    bad = [n for n, (hgmma, hmma) in counts.items() if hgmma == 0 or hmma]
+    if spilled or bad or len(counts) != len(funcs):
+        raise RuntimeError(f"quant_matmul.cu: spills in {spilled}; SASS without HGMMA or "
+                           f"with HMMA in {bad}; {len(counts)} functions in the SASS, "
+                           f"{len(funcs)} in the ptxas report")
 
 
 def cuda_ms(fn, n):

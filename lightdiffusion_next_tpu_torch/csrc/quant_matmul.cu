@@ -2,63 +2,135 @@
 // on block idx of a stack of D Q8_0 weights.
 //
 // Replaces: lightdiffusion_next_tpu/ops/quant_matmul.py _quant_matmul_2d
-//   (K5, pallas_call at :360, kernel body _kernel at :39; the opt-in
-//   weight-stationary grid at :319 computes the same function) and
-//   _quant_matmul_stacked_2d (K6, pallas_call at :497, body
-//   _kernel_stacked at :134, which takes the block through scalar
-//   prefetch). K6 is K5's kernel instantiated with STACKED: the block's
-//   codes and scales are read in place from the (D, K, N) and (D, K/32, N)
-//   stacks at 64-bit offsets (block 37 of the single blocks' linear1 stack
-//   starts 2.4e9 bytes in), never copied out.
+//   (K5, pallas_call at :360, kernel body _kernel at :39, _dequant at :30;
+//   the opt-in weight-stationary grid at :319, _kernel_wstation at :56,
+//   computes the same function) and _quant_matmul_stacked_2d (K6,
+//   pallas_call at :497, body _kernel_stacked at :134, which takes the
+//   block through scalar prefetch). K6 is K5's kernel instantiated with
+//   STACKED: the block's codes and scales are read in place from the
+//   (D, K, N) and (D, K/32, N) stacks at 64-bit offsets (block 37 of the
+//   single blocks' linear1 stack starts 2.4e9 bytes in), never copied out.
 //
 // The weight is stored transposed, as on the TPU: codes qt int8 (K, N) and
 // scales_t f32 (K/32, N), one scale per 32 consecutive K rows of a column.
 // Each weight element is dequantized as f32(q) * scale, rounded to nearest
 // even bf16 (the Pallas kernel's _dequant for a bf16 x), so the kernel's
 // weights equal the plain version's bit for bit; the products accumulate in
-// f32 and the result is rounded to bf16.
+// f32 and the result is rounded to bf16 once.
 //
-// What bounds it on an H100: 2 M K N FLOP against 2 M K + K N + 4 K N / 32 +
-// 2 M N bytes. At the Flux DiT's shapes (M = 4096 or 4352 image/joint rows)
-// and T5-XXL's (M = 256) every call is bound by operations at the bf16
-// tensor-core rate (989 TFLOP/s): linear1 (4352, 3072, 21504) 0.581 ms,
-// img qkv (4096, 3072, 9216) 0.235 ms, txt qkv (256, 3072, 9216) 0.0147 ms.
+// What bounds it on an H100: 2 M K N FLOP at the bf16 tensor-core rate
+// (989 TFLOP/s) against 2 M K + K N + 4 K N / 32 + 2 M N bytes at 3.35 TB/s.
+// Every main-path call is bound by operations: linear1 (4352, 3072, 21504)
+// 0.581 ms, img qkv (4096, 3072, 9216) 0.235 ms, T5 (256, 3072, 3072)
+// 0.0049 ms.
 //
-// What the design does about it: tiles of BM x 128 outputs per block, 8
-// warps of m16n8 mma tiles each: BM = 256 for M > 2048 (warp tiles of
-// 64 x 64), so each dequantized weight tile feeds twice the products,
-// BM = 128 (64 x 32) up to M = 2048, and 64 (32 x 32) for M <= 1024 so
-// small-M calls still fill the 132 SMs. K steps of 64 rows, i.e. two whole scale rows, so
-// a step needs no partial scale. Each step copies the x tile (bf16), the
-// int8 code tile and its two f32 scale rows into shared memory with
-// cp.async, double-buffered so step t + 1's copies run under step t's work;
-// the codes are then dequantized once per block into a bf16 tile (1 byte
-// per weight read from device memory, never a bf16 weight), and the
-// products run on the tensor cores with ldmatrix(.trans) and mma.sync
-// m16n8k16 (bf16 in, f32 accumulate). Blocks walk M fastest, so the blocks
-// in flight share their weight tiles through L2 and the weight streams from
-// device memory about once. Rows past M are zero-filled by the copy (src
-// size 0) and not stored: ragged M needs no padding copy. K must be a
-// multiple of 64 and N of 128 (ops/quant_matmul.supported asks for 256 and
-// 128, as the JAX package does).
+// The design: a wgmma GEMM. Hopper reaches its bf16 tensor-core rate only
+// through wgmma.mma_async (m64nNk16, f32 accumulators in registers, both
+// operands read from shared memory through 64-bit descriptors), so:
+// - A is the x tile, K-major with the 128-byte swizzle: a K step is 64
+//   deep (two Q8_0 scale rows), one 128-byte row of bf16 per M row, and the
+//   cp.async of 16-byte chunk c of row r lands at chunk c ^ (r & 7), already
+//   swizzled. Each k16 slice advances the descriptor's start by 32 bytes.
+// - B is the dequantized weight tile. The codes arrive as (K, N),
+//   N-contiguous, and are dequantized into an N-major (MN-major) bf16 tile
+//   with the 128-byte swizzle: atoms of 8 K rows x 64 N columns (1024
+//   bytes, 16-byte chunk j of K row r at j ^ (r & 7)), K atoms 1024 bytes
+//   apart (the descriptor's stride offset), 64-column blocks 8192 bytes
+//   apart (its leading offset). wgmma reads it with its transpose-B form
+//   (tnspB = 1), so nothing is transposed in registers.
+// - A software pipeline with no producer warps: a ring of 4 cp.async
+//   stages (x tile, int8 codes, the step's two f32 scale rows) and three
+//   bf16 B buffers. In step t every thread waits for step t + 1's copies,
+//   fences its generic-proxy writes (landed copies, dequant stores) to the
+//   async proxy, meets the block at a barrier, issues step t's wgmmas on B
+//   buffer t % 3, dequantizes step t + 1's codes into buffer (t + 1) % 3
+//   while they run, waits for step t - 1's wgmmas (step t's stay in
+//   flight) and issues the copies of step t + 3. A weight tile is
+//   dequantized once per block, 1 byte per weight read from device memory.
+//   The int8 -> f32 conversion is the exponent trick (0x4B000000 |
+//   (q + 128), minus 2^23 + 128: exact) instead of I2F.
+// - Tiles by shape: 256 x 128 (two warpgroups of two m64n128 tiles, 204
+//   registers, 213 KB of shared memory, 1 block per SM), or 64 x 64 (one
+//   warpgroup, 103 registers, 75 KB, 3 blocks per SM by shared memory)
+//   where 256 x 128 tiles would leave more than half the SMs idle (T5's
+//   and the text stream's M = 256 with N = 3072 or 4096: 4 x 48 blocks at
+//   N = 3072). No instantiation spills. Of four tiles timed on the card
+//   (also 64 x 128 and 128 x 128; ablate_quant_matmul.py), 256 x 128 was
+//   the fastest at every shape timed with M >= 1024 or N >= 9216, 64 x 64
+//   at the others.
+// - Blocks walk M fastest (grid x over M, y over N): the blocks in flight
+//   share one weight column tile through L2, so the weight streams from
+//   device memory about once (the TPU kernel's weight-stationary order).
+// - The epilogue rounds the m16n8-shaped accumulator fragments to bf16 and
+//   stores them under the row < m mask; rows past M are zero-filled by the
+//   copy (src size 0) and never stored, so ragged M needs no padding copy.
+// K must be a multiple of 64 and N of 128 (ops/quant_matmul.supported asks
+// for 256 and 128, as the JAX package does).
+//
+// Times on an H100 80GB HBM3 at 700 W (chip_smoke.py, ms per call, through
+// the wrapper), the ldmatrix + mma.sync design this replaces beside this
+// one, with torch.matmul on the weight dequantized beforehand and the bound:
+//   (M, K, N)            calls/image  mma.sync  wgmma  library  bound
+//   (256, 3072, 3072)    418          0.0798    0.0349 0.0139   0.0049
+//   (256, 3072, 9216)    418          0.1771    0.0636 0.0298   0.0147
+//   (256, 3072, 12288)   418          0.1765    0.0652 0.0332   0.0195
+//   (256, 4096, 4096)    192          0.1063    0.0458 0.0210   0.0087
+//   (256, 4096, 10240)   96           0.2295    0.0816 0.0414   0.0217
+//   (256, 10240, 4096)   48           0.2558    0.1076 0.0436   0.0217
+//   (256, 12288, 3072)   418          0.2996    0.1285 0.0491   0.0195
+//   (1024, 3072, 3072)   38           0.1735    0.0642 0.0279   0.0195
+//   (1024, 3072, 9216)   38           0.5191    0.1888 0.0801   0.0586
+//   (1024, 3072, 12288)  38           0.6913    0.1925 0.1027   0.0782
+//   (1024, 12288, 3072)  38           0.6831    0.2273 0.1001   0.0782
+//   (1280, 3072, 21504)  76           1.0062    0.4312 0.2266   0.1710
+//   (1280, 15360, 3072)  76           0.7079    0.2938 0.1533   0.1221
+//   (4096, 3072, 3072)   380          0.3899    0.1944 0.1014   0.0782
+//   (4096, 3072, 9216)   380          1.1340    0.5633 0.3031   0.2345
+//   (4096, 3072, 12288)  380          1.5214    0.7428 0.3924   0.3127
+//   (4096, 12288, 3072)  380          1.4842    0.7390 0.3820   0.3127
+//   (4352, 3072, 21504)  760          2.7005    1.3893 0.7437   0.5814
+//   (4352, 15360, 3072)  760          2.4683    1.1870 0.5252   0.4153
+// per Q8_0 image: 6219 ms before, 3034 now; the library 1516, the bound
+// 1174 (plus T5's calls of one W8A8 image). At linear1, MMA alone (no copies,
+// no dequant) takes 0.77 ms and the copies and dequant alone 0.99 ms
+// (ablate_quant_matmul.py): with every thread doing both, they overlap
+// badly.
+//
+// Left for later: TMA copies with mbarrier transaction counts, warp
+// specialisation (a producer warp and register reallocation), a persistent
+// grid that overlaps one tile's epilogue with the next one's loads, and
+// split-K for M = 256, whose grids are a single wave.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
 namespace {
 
-constexpr int kBK = 64;    // K rows per step: two Q8_0 scale rows
-constexpr int kBN = 128;   // output columns per block
+constexpr int kBK = 64;       // K rows per step: two Q8_0 scale rows
 constexpr int kQBlock = 32;
-constexpr int kPad = 8;     // bf16 row padding: distinct ldmatrix banks
+constexpr int kStages = 4;    // cp.async ring depth
+constexpr int kWBufs = 3;     // bf16 B buffers: two wgmma groups in flight read
+                              // two, the dequant writes the third
+constexpr int kAtom = 1024;   // one 128-byte-swizzle atom: 8 rows of 128 bytes
 constexpr int kErrUnsupported = 1000;
 
-template <int BM>
-struct Smem {
-  __nv_bfloat16 x[2][BM][kBK + kPad];
-  int8_t q[2][kBK][kBN];
-  float s[2][kBK / kQBlock][kBN];
-  __nv_bfloat16 w[kBK][kBN + kPad];
+// The shared-memory plan of a block of WGS warpgroups, each MT tiles of 64
+// rows, by BN columns. The bf16 B buffers, then the ring of x tiles, codes
+// and scales; x tiles and B buffers start on 1024-byte atoms.
+template <int WGS, int MT, int BN>
+struct Cfg {
+  static constexpr int kThreads = WGS * 128;
+  static constexpr int BM = WGS * MT * 64;
+  static constexpr int kBN = BN;
+  static constexpr int kWBytes = kBK * BN * 2;  // one B buffer
+  static constexpr int kNBlock = kBK * 128;     // B: bytes per 64 N columns
+  static constexpr int kXBytes = BM * kBK * 2;  // one x stage
+  static constexpr int kQBytes = kBK * BN;      // one code stage
+  static constexpr int kSBytes = (kBK / kQBlock) * BN * 4;
+  static constexpr int kX = kWBufs * kWBytes;
+  static constexpr int kQ = kX + kStages * kXBytes;
+  static constexpr int kS = kQ + kStages * kQBytes;
+  static constexpr int kSmem = kS + kStages * kSBytes + kAtom;  // + alignment
 };
 
 __device__ __forceinline__ uint32_t smem_addr(const void* p) {
@@ -66,212 +138,325 @@ __device__ __forceinline__ uint32_t smem_addr(const void* p) {
 }
 
 // 16-byte async copy; src_bytes = 0 zero-fills the destination
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
+__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
                                             int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
                :
-               : "r"(smem_addr(smem)), "l"(gmem), "r"(src_bytes));
+               : "r"(dst), "l"(src), "r"(src_bytes));
 }
 
 __device__ __forceinline__ void cp_async_commit() {
   asm volatile("cp.async.commit_group;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+// generic-proxy writes to shared memory -> visible to wgmma's async proxy
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
 }
 
-__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4],
-                                                  uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
-      "[%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
 }
 
-// d (16x8, f32) += a (16x16, bf16, row) * b (16x8, bf16, col)
-__device__ __forceinline__ void mma_bf16(float (&d)[4], const uint32_t (&a)[4],
-                                         uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, "
-      "{%0, %1, %2, %3};\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
 }
+
+// wait until at most N committed wgmma groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
+}
+
+// keeps the compiler from moving accumulator accesses across the wgmmas
+template <int R>
+__device__ __forceinline__ void fence_operands(float (&d)[R]) {
+#pragma unroll
+  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
+// and stride byte offsets, all in 16-byte units
+__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
+                                              uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+#define QM_ACC8(i)                                                  \
+  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
+      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
+
+// d (64 x N, f32) += A (64 x 16, K-major) * B (16 x N, N-major: tnspB = 1)
+template <int N>
+__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b);
+
+template <>
+__device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p, 1, 1, 0, 1;\n}\n"
+      : QM_ACC8(0), QM_ACC8(8), QM_ACC8(16), QM_ACC8(24)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+template <>
+__device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t a, uint64_t b) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 1;\n}\n"
+      : QM_ACC8(0), QM_ACC8(8), QM_ACC8(16), QM_ACC8(24),
+        QM_ACC8(32), QM_ACC8(40), QM_ACC8(48), QM_ACC8(56)
+      : "l"(a), "l"(b), "r"(1));
+}
+
+#undef QM_ACC8
 
 __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-// Issue the copies of K step `step` into buffer `buf`; kThreads threads.
-template <int BM, int kThreads>
-__device__ __forceinline__ void load_step(Smem<BM>& sm, int buf, int step,
-                                          const __nv_bfloat16* __restrict__ x,
-                                          const int8_t* __restrict__ qt,
-                                          const float* __restrict__ scales,
-                                          int m, int n, long long lda, int m0,
-                                          int n0) {
+// four int8 codes -> four exact f32: 0x4B000000 | (q + 128) is 2^23 + q + 128
+__device__ __forceinline__ void codes_to_f32(uint32_t w, float* f) {
+  const uint32_t u = w ^ 0x80808080u;
+  f[0] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7540)) - 8388736.f;
+  f[1] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7541)) - 8388736.f;
+  f[2] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7542)) - 8388736.f;
+  f[3] = __uint_as_float(__byte_perm(u, 0x4B000000u, 0x7543)) - 8388736.f;
+}
+
+// Issue the copies of step `step`'s x tile into ring stage `stage`: each
+// warpgroup copies the rows its own wgmmas read, written swizzled.
+template <class C>
+__device__ __forceinline__ void load_x(uint32_t base, int stage, int step,
+                                       const __nv_bfloat16* __restrict__ x,
+                                       int m, long long lda, int m0) {
+  constexpr int kWgRows = C::BM / (C::kThreads / 128);
+  const uint32_t xs = base + C::kX + stage * C::kXBytes;
   const int k0 = step * kBK;
-  // x: BM rows x 64 bf16 = 8 chunks of 16 bytes a row
-  for (int c = threadIdx.x; c < BM * (kBK / 8); c += kThreads) {
-    const int r = c >> 3;
-    const int cc = (c & 7) * 8;
+#pragma unroll
+  for (int i = 0; i < kWgRows * 8 / 128; ++i) {
+    const int c = (threadIdx.x & 127) + i * 128;
+    const int r = (threadIdx.x >> 7) * kWgRows + (c >> 3);
+    const int ch = c & 7;
     const bool ok = m0 + r < m;
     const __nv_bfloat16* src =
-        x + (ok ? static_cast<long long>(m0 + r) * lda + k0 + cc : 0);
-    cp_async_16(&sm.x[buf][r][cc], src, ok ? 16 : 0);
+        x + (ok ? static_cast<long long>(m0 + r) * lda + k0 + ch * 8 : 0);
+    cp_async_16(xs + r * 128 + ((ch ^ (r & 7)) << 4), src, ok ? 16 : 0);
   }
-  // codes: 64 rows x 128 int8 = 8 chunks a row
-  for (int c = threadIdx.x; c < kBK * (kBN / 16); c += kThreads) {
-    const int r = c >> 3;
-    const int cc = (c & 7) * 16;
-    cp_async_16(&sm.q[buf][r][cc],
-                qt + static_cast<long long>(k0 + r) * n + n0 + cc, 16);
+}
+
+// Issue the copies of step `step`'s codes (64 rows x BN bytes) and its two
+// scale rows into ring stage `stage`; all threads share them.
+template <class C>
+__device__ __forceinline__ void load_codes(uint32_t base, int stage, int step,
+                                           const int8_t* __restrict__ qt,
+                                           const float* __restrict__ scales,
+                                           int n, int n0) {
+  constexpr int BN = C::kBN;
+  constexpr int kQRow = BN / 16;
+  constexpr int kSRow = BN / 4;
+  static_assert(kBK * kQRow % C::kThreads == 0 && 2 * kSRow <= C::kThreads,
+                "copies per thread");
+  const uint32_t qs = base + C::kQ + stage * C::kQBytes;
+  const int k0 = step * kBK;
+#pragma unroll
+  for (int i = 0; i < kBK * kQRow / C::kThreads; ++i) {
+    const int c = threadIdx.x + i * C::kThreads;
+    const int r = c / kQRow;
+    const int ch = c % kQRow;
+    cp_async_16(qs + c * 16,
+                qt + static_cast<long long>(k0 + r) * n + n0 + ch * 16, 16);
   }
-  // scales: 2 rows x 128 f32 = 32 chunks a row
-  if (threadIdx.x < (kBK / kQBlock) * (kBN / 4)) {
-    const int r = threadIdx.x >> 5;
-    const int cc = (threadIdx.x & 31) * 4;
-    cp_async_16(&sm.s[buf][r][cc],
-                scales + static_cast<long long>(k0 / kQBlock + r) * n + n0 + cc,
+  if (threadIdx.x < 2 * kSRow) {
+    const int c = threadIdx.x;
+    const int r = c / kSRow;
+    const int ch = c % kSRow;
+    cp_async_16(base + C::kS + stage * C::kSBytes + c * 16,
+                scales + static_cast<long long>(k0 / kQBlock + r) * n + n0 +
+                    ch * 4,
                 16);
   }
-  cp_async_commit();
 }
 
-// codes and scales of buffer `buf` -> the bf16 weight tile, 16 per item
-template <int BM, int kThreads>
-__device__ __forceinline__ void dequant_step(Smem<BM>& sm, int buf) {
-  for (int i = threadIdx.x; i < kBK * (kBN / 16); i += kThreads) {
-    const int r = i >> 3;
-    const int c0 = (i & 7) * 16;
-    const int4 raw = *reinterpret_cast<const int4*>(&sm.q[buf][r][c0]);
-    const int8_t* codes = reinterpret_cast<const int8_t*>(&raw);
-    const float* sc = &sm.s[buf][r / kQBlock][c0];
-    uint32_t out[8];
+// Codes and scales of ring stage `stage` -> B buffer `buf` (bf16, N-major,
+// 128-byte swizzle). Thread: one chunk of 8 columns over kRows K rows that
+// share one scale row; a warp reads whole code rows and writes whole
+// 128-byte swizzle rows.
+template <class C>
+__device__ __forceinline__ void dequant_step(unsigned char* smem, int stage,
+                                             int buf) {
+  constexpr int BN = C::kBN;
+  constexpr int kChunks = BN / 8;
+  constexpr int kRows = kBK * kChunks / C::kThreads;
+  static_assert(kRows >= 1 && kQBlock % kRows == 0, "rows cross a scale row");
+  const int c = threadIdx.x % kChunks;
+  const int r0 = (threadIdx.x / kChunks) * kRows;
+  const unsigned char* q = smem + C::kQ + stage * C::kQBytes + c * 8;
+  const float* s = reinterpret_cast<const float*>(smem + C::kS + stage * C::kSBytes) +
+                   (r0 / kQBlock) * BN + c * 8;
+  const float4 s0 = *reinterpret_cast<const float4*>(s);
+  const float4 s1 = *reinterpret_cast<const float4*>(s + 4);
+  unsigned char* w = smem + buf * C::kWBytes + (c >> 3) * C::kNBlock;
+  const int cc = c & 7;
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
-      out[j] = pack_bf16(static_cast<float>(codes[2 * j]) * sc[2 * j],
-                         static_cast<float>(codes[2 * j + 1]) * sc[2 * j + 1]);
-    }
-    uint4* dst = reinterpret_cast<uint4*>(&sm.w[r][c0]);
-    dst[0] = make_uint4(out[0], out[1], out[2], out[3]);
-    dst[1] = make_uint4(out[4], out[5], out[6], out[7]);
+  for (int i = 0; i < kRows; ++i) {
+    const int r = r0 + i;
+    const uint2 raw = *reinterpret_cast<const uint2*>(q + r * BN);
+    float f[8];
+    codes_to_f32(raw.x, f);
+    codes_to_f32(raw.y, f + 4);
+    uint4 v;
+    v.x = pack_bf16(f[0] * s0.x, f[1] * s0.y);
+    v.y = pack_bf16(f[2] * s0.z, f[3] * s0.w);
+    v.z = pack_bf16(f[4] * s1.x, f[5] * s1.y);
+    v.w = pack_bf16(f[6] * s1.z, f[7] * s1.w);
+    *reinterpret_cast<uint4*>(w + (r >> 3) * kAtom + (r & 7) * 128 +
+                              ((cc ^ (r & 7)) << 4)) = v;
   }
 }
 
-// BM rows x 128 columns per block of WARPS_M x WARPS_N warps, each warp
-// BM / WARPS_M rows x 128 / WARPS_N columns.
-// STACKED: qt and scales are stacks; block idx starts q_block codes and
-// s_block scales in.
-template <int BM, int WARPS_M, int WARPS_N, bool STACKED>
-__global__ void __launch_bounds__(WARPS_M * WARPS_N * 32)
+// one step's products: MT x 4 wgmmas per warpgroup on x stage `stage` and
+// B buffer `buf`
+template <class C, int MT>
+__device__ __forceinline__ void mma_step(float (&acc)[MT][C::kBN / 2],
+                                         uint32_t base, int stage, int buf) {
+  const int wg = threadIdx.x >> 7;
+  const uint32_t a0 = base + C::kX + stage * C::kXBytes + wg * MT * 64 * 128;
+  const uint32_t b0 = base + buf * C::kWBytes;
+#pragma unroll
+  for (int ks = 0; ks < kBK / 16; ++ks) {
+    // B: k16 = two 8-row atoms (SBO), 64-column blocks kNBlock apart (LBO)
+    const uint64_t db = make_desc(b0 + ks * 2 * kAtom, C::kNBlock, kAtom);
+#pragma unroll
+    for (int mt = 0; mt < MT; ++mt) {
+      // A: 8-row atoms 1024 bytes apart (SBO); k16 = 32 bytes into the row
+      const uint64_t da = make_desc(a0 + mt * 64 * 128 + ks * 32, 16, kAtom);
+      wgmma<C::kBN>(acc[mt], da, db);
+    }
+  }
+}
+
+// BM = WGS x MT x 64 rows by BN columns per block, WGS warpgroups of MT
+// m64 tiles each. STACKED: qt and scales are stacks; block idx starts
+// q_block codes and s_block scales in.
+template <int WGS, int MT, int BN, bool STACKED>
+__global__ void __launch_bounds__(WGS * 128, 1)
     quant_matmul_kernel(const __nv_bfloat16* __restrict__ x,
                         const int8_t* __restrict__ qt,
                         const float* __restrict__ scales,
                         __nv_bfloat16* __restrict__ out, int m, int n, int k,
                         long long lda, long long q_block, long long s_block,
                         int idx) {
+  using C = Cfg<WGS, MT, BN>;
   if (STACKED) {
     qt += static_cast<long long>(idx) * q_block;
     scales += static_cast<long long>(idx) * s_block;
   }
-  constexpr int kThreads = WARPS_M * WARPS_N * 32;
-  constexpr int WM = BM / WARPS_M;   // warp tile rows
-  constexpr int WN = kBN / WARPS_N;  // warp tile columns
-  constexpr int MI = WM / 16;        // m16 tiles per warp
-  constexpr int NJ = WN / 16;        // n16 column pairs per warp
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<BM>& sm = *reinterpret_cast<Smem<BM>*>(smem_raw);
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((kAtom - (smem_addr(smem_raw) & (kAtom - 1))) & (kAtom - 1));
+  const uint32_t base = smem_addr(smem);
 
-  const int m0 = blockIdx.x * BM;
-  const int n0 = blockIdx.y * kBN;
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int wm = (warp / WARPS_N) * WM;
-  const int wn = (warp % WARPS_N) * WN;
+  const int m0 = blockIdx.x * C::BM;
+  const int n0 = blockIdx.y * BN;
 
-  float acc[MI][2 * NJ][4];
+  float acc[MT][BN / 2];
 #pragma unroll
-  for (int i = 0; i < MI; ++i)
+  for (int mt = 0; mt < MT; ++mt)
 #pragma unroll
-    for (int j = 0; j < 2 * NJ; ++j) acc[i][j][0] = acc[i][j][1] = acc[i][j][2] = acc[i][j][3] = 0.f;
+    for (int j = 0; j < BN / 2; ++j) acc[mt][j] = 0.f;
 
   const int steps = k / kBK;
-  load_step<BM, kThreads>(sm, 0, 0, x, qt, scales, m, n, lda, m0, n0);
-  const uint32_t w_base = smem_addr(&sm.w[0][0]);
-  for (int t = 0; t < steps; ++t) {
-    const int buf = t & 1;
-    cp_async_wait_all();
-    __syncthreads();  // step t has landed; step t - 1's reads are done
-    if (t + 1 < steps) {
-      load_step<BM, kThreads>(sm, buf ^ 1, t + 1, x, qt, scales, m, n, lda, m0, n0);
+#pragma unroll
+  for (int s = 0; s < kStages - 1; ++s) {
+    if (s < steps) {
+      load_x<C>(base, s, s, x, m, lda, m0);
+      load_codes<C>(base, s, s, qt, scales, n, n0);
     }
-    dequant_step<BM, kThreads>(sm, buf);
-    __syncthreads();
-    const uint32_t x_base = smem_addr(&sm.x[buf][0][0]);
-#pragma unroll
-    for (int ks = 0; ks < kBK / 16; ++ks) {
-      uint32_t a[MI][4];
-#pragma unroll
-      for (int mi = 0; mi < MI; ++mi) {
-        const int row = wm + mi * 16 + (lane & 15);
-        const int col = ks * 16 + (lane >> 4) * 8;
-        ldmatrix_x4(a[mi], x_base + (row * (kBK + kPad) + col) * 2);
-      }
-#pragma unroll
-      for (int nj = 0; nj < NJ; ++nj) {
-        uint32_t b[4];
-        const int row = ks * 16 + (lane & 7) + ((lane >> 3) & 1) * 8;
-        const int col = wn + nj * 16 + (lane >> 4) * 8;
-        ldmatrix_x4_trans(b, w_base + (row * (kBN + kPad) + col) * 2);
-#pragma unroll
-        for (int mi = 0; mi < MI; ++mi) {
-          mma_bf16(acc[mi][2 * nj], a[mi], b[0], b[1]);
-          mma_bf16(acc[mi][2 * nj + 1], a[mi], b[2], b[3]);
-        }
-      }
-    }
+    cp_async_commit();
   }
+  cp_async_wait<kStages - 2>();  // step 0 has landed
+  __syncthreads();
+  dequant_step<C>(smem, 0, 0);
 
+  // Step t: step t - 1's wgmmas may still run when step t's are issued, so
+  // the tensor cores need not wait for the block's barrier.
+  for (int t = 0; t < steps; ++t) {
+    cp_async_wait<kStages - 3>();  // step t + 1 has landed (own copies)
+    fence_proxy_async();           // own dequant stores and copies -> wgmma
+    __syncthreads();               // everyone's; step t - 2's wgmmas are done
 #pragma unroll
-  for (int mi = 0; mi < MI; ++mi) {
+    for (int mt = 0; mt < MT; ++mt) fence_operands(acc[mt]);
+    wgmma_fence();
+    mma_step<C, MT>(acc, base, t % kStages, t % kWBufs);
+    wgmma_commit();
+    // B buffer (t + 1) % 3 was last read by step t - 2's wgmmas
+    if (t + 1 < steps) dequant_step<C>(smem, (t + 1) % kStages, (t + 1) % kWBufs);
+    wgmma_wait<1>();               // step t - 1's wgmmas are done
 #pragma unroll
-    for (int j = 0; j < 2 * NJ; ++j) {
-      const int col = n0 + wn + j * 8 + (lane & 3) * 2;
+    for (int mt = 0; mt < MT; ++mt) fence_operands(acc[mt]);
+    // ring stage (t + 3) % 4 held step t - 1: its x rows were read by this
+    // warpgroup's step t - 1 wgmmas, its codes by the dequant in step t - 2
+    const int next = t + kStages - 1;
+    if (next < steps) {
+      load_x<C>(base, next % kStages, next, x, m, lda, m0);
+      load_codes<C>(base, next % kStages, next, qt, scales, n, n0);
+    }
+    cp_async_commit();
+  }
+  wgmma_wait<0>();
 #pragma unroll
-      for (int half = 0; half < 2; ++half) {
-        const int row = m0 + wm + mi * 16 + (lane >> 2) + half * 8;
-        if (row < m) {
-          *reinterpret_cast<uint32_t*>(out + static_cast<long long>(row) * n + col) =
-              pack_bf16(acc[mi][j][2 * half], acc[mi][j][2 * half + 1]);
-        }
+  for (int mt = 0; mt < MT; ++mt) fence_operands(acc[mt]);
+
+  // accumulator fragment: warp w of the warpgroup holds rows 16w..16w+15;
+  // per 8 columns, mma.sync m16n8's C fragment
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int wg = threadIdx.x >> 7;
+#pragma unroll
+  for (int mt = 0; mt < MT; ++mt) {
+    const int row = m0 + (wg * MT + mt) * 64 + warp * 16 + (lane >> 2);
+#pragma unroll
+    for (int j = 0; j < BN / 8; ++j) {
+      const int col = n0 + j * 8 + (lane & 3) * 2;
+      if (row < m) {
+        *reinterpret_cast<uint32_t*>(out + static_cast<long long>(row) * n + col) =
+            pack_bf16(acc[mt][4 * j], acc[mt][4 * j + 1]);
+      }
+      if (row + 8 < m) {
+        *reinterpret_cast<uint32_t*>(out + static_cast<long long>(row + 8) * n + col) =
+            pack_bf16(acc[mt][4 * j + 2], acc[mt][4 * j + 3]);
       }
     }
   }
 }
 
-template <int BM, int WARPS_M, int WARPS_N, bool STACKED>
+template <int WGS, int MT, int BN, bool STACKED>
 int launch(const __nv_bfloat16* x, const int8_t* qt, const float* scales,
            __nv_bfloat16* out, int m, int n, int k, long long lda,
            long long q_block, long long s_block, int idx, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(Smem<BM>));
-  auto kernel = quant_matmul_kernel<BM, WARPS_M, WARPS_N, STACKED>;
+  using C = Cfg<WGS, MT, BN>;
+  auto kernel = quant_matmul_kernel<WGS, MT, BN, STACKED>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((m + BM - 1) / BM, n / kBN);
-  kernel<<<grid, WARPS_M * WARPS_N * 32, smem, stream>>>(
+  dim3 grid((m + C::BM - 1) / C::BM, n / BN);
+  kernel<<<grid, C::kThreads, C::kSmem, stream>>>(
       x, qt, scales, out, m, n, k, lda, q_block, s_block, idx);
   return static_cast<int>(cudaGetLastError());
 }
@@ -280,7 +465,7 @@ template <bool STACKED>
 int dispatch(const void* x, const void* qt, const void* scales, void* out,
              int m, int n, int k, long long lda, long long q_block,
              long long s_block, int idx, void* stream) {
-  if (m < 1 || n < kBN || n % kBN != 0 || k < kBK || k % kBK != 0 ||
+  if (m < 1 || n < 128 || n % 128 != 0 || k < kBK || k % kBK != 0 ||
       lda < k || lda % 8 != 0) {
     return kErrUnsupported;
   }
@@ -289,16 +474,20 @@ int dispatch(const void* x, const void* qt, const void* scales, void* out,
   const auto* q = static_cast<const int8_t*>(qt);
   const auto* sc = static_cast<const float*>(scales);
   auto* o = static_cast<__nv_bfloat16*>(out);
-  if (m <= 1024) {
-    return launch<64, 2, 4, STACKED>(xb, q, sc, o, m, n, k, lda, q_block,
-                                     s_block, idx, s);
+  // 256 x 128 tiles (two warpgroups of two m64 tiles) unless their grid
+  // would leave more than half the SMs idle: then 64 x 64 (one warpgroup)
+  int device = 0, sms = 0;
+  cudaError_t e = cudaGetDevice(&device);
+  if (e == cudaSuccess) {
+    e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
   }
-  if (m <= 2048) {
-    return launch<128, 2, 4, STACKED>(xb, q, sc, o, m, n, k, lda, q_block,
+  if (e != cudaSuccess) return static_cast<int>(e);
+  if (2LL * ((m + 255) / 256) * (n / 128) >= sms) {
+    return launch<2, 2, 128, STACKED>(xb, q, sc, o, m, n, k, lda, q_block,
                                       s_block, idx, s);
   }
-  return launch<256, 4, 2, STACKED>(xb, q, sc, o, m, n, k, lda, q_block,
-                                    s_block, idx, s);
+  return launch<1, 1, 64, STACKED>(xb, q, sc, o, m, n, k, lda, q_block,
+                                   s_block, idx, s);
 }
 
 }  // namespace

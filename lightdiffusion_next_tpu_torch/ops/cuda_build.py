@@ -181,8 +181,9 @@ def library_path(name: str) -> Path:
 def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     """Compile the sources of every listed kernel that are not built yet,
     one ``nvcc`` per source, started together. Returns per source its wall
-    seconds and the compiler's register/spill report (``-Xptxas -v``).
-    Raises with the compiler's output when a build fails."""
+    seconds, its library's path and the compiler's register/spill report
+    (``-Xptxas -v``, kept beside the library for a cached build). Raises
+    with the compiler's output when a build fails."""
     names = list(KERNELS) if names is None else list(names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     report: Dict[str, dict] = {}
@@ -191,7 +192,9 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
     for source in dict.fromkeys(KERNELS[name][0] for name in names):
         out = _source_library(source)
         if out.exists():
-            report[source] = {"seconds": 0.0, "log": "cached", "path": str(out)}
+            log = out.with_suffix(".log")
+            report[source] = {"seconds": 0.0, "path": str(out),
+                              "log": log.read_text() if log.exists() else ""}
             continue
         tmp = out.with_suffix(f".{os.getpid()}.tmp")
         cmd = [nvcc_path(), *NVCC_FLAGS, "-I", str(CSRC), "-o", str(tmp),
@@ -205,6 +208,7 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         if proc.returncode != 0:
             failed.append(f"{source}:\n{log}")
             continue
+        out.with_suffix(".log").write_text(log)
         os.replace(tmp, out)
         report[source] = {
             "seconds": time.perf_counter() - t0, "log": log, "path": str(out),

@@ -6,11 +6,14 @@ NVIDIA GPU.
     python3 profile_sd15.py --sage     # SD1.5 with the int8 attention (K4)
     python3 profile_sd15.py --flux     # Flux.1-dev, W8A8 DiT in the scan layout
                                        # (the card's default)
+    python3 profile_sd15.py --flux --q8  # Flux.1-dev, Q8_0 DiT unrolled (K5)
 
 Builds the same full-width models from seeded random weights as
 ``chip_smoke.py`` (SD1.5: UNet, VAE, CLIP-L; Flux: the DiT requantized to
 W8A8 from its seeded Q8_0 weights, with the fused elementwise path, the Q8_0
-T5-XXL, CLIP-L, the AE, the DiT and T5 then stacked into the scan layout),
+T5-XXL, CLIP-L, the AE, the DiT and T5 then stacked into the scan layout;
+with ``--q8`` the DiT and T5 stay Q8_0 and unrolled, as in
+``chip_smoke.py``'s Flux pipeline phase),
 runs the pipeline at 1024^2 once to warm up, then once more
 under ``torch.profiler``. Prints, for that profiled call: its wall time, the
 device's busy time (the sum of its kernels' device time) and idle share
@@ -75,7 +78,7 @@ def kernel_category(name: str) -> str:
     return "other"
 
 
-def main(top: int = 12, flux: bool = False, sage: bool = False) -> int:
+def main(top: int = 12, flux: bool = False, sage: bool = False, q8: bool = False) -> int:
     import torch
 
     if not torch.cuda.is_available():
@@ -90,7 +93,9 @@ def main(top: int = 12, flux: bool = False, sage: bool = False) -> int:
     os.environ.setdefault("LDT_ASSET_ROOT", chip_smoke.OUT_DIR)
     config.resolve_device("cuda")
     print("gpu:", chip_smoke.gpu_line(), flush=True)
-    if flux:
+    if flux and q8:
+        models, run = chip_smoke.build_flux_models(), chip_smoke.run_flux_pipeline
+    elif flux:
         models, _ = chip_smoke.to_scan_models(chip_smoke.build_flux_models(w8a8=True))
         run = chip_smoke.run_flux_pipeline
     else:
@@ -123,7 +128,8 @@ def main(top: int = 12, flux: bool = False, sage: bool = False) -> int:
         print(f"  {ms:9.2f} ms {100 * ms / busy_ms:5.1f}% x{count:<6d} {name}")
     for ms, count, key in rows[:top]:
         print(f"  kernel {ms:9.2f} ms x{count:<6d} {key[:90]}")
-    name = "profile_flux.txt" if flux else ("profile_sage.txt" if sage else "profile.txt")
+    name = ("profile_flux_q8.txt" if q8 else "profile_flux.txt") if flux else (
+        "profile_sage.txt" if sage else "profile.txt")
     with open(os.path.join(chip_smoke.OUT_DIR, name), "w") as f:
         for ms, count, key in rows:
             f.write(f"{ms:.3f}\t{count}\t{key}\n")
@@ -135,4 +141,5 @@ def main(top: int = 12, flux: bool = False, sage: bool = False) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main(flux="--flux" in sys.argv[1:], sage="--sage" in sys.argv[1:]))
+    sys.exit(main(flux="--flux" in sys.argv[1:], sage="--sage" in sys.argv[1:],
+                  q8="--q8" in sys.argv[1:]))

@@ -149,6 +149,13 @@ def _q8_check(out, ref):
     (4352, 15360, 3072),   # single block linear2, the deepest K
     (256, 4096, 10240),    # T5 wi
     (1000, 3072, 3072),    # ragged M
+    # both tile configurations of the dispatch, ragged M on each:
+    (1, 3072, 3072),       # 64 x 64 tiles, one row
+    (77, 4096, 4096),      # 64 x 64
+    (256, 3072, 3072),     # T5 / text stream: 64 x 64, 4 x 48 blocks
+    (257, 3072, 9216),     # 256 x 128, one row in the second row of tiles
+    (1100, 3072, 3072),    # 256 x 128
+    (1100, 3072, 384),     # 64 x 64: 256 x 128 tiles would fill 15 SMs
 ])
 def test_quant_matmul_matches_plain(cuda, m, k, n):
     gen = torch.Generator(device="cuda").manual_seed(4)
@@ -411,6 +418,12 @@ def _w8_stack(d, k, n, gen):
     (24, 256, 4096, 10240, 0),     # T5 wi
     (24, 256, 10240, 4096, 23),    # T5 wo
     (19, 1000, 3072, 3072, 7),     # ragged M
+    # the last block of a stack in both tile configurations
+    (24, 1, 4096, 4096, 23),       # 64 x 64 tiles
+    (19, 256, 3072, 3072, 18),     # 64 x 64
+    (19, 257, 3072, 9216, 18),     # 256 x 128
+    (38, 4352, 15360, 3072, 37),   # 256 x 128, single linear2: the deepest K
+    (19, 1100, 3072, 384, 18),     # 64 x 64
 ])
 def test_quant_matmul_stacked_matches_plain(cuda, d, m, k, n, idx):
     gen = torch.Generator(device="cuda").manual_seed(13)

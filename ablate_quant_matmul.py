@@ -77,7 +77,8 @@ def build_all(source):
         with open(path, "w") as f:
             f.write(text)
         procs[name] = subprocess.Popen(
-            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-o", path[:-3] + ".so", path],
+            [cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC),
+             "-o", path[:-3] + ".so", path],
             stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     libs = {}
     for name, proc in procs.items():

@@ -7,9 +7,10 @@ Phases, in order; any failure exits non-zero:
 
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
 2. build: every hand-written kernel from ``lightdiffusion_next_tpu_torch/csrc``,
-   with each source's register and spill report; K5's and K6's kernels must
-   spill nothing and, in the built library's SASS (``cuobjdump``), run on
-   ``wgmma`` (HGMMA) with no ``mma.sync`` (HMMA) left, or the run fails;
+   with each source's register and spill report; the ``wgmma`` kernels (K5's
+   and K6's, K3's attention kernel) must spill nothing and, in the built
+   library's SASS (``cuobjdump``), run on ``wgmma`` (HGMMA) with no
+   ``mma.sync`` (HMMA) left, or the run fails;
 3. SD1.5 kernels: K1 and K2 at each shape the SD1.5 1024^2 path gives them
    (derived from the UNet plan, the multi-scale plan and the MSW-MSA gate),
    checked against their plain PyTorch version (``flash_attention
@@ -75,7 +76,12 @@ Phases, in order; any failure exits non-zero:
    with the launches checked against the scan plan (the stacked K11, K9,
    K10, K6 for T5, K3, K2; no K5, K7, K8 or unstacked K11), its final latent
    and one missed DiT call with ``fused_ew`` on and off (K8 and K9 on every
-   matmul) held bit for bit to phase 11's, a timed run.
+   matmul) held bit for bit to phase 11's, a timed run;
+16. Flux FBCache hits: phase 15's models with FBCache forced to hit
+   (``FORCED_HITS``), the same pipeline call with the launches checked
+   against the plan of its counted hits and misses (a hit runs double block
+   0: its matmuls and one K3 launch), its output checked; fails unless the
+   cache hit.
 
 Phases 5 to 11 pin ``RuntimeConfig(flux_scan=False)``, so their launch plans
 are the unrolled layout's.
@@ -201,6 +207,16 @@ KERNELS = {
         "replaces": "lightdiffusion_next_tpu/ops/quant_matmul.py:1284",
     },
 }
+
+# FBCache forced to hit (the hit-path phase): every call the cache may serve
+# is served, at most two in a row, so misses between them refresh the cached
+# residual
+FORCED_HITS = dict(residual_diff_threshold=1e30, max_consecutive_cache_hits=2)
+
+# The wgmma kernels (source, template name): the build phase fails unless
+# their SASS holds HGMMA and no HMMA and no instantiation spills
+WGMMA_KERNELS = (("quant_matmul.cu", "quant_matmul_kernel"),
+                 ("fused_qkv_attention.cu", "fused_attention_kernel"))
 
 # The kernel names of the scan layout's stacked operands
 STACKED_NAMES = {"quant_matmul": "quant_matmul_stacked", "w8a8_matmul": "w8a8_matmul_stacked",
@@ -419,7 +435,8 @@ def phase_build():
                   if "spill" in ln and not ln.strip().startswith("0 bytes stack")]
         log(f"  {name}: {rep['seconds']:.1f} s; {len(regs)} instantiations; "
             f"{sorted(set(regs))}; spills: {spills or 'none'}")
-    check_quant_matmul_build(report["quant_matmul.cu"], cuda_build.nvcc_path())
+    for source, kernel in WGMMA_KERNELS:
+        check_wgmma_build(source, report[source], cuda_build.nvcc_path(), kernel)
 
 
 def ptxas_functions(build_log):
@@ -437,20 +454,21 @@ def ptxas_functions(build_log):
     return funcs
 
 
-def check_quant_matmul_build(rep, nvcc):
-    """K5's and K6's kernels (``quant_matmul_kernel<WGS, MT, BN, STACKED>``):
-    log each instantiation's registers and spills as ptxas reports them,
-    then read the library's SASS (``cuobjdump --dump-sass``). Raises unless
-    every instantiation spills 0 bytes and runs its products on wgmma
-    (HGMMA) with no mma.sync (HMMA) left."""
-    funcs = {f: lines for f, lines in ptxas_functions(rep["log"]).items()
-             if "quant_matmul_kernel" in f}
+def check_wgmma_build(source, rep, nvcc, kernel):
+    """A ``wgmma`` kernel's instantiations in the library of ``source``
+    (``kernel``: its template's name, e.g. ``quant_matmul_kernel`` for K5
+    and K6; ``rep``: the source's build report): log each
+    one's registers and spills as ptxas reports them, then read the
+    library's SASS (``cuobjdump --dump-sass``). Raises unless every
+    instantiation spills 0 bytes and runs its products on wgmma (HGMMA) with
+    no mma.sync (HMMA) left."""
+    funcs = {f: lines for f, lines in ptxas_functions(rep["log"]).items() if kernel in f}
     if not funcs:
-        raise RuntimeError("quant_matmul.cu: no quant_matmul_kernel in the ptxas report")
+        raise RuntimeError(f"{source}: no {kernel} in the ptxas report")
     spilled = []
     for f, lines in sorted(funcs.items()):
-        config = f.split("quant_matmul_kernel")[-1].split("EEEv")[0]
-        log(f"  quant_matmul_kernel {config}: {'; '.join(lines)}")
+        config = f.split(kernel)[-1].split("EEEv")[0]
+        log(f"  {kernel} {config}: {'; '.join(lines)}")
         if any(" 0 bytes spill stores, 0 bytes spill loads" not in ln
                for ln in lines if "spill" in ln):
             spilled.append(f)
@@ -463,14 +481,14 @@ def check_quant_matmul_build(rep, nvcc):
     counts = {}
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
-        if "quant_matmul_kernel" in name:
+        if kernel in name:
             counts[name] = (part.count("HGMMA."), part.count(" HMMA."))
     for name, (hgmma, hmma) in sorted(counts.items()):
-        log(f"  SASS {name.split('quant_matmul_kernel')[-1].split('EEEv')[0]}: "
+        log(f"  SASS {kernel} {name.split(kernel)[-1].split('EEEv')[0]}: "
             f"{hgmma} HGMMA, {hmma} HMMA")
     bad = [n for n, (hgmma, hmma) in counts.items() if hgmma == 0 or hmma]
     if spilled or bad or len(counts) != len(funcs):
-        raise RuntimeError(f"quant_matmul.cu: spills in {spilled}; SASS without HGMMA or "
+        raise RuntimeError(f"{source}: spills in {spilled}; SASS without HGMMA or "
                            f"with HMMA in {bad}; {len(counts)} functions in the SASS, "
                            f"{len(funcs)} in the ptxas report")
 
@@ -1745,7 +1763,8 @@ def phase_flux_scan_pipeline(models, refs):
     ``fused_ew`` on and one with it off against phase 11's (bit for bit
     expected: the same kernels on the same weights; held to
     TOL_SCAN_REL_RMSE, the equality logged), a timed run. Returns (ok,
-    launches, e2e, calls per image, launches of the unfused DiT call)."""
+    launches, e2e, calls per image, launches of the unfused DiT call, the
+    stacked models)."""
     import torch
 
     models, stack_peak = to_scan_models(models)
@@ -1793,7 +1812,32 @@ def phase_flux_scan_pipeline(models, refs):
                missed_dit_call_fused_ew_off_s=miss_off[-1], stacking_peak_gib=stack_peak,
                bit_for_bit_with_unrolled={"final_latent": eq_latent, "dit_call": eq_on,
                                           "dit_call_fused_ew_off": eq_off})
-    return ok, launches, e2e, calls, off_launches
+    return ok, launches, e2e, calls, off_launches, models
+
+
+def phase_flux_fbcache_hits(models):
+    """Phase 15's models with FBCache forced to hit (``FORCED_HITS``): the
+    same pipeline call, its launches against the plan of its counted hits
+    and misses, its output. Random full-width weights never hit at the
+    default threshold, so this is the hit path's run on the card: a hit runs
+    double block 0 (its matmuls and one K3 launch) and adds the cached
+    residual. Fails unless the cache hit. Returns (ok, launches, calls per
+    image, e2e)."""
+    from lightdiffusion_next_tpu_torch.sampling import fbcache
+
+    model, clip, vae, t5 = models
+    forced = model.with_options(fbcache=fbcache.FBCacheConfig(**FORCED_HITS))
+    with runtime_config(fused_ew="auto"):
+        reset_launches()
+        run = run_flux_pipeline((forced, clip, vae, t5), 4321)
+        launches = read_launches()
+    label = "Flux W8A8 scan, FBCache forced to hit"
+    ok, calls = check_flux_launches(run, launches, True, label, scan=True)
+    ok = check_flux_output(run, forced, vae, "flux FBCache hits") and ok
+    hits = sum(run["hits"])
+    log(f"{label}: {hits} hits {'ok' if hits else 'FAIL: none'}; {run['wall']:.3f} s/image")
+    return ok and hits > 0, launches, calls, {"s_per_image": run["wall"], "fbcache_hits": hits,
+                                             "fbcache_history": run["hits"]}
 
 
 def main() -> int:
@@ -1863,20 +1907,24 @@ def main() -> int:
                if k[0] == "quant_matmul_stacked" and k[1] in (4096, 4096 + FLUX_TXT, FLUX_TXT)}
     requant_ok = timed("stacked kernels", phase_stacked_kernels,
                        {**k6_plan, **scan_plan, **scan_off_plan}, per_kernel)
-    scan_ok, scan_launches, scan_e2e, scan_calls, scan_off_launches = timed(
+    scan_ok, scan_launches, scan_e2e, scan_calls, scan_off_launches, flux_models = timed(
         "flux w8a8 scan pipeline", phase_flux_scan_pipeline, flux_models, w8_refs)
+    hit_ok, hit_launches, hit_calls, hit_e2e = timed(
+        "flux fbcache hits", phase_flux_fbcache_hits, flux_models)
     del flux_models
 
     # calls per image of each path, summed over the paths a kernel runs on
     # (the unfused DiT calls count once)
     all_calls = dict(sd_calls)
-    for path_calls in (sage_calls, fcalls, w8_calls, off_plan, scan_calls, scan_off_plan):
+    for path_calls in (sage_calls, fcalls, w8_calls, off_plan, scan_calls, scan_off_plan,
+                       hit_calls):
         for key, n in path_calls.items():
             all_calls[key] = all_calls.get(key, 0) + n
     paths = {"sd15": sd_launches, "sd15_sage": sage_launches, "flux": flux_launches,
              "flux_w8a8": w8_launches, "w8a8_dit_call_fused_ew_off": off_launches,
              "flux_w8a8_scan": scan_launches,
-             "w8a8_scan_dit_call_fused_ew_off": scan_off_launches}
+             "w8a8_scan_dit_call_fused_ew_off": scan_off_launches,
+             "flux_w8a8_scan_fbcache_hits": hit_launches}
     kernels_line = []
     for name, meta in KERNELS.items():
         entry = per_kernel[name]
@@ -1902,14 +1950,15 @@ def main() -> int:
             "library_ms": per_image("library_ms"), "ok": entry["ok"],
             "per": "image: the sum over its main-path shapes of calls x time, over one "
                    "image of each path it runs on (SD1.5 with flash or sage attention, "
-                   "Flux Q8_0, Flux W8A8 unrolled and scan) and one missed W8A8 DiT call "
-                   "with fused_ew off in each layout",
+                   "Flux Q8_0, Flux W8A8 unrolled and scan, Flux W8A8 scan with FBCache "
+                   "forced to hit) and one missed W8A8 DiT call with fused_ew off in each "
+                   "layout",
             "shapes": shapes,
         })
     e2e = {"sd15": sd_e2e, "sd15_sage": sage_e2e, "flux": flux_e2e, "flux_w8a8": w8_e2e,
-           "flux_w8a8_scan": scan_e2e}
+           "flux_w8a8_scan": scan_e2e, "flux_w8a8_scan_fbcache_hits": hit_e2e}
     ok = (ref_ok and pipe_ok and sage_ok and flux_ref_ok and flux_ok and w8_ref_ok and w8_ok
-          and requant_ok and scan_ok and all(k["ok"] for k in kernels_line))
+          and requant_ok and scan_ok and hit_ok and all(k["ok"] for k in kernels_line))
     record = {"gpu": line, "kernels": kernels_line, "e2e": e2e, "phase_seconds": seconds,
               "seconds": time.perf_counter() - t_start}
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:

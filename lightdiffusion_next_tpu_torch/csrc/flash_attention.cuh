@@ -1,6 +1,5 @@
 // Exact non-causal flash attention for Hopper (sm_90a), shared by the entry
-// points in flash_attention.cu, packed_flash_attention.cu and
-// fused_qkv_attention.cu.
+// points in flash_attention.cu and packed_flash_attention.cu.
 //
 // What it computes (the same function as the Pallas kernels of
 // lightdiffusion_next_tpu/ops/flash_attention.py):
@@ -32,11 +31,6 @@
 // f32. The split tiles double the shared memory, so at d > 256 a kv tile
 // holds 32 rows instead of 64.
 //
-// The fused-prologue variant (NORM_ROPE, fused_qkv_attention.cu) stages its
-// q tile through norm_rope_row: RMS norm over the 128 lanes, the txt or img
-// QKNorm scale by row, the half-split RoPE and the q pre-scale, in f32,
-// rounded once to bf16.
-//
 // Inputs are read through (batch, head, row) strides with a unit stride
 // along d, so the UNet's q|k|v views of its fused projection need no copy;
 // the output is written in the folded (B, L, H, D) layout.
@@ -57,7 +51,6 @@ constexpr int kSmemPad = 8;   // bf16 elements (16 bytes) of row padding:
                               // keeps ldmatrix rows on distinct banks
 constexpr float kNegInf = -1e30f;
 constexpr int kErrUnsupported = 1000;
-constexpr int kRopeDim = 128;  // NORM_ROPE: the head dim, one 128-lane stripe
 
 struct Params {
   const void* q;
@@ -73,14 +66,6 @@ struct Params {
   int heads, lq, lk, d;
   float q_scale;
   int vec;  // 1: base pointers and row strides are 16-byte aligned
-  // NORM_ROPE only: the q QKNorm scales for text rows (< txt_len) and image
-  // rows, (lq, 128) f32 cos and sin tables, the norm's epsilon
-  const float* scale_txt;
-  const float* scale_img;
-  const float* cos;
-  const float* sin;
-  int txt_len;
-  float eps;
 };
 
 __device__ __forceinline__ float to_float(float x) { return x; }
@@ -225,89 +210,16 @@ __device__ __forceinline__ void load_tile(__nv_bfloat16* __restrict__ smem,
   }
 }
 
-// One 128-lane row of a Flux q or k head, normed and roped in f32: each
-// lane holds columns 4*lane .. 4*lane+3 of x and gets the same columns of
-//   y = (x * rsqrt(mean(x^2) + eps) * scale) * C + partner * S
-// where partner is the normed, scaled value at column j +- 64 (held by lane
-// lane ^ 16) and C, S are the row of the half-split cos and sin tables.
-__device__ __forceinline__ void norm_rope_row(const float (&x)[4],
-                                              const float (&scale)[4],
-                                              const float* __restrict__ cos_row,
-                                              const float* __restrict__ sin_row,
-                                              float eps, float (&y)[4]) {
-  const int lane = threadIdx.x & 31;
-  float ss = x[0] * x[0] + x[1] * x[1] + x[2] * x[2] + x[3] * x[3];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    ss += __shfl_xor_sync(0xffffffffu, ss, off);
-  const float inv = rsqrtf(ss * (1.0f / kRopeDim) + eps);
-  const float4 c = reinterpret_cast<const float4*>(cos_row)[lane];
-  const float4 s = reinterpret_cast<const float4*>(sin_row)[lane];
-  const float cc[4] = {c.x, c.y, c.z, c.w};
-  const float sc[4] = {s.x, s.y, s.z, s.w};
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const float xn = x[j] * inv * scale[j];
-    const float partner = __shfl_xor_sync(0xffffffffu, xn, 16);
-    y[j] = xn * cc[j] + partner * sc[j];
-  }
-}
-
-__device__ __forceinline__ void load_row4(const __nv_bfloat16* __restrict__ g,
-                                          float (&x)[4]) {
-  const uint2 raw = reinterpret_cast<const uint2*>(g)[threadIdx.x & 31];
-  const float2 a = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.x));
-  const float2 b = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&raw.y));
-  x[0] = a.x; x[1] = a.y; x[2] = b.x; x[3] = b.y;
-}
-
-__device__ __forceinline__ void load_scale4(const float* __restrict__ s,
-                                            float (&x)[4]) {
-  const float4 v = reinterpret_cast<const float4*>(s)[threadIdx.x & 31];
-  x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
-}
-
-// NORM_ROPE: stage the q tile (kBlockM rows of one head, 128 lanes) through
-// norm_rope_row; each warp does its own 16 rows, one row per step.
-__device__ __forceinline__ void load_q_norm_rope(
-    __nv_bfloat16* __restrict__ smem, int ld,
-    const __nv_bfloat16* __restrict__ g, const Params& p, int q0) {
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  float s_img[4], s_txt[4];
-  load_scale4(p.scale_img, s_img);
-  load_scale4(p.scale_txt, s_txt);
-  for (int r = warp * 16; r < warp * 16 + 16; ++r) {
-    const int row = q0 + r;
-    uint2 packed = make_uint2(0u, 0u);
-    if (row < p.lq) {  // uniform across the warp
-      float x[4], y[4], sc[4];
-      load_row4(g + static_cast<long long>(r) * p.q_sl, x);
-#pragma unroll
-      for (int j = 0; j < 4; ++j) sc[j] = row < p.txt_len ? s_txt[j] : s_img[j];
-      norm_rope_row(x, sc,
-                    p.cos + static_cast<long long>(row) * kRopeDim,
-                    p.sin + static_cast<long long>(row) * kRopeDim, p.eps, y);
-      packed.x = pack_bf16(y[0] * p.q_scale, y[1] * p.q_scale);
-      packed.y = pack_bf16(y[2] * p.q_scale, y[3] * p.q_scale);
-    }
-    *reinterpret_cast<uint2*>(smem + r * ld + 4 * lane) = packed;
-  }
-}
-
 // T: the dtype of q and o; k and v are bf16 (f32 inputs are split into
 // hi/lo scratch arrays first, see run()).
 // D: the head dim padded to a multiple of 16 (the QK^T contraction).
 // DV: the output columns one block computes; D / DV blocks share a q tile
 // when the f32 accumulator of all D columns would not fit in registers.
-// BN: kv rows per tile. NORM_ROPE: q is staged by load_q_norm_rope.
-template <typename T, int D, int DV, int BN, bool NORM_ROPE>
+// BN: kv rows per tile.
+template <typename T, int D, int DV, int BN>
 __global__ void __launch_bounds__(kThreads)
     flash_fwd_kernel(const Params p) {
   static_assert(D % 16 == 0 && DV % 16 == 0 && D % DV == 0, "tile shape");
-  static_assert(!NORM_ROPE || (D == kRopeDim && DV == kRopeDim &&
-                               std::is_same<T, __nv_bfloat16>::value),
-                "the fused prologue is bf16 at d = 128");
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int kParts = SPLIT ? 2 : 1;
   constexpr int kLdK = D + kSmemPad;
@@ -338,13 +250,8 @@ __global__ void __launch_bounds__(kThreads)
   const __nv_bfloat16* gv_lo =
       SPLIT ? static_cast<const __nv_bfloat16*>(p.v_lo) + v_off : nullptr;
 
-  if constexpr (NORM_ROPE) {
-    load_q_norm_rope(sQ, kLdK, reinterpret_cast<const __nv_bfloat16*>(gq), p,
-                     q0);
-  } else {
-    load_tile<T, kBlockM, D, true, SPLIT>(sQ, sQlo, kLdK, gq, p.q_sl,
-                                          p.lq - q0, p.d, p.q_scale, p.vec);
-  }
+  load_tile<T, kBlockM, D, true, SPLIT>(sQ, sQlo, kLdK, gq, p.q_sl,
+                                        p.lq - q0, p.d, p.q_scale, p.vec);
 
   float o[DV / 8][4];
 #pragma unroll
@@ -518,7 +425,7 @@ __global__ void __launch_bounds__(kThreads)
   }
 }
 
-template <typename T, int D, int DV, bool NORM_ROPE = false>
+template <typename T, int D, int DV>
 int launch(const Params& p, int batch, cudaStream_t stream) {
   constexpr bool SPLIT = std::is_same<T, float>::value;
   constexpr int BN = (SPLIT && D > 256) ? 32 : 64;
@@ -527,7 +434,7 @@ int launch(const Params& p, int batch, cudaStream_t stream) {
                    (kBlockM * (D + kSmemPad) + BN * (D + kSmemPad) +
                     BN * (DV + kSmemPad)) *
                    static_cast<int>(sizeof(__nv_bfloat16));
-  auto kernel = flash_fwd_kernel<T, D, DV, BN, NORM_ROPE>;
+  auto kernel = flash_fwd_kernel<T, D, DV, BN>;
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);

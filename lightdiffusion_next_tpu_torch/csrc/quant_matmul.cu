@@ -100,18 +100,17 @@
 // specialisation (a producer warp and register reallocation), a persistent
 // grid that overlaps one tile's epilogue with the next one's loads, and
 // split-K for M = 256, whose grids are a single wave.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+#include "hopper.cuh"
 
 namespace {
+
+using namespace hopper;
 
 constexpr int kBK = 64;       // K rows per step: two Q8_0 scale rows
 constexpr int kQBlock = 32;
 constexpr int kStages = 4;    // cp.async ring depth
 constexpr int kWBufs = 3;     // bf16 B buffers: two wgmma groups in flight read
                               // two, the dequant writes the third
-constexpr int kAtom = 1024;   // one 128-byte-swizzle atom: 8 rows of 128 bytes
 constexpr int kErrUnsupported = 1000;
 
 // The shared-memory plan of a block of WGS warpgroups, each MT tiles of 64
@@ -132,104 +131,6 @@ struct Cfg {
   static constexpr int kS = kQ + kStages * kQBytes;
   static constexpr int kSmem = kS + kStages * kSBytes + kAtom;  // + alignment
 };
-
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes = 0 zero-fills the destination
-__device__ __forceinline__ void cp_async_16(uint32_t dst, const void* src,
-                                            int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(dst), "l"(src), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
-}
-
-// generic-proxy writes to shared memory -> visible to wgmma's async proxy
-__device__ __forceinline__ void fence_proxy_async() {
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
-}
-
-// wait until at most N committed wgmma groups of this warpgroup are pending
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;\n" ::"n"(N) : "memory");
-}
-
-// keeps the compiler from moving accumulator accesses across the wgmmas
-template <int R>
-__device__ __forceinline__ void fence_operands(float (&d)[R]) {
-#pragma unroll
-  for (int i = 0; i < R; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// wgmma shared-memory descriptor, 128-byte swizzle: start address, leading
-// and stride byte offsets, all in 16-byte units
-__device__ __forceinline__ uint64_t make_desc(uint32_t addr, uint32_t lbo,
-                                              uint32_t sbo) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(lbo >> 4) << 16) |
-         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
-}
-
-#define QM_ACC8(i)                                                  \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x N, f32) += A (64 x 16, K-major) * B (16 x N, N-major: tnspB = 1)
-template <int N>
-__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b);
-
-template <>
-__device__ __forceinline__ void wgmma<64>(float (&d)[32], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
-      : QM_ACC8(0), QM_ACC8(8), QM_ACC8(16), QM_ACC8(24)
-      : "l"(a), "l"(b), "r"(1));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<128>(float (&d)[64], uint64_t a, uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : QM_ACC8(0), QM_ACC8(8), QM_ACC8(16), QM_ACC8(24),
-        QM_ACC8(32), QM_ACC8(40), QM_ACC8(48), QM_ACC8(56)
-      : "l"(a), "l"(b), "r"(1));
-}
-
-#undef QM_ACC8
-
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<uint32_t*>(&v);
-}
 
 // four int8 codes -> four exact f32: 0x4B000000 | (q + 128) is 2^23 + q + 128
 __device__ __forceinline__ void codes_to_f32(uint32_t w, float* f) {
@@ -347,7 +248,7 @@ __device__ __forceinline__ void mma_step(float (&acc)[MT][C::kBN / 2],
     for (int mt = 0; mt < MT; ++mt) {
       // A: 8-row atoms 1024 bytes apart (SBO); k16 = 32 bytes into the row
       const uint64_t da = make_desc(a0 + mt * 64 * 128 + ks * 32, 16, kAtom);
-      wgmma<C::kBN>(acc[mt], da, db);
+      wgmma<C::kBN, 1>(acc[mt], da, db);
     }
   }
 }

@@ -206,6 +206,7 @@ def packed_flash_attention(q, k, v):
 # ---------------------------------------------------------------------------
 
 ROPE_DIM = 128  # the fused kernel's head dim: one 128-lane stripe
+_KV_TILE = 128  # kv rows per tile of the fused kernel's scratch (its kBN)
 
 
 def _norm_rope(x, scale_img, scale_txt, txt_len, cos, sin, eps):
@@ -251,8 +252,9 @@ def _vec128(x, name):
 
 def _launch_fused(qkv, q_scale, k_scale, cos, sin, num_heads, txt_len,
                   txt_q_scale, txt_k_scale, eps, lk=None):
-    """Check what K3 takes, allocate the output and its k scratch, launch.
-    ``lk`` (default L) is the number of kv rows attended."""
+    """Check what K3 takes, allocate the output and its scratch (k normed
+    and roped and v, as tiles of 128 rows laid out for the kernel's shared
+    memory), launch. ``lk`` (default L) is the number of kv rows attended."""
     if not qkv.is_cuda:
         raise ValueError(f"fused_qkv_attention: no kernel for device {qkv.device}")
     if qkv.dtype != torch.bfloat16:
@@ -274,9 +276,11 @@ def _launch_fused(qkv, q_scale, k_scale, cos, sin, num_heads, txt_len,
     if any(t.device != qkv.device for t in scales + [cos, sin]):
         raise ValueError("fused_qkv_attention: every input on the qkv's device")
     out = torch.empty((b, l, h * ROPE_DIM), dtype=qkv.dtype, device=qkv.device)
-    k_scratch = torch.empty((b, h, l, ROPE_DIM), dtype=qkv.dtype, device=qkv.device)
+    padded = -(-l // _KV_TILE) * _KV_TILE
+    kv_scratch = torch.empty((b, h, padded, 2 * ROPE_DIM), dtype=qkv.dtype,
+                             device=qkv.device)
     rc = cuda_build.entry_point("fused_qkv_attention")(
-        qkv.data_ptr(), out.data_ptr(), k_scratch.data_ptr(),
+        qkv.data_ptr(), out.data_ptr(), kv_scratch.data_ptr(),
         *(t.data_ptr() for t in scales), cos.data_ptr(), sin.data_ptr(),
         b, h, l, l if lk is None else lk, w, txt_len, eps,
         LOG2E / math.sqrt(ROPE_DIM),

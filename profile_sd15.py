@@ -43,7 +43,7 @@ def kernel_category(name: str) -> str:
         return "K1 packed_flash_attention (UNet d=40)"
     if "flash_fwd_kernel<float" in name or "split_kernel" in name:
         return "K2 flash_attention (VAE f32 d=512)"
-    if "norm_rope_k_kernel" in name or ("flash_fwd_kernel" in name and "true>" in name):
+    if "norm_rope_kv_kernel" in name or "fused_attention_kernel" in name:
         return "K3 fused_qkv_attention (Flux)"
     if "quant_matmul_kernel" in name:
         return ("K6 quant_matmul_stacked (T5, Q8_0 scan)" if stacked

@@ -184,11 +184,11 @@ def test_quant_matmul_planted_faults_fail_the_check(cuda):
     assert not _q8_check(qm._launch(x, t.qt, rolled), ref)["ok"]
 
 
-def _fused_inputs(l, w, txt_len, gen, h=24):
-    qkv = torch.randn((1, l, w), generator=gen, device="cuda").bfloat16()
+def _fused_inputs(l, w, txt_len, gen, h=24, b=1):
+    qkv = torch.randn((b, l, w), generator=gen, device="cuda").bfloat16()
     scales = [(1.0 + 0.3 * torch.randn((128,), generator=gen, device="cuda")).float()
               for _ in range(4)]
-    side = int((l - 256) ** 0.5)
+    side = int(max(l - 256, l // 2) ** 0.5)
     ids = torch.cat([torch.zeros((1, l - side * side, 3), device="cuda"),
                      flux.img_ids(1, 2 * side, 2 * side, device="cuda")], dim=1)
     cos, sin = flux.rope_cos_sin(ids, (16, 56, 56))
@@ -197,22 +197,29 @@ def _fused_inputs(l, w, txt_len, gen, h=24):
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("l,w,txt_len", [
-    (4352, 21504, 0),    # single blocks: linear1's full output, MLP lanes unread
-    (4352, 9216, 256),   # double blocks: text rows first, their own scales
-    (1281, 9224, 17),    # ragged L, odd text length, 8 trailing lanes
+@pytest.mark.parametrize("b,l,w,txt_len", [
+    (1, 4352, 21504, 0),   # single blocks: linear1's full output, MLP lanes unread
+    (1, 4352, 9216, 256),  # double blocks: text rows first, their own scales
+    (1, 1281, 9224, 17),   # ragged L, odd text length, 8 trailing lanes
+    (1, 1280, 9216, 256),  # the half-res dy calls: double blocks
+    (1, 1280, 21504, 0),   #   and single blocks
+    (2, 1000, 9216, 200),  # two batch entries; ragged L; the text rows end inside
+                           # the second q tile and the second kv tile
+    (1, 77, 776, 0),       # L below one q tile, 2 heads
+    (1, 200, 768, 70),     # L not a whole q tile, text rows ending inside tile 0
 ])
-def test_fused_qkv_attention_matches_plain(cuda, l, w, txt_len):
+def test_fused_qkv_attention_matches_plain(cuda, b, l, w, txt_len):
     gen = torch.Generator(device="cuda").manual_seed(6)
     h = 24 if w >= 9216 else 2
-    qkv, scales, cos, sin, kw = _fused_inputs(l, w, txt_len, gen, h=h)
+    qkv, scales, cos, sin, kw = _fused_inputs(l, w, txt_len, gen, h=h, b=b)
     launches = fa.fused_qkv_attention.launches
     out = fa.fused_qkv_attention(qkv, scales[0], scales[1], cos, sin, **kw)
     torch.cuda.synchronize()
     assert fa.fused_qkv_attention.launches == launches + 1
-    assert out.shape == (1, l, h * 128)
+    assert out.shape == (b, l, h * 128)
     ref = fa.fused_qkv_attention_plain(qkv, scales[0], scales[1], cos, sin, **kw)
-    assert fa.agreement(out, ref)["ok"]
+    check = fa.agreement(out, ref)
+    assert check["ok"], check
 
 
 @pytest.mark.cuda

@@ -8,9 +8,10 @@ Phases, in order; any failure exits non-zero:
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
 2. build: every hand-written kernel from ``lightdiffusion_next_tpu_torch/csrc``,
    with each source's register and spill report; the ``wgmma`` kernels (K5's
-   and K6's, K3's attention kernel) must spill nothing and, in the built
-   library's SASS (``cuobjdump``), run on ``wgmma`` (HGMMA) with no
-   ``mma.sync`` (HMMA) left, or the run fails;
+   and K6's, K3's attention kernel, K4) must spill nothing and, in the built
+   library's SASS (``cuobjdump``), run on ``wgmma`` (HGMMA for bf16, IGMMA
+   for K4's int8) with no ``mma.sync`` (HMMA, IMMA) left, or the run fails;
+   K4's conversions and exps (I2F, F2I, FRND, MUFU.EX2) are counted;
 3. SD1.5 kernels: K1 and K2 at each shape the SD1.5 1024^2 path gives them
    (derived from the UNet plan, the multi-scale plan and the MSW-MSA gate),
    checked against their plain PyTorch version (``flash_attention
@@ -56,9 +57,12 @@ Phases, in order; any failure exits non-zero:
    DiT call with ``fused_ew`` on and one with it off (K9 "none" and K7 on
    every matmul, counted);
 12. SD1.5 int8 attention kernel: K4 at every shape the SD1.5 path gives K1
-   and K2 in the UNet, and one ragged shape, against its plain version,
-   with two planted faults, timed beside the plain version and
-   ``scaled_dot_product_attention``;
+   and K2 in the UNet, and one ragged shape, through its wrapper (the
+   preparation kernel, then K4) against its plain version, with two planted
+   faults, timed beside the plain version and
+   ``scaled_dot_product_attention``; the preparation kernel against its
+   plain version (codes and scales, ``sage_attention.prep_agreement``) and
+   timed alone;
 13. SD1.5 sage pipeline: phase 5's models with ``RuntimeConfig(
    sage_attention=True)``, the same pipeline call with the launches checked
    (every UNet K1 and K2 call on K4; the VAE's K2), the image checked, its
@@ -101,6 +105,7 @@ import gc
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -126,7 +131,7 @@ Q8_FAULTS = ("last K tile of 64 rows skipped", "neighbouring 32-block's scale ro
 FUSED_FAULTS = ("last kv tile of 64 rows skipped", "RoPE sine's sign flipped")
 W8A8_FAULTS = ("last K tile of 128 skipped", "neighbouring column's scale")
 STACK_FAULTS = ("neighbouring block of the stack", "last K tile skipped")
-SAGE_FAULTS = ("last kv tile of 64 skipped", "sk not applied")
+SAGE_FAULTS = ("last kv tile skipped", "sk not applied")
 ROWQ_FAULTS = {"ln_mod": "LayerNorm without the mean subtracted",
                "none": "GELU applied", "gelu": "GELU dropped"}
 ROWQ_SCALE_FAULT = "scale of absmax/128"
@@ -191,6 +196,12 @@ KERNELS = {
         "source": "lightdiffusion_next_tpu_torch/csrc/sage_attention.cu",
         "replaces": "lightdiffusion_next_tpu/ops/sage_attention.py:152",
     },
+    # K4's preparation: the JAX wrapper's one XLA pass before its pallas_call
+    "sage_prepare": {
+        "route": "cuda",
+        "source": "lightdiffusion_next_tpu_torch/csrc/sage_attention.cu",
+        "replaces": "lightdiffusion_next_tpu/ops/sage_attention.py:169",
+    },
     "quant_matmul_stacked": {
         "route": "cuda",
         "source": "lightdiffusion_next_tpu_torch/csrc/quant_matmul.cu",
@@ -213,10 +224,19 @@ KERNELS = {
 # residual
 FORCED_HITS = dict(residual_diff_threshold=1e30, max_consecutive_cache_hits=2)
 
-# The wgmma kernels (source, template name): the build phase fails unless
-# their SASS holds HGMMA and no HMMA and no instantiation spills
-WGMMA_KERNELS = (("quant_matmul.cu", "quant_matmul_kernel"),
-                 ("fused_qkv_attention.cu", "fused_attention_kernel"))
+# The wgmma kernels (source, template name, the SASS of their products, the
+# SASS of mma.sync that must be gone): the build phase fails unless no
+# instantiation spills and each one's SASS holds the first and not the second
+WGMMA_KERNELS = (("quant_matmul.cu", "quant_matmul_kernel", "HGMMA", "HMMA"),
+                 ("fused_qkv_attention.cu", "fused_attention_kernel", "HGMMA", "HMMA"),
+                 ("sage_attention.cu", "sage_attention_kernel", "IGMMA", "IMMA"))
+# conversions and exps counted in the wgmma kernels' SASS: K4's work per score
+# should hold none but MUFU.EX2 (its I2F convert the P.V sums once per
+# softmax block)
+SASS_COUNTED = ("I2F", "F2I", "FRND", "MUFU.EX2")
+# an instruction's opcode in ``cuobjdump --dump-sass``: after its address and
+# its predicate, if any
+SASS_OPCODE = re.compile(r"/\*[0-9a-f]{4,}\*/\s+(?:@!?U?P[T0-9]+\s+)?([A-Z][A-Za-z0-9_.]*)")
 
 # The kernel names of the scan layout's stacked operands
 STACKED_NAMES = {"quant_matmul": "quant_matmul_stacked", "w8a8_matmul": "w8a8_matmul_stacked",
@@ -243,7 +263,8 @@ def attention_calls(width=1024, height=1024, batch=1, steps=20, sage=False):
     """{(kernel, B, H, L, D, dtype): calls per image} for the pipeline's
     SD1.5 txt2img at width x height: 20 karras steps, the default
     multi-scale plan, MSW-MSA with its sigma gate, CFG batch 2, the VAE's
-    mid-block attention. ``sage``: the UNet's calls go to K4."""
+    mid-block attention. ``sage``: the UNet's calls go to K4 and its
+    preparation."""
     import torch
 
     from lightdiffusion_next_tpu_torch import config
@@ -280,7 +301,8 @@ def attention_calls(width=1024, height=1024, batch=1, steps=20, sage=False):
             if tokens >= 512 and d <= 512:
                 name = "packed_flash_attention" if packed and fa.pack_group(d) >= 2 \
                     else "flash_attention"
-                if sage:
+                if sage:  # K4's wrapper launches the preparation, then K4
+                    add(("sage_prepare", b, heads, tokens, d, "bf16"), depth)
                     name = "sage_attention"
                 add((name, b, heads, tokens, d, "bf16"), depth)
     add(("flash_attention", batch, 1, lh * lw, 512, "f32"))
@@ -435,8 +457,8 @@ def phase_build():
                   if "spill" in ln and not ln.strip().startswith("0 bytes stack")]
         log(f"  {name}: {rep['seconds']:.1f} s; {len(regs)} instantiations; "
             f"{sorted(set(regs))}; spills: {spills or 'none'}")
-    for source, kernel in WGMMA_KERNELS:
-        check_wgmma_build(source, report[source], cuda_build.nvcc_path(), kernel)
+    for source, kernel, mma, old_mma in WGMMA_KERNELS:
+        check_wgmma_build(source, report[source], cuda_build.nvcc_path(), kernel, mma, old_mma)
 
 
 def ptxas_functions(build_log):
@@ -454,14 +476,16 @@ def ptxas_functions(build_log):
     return funcs
 
 
-def check_wgmma_build(source, rep, nvcc, kernel):
+def check_wgmma_build(source, rep, nvcc, kernel, mma, old_mma):
     """A ``wgmma`` kernel's instantiations in the library of ``source``
     (``kernel``: its template's name, e.g. ``quant_matmul_kernel`` for K5
     and K6; ``rep``: the source's build report): log each
     one's registers and spills as ptxas reports them, then read the
-    library's SASS (``cuobjdump --dump-sass``). Raises unless every
-    instantiation spills 0 bytes and runs its products on wgmma (HGMMA) with
-    no mma.sync (HMMA) left."""
+    library's SASS (``cuobjdump --dump-sass``) and log each one's MMA
+    opcodes and its ``SASS_COUNTED`` instructions. Raises unless every
+    instantiation spills 0 bytes and runs its products on wgmma (``mma``:
+    HGMMA, or IGMMA for int8) with no mma.sync (``old_mma``: HMMA, IMMA)
+    left."""
     funcs = {f: lines for f, lines in ptxas_functions(rep["log"]).items() if kernel in f}
     if not funcs:
         raise RuntimeError(f"{source}: no {kernel} in the ptxas report")
@@ -482,14 +506,19 @@ def check_wgmma_build(source, rep, nvcc, kernel):
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
         if kernel in name:
-            counts[name] = (part.count("HGMMA."), part.count(" HMMA."))
-    for name, (hgmma, hmma) in sorted(counts.items()):
+            ops = SASS_OPCODE.findall(part)
+            counts[name] = (sum(op.startswith(mma + ".") for op in ops),
+                            sum(op.startswith(old_mma + ".") for op in ops),
+                            sorted({op.split(".")[0] for op in ops if "MMA" in op}),
+                            {c: sum(op == c or op.startswith(c + ".") or op.startswith(c + "P")
+                                    for op in ops) for c in SASS_COUNTED})
+    for name, (new, old, kinds, counted) in sorted(counts.items()):
         log(f"  SASS {kernel} {name.split(kernel)[-1].split('EEEv')[0]}: "
-            f"{hgmma} HGMMA, {hmma} HMMA")
-    bad = [n for n, (hgmma, hmma) in counts.items() if hgmma == 0 or hmma]
+            f"{new} {mma}, {old} {old_mma}; MMA opcodes {kinds}; {counted}")
+    bad = [n for n, (new, old, _, _) in counts.items() if new == 0 or old]
     if spilled or bad or len(counts) != len(funcs):
-        raise RuntimeError(f"{source}: spills in {spilled}; SASS without HGMMA or "
-                           f"with HMMA in {bad}; {len(counts)} functions in the SASS, "
+        raise RuntimeError(f"{source}: spills in {spilled}; SASS without {mma} or "
+                           f"with {old_mma} in {bad}; {len(counts)} functions in the SASS, "
                            f"{len(funcs)} in the ptxas report")
 
 
@@ -735,6 +764,7 @@ def kernel_wrappers():
             "row_quantize_concat_gelu": qm.row_quantize_concat_gelu,
             "w8a8_matmul_ep": qm.w8a8_matmul_ep,
             "sage_attention": sa.sage_attention,
+            "sage_prepare": sa.prepare_kernel,
             "quant_matmul_stacked": qm.quant_matmul_stacked,
             "w8a8_matmul_stacked": qm.w8a8_matmul_stacked,
             "w8a8_matmul_ep_stacked": qm.w8a8_matmul_ep_stacked}
@@ -826,15 +856,26 @@ def sage_bound(b, h, lq, lk, d):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
+def prepare_bound(b, h, lq, lk, d):
+    """The preparation's least time at the HBM rate: bf16 q, k and v read
+    once; d-wide q, k and v codes, f32 sq and sk, svs and vmu written once
+    (the images' padding is the layout's, not the function's)."""
+    nbytes = (2.0 * b * h * d * (lq + 2 * lk) + b * h * (lq * (d + 4) + lk * (2 * d + 4))
+              + 2.0 * b * h * d * 4)
+    return nbytes / PEAK_HBM_BYTES * 1e3, "bytes"
+
+
 # one ragged shape beside the path's: a masked kv tail and a partial q tile
 SAGE_RAGGED = ("sage_attention", 2, 8, 1000, 80, "bf16")
 
 
 def phase_sage_kernels(calls, per_kernel):
     """K4 at every UNet shape of the sage path and one ragged shape: the
-    wrapper (preparation + kernel + V mean) against its plain version, two
-    faults planted through the C interface, times (the wrapper, the kernel
-    alone, the plain version, ``scaled_dot_product_attention``)."""
+    wrapper (the preparation kernel, then K4) against its plain version, two
+    faults planted through the C interface, times (the wrapper, K4 alone, the
+    plain version, ``scaled_dot_product_attention``); the preparation kernel
+    against ``prepare_plain`` (``sage_attention.prep_agreement``: codes and
+    scales) and timed alone and beside its plain version."""
     import torch
     import torch.nn.functional as F
 
@@ -846,33 +887,40 @@ def phase_sage_kernels(calls, per_kernel):
     def check(out, ref):
         return fa.agreement(out, ref, max_ulps=sa.MAX_ULPS, rel_rmse_limit=sa.REL_RMSE_LIMIT)
 
+    def timed(fn):
+        return cuda_ms(fn, repeats_for(fn))
+
     for key in sorted(k for k in calls if k[0] == "sage_attention") + [SAGE_RAGGED]:
         _, b, h, l, d, dtype = key
         q, k, v = make_inputs(b, h, l, d, dtype, gen)
         out = sa.sage_attention(q, k, v)
         torch.cuda.synchronize()
         ref = sa.sage_attention_plain(q, k, v)
-        prep = sa.prepare(q, k, v)
-        ops = sa._kernel_operands(*prep[:6])
-        vmu = prep[6].to(torch.bfloat16)
-        tiles = -(-l // sa.TILE)
+        ops = sa.prepare_kernel(q, k, v)
+        ops_ref = sa.prepare_plain(q, k, v)
+        kt = ops.kvimg.shape[1]
         faults = {
-            SAGE_FAULTS[0]: fault_entry(check(sa._launch(q, ops, kv_tiles=tiles - 1) + vmu, ref)),
-            SAGE_FAULTS[1]: fault_entry(check(sa._launch(q, ops, use_sk=False) + vmu, ref)),
+            SAGE_FAULTS[0]: fault_entry(check(sa._launch(q, ops, kv_tiles=kt - 1), ref)),
+            SAGE_FAULTS[1]: fault_entry(check(sa._launch(q, ops, use_sk=False), ref)),
         }
-        run = lambda: sa.sage_attention(q, k, v)  # noqa: E731
-        ms = cuda_ms(run, repeats_for(run))
-        alone = lambda: sa._launch(q, ops)  # noqa: E731
-        kernel_ms = cuda_ms(alone, repeats_for(alone))
+        ms = timed(lambda: sa.sage_attention(q, k, v))
+        kernel_ms = timed(lambda: sa._launch(q, ops))
+        prep_ms = timed(lambda: sa.prepare_kernel(q, k, v))
         plain_ms = cuda_ms(lambda: sa.sage_attention_plain(q, k, v), 1)
-        lib = lambda: F.scaled_dot_product_attention(q, k, v)  # noqa: E731
-        library_ms = cuda_ms(lib, repeats_for(lib))
+        prep_plain_ms = cuda_ms(lambda: sa.prepare_plain(q, k, v), 2)
+        library_ms = timed(lambda: F.scaled_dot_product_attention(q, k, v))
         bound_ms, bound_by = sage_bound(b, h, l, l, d)
         record_shape(per_kernel, key, check(out, ref), faults, {
             "shape": [b, h, l, d], "dtype": "bf16 in and out, int8 codes", "ms": ms,
-            "kernel_ms": kernel_ms, "plain_ms": plain_ms, "library_ms": library_ms,
-            "bound_ms": bound_ms, "bound_by": bound_by})
-        del q, k, v, out, ref, prep, ops
+            "kernel_ms": kernel_ms, "prepare_ms": prep_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by})
+        prep_bound_ms, prep_bound_by = prepare_bound(b, h, l, l, d)
+        record_shape(per_kernel, ("sage_prepare",) + key[1:],
+                     sa.prep_agreement(ops, ops_ref, d), {}, {
+                         "shape": [b, h, l, d], "dtype": "bf16 in, int8 codes and f32 scales",
+                         "ms": prep_ms, "plain_ms": prep_plain_ms, "library_ms": None,
+                         "bound_ms": prep_bound_ms, "bound_by": prep_bound_by})
+        del q, k, v, out, ref, ops, ops_ref
         torch.cuda.empty_cache()
     return per_kernel
 
@@ -889,7 +937,7 @@ def phase_sage_pipeline(models, flash_latent):
         first = run_pipeline(models, 1234)
         launches = read_launches()
         ok = check_sd15_launches(launches, calls, "SD1.5 sage",
-                                 ("sage_attention", "flash_attention"))
+                                 ("sage_attention", "sage_prepare", "flash_attention"))
         ok = check_sd15_output(first, model, vae, "SD1.5 sage") and ok
         x = first["last"]["x"]
         drift = ((x - flash_latent).pow(2).mean().sqrt()

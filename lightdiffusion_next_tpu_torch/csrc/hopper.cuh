@@ -1,14 +1,18 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
-// (quant_matmul.cu, fused_qkv_attention.cu): cp.async and bulk copies,
-// mbarriers and named barriers, the proxy fence, wgmma's synchronisation,
-// its shared-memory descriptor and its m64nNk16 bf16 products with f32
-// accumulators in registers.
+// (quant_matmul.cu, fused_qkv_attention.cu, sage_attention.cu): cp.async and
+// bulk copies, mbarriers and named barriers, the proxy fence, wgmma's
+// synchronisation, its shared-memory descriptors, its m64nNk16 bf16 products
+// with f32 accumulators and its m64nNk32 s8 products with s32 accumulators,
+// all in registers.
 //
-// Operand layouts are the 128-byte swizzle throughout: an atom is 8 rows of
-// 128 bytes (1024 bytes), and 16-byte chunk j of row r lies at chunk
-// j ^ (r & 7). A K-major operand (tnsp = 0) holds 64 K values per 128-byte
-// row; an MN-major one (tnsp = 1) holds 64 M or N values per row, one row
-// per K index.
+// The bf16 operands use the 128-byte swizzle: an atom is 8 rows of 128 bytes
+// (1024 bytes), and 16-byte chunk j of row r lies at chunk j ^ (r & 7). A
+// K-major operand (tnsp = 0) holds 64 K values per 128-byte row; an MN-major
+// one (tnsp = 1) holds 64 M or N values per row, one row per K index. The s8
+// operands (both K-major: 8-bit wgmma has no transpose) use the 32-byte
+// swizzle: a k32 step of an R-row operand is R rows of 32 bytes (8-row atoms
+// of 256 bytes), and the two 16-byte chunks of a row swap in rows 4-7 of
+// each atom (chunk j of row r at j ^ ((r >> 2) & 1)).
 #pragma once
 
 #include <cuda_bf16.h>
@@ -220,5 +224,147 @@ __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a
 }
 
 #undef HOPPER_ACC8
+
+// wgmma shared-memory descriptor of a K-major s8 operand with the 32-byte
+// swizzle: start address and the 256-byte stride of 8-row atoms (SBO)
+__device__ __forceinline__ uint64_t make_desc_sw32(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
+         (static_cast<uint64_t>(256 >> 4) << 32) | (3ull << 62);
+}
+
+#define HOPPER_S32X8(i)                                             \
+  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),       \
+      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
+
+// d (64 x N, s32) = A (64 x 32, s8, shared) * B (32 x N, s8, shared), both
+// K-major, + (scale_d ? d : 0)
+template <int N>
+__device__ __forceinline__ void wgmma_s8(uint32_t (&d)[N / 2], uint64_t a, uint64_t b,
+                                         int scale_d);
+
+// d (64 x N, s32) = A (64 x 32, s8 in registers: a[0..3] is mma.sync
+// m16n8k32's A fragment of the warp's 16 rows) * B (32 x N, s8, shared,
+// K-major) + (scale_d ? d : 0)
+template <int N>
+__device__ __forceinline__ void wgmma_rs_s8(uint32_t (&d)[N / 2], const uint32_t (&a)[4],
+                                            uint64_t b, int scale_d);
+
+template <>
+__device__ __forceinline__ void wgmma_s8<64>(uint32_t (&d)[32], uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "%32, %33, p;\n}\n"
+      : HOPPER_S32X8(0), HOPPER_S32X8(8), HOPPER_S32X8(16), HOPPER_S32X8(24)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_s8<128>(uint32_t (&d)[64], uint64_t a, uint64_t b,
+                                             int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p;\n}\n"
+      : HOPPER_S32X8(0), HOPPER_S32X8(8), HOPPER_S32X8(16), HOPPER_S32X8(24),
+        HOPPER_S32X8(32), HOPPER_S32X8(40), HOPPER_S32X8(48), HOPPER_S32X8(56)
+      : "l"(a), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<32>(uint32_t (&d)[16], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p;\n}\n"
+      : HOPPER_S32X8(0), HOPPER_S32X8(8)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<48>(uint32_t (&d)[24], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23}, "
+      "{%24, %25, %26, %27}, %28, p;\n}\n"
+      : HOPPER_S32X8(0), HOPPER_S32X8(8), HOPPER_S32X8(16)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<64>(uint32_t (&d)[32], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p;\n}\n"
+      : HOPPER_S32X8(0), HOPPER_S32X8(8), HOPPER_S32X8(16), HOPPER_S32X8(24)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<80>(uint32_t (&d)[40], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39}, "
+      "{%40, %41, %42, %43}, %44, p;\n}\n"
+      : HOPPER_S32X8(0), HOPPER_S32X8(8), HOPPER_S32X8(16), HOPPER_S32X8(24),
+        HOPPER_S32X8(32)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<128>(uint32_t (&d)[64], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p;\n}\n"
+      : HOPPER_S32X8(0), HOPPER_S32X8(8), HOPPER_S32X8(16), HOPPER_S32X8(24),
+        HOPPER_S32X8(32), HOPPER_S32X8(40), HOPPER_S32X8(48), HOPPER_S32X8(56)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+template <>
+__device__ __forceinline__ void wgmma_rs_s8<160>(uint32_t (&d)[80], const uint32_t (&a)[4],
+                                                uint64_t b, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
+      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
+      "{%80, %81, %82, %83}, %84, p;\n}\n"
+      : HOPPER_S32X8(0), HOPPER_S32X8(8), HOPPER_S32X8(16), HOPPER_S32X8(24),
+        HOPPER_S32X8(32), HOPPER_S32X8(40), HOPPER_S32X8(48), HOPPER_S32X8(56),
+        HOPPER_S32X8(64), HOPPER_S32X8(72)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
+}
+
+#undef HOPPER_S32X8
 
 }  // namespace hopper

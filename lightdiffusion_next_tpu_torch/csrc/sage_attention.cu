@@ -1,456 +1,852 @@
-// K4: int8 ("sage") attention. Q.K^T and P.V as int8 products on the
-// tensor cores, online softmax in f32.
+// K4: int8 ("sage") attention on integer wgmma, and its preparation.
 //
 // Replaces: lightdiffusion_next_tpu/ops/sage_attention.py sage_attention
-//   (pallas_call at :226, kernel body _kernel at :52), in the configuration
-//   the dispatch calls: int8_mxu=True, pv_int8=True.
+//   (pallas_call at :226, kernel body _kernel at :53), in the configuration
+//   the dispatch calls: int8_mxu=True, pv_int8=True; and the preparation that
+//   function runs before its pallas_call as one XLA pass (:169-222).
 //
-// The preparation runs before the kernel, in plain PyTorch
-// (ops/sage_attention.py): K and V centred over tokens, Q and K quantized
-// per token (f32 scales sq with 1/sqrt(d) folded in, and sk), V per channel
-// (scales sv, passed as svs = sv * (1/127)), V's mean added back to the
-// output afterwards. The kernel computes, per softmax block of kv tokens,
-// in the JAX kernel's order of rounded f32 operations (no FMA contraction):
+// The function, per (batch, head), as the JAX wrapper and kernel compute it:
+// K and V centred over tokens (their means kmu, vmu per channel), Q and the
+// centred K quantized per token (scales sq with 1/sqrt(d) folded in, and
+// sk: s = max(absmax, 1e-12) / 127, codes round(x / s) clamped to +-127),
+// the centred V per channel (sv); then per softmax block of kv tokens, in
+// rounded f32 operations:
 //   s   = (f32(q8 . k8) * sq_i) * sk_j, -1e30 at columns j >= kv_len
 //   m'  = max(m, max_j s), p = exp(s - m'), alpha = exp(m - m')
 //   l   = l * alpha + sum_j p
-//   acc = acc * alpha + f32(round_half_even(p * 127) . v8) * svs
-//   out = acc / l, rounded to bf16.
-// P is quantized against the running maximum after the whole block, so the
-// block width is part of the result. The kernel takes the JAX kernel's
-// width (1024 tokens at SD1.5's lengths; ops/sage_attention.softmax_block)
-// as sb_tiles tiles of 64 tokens and visits each block twice: a first pass
-// over its tiles takes the row maxima of s, a second recomputes s (int8
-// products are cheap here, see below) and does the rest. The sums over the
-// block run tile by tile, so they round in another order than the JAX
-// kernel's one reduction (last bits of l and acc, not codes).
+//   acc = acc * alpha + f32(round_half_even(p * 127) . v8) * (sv / 127)
+//   out = acc / l + vmu, rounded to bf16 once.
+// P is quantized against the block's final maximum, so the block width is
+// part of the result: the JAX kernel's (ops/sage_attention.softmax_block,
+// 1024 tokens at SD1.5's lengths). The kernel works in the base-2 domain
+// (log2e folded into sq, p = ex2.approx(s - m')), so its scores differ from
+// the plain version's in the last bits and a p at a rounding edge of
+// round(p * 127) may take the neighbouring code.
 //
-// Operands: qq (B*H, Lq, DP) and kq (B*H, Lk, DP) int8 with d padded by zero
-// codes to DP, the next multiple of 32 (the k step of mma m16n8k32); vt
-// (B*H, D, Lkp) int8, V transposed (int8 mma takes B K-major and ldmatrix
-// does not transpose 8-bit elements), Lk padded with zero codes to a
-// multiple of 64, and the tokens of every 32-group stored in the order
-// 0,1,8,9, 2,3,10,11, ... (see kPermNote) so that the P fragment built from
-// the Q.K^T accumulators in registers matches V's fragment as ldmatrix
-// loads it; sq (B*H, Lq), sk (B*H, Lk), svs (B*H, D) f32.
+// Preparation (two launches, ldt_sage_prepare_fwd). sage_stats_kernel sums
+// k and v and takes v's max and min per channel over a slice of the tokens;
+// sage_quantize_kernel reduces the slices (kmu, vmu, and max|v - vmu| =
+// max(vmax - vmu, vmu - vmin), exact since rounding is monotonic) and
+// writes every q, k and v code and scale straight into the tile images K4
+// copies, reading q, k and v through their (b, h, l) strides (the head
+// views of the fused projection, no copy). The images (byte layouts shared
+// with ops/sage_attention.py's plain layout functions):
+//   q image, 64 rows: codes [DP / 32][64 rows][32 bytes], then sq[64] f32;
+//     rows past Lq zero codes and sq 0; ceil(Lq / 128) * 2 images.
+//   kv image, BN tokens: K codes [DP / 32][BN][32 bytes], sk[BN] f32 (1
+//     past Lk), then V codes transposed, [BN / 32][DV channels][32 bytes],
+//     the 32 tokens of each group stored in the order of kPermNote below;
+//     tokens past Lk and channels past d zero codes. ceil(Lk / BN) images.
+// Every 32-byte row lies 32-byte-swizzled (hopper.cuh): chunk j of row r at
+// j ^ ((r >> 2) & 1). DP = d padded to 32 (the k32 step), DV = d with 40
+// padded to 48 (8-bit wgmma has no N = 40), BN = 128 kv tokens for d <= 80,
+// else 64 (registers). svs = sv / 127 and vmu go to (B*H, d) f32 arrays.
 //
-// What bounds it on an H100: at SD1.5's head dims it does 4 d int8
-// operations and one exp per score: at d = 40, 160 operations at 1979
-// TOP/s against one exp at the special-function units' rate (3.86e12/s)
-// make exp the bound; the int8 products halve nothing that binds there.
+// What bounds it on an H100: one exp per score against 4 d int8 operations
+// (160 at d = 40 against the tensor cores' 1979 TOP/s) makes the special
+// functions' rate (3.86e12/s) the nominal bound. The work it does is more:
+// the int8 products of Q.K^T twice (both passes, d = 40 padded to 64) and
+// P.V (padded to 48), and about 15 issue slots of scalar work per score
+// (pass 0: int -> float, two multiplies, a max; pass 1: the same scores,
+// a subtract, ex2, a sum, a multiply and an add to round, a byte pack).
+// ablate_sage.py times the parts (PERF.md): at (2, 8, 16384, 40) the
+// products, copies and barriers alone take about a quarter of the call and
+// the two passes' scalar work the rest, and they hardly overlap, since a
+// warpgroup waits for its own s before its softmax.
 //
-// What the design does about it: a simple kernel first. Blocks of 64 q rows
-// (4 warps of 16 rows), the warp's Q fragments in registers for the whole
-// kv loop, K (and in the second pass V) tiles double-buffered with
-// cp.async, P never leaves the registers: the s32 accumulator of Q.K^T
-// becomes f32 scores, then int8 codes packed straight into the A fragment
-// of the P.V product. The first pass costs Q.K^T's int8 products once more
-// and no exp.
+// What the design does about it: K3's shape (csrc/fused_qkv_attention.cu).
+// - Products on wgmma: s = q k^T as m64n{BN}k32 s8 with both tiles in shared
+//   memory; o += p v as m64n{DV}k32 with P from registers (the s32
+//   accumulator's fragment packed to bytes is the register-A fragment) and
+//   the V image as B.
+// - A producer warpgroup: one thread bulk-copies the q images once and
+//   every kv image (the TMA without a tensor map) through a ring of three
+//   stages (full and empty mbarriers); the first pass over a softmax block
+//   copies only K and sk. Two consumer warpgroups of 64 q rows take turns
+//   at the tensor cores (named barriers); setmaxnreg gives the producer's
+//   registers to them.
+// - Two passes over each softmax block: pass 0 only s and the row maxima;
+//   pass 1 s again, p, l and the codes, with o += p v of tile t - 1 in
+//   flight while tile t's softmax runs. P.V accumulates in s32 over the
+//   whole block (exact: 127 * 127 * 1024 < 2^24), converted and scaled
+//   once at the block's end, where acc and l also take alpha. acc waits for
+//   it in shared memory (each thread's own column of f32), so the registers
+//   hold s, p, the P.V sums and the tile's sk (in registers, acc made d =
+//   80 and 160 spill).
+// - The scalar work per score: int -> float by adding 1.5 * 2^23 to the bits
+//   and subtracting it (|s| <= 127^2 * 160 < 2^22), ex2.approx, round(p *
+//   127) by the same magic add, bytes picked with PRMT; the mask only on the
+//   last partial tile.
+// Tried on the card and dropped (PERF.md): s issued as two halves, pass 0
+// two tiles a turn, two FP operations fewer per score in pass 1 (no change
+// measured), and a flat sequence with the next tile's s in flight across
+// the loop (ptxas serialised the wgmmas, C7514: 40% slower).
 //
-// kPermNote: a thread of an m16n8 accumulator holds columns 2t, 2t+1 of
-// each 8-column tile (t = lane % 4); the A fragment of m16n8k32 s8 wants
-// k = 4t..4t+3 (and 16 + 4t..). Packing tiles 0 and 1 of a 32-token group
-// gives k = 4t + i the token (2t, 2t+1, 8+2t, 9+2t)[i] (and 16 + the same
-// for tiles 2 and 3), which is the order V's tokens are stored in.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <stdint.h>
+// kPermNote: a thread of an m64nN accumulator holds columns 2t, 2t+1 of
+// each 8-column group (t = lane % 4); the A fragment of a k32 step wants k =
+// 4t..4t+3 (and 16 + 4t..). Packing groups 0 and 1 of a 32-token group
+// gives k = 4t + i the token (2t, 2t+1, 8+2t, 9+2t)[i] (and 16 + the same for
+// groups 2 and 3), which is the order V's tokens are stored in.
+#include <math_constants.h>
+
+#include "hopper.cuh"
 
 namespace {
 
-constexpr int kBQ = 64;         // q rows per block
-constexpr int kBK = 64;         // kv tokens per tile
-constexpr int kThreads = 128;   // 4 warps of 16 q rows
-constexpr int kVRow = kBK + 16; // shared row stride of the V tile in bytes
-constexpr float kNegInf = -1e30f;
+using namespace hopper;
+
+constexpr int kStages = 3;
+constexpr int kQRows = 64;          // rows of a q image: one consumer warpgroup
+constexpr int kPrepThreads = 256;   // sage_quantize_kernel
+constexpr int kStatThreads = 256;   // sage_stats_kernel
+constexpr int kMaxStatSplits = 16;  // token slices of the statistics: one per 1024, at most 16
 constexpr int kErrUnsupported = 1000;
+constexpr float kNegInf = -1e30f;
+constexpr float kLog2e = 1.4426950408889634f;
+constexpr float kMagic = 12582912.0f;       // 1.5 * 2^23
+constexpr uint32_t kMagicBits = 0x4B400000u;
 
+constexpr int kConsumers = 256;    // two consumer warpgroups of 64 q rows
+constexpr int kThreads = kConsumers + 128;  // and the producer warpgroup
+constexpr int kBM = 2 * kQRows;     // q rows per block
+
+// Shared memory of K4: the block's two q images, the kv stages, acc
+// ([DV / 2][kConsumers] f32), then the full, empty and q mbarriers
 template <int D>
-struct Shape {
-  static constexpr int DP = (D + 31) / 32 * 32;  // padded q/k row in bytes
-  static constexpr int KRow = DP + 16;           // shared row stride
-  static constexpr int KS = DP / 32;             // k steps of Q.K^T
-  static constexpr int NT = D / 8;               // n tiles of P.V
+struct Cfg {
+  static constexpr int DP = (D + 31) / 32 * 32;  // q and k rows in bytes
+  static constexpr int DV = D == 40 ? 48 : D;    // P.V's N
+  static constexpr int BN = D <= 80 ? 128 : 64;  // kv tokens per tile (registers)
+  static constexpr int KBytes = BN * DP;
+  static constexpr int SkBytes = BN * 4;
+  static constexpr int Pass0Bytes = KBytes + SkBytes;
+  static constexpr int Img = Pass0Bytes + DV * BN;   // kv image
+  static constexpr int QImg = kQRows * DP + kQRows * 4;
+  static constexpr int Stage = (Img + 1023) / 1024 * 1024;
+  static constexpr int QBytes = (2 * QImg + 1023) / 1024 * 1024;
+  static constexpr int kAcc = QBytes + kStages * Stage;
+  static constexpr int kBar = kAcc + DV / 2 * kConsumers * 4;
+  static constexpr int kSmem = kBar + (2 * kStages + 1) * 8 + kAtom;  // + alignment
+  // sage_quantize_kernel: the image, kmu, vmu and sv, the staged k and v rows
+  static constexpr int PrepImg = Img > QImg ? Img : QImg;
+  static constexpr int PrepSmem = PrepImg + 3 * D * 4 + 2 * BN * D * 2;
 };
 
-template <int D>
-struct Smem {
-  int8_t q[kBQ][Shape<D>::KRow];
-  int8_t k[2][kBK][Shape<D>::KRow];
-  int8_t v[2][D][kVRow];
-  float sk[2][kBK];
-  float svs[D];
+// Byte offset of byte `col` of row `row` in an operand of `rows` rows laid
+// out as 32-byte-swizzled k32 blocks
+__device__ __forceinline__ int sw32(int row, int col, int rows) {
+  return (col >> 5) * (rows * 32) + row * 32 + ((((col >> 4) & 1) ^ ((row >> 2) & 1)) << 4) +
+         (col & 15);
+}
+
+// Stored position of token r (0..31) of a 32-token group (kPermNote)
+__device__ __forceinline__ int v_position(int r) {
+  const int x = r & 15;
+  return (r & 16) + 4 * ((x & 7) >> 1) + (x & 1) + ((x >> 3) << 1);
+}
+
+struct PrepParams {
+  const __nv_bfloat16* q;
+  const __nv_bfloat16* k;
+  const __nv_bfloat16* v;
+  long long qs_b, qs_h, qs_l, ks_b, ks_h, ks_l, vs_b, vs_h, vs_l;  // in elements
+  unsigned char* qimg;
+  unsigned char* kvimg;
+  float* svs;
+  float* vmu;
+  float* part;   // (B*H, splits, 4, D): sum k, sum v, max v, min v
+  int heads, lq, lk, splits, qt, kt;
+  float inv_sqrt_d;
 };
 
-__device__ __forceinline__ uint32_t smem_addr(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-// 16-byte async copy; src_bytes = 0 zero-fills the destination
-__device__ __forceinline__ void cp_async_16(void* smem, const void* gmem,
-                                            int src_bytes) {
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               :
-               : "r"(smem_addr(smem)), "l"(gmem), "r"(src_bytes));
-}
-
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.wait_all;\n" ::: "memory");
-}
-
-__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], uint32_t addr) {
-  asm volatile(
-      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
-      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
-      : "r"(addr));
-}
-
-__device__ __forceinline__ void ldmatrix_x2(uint32_t& r0, uint32_t& r1,
-                                            uint32_t addr) {
-  asm volatile("ldmatrix.sync.aligned.m8n8.x2.shared.b16 {%0, %1}, [%2];\n"
-               : "=r"(r0), "=r"(r1)
-               : "r"(addr));
-}
-
-// d (16x8, s32) += a (16x32, s8, row) * b (32x8, s8, col)
-__device__ __forceinline__ void mma_s8(int (&d)[4], const uint32_t (&a)[4],
-                                       uint32_t b0, uint32_t b1) {
-  asm volatile(
-      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
-      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
-      : "+r"(d[0]), "+r"(d[1]), "+r"(d[2]), "+r"(d[3])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
-}
-
-__device__ __forceinline__ uint32_t pack4(int c0, int c1, int c2, int c3) {
-  return (static_cast<uint32_t>(c0) & 0xff) |
-         ((static_cast<uint32_t>(c1) & 0xff) << 8) |
-         ((static_cast<uint32_t>(c2) & 0xff) << 16) |
-         ((static_cast<uint32_t>(c3) & 0xff) << 24);
-}
-
-// Step `step` of the kv loop: every softmax block of sb tiles is visited
-// twice, its tiles in order for the maxima (pass 0), then again (pass 1).
-struct Step {
-  int tile;   // the kv tile
-  int pass;   // 0: maxima, 1: p and P.V
-  int first;  // the first tile of its pass in the block
-  int last;   // the last tile of its pass in the block
-};
-
-__device__ __forceinline__ Step step_at(int step, int sb, int kv_tiles) {
-  const int start = step / (2 * sb) * sb;
-  const int count = min(sb, kv_tiles - start);
-  const int r = step - 2 * start;
-  const int pass = r >= count;
-  const int pos = pass ? r - count : r;
-  return {start + pos, pass, pos == 0, pos == count - 1};
-}
-
-// Start the copies of kv tile `tile` into stage `buf` (not committed), V's
-// only with `with_v`; the sk tile is stored directly (tokens past lk
-// read 1).
+// Column statistics of one slice of the tokens: thread (pair c, lane) walks
+// every kStatThreads / (D / 2)-th token of the slice over channels 2c, 2c + 1
+// (4-byte loads, neighbouring threads on neighbouring channels, eight tokens
+// in flight), then the lanes are reduced in order through shared memory.
 template <int D>
-__device__ __forceinline__ void load_tile(Smem<D>& sm, int buf, int tile,
-                                          bool with_v,
-                                          const int8_t* __restrict__ kq,
-                                          const int8_t* __restrict__ vt,
-                                          const float* __restrict__ sk,
-                                          int lk, int lkp) {
-  constexpr int DP = Shape<D>::DP;
-  const int t0 = tile * kBK;
-  for (int c = threadIdx.x; c < kBK * (DP / 16); c += kThreads) {
-    const int r = c / (DP / 16);
-    const int cc = (c % (DP / 16)) * 16;
-    const bool ok = t0 + r < lk;
-    const int8_t* src = kq + (ok ? static_cast<long long>(t0 + r) * DP + cc : 0);
-    cp_async_16(&sm.k[buf][r][cc], src, ok ? 16 : 0);
-  }
-  for (int c = threadIdx.x; c < (with_v ? D * (kBK / 16) : 0); c += kThreads) {
-    const int r = c >> 2;
-    const int cc = (c & 3) * 16;
-    cp_async_16(&sm.v[buf][r][cc], vt + static_cast<long long>(r) * lkp + t0 + cc, 16);
-  }
-  if (threadIdx.x < kBK) {
-    const int tok = t0 + threadIdx.x;
-    sm.sk[buf][threadIdx.x] = tok < lk ? sk[tok] : 1.f;
-  }
-}
-
-template <int D>
-__global__ void __launch_bounds__(kThreads)
-    sage_attention_kernel(const int8_t* __restrict__ qq,
-                          const int8_t* __restrict__ kq,
-                          const int8_t* __restrict__ vt,
-                          const float* __restrict__ sq,
-                          const float* __restrict__ sk,
-                          const float* __restrict__ svs,
-                          __nv_bfloat16* __restrict__ out, int heads, int lq,
-                          int lk, long long so_b, long long so_h,
-                          long long so_l, int kv_tiles, int sb, int use_sk) {
-  constexpr int DP = Shape<D>::DP;
-  constexpr int KS = Shape<D>::KS;
-  constexpr int NT = Shape<D>::NT;
-  extern __shared__ __align__(16) unsigned char smem_raw[];
-  Smem<D>& sm = *reinterpret_cast<Smem<D>*>(smem_raw);
-
+__global__ void __launch_bounds__(kStatThreads) sage_stats_kernel(const PrepParams p) {
+  constexpr int kPairs = D / 2;
+  constexpr int kLanes = kStatThreads / kPairs;
+  __shared__ float red[4][kLanes][D];
   const int bh = blockIdx.y;
-  const int q0 = blockIdx.x * kBQ;
-  const int lkp = (lk + kBK - 1) / kBK * kBK;
-  qq += static_cast<long long>(bh) * lq * DP;
-  kq += static_cast<long long>(bh) * lk * DP;
-  vt += static_cast<long long>(bh) * D * lkp;
-  sq += static_cast<long long>(bh) * lq;
-  sk += static_cast<long long>(bh) * lk;
-  svs += static_cast<long long>(bh) * D;
-  out += static_cast<long long>(bh / heads) * so_b +
-         static_cast<long long>(bh % heads) * so_h;
+  const int b = bh / p.heads, h = bh % p.heads;
+  const int pair = threadIdx.x % kPairs, lane = threadIdx.x / kPairs;
+  const int chunk = (p.lk + p.splits - 1) / p.splits;
+  const int t0 = blockIdx.x * chunk;
+  const int t1 = min(p.lk, t0 + chunk);
+  if (lane < kLanes) {
+    float sk[2] = {0.f, 0.f}, sv[2] = {0.f, 0.f};
+    float mx[2] = {-CUDART_INF_F, -CUDART_INF_F}, mn[2] = {CUDART_INF_F, CUDART_INF_F};
+    const __nv_bfloat16* kp = p.k + b * p.ks_b + h * p.ks_h + 2 * pair;
+    const __nv_bfloat16* vp = p.v + b * p.vs_b + h * p.vs_h + 2 * pair;
+    // kUnroll tokens' loads in flight per thread, then their sums in order
+    constexpr int kUnroll = 8;
+    for (int t = t0 + lane; t < t1; t += kLanes * kUnroll) {
+      __nv_bfloat162 kw[kUnroll], vw[kUnroll];
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        const long long tt = t + u * kLanes;
+        if (tt < t1) {
+          kw[u] = *reinterpret_cast<const __nv_bfloat162*>(kp + tt * p.ks_l);
+          vw[u] = *reinterpret_cast<const __nv_bfloat162*>(vp + tt * p.vs_l);
+        }
+      }
+#pragma unroll
+      for (int u = 0; u < kUnroll; ++u) {
+        if (t + u * kLanes >= t1) break;
+        const float2 kk = __bfloat1622float2(kw[u]);
+        const float2 vv = __bfloat1622float2(vw[u]);
+        sk[0] += kk.x;
+        sk[1] += kk.y;
+        sv[0] += vv.x;
+        sv[1] += vv.y;
+        mx[0] = fmaxf(mx[0], vv.x);
+        mx[1] = fmaxf(mx[1], vv.y);
+        mn[0] = fminf(mn[0], vv.x);
+        mn[1] = fminf(mn[1], vv.y);
+      }
+    }
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      red[0][lane][2 * pair + e] = sk[e];
+      red[1][lane][2 * pair + e] = sv[e];
+      red[2][lane][2 * pair + e] = mx[e];
+      red[3][lane][2 * pair + e] = mn[e];
+    }
+  }
+  __syncthreads();
+  if (threadIdx.x < D) {
+    const int c = threadIdx.x;
+    float a = 0.f, s = 0.f, mxv = -CUDART_INF_F, mnv = CUDART_INF_F;
+    for (int i = 0; i < kLanes; ++i) {
+      a += red[0][i][c];
+      s += red[1][i][c];
+      mxv = fmaxf(mxv, red[2][i][c]);
+      mnv = fminf(mnv, red[3][i][c]);
+    }
+    float* out = p.part + (static_cast<long long>(bh) * p.splits + blockIdx.x) * 4 * D + c;
+    out[0] = a;
+    out[D] = s;
+    out[2 * D] = mxv;
+    out[3 * D] = mnv;
+  }
+}
 
-  const int warp = threadIdx.x >> 5;
+// Rows row0 .. row0 + rows of x (row stride ld elements) copied to shared
+// memory as bf16 [rows][D], zero past valid_rows: 4-byte loads,
+// neighbouring threads on neighbouring words, four in flight per thread
+template <int D>
+__device__ __forceinline__ void stage_rows(__nv_bfloat16* dst, const __nv_bfloat16* src,
+                                           long long ld, int row0, int rows, int valid_rows) {
+  constexpr int W = D / 2;
+#pragma unroll 4
+  for (int i = threadIdx.x; i < rows * W; i += kPrepThreads) {
+    const int r = i / W;
+    uint32_t x = 0u;
+    if (row0 + r < valid_rows) {
+      x = __ldg(reinterpret_cast<const unsigned int*>(src + (row0 + r) * ld) + (i - r * W));
+    }
+    reinterpret_cast<uint32_t*>(dst)[i] = x;
+  }
+}
+
+// One row of d values quantized by a warp (lane holds columns lane + 32 j):
+// x = f32(src) - mu, s = max(max|x|, 1e-12) / 127, codes round(x / s)
+// clamped, written into the image at `row` of an operand of `rows` rows;
+// returns s. Rows that are not `valid` get zero codes.
+template <int D>
+__device__ __forceinline__ float quantize_row(const __nv_bfloat16* __restrict__ src,
+                                              bool valid, const float* mu,
+                                              unsigned char* img, int row, int rows) {
+  constexpr int NJ = Cfg<D>::DP / 32;
   const int lane = threadIdx.x & 31;
-  const int g = lane >> 2;
-  const int tq = lane & 3;
-
-  for (int c = threadIdx.x; c < kBQ * (DP / 16); c += kThreads) {
-    const int r = c / (DP / 16);
-    const int cc = (c % (DP / 16)) * 16;
-    const bool ok = q0 + r < lq;
-    const int8_t* src = qq + (ok ? static_cast<long long>(q0 + r) * DP + cc : 0);
-    cp_async_16(&sm.q[r][cc], src, ok ? 16 : 0);
+  float x[NJ];
+  float amax = 0.f;
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = lane + 32 * j;
+    x[j] = 0.f;
+    if (valid && c < D) {
+      x[j] = __bfloat162float(src[c]);
+      if (mu != nullptr) x[j] = __fsub_rn(x[j], mu[c]);
+    }
+    amax = fmaxf(amax, fabsf(x[j]));
   }
-  for (int c = threadIdx.x; c < D; c += kThreads) sm.svs[c] = svs[c];
-  const int steps = 2 * kv_tiles;
-  if (steps > 0) load_tile<D>(sm, 0, 0, false, kq, vt, sk, lk, lkp);
-  cp_async_commit();
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) amax = fmaxf(amax, __shfl_xor_sync(0xffffffffu, amax, o));
+  const float s = __fmul_rn(fmaxf(amax, 1e-12f), 1.f / 127.f);
+#pragma unroll
+  for (int j = 0; j < NJ; ++j) {
+    const int c = lane + 32 * j;
+    const float code = fminf(fmaxf(rintf(__fdiv_rn(x[j], s)), -127.f), 127.f);
+    img[sw32(row, c, rows)] = static_cast<unsigned char>(static_cast<int>(code) & 0xff);
+  }
+  return s;
+}
 
-  const int row0 = q0 + warp * 16 + g;
-  const float sq0 = row0 < lq ? sq[row0] : 1.f;
-  const float sq1 = row0 + 8 < lq ? sq[row0 + 8] : 1.f;
-  float m_r[2] = {kNegInf, kNegInf};  // the running maxima
-  float mb[2] = {kNegInf, kNegInf};   // the maxima of the block's pass 0
+// The tile images: blocks x < qt write q image x, the others kv image x - qt,
+// of (b, h) = blockIdx.y. The rows are staged in shared memory first, the
+// image is built there (zeroed first) and written out in 16-byte stores.
+template <int D>
+__global__ void __launch_bounds__(kPrepThreads) sage_quantize_kernel(const PrepParams p) {
+  using C = Cfg<D>;
+  extern __shared__ __align__(16) unsigned char img[];
+  float* stat = reinterpret_cast<float*>(img + C::PrepImg);
+  __nv_bfloat16* rows = reinterpret_cast<__nv_bfloat16*>(img + C::PrepImg + 3 * D * 4);
+  const int bh = blockIdx.y;
+  const int b = bh / p.heads, h = bh % p.heads;
+  const bool is_q = static_cast<int>(blockIdx.x) < p.qt;
+  const int item = is_q ? blockIdx.x : blockIdx.x - p.qt;
+  const int bytes = is_q ? C::QImg : C::Img;
+  const int warp = threadIdx.x >> 5;
+  for (int i = threadIdx.x * 16; i < bytes; i += kPrepThreads * 16) {
+    *reinterpret_cast<uint4*>(img + i) = make_uint4(0u, 0u, 0u, 0u);
+  }
+  if (is_q) {
+    stage_rows<D>(rows, p.q + b * p.qs_b + h * p.qs_h, p.qs_l, item * kQRows, kQRows, p.lq);
+  } else {
+    stage_rows<D>(rows, p.k + b * p.ks_b + h * p.ks_h, p.ks_l, item * C::BN, C::BN, p.lk);
+    stage_rows<D>(rows + C::BN * D, p.v + b * p.vs_b + h * p.vs_h, p.vs_l, item * C::BN, C::BN,
+                  p.lk);
+    // kmu, vmu and sv from the slices' statistics, in the slices' order
+    for (int c = threadIdx.x; c < D; c += kPrepThreads) {
+      const float* part = p.part + static_cast<long long>(bh) * p.splits * 4 * D + c;
+      float a = 0.f, s = 0.f, mxv = -CUDART_INF_F, mnv = CUDART_INF_F;
+      for (int i = 0; i < p.splits; ++i) {
+        a += part[(4 * i) * D];
+        s += part[(4 * i + 1) * D];
+        mxv = fmaxf(mxv, part[(4 * i + 2) * D]);
+        mnv = fminf(mnv, part[(4 * i + 3) * D]);
+      }
+      const float kmu = __fdiv_rn(a, static_cast<float>(p.lk));
+      const float vmu = __fdiv_rn(s, static_cast<float>(p.lk));
+      const float amax = fmaxf(__fsub_rn(mxv, vmu), __fsub_rn(vmu, mnv));
+      const float sv = __fmul_rn(fmaxf(amax, 1e-12f), 1.f / 127.f);
+      stat[c] = kmu;
+      stat[D + c] = vmu;
+      stat[2 * D + c] = sv;
+      if (item == 0) {
+        p.svs[bh * D + c] = __fmul_rn(sv, 1.f / 127.f);
+        p.vmu[bh * D + c] = vmu;
+      }
+    }
+  }
+  __syncthreads();
+  if (is_q) {
+    float* sq = reinterpret_cast<float*>(img + kQRows * C::DP);
+    for (int r = warp; r < kQRows; r += kPrepThreads / 32) {
+      const bool valid = item * kQRows + r < p.lq;
+      const float s = quantize_row<D>(rows + r * D, valid, nullptr, img, r, kQRows);
+      if ((threadIdx.x & 31) == 0) sq[r] = valid ? __fmul_rn(s, p.inv_sqrt_d) : 0.f;
+    }
+  } else {
+    float* sk = reinterpret_cast<float*>(img + C::KBytes);
+    unsigned char* vimg = img + C::Pass0Bytes;
+    const __nv_bfloat16* vrows = rows + C::BN * D;
+    const int lane = threadIdx.x & 31;
+    for (int r = warp; r < C::BN; r += kPrepThreads / 32) {
+      const bool valid = item * C::BN + r < p.lk;
+      const float s = quantize_row<D>(rows + r * D, valid, stat, img, r, C::BN);
+      if (lane == 0) sk[r] = valid ? s : 1.f;
+      if (valid) {
+        const int col = (r & ~31) + v_position(r & 31);
+        for (int c = lane; c < D; c += 32) {
+          const float x = __fsub_rn(__bfloat162float(vrows[r * D + c]), stat[D + c]);
+          const float code =
+              fminf(fmaxf(rintf(__fdiv_rn(x, stat[2 * D + c])), -127.f), 127.f);
+          vimg[sw32(c, col, C::DV)] = static_cast<unsigned char>(static_cast<int>(code) & 0xff);
+        }
+      }
+    }
+  }
+  __syncthreads();
+  unsigned char* dst = is_q
+      ? p.qimg + (static_cast<long long>(bh) * p.qt + item) * C::QImg
+      : p.kvimg + (static_cast<long long>(bh) * p.kt + item) * C::Img;
+  for (int i = threadIdx.x * 16; i < bytes; i += kPrepThreads * 16) {
+    *reinterpret_cast<uint4*>(dst + i) = *reinterpret_cast<const uint4*>(img + i);
+  }
+}
+
+template <int D>
+int prepare(const PrepParams& p, int batch, cudaStream_t stream) {
+  using C = Cfg<D>;
+  auto quantize = sage_quantize_kernel<D>;
+  cudaError_t e = cudaFuncSetAttribute(
+      quantize, cudaFuncAttributeMaxDynamicSharedMemorySize, C::PrepSmem);
+  if (e != cudaSuccess) return static_cast<int>(e);
+  sage_stats_kernel<D><<<dim3(p.splits, batch * p.heads), kStatThreads, 0, stream>>>(p);
+  quantize<<<dim3(p.qt + p.kt, batch * p.heads), kPrepThreads, C::PrepSmem, stream>>>(p);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// --------------------------------------------------------------------------
+// K4
+// --------------------------------------------------------------------------
+
+struct Params {
+  const unsigned char* qimg;
+  const unsigned char* kvimg;
+  const float* svs;
+  const float* vmu;
+  __nv_bfloat16* out;
+  long long so_b, so_h, so_l;
+  int heads, lq, lk, qt, kt;
+  int kv_tiles;  // tiles attended (kt unless a check plants a fault)
+  int sb;        // the softmax block in tiles
+  int use_sk;    // 0 plants a fault: sk not applied
+};
+
+__device__ __forceinline__ float fast_exp2(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+__device__ __forceinline__ uint32_t pack_low_bytes(uint32_t a, uint32_t b, uint32_t c,
+                                                   uint32_t d) {
+  return __byte_perm(__byte_perm(a, b, 0x0040), __byte_perm(c, d, 0x0040), 0x5410);
+}
+
+// Issue s = q k^T over the DP / 32 k32 steps, the first overwriting s
+template <int D>
+__device__ __forceinline__ void qk_issue(uint32_t (&s)[Cfg<D>::BN / 2], uint32_t qa,
+                                         uint32_t kb) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int ks = 0; ks < C::DP / 32; ++ks) {
+    wgmma_s8<C::BN>(s, make_desc_sw32(qa + ks * kQRows * 32),
+                    make_desc_sw32(kb + ks * C::BN * 32), ks);
+  }
+}
+
+// Issue o += p v over the tile's BN / 32 k32 steps
+template <int D>
+__device__ __forceinline__ void pv_issue(uint32_t (&o)[Cfg<D>::DV / 2],
+                                         const uint32_t (&pf)[Cfg<D>::BN / 32][4],
+                                         uint32_t vb) {
+  using C = Cfg<D>;
+#pragma unroll
+  for (int kk = 0; kk < C::BN / 32; ++kk) {
+    wgmma_rs_s8<C::DV>(o, pf[kk], make_desc_sw32(vb + kk * C::DV * 32), 1);
+  }
+}
+
+// The accumulator fragment: warp w of the warpgroup holds rows 16w + g and
+// 16w + g + 8 (g = lane / 4); per 8 columns j, s[4j], s[4j+1] are row g's
+// columns 8j + 2 (lane % 4) + {0, 1} and s[4j+2], s[4j+3] row g + 8's.
+
+// The exact int -> float of an s32 accumulator: |x| < 2^22
+__device__ __forceinline__ float exact_float(uint32_t x) {
+  return __fsub_rn(__uint_as_float(x + kMagicBits), kMagic);
+}
+
+__device__ __forceinline__ float2 sk_pair(const float* sk, int j, const Params& p) {
+  return p.use_sk ? *reinterpret_cast<const float2*>(sk + 8 * j + (threadIdx.x & 3) * 2)
+                  : make_float2(1.f, 1.f);
+}
+
+// -1e30 in place at the columns past lk (the last partial tile only)
+template <int D>
+__device__ __forceinline__ void mask_tail(uint32_t (&s)[Cfg<D>::BN / 2], int k0, int lk) {
+  if (k0 + Cfg<D>::BN <= lk) return;
+  const int c0 = k0 + (threadIdx.x & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < Cfg<D>::BN / 8; ++j) {
+    if (c0 + 8 * j >= lk) s[4 * j] = s[4 * j + 2] = __float_as_uint(kNegInf);
+    if (c0 + 8 * j + 1 >= lk) s[4 * j + 1] = s[4 * j + 3] = __float_as_uint(kNegInf);
+  }
+}
+
+// The scores of a tile in place: s = (f32(s32) * sq) * sk in the base-2
+// domain (log2e is in sq), -1e30 past lk. The same operations in both
+// passes, so pass 1 meets pass 0's maxima exactly.
+template <int D>
+__device__ __forceinline__ void scores(uint32_t (&s)[Cfg<D>::BN / 2], const float* sk,
+                                       float sq0, float sq1, int k0, const Params& p) {
+#pragma unroll
+  for (int j = 0; j < Cfg<D>::BN / 8; ++j) {
+    const float2 skv = sk_pair(sk, j, p);
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      const float x = __fmul_rn(__fmul_rn(exact_float(s[4 * j + e]), e < 2 ? sq0 : sq1),
+                                (e & 1) ? skv.y : skv.x);
+      s[4 * j + e] = __float_as_uint(x);
+    }
+  }
+  mask_tail<D>(s, k0, p.lk);
+}
+
+// Pass 0: the tile's scores into the row maxima mb
+template <int D>
+__device__ __forceinline__ void row_max(const uint32_t (&s)[Cfg<D>::BN / 2], float (&mb)[2]) {
+#pragma unroll
+  for (int j = 0; j < Cfg<D>::BN / 8; ++j) {
+    mb[0] = fmaxf(mb[0], fmaxf(__uint_as_float(s[4 * j]), __uint_as_float(s[4 * j + 1])));
+    mb[1] = fmaxf(mb[1], fmaxf(__uint_as_float(s[4 * j + 2]), __uint_as_float(s[4 * j + 3])));
+  }
+}
+
+// Pass 1: p = ex2(s - m) (p <= 1: ex2.approx(0) is 1), its partial row sums,
+// and in place the bits of round(p * 127) + 1.5 * 2^23, whose low byte is
+// the code
+template <int D>
+__device__ __forceinline__ void softmax_codes(uint32_t (&s)[Cfg<D>::BN / 2],
+                                              const float (&m)[2], float (&lsum)[2]) {
+#pragma unroll
+  for (int i = 0; i < Cfg<D>::BN / 2; ++i) {
+    const int r = (i >> 1) & 1;
+    const float pr = fast_exp2(__fsub_rn(__uint_as_float(s[i]), m[r]));
+    lsum[r] = __fadd_rn(lsum[r], pr);
+    s[i] = __float_as_uint(__fadd_rn(__fmul_rn(pr, 127.f), kMagic));
+  }
+}
+
+// The codes as the register-A fragments of the tile's k32 steps (kPermNote)
+template <int D>
+__device__ __forceinline__ void pack_p(uint32_t (&pf)[Cfg<D>::BN / 32][4],
+                                       const uint32_t (&s)[Cfg<D>::BN / 2]) {
+#pragma unroll
+  for (int kk = 0; kk < Cfg<D>::BN / 32; ++kk) {
+    const int i = 16 * kk;
+    pf[kk][0] = pack_low_bytes(s[i], s[i + 1], s[i + 4], s[i + 5]);
+    pf[kk][1] = pack_low_bytes(s[i + 2], s[i + 3], s[i + 6], s[i + 7]);
+    pf[kk][2] = pack_low_bytes(s[i + 8], s[i + 9], s[i + 12], s[i + 13]);
+    pf[kk][3] = pack_low_bytes(s[i + 10], s[i + 11], s[i + 14], s[i + 15]);
+    fence_operands(pf[kk]);
+  }
+}
+
+template <int D>
+__device__ __forceinline__ void fence_p(uint32_t (&pf)[Cfg<D>::BN / 32][4]) {
+#pragma unroll
+  for (int kk = 0; kk < Cfg<D>::BN / 32; ++kk) fence_operands(pf[kk]);
+}
+
+// The consumers' turns at the tensor cores (named barriers 3 and 4,
+// warpgroup 0 first); the last turn of warpgroup 1 wakes nobody
+struct Turns {
+  int left;
+  __device__ __forceinline__ void begin() const {
+    named_barrier(3 + (threadIdx.x >> 7), kConsumers);
+  }
+  __device__ __forceinline__ void end() {
+    --left;
+    if ((threadIdx.x >> 7) == 0 || left > 0) {
+      named_barrier_arrive(4 - (threadIdx.x >> 7), kConsumers);
+    }
+  }
+};
+
+// A consumer warpgroup: its 64 q rows against every kv tile, two passes per
+// softmax block, then its rows of the output.
+template <int D>
+__device__ __forceinline__ void consume(const Params& p, unsigned char* smem, uint32_t kv_base,
+                                        uint32_t full, uint32_t empty, uint32_t qbar) {
+  using C = Cfg<D>;
+  constexpr int NS = C::BN / 2;
+  constexpr int NV = C::DV / 2;
+  const int wg = threadIdx.x >> 7;
+  const int warp = (threadIdx.x >> 5) & 3;
+  const int lane = threadIdx.x & 31;
+  const int bh = blockIdx.y;
+  const uint32_t qa = smem_addr(smem) + wg * C::QImg;
+  const int n_blocks = (p.kv_tiles + p.sb - 1) / p.sb;
+  // per softmax block: a turn per tile in each pass and the last P.V's
+  Turns turns{2 * p.kv_tiles + n_blocks};
+  if (wg == 1) named_barrier_arrive(3, kConsumers);
+  auto stage_of = [&](int step) { return kv_base + (step % kStages) * C::Stage; };
+  auto sk_of = [&](int step) {
+    return reinterpret_cast<const float*>(smem + C::QBytes + (step % kStages) * C::Stage +
+                                          C::KBytes);
+  };
+  auto wait_full = [&](int step) {
+    mbar_wait(full + 8 * (step % kStages), (step / kStages) & 1);
+  };
+
+  mbar_wait(qbar, 0);
+  const float* sqs = reinterpret_cast<const float*>(smem + wg * C::QImg + kQRows * C::DP);
+  const float sq0 = __fmul_rn(sqs[warp * 16 + (lane >> 2)], kLog2e);
+  const float sq1 = __fmul_rn(sqs[warp * 16 + (lane >> 2) + 8], kLog2e);
+
+  uint32_t s[NS];
+  uint32_t pv[NV];
+  uint32_t pf[C::BN / 32][4];
+  float* acc = reinterpret_cast<float*>(smem + C::kAcc) + threadIdx.x;  // acc[i * kConsumers]
+#pragma unroll
+  for (int i = 0; i < NV; ++i) acc[i * kConsumers] = 0.f;
+  float m_r[2] = {kNegInf, kNegInf};
   float l_r[2] = {0.f, 0.f};
-  float acc[NT][4];
-#pragma unroll
-  for (int j = 0; j < NT; ++j) acc[j][0] = acc[j][1] = acc[j][2] = acc[j][3] = 0.f;
-  uint32_t qf[KS][4];
+  int st = 0;  // the step: its stage st % kStages, its phase (st / kStages) & 1
 
-  for (int st = 0; st < steps; ++st) {
-    const int buf = st & 1;
-    cp_async_wait_all();
-    __syncthreads();  // step st's tile (and Q) landed; st - 1's reads are done
-    if (st == 0) {
-#pragma unroll
-      for (int ks = 0; ks < KS; ++ks) {
-        ldmatrix_x4(qf[ks], smem_addr(&sm.q[warp * 16 + (lane & 15)][ks * 32 + (lane >> 4) * 16]));
-      }
-    }
-    if (st + 1 < steps) {
-      const Step nx = step_at(st + 1, sb, kv_tiles);
-      load_tile<D>(sm, buf ^ 1, nx.tile, nx.pass == 1, kq, vt, sk, lk, lkp);
-    }
-    cp_async_commit();
-    const Step cur = step_at(st, sb, kv_tiles);
-    const int t = cur.tile;
+  for (int blk = 0; blk < n_blocks; ++blk) {
+    const int t0 = blk * p.sb;
+    const int nt = min(p.sb, p.kv_tiles - t0);
 
-    // s = q8 . k8 over the tile's 64 tokens: 8 tiles of 8 columns
-    int s[8][4];
+    // pass 0: the block's row maxima
+    float mb[2] = {kNegInf, kNegInf};
+    for (int i = 0; i < nt; ++i, ++st) {
+      wait_full(st);
+      turns.begin();
+      wgmma_fence();
+      qk_issue<D>(s, qa, stage_of(st));
+      wgmma_commit();
+      turns.end();
+      wgmma_wait<0>();
+      fence_operands(s);
+      scores<D>(s, sk_of(st), sq0, sq1, (t0 + i) * C::BN, p);
+      mbar_arrive(empty + 8 * (st % kStages));
+      row_max<D>(s, mb);
+    }
+    float alpha[2];
 #pragma unroll
-    for (int j = 0; j < 8; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0;
-#pragma unroll
-    for (int ks = 0; ks < KS; ++ks) {
-#pragma unroll
-      for (int nj = 0; nj < 4; ++nj) {
-        uint32_t bf[4];
-        const int row = nj * 16 + (lane & 7) + ((lane >> 4) & 1) * 8;
-        const int col = ks * 32 + ((lane >> 3) & 1) * 16;
-        ldmatrix_x4(bf, smem_addr(&sm.k[buf][row][col]));
-        mma_s8(s[2 * nj], qf[ks], bf[0], bf[1]);
-        mma_s8(s[2 * nj + 1], qf[ks], bf[2], bf[3]);
-      }
+    for (int r = 0; r < 2; ++r) {
+      mb[r] = fmaxf(mb[r], __shfl_xor_sync(0xffffffffu, mb[r], 1));
+      mb[r] = fmaxf(mb[r], __shfl_xor_sync(0xffffffffu, mb[r], 2));
+      const float mn = fmaxf(m_r[r], mb[r]);
+      alpha[r] = fast_exp2(__fsub_rn(m_r[r], mn));
+      m_r[r] = mn;
     }
 
-    // scores, masked past kv_len; the tile's row maxima
-    float f[8][4];
-    float mx0 = kNegInf, mx1 = kNegInf;
+    // pass 1, its first tile peeled: s, p and the codes, no P.V yet
+    float lsum[2] = {0.f, 0.f};
 #pragma unroll
-    for (int j = 0; j < 8; ++j) {
+    for (int i = 0; i < NV; ++i) pv[i] = 0u;
+    wait_full(st);
+    turns.begin();
+    wgmma_fence();
+    qk_issue<D>(s, qa, stage_of(st));
+    wgmma_commit();
+    turns.end();
+    wgmma_wait<0>();
+    fence_operands(s);
+    scores<D>(s, sk_of(st), sq0, sq1, t0 * C::BN, p);
+    softmax_codes<D>(s, m_r, lsum);
+    pack_p<D>(pf, s);
+    ++st;
+    // tile i: s = q k_i^T is issued, then o += p_{i-1} v_{i-1}; tile i's
+    // softmax runs while the latter is in flight; tile i - 1's stage is
+    // released once its P.V has finished
+    for (int i = 1; i < nt; ++i, ++st) {
+      wait_full(st);
+      turns.begin();
+      fence_operands(pv);
+      wgmma_fence();
+      qk_issue<D>(s, qa, stage_of(st));
+      wgmma_commit();
+      pv_issue<D>(pv, pf, stage_of(st - 1) + C::Pass0Bytes);
+      wgmma_commit();
+      turns.end();
+      wgmma_wait<1>();
+      fence_operands(s);
+      scores<D>(s, sk_of(st), sq0, sq1, (t0 + i) * C::BN, p);
+      softmax_codes<D>(s, m_r, lsum);
+      wgmma_wait<0>();
+      fence_operands(pv);
+      fence_p<D>(pf);
+      mbar_arrive(empty + 8 * ((st - 1) % kStages));
+      pack_p<D>(pf, s);
+    }
+    // the block's last P.V, then acc and l take alpha and the block's sums
+    turns.begin();
+    fence_operands(pv);
+    wgmma_fence();
+    pv_issue<D>(pv, pf, stage_of(st - 1) + C::Pass0Bytes);
+    wgmma_commit();
+    turns.end();
+    wgmma_wait<0>();
+    fence_operands(pv);
+    mbar_arrive(empty + 8 * ((st - 1) % kStages));
+    const int c0 = (lane & 3) * 2;
+#pragma unroll
+    for (int j = 0; j < NV / 4; ++j) {
 #pragma unroll
       for (int e = 0; e < 4; ++e) {
-        const int c = j * 8 + 2 * tq + (e & 1);
-        const float skv = use_sk ? sm.sk[buf][c] : 1.f;
-        const float v = __fmul_rn(__fmul_rn(__int2float_rn(s[j][e]), e < 2 ? sq0 : sq1), skv);
-        f[j][e] = t * kBK + c < lk ? v : kNegInf;
-      }
-      mx0 = fmaxf(mx0, fmaxf(f[j][0], f[j][1]));
-      mx1 = fmaxf(mx1, fmaxf(f[j][2], f[j][3]));
-    }
-#pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      mx0 = fmaxf(mx0, __shfl_xor_sync(0xffffffffu, mx0, o));
-      mx1 = fmaxf(mx1, __shfl_xor_sync(0xffffffffu, mx1, o));
-    }
-    if (cur.pass == 0) {
-      mb[0] = cur.first ? mx0 : fmaxf(mb[0], mx0);
-      mb[1] = cur.first ? mx1 : fmaxf(mb[1], mx1);
-      if (cur.last) {  // the block's m', alpha: rescale l and acc once
-        const float mn0 = fmaxf(m_r[0], mb[0]), mn1 = fmaxf(m_r[1], mb[1]);
-        const float al0 = expf(__fsub_rn(m_r[0], mn0)), al1 = expf(__fsub_rn(m_r[1], mn1));
-        m_r[0] = mn0;
-        m_r[1] = mn1;
-        l_r[0] = __fmul_rn(l_r[0], al0);
-        l_r[1] = __fmul_rn(l_r[1], al1);
-#pragma unroll
-        for (int j = 0; j < NT; ++j) {
-          acc[j][0] = __fmul_rn(acc[j][0], al0);
-          acc[j][1] = __fmul_rn(acc[j][1], al0);
-          acc[j][2] = __fmul_rn(acc[j][2], al1);
-          acc[j][3] = __fmul_rn(acc[j][3], al1);
-        }
-      }
-      continue;
-    }
-    const float mn0 = m_r[0], mn1 = m_r[1];
-
-    // p = exp(s - m'), its row sums, and its codes round(p * 127) packed
-    // into the A fragments of the two 32-token k steps of P.V
-    int pc[8][4];
-    float sum0 = 0.f, sum1 = 0.f;
-#pragma unroll
-    for (int j = 0; j < 8; ++j) {
-#pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        const float p = expf(__fsub_rn(f[j][e], e < 2 ? mn0 : mn1));
-        if (e < 2) sum0 = __fadd_rn(sum0, p); else sum1 = __fadd_rn(sum1, p);
-        pc[j][e] = static_cast<int>(rintf(__fmul_rn(p, 127.f)));
+        const int c = 8 * j + c0 + (e & 1);
+        const float sv = c < D ? __ldg(p.svs + bh * D + c) : 0.f;
+        float& a = acc[(4 * j + e) * kConsumers];
+        a = __fadd_rn(__fmul_rn(a, alpha[e >> 1]),
+                      __fmul_rn(__int2float_rn(static_cast<int>(pv[4 * j + e])), sv));
       }
     }
 #pragma unroll
-    for (int o = 1; o <= 2; o <<= 1) {
-      sum0 = __fadd_rn(sum0, __shfl_xor_sync(0xffffffffu, sum0, o));
-      sum1 = __fadd_rn(sum1, __shfl_xor_sync(0xffffffffu, sum1, o));
-    }
-    l_r[0] = __fadd_rn(l_r[0], sum0);
-    l_r[1] = __fadd_rn(l_r[1], sum1);
-    uint32_t pa[2][4];
-#pragma unroll
-    for (int kk = 0; kk < 2; ++kk) {
-      const int j = 4 * kk;
-      pa[kk][0] = pack4(pc[j][0], pc[j][1], pc[j + 1][0], pc[j + 1][1]);
-      pa[kk][1] = pack4(pc[j][2], pc[j][3], pc[j + 1][2], pc[j + 1][3]);
-      pa[kk][2] = pack4(pc[j + 2][0], pc[j + 2][1], pc[j + 3][0], pc[j + 3][1]);
-      pa[kk][3] = pack4(pc[j + 2][2], pc[j + 2][3], pc[j + 3][2], pc[j + 3][3]);
-    }
-
-    // acc += f32(p8 . v8) * svs, 8 output columns at a time
-#pragma unroll
-    for (int jn = 0; jn < NT; jn += 2) {
-      int pv[2][4] = {{0, 0, 0, 0}, {0, 0, 0, 0}};
-      const bool pair = jn + 1 < NT;
-#pragma unroll
-      for (int kk = 0; kk < 2; ++kk) {
-        const int col = kk * 32 + ((lane >> 3) & 1) * 16;
-        if (pair) {
-          uint32_t bf[4];
-          const int row = jn * 8 + (lane & 7) + ((lane >> 4) & 1) * 8;
-          ldmatrix_x4(bf, smem_addr(&sm.v[buf][row][col]));
-          mma_s8(pv[0], pa[kk], bf[0], bf[1]);
-          mma_s8(pv[1], pa[kk], bf[2], bf[3]);
-        } else {
-          uint32_t b0, b1;
-          ldmatrix_x2(b0, b1, smem_addr(&sm.v[buf][jn * 8 + (lane & 7)][col]));
-          mma_s8(pv[0], pa[kk], b0, b1);
-        }
-      }
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        if (h == 1 && !pair) continue;
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          const float sv = sm.svs[(jn + h) * 8 + 2 * tq + (e & 1)];
-          acc[jn + h][e] = __fadd_rn(acc[jn + h][e], __fmul_rn(__int2float_rn(pv[h][e]), sv));
-        }
-      }
-    }
+    for (int r = 0; r < 2; ++r) l_r[r] = __fadd_rn(__fmul_rn(l_r[r], alpha[r]), lsum[r]);
   }
-  cp_async_wait_all();
 
+  float l[2];
 #pragma unroll
-  for (int jn = 0; jn < NT; ++jn) {
-    const int col = jn * 8 + 2 * tq;
+  for (int r = 0; r < 2; ++r) {
+    l[r] = l_r[r];
+    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 1));
+    l[r] = __fadd_rn(l[r], __shfl_xor_sync(0xffffffffu, l[r], 2));
+  }
+  const int b = bh / p.heads;
+  const int h = bh - b * p.heads;
+  const int row = (blockIdx.x * 2 + wg) * kQRows + warp * 16 + (lane >> 2);
+  __nv_bfloat16* go = p.out + b * p.so_b + h * p.so_h + (lane & 3) * 2;
+  const float* vmu = p.vmu + bh * D + (lane & 3) * 2;
+#pragma unroll
+  for (int j = 0; j < NV / 4; ++j) {
+    if (8 * j + (lane & 3) * 2 >= D) continue;  // DV's padding
+    const float mu0 = __ldg(vmu + 8 * j), mu1 = __ldg(vmu + 8 * j + 1);
 #pragma unroll
     for (int half = 0; half < 2; ++half) {
-      const int row = row0 + half * 8;
-      if (row >= lq) continue;
-      const float v0 = __fdiv_rn(acc[jn][2 * half], l_r[half]);
-      const float v1 = __fdiv_rn(acc[jn][2 * half + 1], l_r[half]);
-      *reinterpret_cast<__nv_bfloat162*>(out + static_cast<long long>(row) * so_l + col) =
-          __floats2bfloat162_rn(v0, v1);
+      const int r = row + 8 * half;
+      if (r >= p.lq) continue;
+      const float o0 = __fadd_rn(__fdiv_rn(acc[(4 * j + 2 * half) * kConsumers], l[half]), mu0);
+      const float o1 =
+          __fadd_rn(__fdiv_rn(acc[(4 * j + 2 * half + 1) * kConsumers], l[half]), mu1);
+      *reinterpret_cast<uint32_t*>(go + r * p.so_l + 8 * j) = pack_bf16(o0, o1);
     }
   }
 }
 
+// Two consumer warpgroups and one producer warpgroup, in which one thread
+// issues the copies: the block's q images once, then per softmax block its
+// kv tiles twice (K and sk only for pass 0, the whole image for pass 1).
+// The producer gives back registers (setmaxnreg: 24 + 2 x 240 of the 512 a
+// lane of each SM sub-partition has) for the consumers' s, p and P.V sums.
 template <int D>
-int launch(const void* qq, const void* kq, const void* vt, const void* sq,
-           const void* sk, const void* svs, void* out, int batch, int heads,
-           int lq, int lk, long long so_b, long long so_h, long long so_l,
-           int kv_tiles, int sb, int use_sk, cudaStream_t stream) {
-  const int smem = static_cast<int>(sizeof(Smem<D>));
+__global__ void __launch_bounds__(kThreads, 1) sage_attention_kernel(const Params p) {
+  using C = Cfg<D>;
+  extern __shared__ __align__(1024) unsigned char smem_raw[];
+  unsigned char* smem = smem_raw + ((kAtom - (smem_addr(smem_raw) & (kAtom - 1))) & (kAtom - 1));
+  const uint32_t kv_base = smem_addr(smem) + C::QBytes;
+  const uint32_t full = smem_addr(smem) + C::kBar;  // full[i] at full + 8 i
+  const uint32_t empty = full + kStages * 8;
+  const uint32_t qbar = empty + kStages * 8;
+
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kStages; ++i) {
+      mbar_init(full + 8 * i, 1);
+      mbar_init(empty + 8 * i, kConsumers);
+    }
+    mbar_init(qbar, 1);
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // the role by warpgroup, made visibly uniform across each warp for
+  // setmaxnreg
+  if (__shfl_sync(0xffffffffu, threadIdx.x / 128, 0) == 2) {  // the producer
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 24;\n" ::: "memory");
+    if (threadIdx.x == kConsumers) {
+      const long long bh = blockIdx.y;
+      mbar_expect_tx(qbar, 2 * C::QImg);
+      bulk_copy(smem_addr(smem), p.qimg + (bh * p.qt + blockIdx.x * 2) * C::QImg, 2 * C::QImg,
+                qbar);
+      const unsigned char* src = p.kvimg + bh * p.kt * C::Img;
+      int st = 0;
+      for (int t0 = 0; t0 < p.kv_tiles; t0 += p.sb) {
+        const int nt = min(p.sb, p.kv_tiles - t0);
+        for (int pass = 0; pass < 2; ++pass) {
+          const int bytes = pass ? C::Img : C::Pass0Bytes;
+          for (int i = 0; i < nt; ++i, ++st) {
+            const int stage = st % kStages;
+            if (st >= kStages) mbar_wait(empty + 8 * stage, (st / kStages - 1) & 1);
+            mbar_expect_tx(full + 8 * stage, bytes);
+            bulk_copy(kv_base + stage * C::Stage, src + static_cast<long long>(t0 + i) * C::Img,
+                      bytes, full + 8 * stage);
+          }
+        }
+      }
+    }
+  } else {
+    asm volatile("setmaxnreg.inc.sync.aligned.u32 240;\n" ::: "memory");
+    consume<D>(p, smem, kv_base, full, empty, qbar);
+  }
+}
+
+template <int D>
+int attend(const Params& p, int batch, cudaStream_t stream) {
+  using C = Cfg<D>;
   auto kernel = sage_attention_kernel<D>;
   cudaError_t e = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, C::kSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
-  dim3 grid((lq + kBQ - 1) / kBQ, batch * heads);
-  kernel<<<grid, kThreads, smem, stream>>>(
-      static_cast<const int8_t*>(qq), static_cast<const int8_t*>(kq),
-      static_cast<const int8_t*>(vt), static_cast<const float*>(sq),
-      static_cast<const float*>(sk), static_cast<const float*>(svs),
-      static_cast<__nv_bfloat16*>(out), heads, lq, lk, so_b, so_h, so_l,
-      kv_tiles, sb, use_sk);
+  dim3 grid((p.lq + kBM - 1) / kBM, batch * p.heads);
+  kernel<<<grid, kThreads, C::kSmem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
+}
+
+template <int D>
+bool images_fit(int lq, int lk, int qt, int kt) {
+  return qt == (lq + kBM - 1) / kBM * 2 && kt == (lk + Cfg<D>::BN - 1) / Cfg<D>::BN;
 }
 
 }  // namespace
 
-// K4 on prepared operands (see the header); out (B, H, Lq, D) bf16 through
-// its (b, h, l) strides (even, the D elements of a row contiguous). kv_tiles
-// is the number of 64-token kv tiles summed (ceil(Lk / 64) unless a check
-// plants a fault), sb the softmax block in tiles; use_sk 0 drops sk (a
-// planted fault). Head dims 32, 40, 64, 80, 128, 160.
-extern "C" int ldt_sage_attention_fwd(const void* qq, const void* kq,
-                                      const void* vt, const void* sq,
-                                      const void* sk, const void* svs,
-                                      void* out, int batch, int heads, int lq,
-                                      int lk, int d, long long so_b,
-                                      long long so_h, long long so_l,
-                                      int kv_tiles, int sb, int use_sk,
-                                      void* stream) {
-  if (batch < 1 || heads < 1 || lq < 1 || lk < 1 || batch * heads > 65535 ||
-      sb < 1 ||
-      kv_tiles < 0 || kv_tiles > (lk + kBK - 1) / kBK || so_b % 2 || so_h % 2 ||
-      so_l % 2) {
+#define LDT_SAGE_DIMS(X) X(32) X(40) X(64) X(80) X(128) X(160)
+
+// The preparation: q, k, v (B, H, L, d) bf16 through their (b, h, l) strides
+// in elements (each row's d values contiguous and 4-byte aligned); writes qimg
+// (B*H, qt, q image) and kvimg (B*H, kt, kv image) bytes (layout in the
+// header; qt = ceil(Lq / 128) * 2, kt = ceil(Lk / BN)), svs and vmu (B*H, d)
+// f32, using part (B*H, 16, 4, d) f32 as scratch (one slice of the column
+// statistics per 1024 tokens, at most 16). inv_sqrt_d is folded into sq.
+extern "C" int ldt_sage_prepare_fwd(const void* q, const void* k, const void* v, void* qimg,
+                                    void* kvimg, void* svs, void* vmu, void* part, int batch,
+                                    int heads, int lq, int lk, int d, long long qs_b,
+                                    long long qs_h, long long qs_l, long long ks_b,
+                                    long long ks_h, long long ks_l, long long vs_b,
+                                    long long vs_h, long long vs_l, int qt, int kt,
+                                    float inv_sqrt_d, void* stream) {
+  if (batch < 1 || heads < 1 || lq < 1 || lk < 1 || batch * heads > 65535 || qs_l % 2 || ks_l % 2 || vs_l % 2 || qs_h % 2 || ks_h % 2 || vs_h % 2 ||
+      qs_b % 2 || ks_b % 2 || vs_b % 2) {
     return kErrUnsupported;
   }
+  const int splits = min(kMaxStatSplits, (lk + 1023) / 1024);
+  PrepParams p{static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+               static_cast<const __nv_bfloat16*>(v), qs_b, qs_h, qs_l, ks_b, ks_h, ks_l,
+               vs_b, vs_h, vs_l, static_cast<unsigned char*>(qimg),
+               static_cast<unsigned char*>(kvimg), static_cast<float*>(svs),
+               static_cast<float*>(vmu), static_cast<float*>(part), heads, lq, lk, splits,
+               qt, kt, inv_sqrt_d};
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-#define LDT_SAGE_CASE(DIM)                                                     \
-  case DIM:                                                                    \
-    return launch<DIM>(qq, kq, vt, sq, sk, svs, out, batch, heads, lq, lk,     \
-                       so_b, so_h, so_l, kv_tiles, sb, use_sk, s);
+#define LDT_SAGE_PREP_CASE(DIM)                                   \
+  case DIM:                                                        \
+    if (!images_fit<DIM>(lq, lk, qt, kt)) return kErrUnsupported;  \
+    return prepare<DIM>(p, batch, s);
   switch (d) {
-    LDT_SAGE_CASE(32)
-    LDT_SAGE_CASE(40)
-    LDT_SAGE_CASE(64)
-    LDT_SAGE_CASE(80)
-    LDT_SAGE_CASE(128)
-    LDT_SAGE_CASE(160)
+    LDT_SAGE_DIMS(LDT_SAGE_PREP_CASE)
+    default:
+      return kErrUnsupported;
+  }
+#undef LDT_SAGE_PREP_CASE
+}
+
+// K4 on the prepared images; out (B, H, Lq, d) bf16 through its (b, h, l)
+// strides (even, the d elements of a row contiguous). kv_tiles is the number
+// of kv tiles attended (kt unless a check plants a fault), sb the softmax
+// block in tiles; use_sk 0 drops sk (a planted fault). Head dims 32, 40, 64,
+// 80, 128, 160.
+extern "C" int ldt_sage_attention_fwd(const void* qimg, const void* kvimg, const void* svs,
+                                      const void* vmu, void* out, int batch, int heads, int lq,
+                                      int lk, int d, long long so_b, long long so_h,
+                                      long long so_l, int qt, int kt, int kv_tiles, int sb,
+                                      int use_sk, void* stream) {
+  if (batch < 1 || heads < 1 || lq < 1 || lk < 1 || batch * heads > 65535 || sb < 1 ||
+      kv_tiles < 1 || kv_tiles > kt || so_b % 2 || so_h % 2 || so_l % 2) {
+    return kErrUnsupported;
+  }
+  Params p{static_cast<const unsigned char*>(qimg), static_cast<const unsigned char*>(kvimg),
+           static_cast<const float*>(svs), static_cast<const float*>(vmu),
+           static_cast<__nv_bfloat16*>(out), so_b, so_h, so_l, heads, lq, lk, qt, kt,
+           kv_tiles, sb, use_sk};
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define LDT_SAGE_CASE(DIM)                                         \
+  case DIM:                                                        \
+    if (!images_fit<DIM>(lq, lk, qt, kt)) return kErrUnsupported;  \
+    return attend<DIM>(p, batch, s);
+  switch (d) {
+    LDT_SAGE_DIMS(LDT_SAGE_CASE)
     default:
       return kErrUnsupported;
   }
 #undef LDT_SAGE_CASE
 }
+
+#undef LDT_SAGE_DIMS
 
 extern "C" const char* ldt_error_string(int code) {
   if (code == kErrUnsupported) return "shape not supported";

@@ -4,10 +4,10 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes``; a source
 may export several kernels' entry points (``quant_matmul.cu``: K5 and K6;
 ``w8a8_matmul.cu``: K7, K8, K11 and the stacked K11; ``row_quantize.cu``:
-K9 and K10). The build happens at first use, into
-``build/kernels/`` at the repository root (listed in ``.gitignore``); the
-file name carries a hash of the sources and flags, so an edited kernel is
-rebuilt and a built one is reused. ``build()`` starts one ``nvcc`` per
+K9 and K10; ``sage_attention.cu``: K4 and its preparation). The build
+happens at first use, into ``build/kernels/`` at the repository root
+(listed in ``.gitignore``); the file name carries a hash of the sources and
+flags, so an edited kernel is rebuilt and a built one is reused. ``build()`` starts one ``nvcc`` per
 source, all at once.
 
 Nothing here runs at import: the CPU tests import every module, and this
@@ -78,10 +78,20 @@ _W8A8_EP_STACKED_ARGTYPES = (
 )
 
 _SAGE_ARGTYPES = (
-    [ctypes.c_void_p] * 7            # qq, kq, vt, sq, sk, svs, out
+    [ctypes.c_void_p] * 5            # q images, kv images, svs, vmu, out
     + [ctypes.c_int] * 5             # batch, heads, lq, lk, d
     + [ctypes.c_longlong] * 3        # (b, h, l) strides of out
-    + [ctypes.c_int] * 3             # kv tiles, softmax block in tiles, apply sk
+    + [ctypes.c_int] * 5             # q images, kv images, kv tiles attended,
+                                     # softmax block in tiles, apply sk
+    + [ctypes.c_void_p]              # stream
+)
+
+_SAGE_PREPARE_ARGTYPES = (
+    [ctypes.c_void_p] * 8            # q, k, v, q images, kv images, svs, vmu, scratch
+    + [ctypes.c_int] * 5             # batch, heads, lq, lk, d
+    + [ctypes.c_longlong] * 9        # (b, h, l) strides of q, k, v
+    + [ctypes.c_int] * 2             # q images, kv images
+    + [ctypes.c_float]               # 1 / sqrt(d)
     + [ctypes.c_void_p]              # stream
 )
 
@@ -137,6 +147,9 @@ KERNELS = {
     ),
     "sage_attention": (
         "sage_attention.cu", "ldt_sage_attention_fwd", _SAGE_ARGTYPES,
+    ),
+    "sage_prepare": (
+        "sage_attention.cu", "ldt_sage_prepare_fwd", _SAGE_PREPARE_ARGTYPES,
     ),
     "row_quantize_fused": (
         "row_quantize.cu", "ldt_row_quantize_fwd", _ROW_QUANTIZE_ARGTYPES,

@@ -1,5 +1,6 @@
-"""Int8 ("sage") attention: the hand-written CUDA kernel K4 and its plain
-version. Opt-in (``RuntimeConfig.sage_attention``), as in the JAX package.
+"""Int8 ("sage") attention: the hand-written CUDA kernel K4, its
+preparation kernel, and their plain versions. Opt-in
+(``RuntimeConfig.sage_attention``), as in the JAX package.
 
 Counterpart of lightdiffusion_next_tpu/ops/sage_attention.py
 ``sage_attention`` with ``int8_mxu=True, pv_int8=True``, the configuration
@@ -7,21 +8,33 @@ its dispatch calls. The scheme: K and V are centred over tokens (exact for
 the softmax, and V's mean is added back after normalisation); Q and K are
 quantized to int8 per token, V per channel, 1/sqrt(d) folded into Q's
 scale; the kernel multiplies int8 by int8 with exact int32 sums, runs the
-online softmax in f32 with the natural exp, quantizes P as round(p * 127)
-and multiplies it by V in int8 again.
+online softmax in f32, quantizes P as round(p * 127) and multiplies it by V
+in int8 again.
 
-The preparation runs in plain PyTorch in the JAX package's f32 operations
-(``prepare``), before the kernel; for the card it also lays the codes out
-as the kernel reads them (``_kernel_operands``: d padded to the next
-multiple of 32 with zero codes for Q and K, V transposed to (d, Lk) with its
-tokens reordered per group of 32). The V mean is added after the kernel,
-in the output's dtype.
+On the card a call is two hand-written steps (csrc/sage_attention.cu):
+
+- the preparation kernel (``prepare_kernel``; plain version
+  ``prepare_plain``: ``prepare``, the JAX package's f32 operations, then
+  ``pack_operands``) reads q, k and v through their strides and writes the
+  int8 codes and f32 scales as the tile images K4 copies (layout below),
+  with V's per-channel scale and mean beside them;
+- K4 (``_launch``) attends over those images on integer ``wgmma`` and adds
+  V's mean in f32 before the output's one bf16 rounding.
+
+The images, in bytes per (batch, head): ``q_images(lq)`` q images of 64
+rows (codes [DP / 32][64][32 bytes], then the rows' sq in f32) and
+``ceil(lk / BN)`` kv images of BN tokens (K codes [DP / 32][BN][32 bytes],
+sk[BN] f32, then V transposed, [BN / 32][DV][32 bytes], with each group of
+32 tokens in ``_V_ORDER``), every 32-byte row 32-byte-swizzled (its two
+16-byte halves swap in rows 4-7 of each 8 rows). DP is d padded to 32, DV d
+with 40 padded to 48, BN 128 tokens for d <= 80, else 64 (``geometry``);
+padding holds zero codes, sq 0 and sk 1.
 
 The online softmax quantizes P against the running maximum after each
 block of kv tokens, so the block width is part of the function. The kernel
 and the plain version take the JAX kernel's (``softmax_block``: 1024
-tokens at SD1.5's lengths); the kernel visits a block as tiles of 64
-tokens (``TILE``), twice: once for the maxima, once for the rest.
+tokens at SD1.5's lengths); the kernel visits a block twice, once for the
+maxima and once for the rest.
 
 Not ported (ROADMAP Queue 2): the ``pv_int8=False`` quality variant (bf16
 P.V on unquantized V) and the ``int8_mxu=False`` variant (the int8 codes
@@ -31,6 +44,7 @@ multiplied at the bf16 rate); the configuration reaches neither.
 from __future__ import annotations
 
 import math
+from typing import NamedTuple
 
 import torch
 import torch.nn.functional as F
@@ -39,8 +53,9 @@ from lightdiffusion_next_tpu_torch.ops import cuda_build
 from lightdiffusion_next_tpu_torch.ops import flash_attention as fa
 
 NEG_INF = -1e30  # the masked score, as in the JAX kernel
-TILE = 64  # kv tokens per tile of the kernel
 HEAD_DIMS = (32, 40, 64, 80, 128, 160)  # head dims the kernel is built for
+Q_ROWS = 64  # rows of a q image: one consumer warpgroup of K4
+STAT_SPLITS = 16  # the most token slices of the preparation's column statistics
 
 # The kernel's token order of V within each group of 32 (csrc/
 # sage_attention.cu, kPermNote): stored position 4t + i holds token
@@ -49,8 +64,8 @@ _V_ORDER = [16 * h + (2 * t, 2 * t + 1, 8 + 2 * t, 9 + 2 * t)[i]
             for h in range(2) for t in range(4) for i in range(4)]
 
 # The kernel against its plain version on the same inputs (bf16 out). Both
-# take the same softmax blocks and the same f32 operations; the sums over a
-# block (of p, and of the P.V products into the accumulator) run in another
+# take the same softmax blocks; the kernel's scores are in the base-2
+# domain with ex2.approx, its sums over a block (of p) run in another
 # order, and a p near a rounding edge of round(p * 127) can take the
 # neighbouring code. Limits: three bf16 ulps at max |plain| and a relative
 # RMS error of 1e-2, as for K1 and K2 (``flash_attention.agreement``);
@@ -58,6 +73,30 @@ _V_ORDER = [16 * h + (2 * t, 2 * t + 1, 8 + 2 * t, 9 + 2 * t)[i]
 # tile skipped, sk not applied) must fail them.
 MAX_ULPS = fa.BF16_MAX_ULPS
 REL_RMSE_LIMIT = 1e-2
+
+# The preparation kernel against ``prepare_plain``: Q's codes and sq are the
+# same f32 operations on the same values; K's and V's follow the means over
+# tokens, which the kernel sums in another order than torch's ``mean``, so a
+# code may move by one where x / s lies at a rounding edge, and a scale by
+# a few f32 ulps. Limits: at most PREP_CODE_SHARE of the codes differ, none
+# by more than one; every scale (sq, sk, svs) within PREP_SCALE_ULPS ulps
+# (relative); V's mean within PREP_MEAN_REL of its channel's max |v - vmu|
+# (a mean near 0 has no relative error to speak of).
+PREP_CODE_SHARE = 1e-3
+PREP_CODE_MAX_DIFF = 1
+PREP_SCALE_ULPS = 4
+PREP_MEAN_REL = 1e-5
+
+
+class Operands(NamedTuple):
+    """What the preparation hands K4: the q and kv images (uint8, (B*H,
+    images, bytes)), V's scale over 127 and its mean ((B*H, d) f32), and
+    the kv length."""
+    qimg: torch.Tensor
+    kvimg: torch.Tensor
+    svs: torch.Tensor
+    vmu: torch.Tensor
+    lk: int
 
 
 def _exact_block(length: int, preferred: int) -> int:
@@ -143,42 +182,169 @@ def sage_attention_plain(q, k, v, block_k=None):
     return (out + vmu.to(out.dtype)).to(q.dtype)
 
 
-def _kernel_operands(qq, sq, kq, sk, vq, svs):
-    """The prepared operands in the kernel's layout (csrc/sage_attention.cu):
-    (B*H, L, DP) codes, V transposed to (B*H, D, Lkp) in the kernel's token
-    order, the scales as (B*H, L) and (B*H, D) rows."""
+def geometry(d: int):
+    """(DP, DV, BN) of head dim ``d``: q and k rows in bytes, P.V's width,
+    kv tokens per tile (csrc/sage_attention.cu ``Cfg``)."""
+    return -(-d // 32) * 32, 48 if d == 40 else d, 128 if d <= 80 else 64
+
+
+def q_images(lq: int) -> int:
+    """q images per (batch, head): ceil(lq / 128) pairs of 64 rows."""
+    return -(-lq // (2 * Q_ROWS)) * 2
+
+
+def _swizzle32(x):
+    """(..., rows, cols) bytes -> (..., rows * cols) in the kernel's order:
+    [cols / 32][rows][32], the two 16-byte halves of a row swapped in rows
+    4-7 of each 8."""
+    *lead, rows, cols = x.shape
+    t = x.reshape(*lead, rows, cols // 32, 2, 16)
+    swap = ((torch.arange(rows, device=x.device) >> 2) & 1).bool().view(rows, 1, 1, 1)
+    t = torch.where(swap, t.flip(-2), t)
+    return t.transpose(-4, -3).reshape(*lead, rows * cols)
+
+
+def _unswizzle32(b, rows: int, cols: int):
+    """The inverse of ``_swizzle32``."""
+    *lead, _ = b.shape
+    t = b.reshape(*lead, cols // 32, rows, 2, 16).transpose(-4, -3)
+    swap = ((torch.arange(rows, device=b.device) >> 2) & 1).bool().view(rows, 1, 1, 1)
+    return torch.where(swap, t.flip(-2), t).reshape(*lead, rows, cols)
+
+
+def _bytes(x):
+    return x.contiguous().view(torch.uint8)
+
+
+def pack_operands(qq, sq, kq, sk, vq, svs, vmu) -> Operands:
+    """The plain layout: ``prepare``'s outputs as the preparation kernel
+    writes them (see the module's docstring)."""
     b, h, lq, d = qq.shape
     lk = kq.shape[2]
-    dp = -(-d // 32) * 32
-    lkp = -(-lk // TILE) * TILE
-    bh = b * h
-    qq = F.pad(qq, (0, dp - d)).reshape(bh, lq, dp)
-    kq = F.pad(kq, (0, dp - d)).reshape(bh, lk, dp)
+    dp, dv, bn = geometry(d)
+    bh, qt, kt = b * h, q_images(lq), -(-lk // bn)
+    qrows, krows = qt * Q_ROWS, kt * bn
+    qc = F.pad(qq.reshape(bh, lq, d), (0, dp - d, 0, qrows - lq)).view(bh, qt, Q_ROWS, dp)
+    qs = F.pad(sq.reshape(bh, lq), (0, qrows - lq)).view(bh, qt, Q_ROWS)
+    qimg = torch.cat([_swizzle32(_bytes(qc)), _bytes(qs)], dim=-1)
+    kc = F.pad(kq.reshape(bh, lk, d), (0, dp - d, 0, krows - lk)).view(bh, kt, bn, dp)
+    ks = F.pad(sk.reshape(bh, lk), (0, krows - lk), value=1.0).view(bh, kt, bn)
     order = torch.as_tensor(_V_ORDER, device=vq.device)
-    vt = F.pad(vq, (0, 0, 0, lkp - lk)).reshape(bh, lkp // 32, 32, d)[:, :, order]
-    vt = vt.permute(0, 3, 1, 2).reshape(bh, d, lkp)
-    return (qq.contiguous(), kq.contiguous(), vt.contiguous(), sq.reshape(bh, lq).contiguous(),
-            sk.reshape(bh, lk).contiguous(), svs.reshape(bh, d).contiguous())
+    vc = F.pad(vq.reshape(bh, lk, d), (0, dv - d, 0, krows - lk))
+    vc = vc.view(bh, kt, bn // 32, 32, dv)[:, :, :, order].transpose(-1, -2)
+    vimg = _swizzle32(_bytes(vc)).reshape(bh, kt, bn * dv)
+    kvimg = torch.cat([_swizzle32(_bytes(kc)), _bytes(ks), vimg], dim=-1)
+    return Operands(qimg, kvimg, svs.reshape(bh, d).contiguous(),
+                    vmu.reshape(bh, d).contiguous(), lk)
 
 
-def _launch(q, ops, kv_tiles=None, use_sk=True):
-    """Launch K4 on the kernel-layout operands ``ops`` with the JAX
-    kernel's softmax block; the output is a (B, H, Lq, D) view of a (B, Lq,
-    H, D) buffer. ``kv_tiles`` fewer than ceil(Lk / 64), or ``use_sk``
-    False, plant a fault (for the checks)."""
+def unpack_operands(ops: Operands, d: int):
+    """The images of head dim ``d`` read back, padding included: q codes
+    (B*H, q rows, DP) int8 and sq (B*H, q rows) f32; k codes (B*H, kv rows,
+    DP), sk (B*H, kv rows); v codes (B*H, kv rows, DV) in token order. Rows
+    past the lengths and columns past d are the padding."""
+    dp, dv, bn = geometry(d)
+    bh, qt, kt = ops.kvimg.shape[0], ops.qimg.shape[1], ops.kvimg.shape[1]
+    qcode = Q_ROWS * dp
+    qc = _unswizzle32(ops.qimg[..., :qcode], Q_ROWS, dp).view(torch.int8)
+    qs = ops.qimg[..., qcode:].contiguous().view(torch.float32)
+    kcode = bn * dp
+    kc = _unswizzle32(ops.kvimg[..., :kcode], bn, dp).view(torch.int8)
+    ks = ops.kvimg[..., kcode:kcode + 4 * bn].contiguous().view(torch.float32)
+    vimg = ops.kvimg[..., kcode + 4 * bn:].reshape(bh, kt, bn // 32, dv * 32)
+    vc = _unswizzle32(vimg, dv, 32).view(torch.int8).transpose(-1, -2)
+    inverse = torch.as_tensor(sorted(range(32), key=_V_ORDER.__getitem__), device=vc.device)
+    vc = vc[:, :, :, inverse].reshape(bh, kt * bn, dv)
+    return (qc.reshape(bh, qt * Q_ROWS, dp), qs.reshape(bh, qt * Q_ROWS),
+            kc.reshape(bh, kt * bn, dp), ks.reshape(bh, kt * bn), vc)
+
+
+def prepare_plain(q, k, v) -> Operands:
+    """Plain version of the preparation kernel: ``prepare``, then the
+    kernel's layout."""
+    return pack_operands(*prepare(q, k, v))
+
+
+def prep_agreement(ops: Operands, ref: Operands, d: int) -> dict:
+    """The preparation kernel's images against ``prepare_plain``'s, read
+    back: codes (padding included) and scales, to the limits above."""
+    got, want = unpack_operands(ops, d), unpack_operands(ref, d)
+    codes = [(g.int() - w.int()).abs() for g, w in zip(got[0::2], want[0::2])]
+    max_diff = max(c.max().item() for c in codes)
+    share = sum((c > 0).sum().item() for c in codes) / sum(c.numel() for c in codes)
+    scales = [(got[1], want[1]), (got[3], want[3]), (ops.svs, ref.svs)]
+    ulps = max(((g - w).abs() / (w.abs() * 2.0 ** -23).clamp(min=1e-30)).max().item()
+               for g, w in scales)
+    mean_err = ((ops.vmu - ref.vmu).abs() / (ref.svs * (127.0 * 127.0))).max().item()
+    ok = (max_diff <= PREP_CODE_MAX_DIFF and share <= PREP_CODE_SHARE
+          and ulps <= PREP_SCALE_ULPS and mean_err <= PREP_MEAN_REL)
+    return {"max_abs_err": float(max_diff), "code_diff_share": share,
+            "code_diff_share_limit": PREP_CODE_SHARE,
+            "scale_ulps": ulps, "scale_ulps_limit": PREP_SCALE_ULPS,
+            "mean_rel_err": mean_err, "mean_rel_limit": PREP_MEAN_REL, "ok": bool(ok)}
+
+
+def _check_inputs(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.dim() != 4:
+        raise ValueError("sage_attention: expected (B, H, L, D) tensors")
     b, h, lq, d = q.shape
-    qq, kq, vt, sq, sk, svs = ops
-    lk = kq.shape[1]
-    if not all(t.is_cuda for t in ops):
+    lk = k.shape[2]
+    if k.shape != (b, h, lk, d) or v.shape != (b, h, lk, d):
+        raise ValueError(f"sage_attention: shapes {q.shape} {k.shape} {v.shape}")
+    if not (q.is_cuda and k.is_cuda and v.is_cuda):
+        raise ValueError(f"sage_attention: no kernel for device {q.device}")
+    if q.dtype != torch.bfloat16 or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError("sage_attention: the kernel takes bf16 q, k, v")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"sage_attention: head dim {d} not among {HEAD_DIMS}")
+    for t in (q, k, v):
+        if t.stride(3) != 1 or t.data_ptr() % 4 or any(s % 2 for s in t.stride()[:3]):
+            raise ValueError("sage_attention: rows must be contiguous and 4-byte aligned")
+
+
+def prepare_kernel(q, k, v) -> Operands:
+    """The preparation kernel: q (B, H, Lq, D), k/v (B, H, Lk, D) bf16 on
+    the card, through their strides, -> the operands K4 takes."""
+    _check_inputs(q, k, v)
+    b, h, lq, d = q.shape
+    lk = k.shape[2]
+    dp, dv, bn = geometry(d)
+    bh, qt, kt = b * h, q_images(lq), -(-lk // bn)
+    dev = q.device
+    qimg = torch.empty((bh, qt, Q_ROWS * (dp + 4)), dtype=torch.uint8, device=dev)
+    kvimg = torch.empty((bh, kt, bn * (dp + 4 + dv)), dtype=torch.uint8, device=dev)
+    svs = torch.empty((bh, d), dtype=torch.float32, device=dev)
+    vmu = torch.empty((bh, d), dtype=torch.float32, device=dev)
+    part = torch.empty((bh, STAT_SPLITS, 4, d), dtype=torch.float32, device=dev)
+    rc = cuda_build.entry_point("sage_prepare")(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(), qimg.data_ptr(), kvimg.data_ptr(),
+        svs.data_ptr(), vmu.data_ptr(), part.data_ptr(), b, h, lq, lk, d,
+        *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], qt, kt,
+        1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream)
+    if rc != 0:
+        raise RuntimeError("sage_prepare kernel failed: "
+                           + cuda_build.error_string("sage_prepare", rc))
+    prepare_kernel.launches += 1
+    return Operands(qimg, kvimg, svs, vmu, lk)
+
+
+def _launch(q, ops: Operands, kv_tiles=None, use_sk=True):
+    """Launch K4 on the prepared operands with the JAX kernel's softmax
+    block; the output is a (B, H, Lq, D) view of a (B, Lq, H, D) buffer.
+    ``kv_tiles`` fewer than the kv images, or ``use_sk`` False, plant a
+    fault (for the checks)."""
+    b, h, lq, d = q.shape
+    if not all(t.is_cuda for t in ops[:4]):
         raise ValueError(f"sage_attention: no kernel for device {q.device}")
     if d not in HEAD_DIMS:
         raise ValueError(f"sage_attention: head dim {d} not among {HEAD_DIMS}")
+    bn = geometry(d)[2]
+    qt, kt = ops.qimg.shape[1], ops.kvimg.shape[1]
     out = torch.empty((b, lq, h, d), dtype=torch.bfloat16, device=q.device)
-    tiles = -(-lk // TILE)
     rc = cuda_build.entry_point("sage_attention")(
-        *(t.data_ptr() for t in ops), out.data_ptr(), b, h, lq, lk, d,
-        out.stride(0), out.stride(2), out.stride(1),
-        tiles if kv_tiles is None else kv_tiles, softmax_block(lk) // TILE, int(use_sk),
+        ops.qimg.data_ptr(), ops.kvimg.data_ptr(), ops.svs.data_ptr(), ops.vmu.data_ptr(),
+        out.data_ptr(), b, h, lq, ops.lk, d, out.stride(0), out.stride(2), out.stride(1),
+        qt, kt, kt if kv_tiles is None else kv_tiles, softmax_block(ops.lk) // bn, int(use_sk),
         torch.cuda.current_stream(q.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("sage_attention kernel failed: "
@@ -188,15 +354,13 @@ def _launch(q, ops, kv_tiles=None, use_sk=True):
 
 def sage_attention(q, k, v):
     """K4: q (B, H, Lq, D), k/v (B, H, Lk, D) -> (B, H, Lq, D) in q's dtype.
-    On the GPU, bf16 in and out."""
+    On the GPU, bf16 in and out: the preparation kernel, then K4."""
     if q.device.type == "cpu":
         return sage_attention_plain(q, k, v)
-    if q.dtype != torch.bfloat16:
-        raise TypeError("sage_attention: the kernel takes bf16 q, k, v")
-    qq, sq, kq, sk, vq, svs, vmu = prepare(q, k, v)
-    out = _launch(q, _kernel_operands(qq, sq, kq, sk, vq, svs))
+    out = _launch(q, prepare_kernel(q, k, v))
     sage_attention.launches += 1
-    return out + vmu.to(out.dtype)
+    return out
 
 
 sage_attention.launches = 0
+prepare_kernel.launches = 0

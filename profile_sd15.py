@@ -39,6 +39,8 @@ def kernel_category(name: str) -> str:
     stacked = "true>" in name
     if "sage_attention_kernel" in name:
         return "K4 sage_attention (UNet, int8)"
+    if "sage_stats_kernel" in name or "sage_quantize_kernel" in name:
+        return "K4's preparation sage_prepare (UNet, int8)"
     if "flash_fwd_kernel<__nv_bfloat16, 48" in name:
         return "K1 packed_flash_attention (UNet d=40)"
     if "flash_fwd_kernel<float" in name or "split_kernel" in name:

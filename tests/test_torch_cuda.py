@@ -511,8 +511,11 @@ def test_stacked_kernels_refuse_a_block_outside_the_stack(cuda):
 
 # --- K4: the int8 attention --------------------------------------------------
 # Held to its plain version at the limits stated in ops/sage_attention.py
-# (``MAX_ULPS`` at max |plain|, ``REL_RMSE_LIMIT``): the same 64-token
-# tiles and f32 operations, another order of the row sums of p.
+# (``MAX_ULPS`` at max |plain|, ``REL_RMSE_LIMIT``): the same softmax blocks,
+# scores in the base-2 domain, another order of the row sums of p. The
+# preparation kernel is held to ``prepare_plain`` by ``prep_agreement``
+# (codes within one, at most ``PREP_CODE_SHARE`` of them off; scales within
+# ``PREP_SCALE_ULPS``).
 
 
 def _sage_check(out, ref):
@@ -528,8 +531,10 @@ def _sage_check(out, ref):
     (2, 8, 1024, 1024, 80),
     (2, 8, 256 * 2, 512, 160),
     (1, 3, 600, 700, 80),       # ragged: masked kv tail, partial q tile
-    (1, 2, 577, 530, 40),       # d = 40: an odd count of 8-column P.V tiles
+    (1, 2, 577, 530, 40),       # d = 40: P.V padded to 48 columns
     (1, 2, 640, 640, 128),
+    (1, 2, 300, 2100, 64),      # three softmax blocks, the last partial
+    (1, 2, 200, 520, 32),
 ])
 def test_sage_attention_matches_plain(cuda, b, h, lq, lk, d):
     from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
@@ -537,31 +542,87 @@ def test_sage_attention_matches_plain(cuda, b, h, lq, lk, d):
     gen = torch.Generator(device="cuda").manual_seed(16)
     q, k, v = (torch.randn(s, generator=gen, device="cuda").bfloat16()
                for s in ((b, h, lq, d), (b, h, lk, d), (b, h, lk, d)))
-    launches = sa.sage_attention.launches
+    launches = (sa.sage_attention.launches, sa.prepare_kernel.launches)
     out = sa.sage_attention(q, k, v)
     torch.cuda.synchronize()
-    assert sa.sage_attention.launches == launches + 1
+    assert (sa.sage_attention.launches, sa.prepare_kernel.launches) == (
+        launches[0] + 1, launches[1] + 1)
     assert out.shape == q.shape and out.dtype == torch.bfloat16
     check = _sage_check(out, sa.sage_attention_plain(q, k, v))
     assert check["ok"], check
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("b,h,lq,lk,d,fused", [
+    (2, 8, 4096, 4096, 40, True),    # head views of the fused q|k|v projection
+    (2, 8, 1000, 1000, 80, True),    # ragged
+    (1, 8, 1024, 1024, 160, True),
+    (4, 2, 700, 300, 64, False),     # separate tensors, cross lengths
+    (1, 3, 130, 2100, 32, False),    # three token slices
+    (1, 2, 640, 640, 128, False),
+])
+def test_sage_prepare_matches_plain(cuda, b, h, lq, lk, d, fused):
+    """The preparation kernel's images against ``prepare_plain``'s, read
+    back through ``unpack_operands``: codes and scales to the stated limits,
+    the padding zero (it is compared too), the inputs read through their
+    strides."""
+    from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    if fused:
+        x = torch.randn((b, lq, 3 * h * d), generator=gen, device="cuda").bfloat16()
+        q, k, v = (t.reshape(b, lq, h, d).transpose(1, 2) for t in x.chunk(3, dim=-1))
+        assert not q.is_contiguous()
+    else:
+        q, k, v = (torch.randn(s, generator=gen, device="cuda").bfloat16() + 0.5
+                   for s in ((b, h, lq, d), (b, h, lk, d), (b, h, lk, d)))
+    launches = sa.prepare_kernel.launches
+    ops = sa.prepare_kernel(q, k, v)
+    torch.cuda.synchronize()
+    assert sa.prepare_kernel.launches == launches + 1
+    ref = sa.prepare_plain(q, k, v)
+    assert ops.qimg.shape == ref.qimg.shape and ops.kvimg.shape == ref.kvimg.shape
+    check = sa.prep_agreement(ops, ref, d)
+    assert check["ok"], check
+    got, want = sa.unpack_operands(ops, d), sa.unpack_operands(ref, d)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])  # q: exact
+
+
+@pytest.mark.cuda
 def test_sage_attention_planted_faults_fail_the_check(cuda):
     """The last kv tile skipped, and sk not applied: both fail the check at
-    the longest sequence, where a dropped tile weighs least."""
+    the longest sequence, where a dropped tile weighs least; the sound
+    launch on the same operands passes."""
     from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
 
     gen = torch.Generator(device="cuda").manual_seed(17)
     q, k, v = (torch.randn((2, 8, 16384, 40), generator=gen, device="cuda").bfloat16()
                for _ in range(3))
     ref = sa.sage_attention_plain(q, k, v)
-    prep = sa.prepare(q, k, v)
-    ops = sa._kernel_operands(*prep[:6])
-    vmu = prep[6].to(torch.bfloat16)
-    assert _sage_check(sa._launch(q, ops) + vmu, ref)["ok"]
-    assert not _sage_check(sa._launch(q, ops, kv_tiles=16384 // 64 - 1) + vmu, ref)["ok"]
-    assert not _sage_check(sa._launch(q, ops, use_sk=False) + vmu, ref)["ok"]
+    ops = sa.prepare_kernel(q, k, v)
+    kt = ops.kvimg.shape[1]
+    assert _sage_check(sa._launch(q, ops), ref)["ok"]
+    assert not _sage_check(sa._launch(q, ops, kv_tiles=kt - 1), ref)["ok"]
+    assert not _sage_check(sa._launch(q, ops, use_sk=False), ref)["ok"]
+
+
+@pytest.mark.cuda
+def test_sage_kernels_refuse_what_they_do_not_take(cuda):
+    from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
+
+    q = torch.zeros((1, 2, 512, 48), device="cuda", dtype=torch.bfloat16)
+    with pytest.raises(ValueError):
+        sa.sage_attention(q, q, q)                     # head dim 48
+    q = torch.zeros((1, 2, 512, 40), device="cuda")
+    with pytest.raises(TypeError):
+        sa.sage_attention(q, q, q)                     # f32
+    x = torch.zeros((1, 2, 512, 41), device="cuda", dtype=torch.bfloat16)[..., 1:]
+    with pytest.raises(ValueError):
+        sa.prepare_kernel(x, x, x)                     # rows not 4-byte aligned
+    q = torch.zeros((1, 2, 512, 40), device="cuda", dtype=torch.bfloat16)
+    ops = sa.prepare_kernel(q, q, q)
+    with pytest.raises(RuntimeError):
+        sa._launch(q, ops, kv_tiles=ops.kvimg.shape[1] + 1)
 
 
 @pytest.mark.cuda

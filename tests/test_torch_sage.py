@@ -30,6 +30,7 @@ import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
+import torch.nn.functional as F
 
 from lightdiffusion_next_tpu import config as jconfig
 from lightdiffusion_next_tpu.models import base as jbase
@@ -156,34 +157,57 @@ def test_softmax_block_matches_jax():
 
     for lk in (64, 100, 300, 512, 520, 577, 700, 1024, 1281, 4096, 4352, 9000, 16384):
         ref = jsa._int8_block(lk, 1024, lane=128) or min(1024, jfa._round_up(lk, 128))
-        assert tsa.softmax_block(lk) == ref and ref % tsa.TILE == 0
+        assert tsa.softmax_block(lk) == ref and ref % 128 == 0
+        assert all(ref % tsa.geometry(d)[2] == 0 for d in tsa.HEAD_DIMS)
 
 
-def test_kernel_operands_layout():
-    """What the launch hands the kernel: d padded to 32 with zero codes, V
-    transposed with its tokens in the kernel's order per group of 32 and
-    the tail padded with zero codes."""
-    rng = np.random.default_rng(9)
-    q, k, v = (_t(a) for a in _qkv(rng, 2, 3, 70, 100, 40))
-    qq, sq, kq, sk, vq, svs, _ = tsa.prepare(q, k, v)
-    oq, ok, ovt, osq, osk, osvs = tsa._kernel_operands(qq, sq, kq, sk, vq, svs)
-    assert oq.shape == (6, 70, 64) and not oq[..., 40:].any()
-    assert torch.equal(oq[..., :40], qq.reshape(6, 70, 40))
-    assert ok.shape == (6, 100, 64) and osk.shape == (6, 100) and osvs.shape == (6, 40)
-    assert ovt.shape == (6, 40, 128) and ovt.is_contiguous()
+@pytest.mark.parametrize("b,h,lq,lk,d", [
+    (2, 3, 70, 100, 40),     # DP 64, P.V padded to 48, one kv tile
+    (1, 2, 300, 1000, 80),   # d = 80: DP 96; a ragged length
+    (1, 1, 130, 200, 160),   # kv tiles of 64 tokens, one consumer's images
+])
+def test_kernel_operands_layout(b, h, lq, lk, d):
+    """What the launch hands the kernel (``pack_operands``, the plain
+    layout): inverting the tile images recovers ``prepare``'s codes and
+    scales, the padding holds zero codes (sq 0 and sk 1 past the lengths),
+    and V's tokens sit in the kernel's order per group of 32."""
+    rng = np.random.default_rng(9 + d)
+    q, k, v = (_t(a) for a in _qkv(rng, b, h, lq, lk, d))
+    qq, sq, kq, sk, vq, svs, vmu = tsa.prepare(q, k, v)
+    ops = tsa.pack_operands(qq, sq, kq, sk, vq, svs, vmu)
+    dp, dv, bn = tsa.geometry(d)
+    bh, qt, kt = b * h, tsa.q_images(lq), -(-lk // bn)
+    assert ops.qimg.dtype == torch.uint8 and ops.qimg.shape == (bh, qt, 64 * (dp + 4))
+    assert ops.kvimg.shape == (bh, kt, bn * (dp + 4 + dv)) and ops.lk == lk
+    assert qt % 2 == 0 and qt * 64 >= lq and dp % 32 == 0 and dv % 16 == 0
+    assert torch.equal(ops.svs, svs.reshape(bh, d)) and torch.equal(ops.vmu, vmu.reshape(bh, d))
+    qc, qs, kc, ks, vc = tsa.unpack_operands(ops, d)
+    assert torch.equal(qc[:, :lq, :d], qq.reshape(bh, lq, d))
+    assert torch.equal(qs[:, :lq], sq.reshape(bh, lq))
+    assert torch.equal(kc[:, :lk, :d], kq.reshape(bh, lk, d))
+    assert torch.equal(ks[:, :lk], sk.reshape(bh, lk))
+    assert torch.equal(vc[:, :lk, :d], vq.reshape(bh, lk, d))
+    assert not qc[:, lq:].any() and not qc[..., d:].any() and not qs[:, lq:].any()
+    assert not kc[:, lk:].any() and not kc[..., d:].any() and bool((ks[:, lk:] == 1).all())
+    assert not vc[:, lk:].any() and not vc[..., d:].any()
     order = tsa._V_ORDER
     assert sorted(order) == list(range(32)) and order[:8] == [0, 1, 8, 9, 2, 3, 10, 11]
-    inverse = np.argsort(order)
-    back = ovt.reshape(6, 40, 4, 32)[..., inverse].reshape(6, 40, 128)
-    assert torch.equal(back[..., :100].transpose(1, 2), vq.reshape(6, 100, 40))
-    assert not back[..., 100:].any()
+    # V's first k32 block of the first image, unswizzled by hand: channel
+    # row c holds the group's tokens in the kernel's order
+    first = ops.kvimg[0, 0, bn * (dp + 4):bn * (dp + 4) + 32 * dv].view(dv, 2, 16)
+    swap = torch.tensor([(c >> 2) & 1 for c in range(dv)]).bool().view(dv, 1, 1)
+    first = torch.where(swap, first.flip(1), first).reshape(dv, 32).view(torch.int8)
+    want = F.pad(vq.reshape(bh, lk, d)[0, :32], (0, dv - d))[order].T
+    assert torch.equal(first, want)
 
 
 def test_launch_refuses_cpu_tensors():
     q = torch.zeros((1, 1, 512, 40))
-    ops = tsa._kernel_operands(*tsa.prepare(q, q, q)[:6])
+    ops = tsa.prepare_plain(q, q, q)
     with pytest.raises(ValueError):
         tsa._launch(q, ops)
+    with pytest.raises(ValueError):
+        tsa.prepare_kernel(q, q, q)
 
 
 # --- the dispatch -------------------------------------------------------------

@@ -8,7 +8,8 @@ Phases, in order; any failure exits non-zero:
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
 2. build: every hand-written kernel from ``lightdiffusion_next_tpu_torch/csrc``,
    with each source's register and spill report; the ``wgmma`` kernels (K5's
-   and K6's, K3's attention kernel, K4) must spill nothing and, in the built
+   and K6's, K3's attention kernel, K4, K1's and K2's two templates) must
+   spill nothing and, in the built
    library's SASS (``cuobjdump``), run on ``wgmma`` (HGMMA for bf16, IGMMA
    for K4's int8) with no ``mma.sync`` (HMMA, IMMA) left, or the run fails;
    K4's conversions and exps (I2F, F2I, FRND, MUFU.EX2) are counted;
@@ -229,7 +230,11 @@ FORCED_HITS = dict(residual_diff_threshold=1e30, max_consecutive_cache_hits=2)
 # instantiation spills and each one's SASS holds the first and not the second
 WGMMA_KERNELS = (("quant_matmul.cu", "quant_matmul_kernel", "HGMMA", "HMMA"),
                  ("fused_qkv_attention.cu", "fused_attention_kernel", "HGMMA", "HMMA"),
-                 ("sage_attention.cu", "sage_attention_kernel", "IGMMA", "IMMA"))
+                 ("sage_attention.cu", "sage_attention_kernel", "IGMMA", "IMMA"),
+                 ("packed_flash_attention.cu", "flash_wgmma_kernel", "HGMMA", "HMMA"),
+                 ("packed_flash_attention.cu", "flash_split_kernel", "HGMMA", "HMMA"),
+                 ("flash_attention.cu", "flash_wgmma_kernel", "HGMMA", "HMMA"),
+                 ("flash_attention.cu", "flash_split_kernel", "HGMMA", "HMMA"))
 # conversions and exps counted in the wgmma kernels' SASS: K4's work per score
 # should hold none but MUFU.EX2 (its I2F convert the P.V sums once per
 # softmax block)

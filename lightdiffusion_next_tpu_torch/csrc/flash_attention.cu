@@ -7,53 +7,70 @@
 // (d = 160) self-attention in bf16, and the VAE mid-block attention: one
 // head, d = 512, 16384 tokens, in f32.
 //
-// What bounds it on an H100: at d = 80 and d = 160 each logit carries 160
-// or 320 multiply-adds, so the bf16 tensor cores set the bound (about
-// 0.09 ms and 0.01 ms at the UNet's shapes). At d = 512 the f32 accumulator
-// of a 64-row q tile (64 x 512 x 4 bytes) does not fit in registers, and
-// the work (5.5e11 FLOP) is again tensor-core bound (about 0.56 ms at the
-// bf16 rate).
+// Instantiations (flash_attention.cuh has the two designs):
+//   bf16, d <= 64                    flash_wgmma_kernel<64, 3>
+//   bf16, d <= 80, 96, 128, 160      flash_wgmma_kernel<80|96|128|160, 2>
+//   bf16, d <= 256, 512              flash_split_kernel<false, 128|256>
+//   f32,  d <= 128, 256, 512         flash_split_kernel<true, 64|128|256>
+// each after flash_kv_kernel, which lays k and v out as tile images.
 //
-// What the design does about it: every product runs on the tensor cores
-// (mma.sync m16n8k16, bf16 in, f32 accumulate). f32 inputs keep f32
-// products, as the JAX kernel computes them: each operand is split into
-// bf16 hi and lo halves and each product is three mma (hi*hi + hi*lo +
-// lo*hi), about 16 mantissa bits; q is split while its tile is staged, k
-// and v once per call into a scratch buffer of four bf16 arrays (each of
-// the 1024 blocks of the VAE call then reads 32 MB of bf16 halves, which
-// stay in L2, instead of f32 it converts again), p in registers. That
-// triples the VAE call's tensor-core work, the price of the JAX semantics.
-// Softmax state and both accumulations stay f32. Above d = 160 a block
-// computes a slice of 128 output columns and recomputes q k^T over the full
-// head dim, so the accumulator stays at 64 registers a thread; at d = 512
-// that repeats q k^T four times (2.5x the minimal FLOP), which is the price
-// of this simple design. The 16384^2 logits are never formed. See
-// flash_attention.cuh for the tiling.
+// What bounds it on an H100: at d = 80 and d = 160 each logit carries 160
+// or 320 multiply-adds against one exp2, so the bf16 tensor cores set the
+// bound (about 0.09 ms at (2, 8, 4096, 80), 0.01 ms at (2, 8, 1024, 160)).
+// The VAE call's products, kept at f32 precision as three bf16 products
+// each (split-bf16), are 1.65e12 FLOP: 1.67 ms at the bf16 rate; its 64 MB
+// of hi/lo K and V images are read once per q tile of 64 rows, from L2.
+//
+// What the design does about it: every product runs on wgmma with the K and
+// V tiles bulk-copied by a producer warpgroup, so copies, products and the
+// softmax overlap (flash_attention.cuh). At d <= 160 two consumer
+// warpgroups take turns at the tensor cores. At d = 512 two consumers split
+// the head dim, so S is computed once per (q tile, kv tile) and the 64 x 512
+// f32 accumulator fits in registers.
+//
+// Times on an H100 80GB HBM3 at 700 W (chip_smoke.py, ms per call, the
+// prologue included), against the mma.sync design this replaces (which
+// recomputed q k^T for four 128-column slices at d = 512),
+// scaled_dot_product_attention on the same q, k, v, and the bound:
+//   (B, H, L, d) dtype        this   mma.sync  library  bound
+//   (2, 8, 4096, 80) bf16     0.242  0.434     0.211    0.087
+//   (2, 8, 1024, 160) bf16    0.057  0.081     0.029    0.011
+//   (2, 8, 1024, 80) bf16     0.040  0.048     0.020    0.005
+//   (1, 1, 16384, 512) f32    3.872  26.92     13.94    0.556
+// At d = 80 no single part bounds it (ablate_attention.py: without the
+// softmax 0.193, without P.V 0.214, the prologue alone 0.032); at d = 512
+// neither the softmax, P.V nor the copies (each 2-5% of the call).
 #include "flash_attention.cuh"
 
 namespace {
 
-struct Dispatch {
-  template <typename T>
-  int operator()(const ldt::Params& p, int batch, cudaStream_t s) const {
-    if (p.d <= 64) return ldt::launch<T, 64, 64>(p, batch, s);
-    if (p.d <= 80) return ldt::launch<T, 80, 80>(p, batch, s);
-    if (p.d <= 96) return ldt::launch<T, 96, 96>(p, batch, s);
-    if (p.d <= 128) return ldt::launch<T, 128, 128>(p, batch, s);
-    if (p.d <= 160) return ldt::launch<T, 160, 160>(p, batch, s);
-    if (p.d <= 256) return ldt::launch<T, 256, 128>(p, batch, s);
-    if (p.d <= 512) return ldt::launch<T, 512, 128>(p, batch, s);
-    return ldt::kErrUnsupported;
-  }
-};
+int launch_f32(const ldt::Params& p, int batch, void* scratch, long long bytes, cudaStream_t s) {
+  if (p.d <= 128) return ldt::launch_split<true, 64>(p, batch, scratch, bytes, s);
+  if (p.d <= 256) return ldt::launch_split<true, 128>(p, batch, scratch, bytes, s);
+  if (p.d <= 512) return ldt::launch_split<true, 256>(p, batch, scratch, bytes, s);
+  return ldt::kErrUnsupported;
+}
+
+int dispatch(const ldt::Params& p, int dtype, int batch, void* scratch, long long bytes,
+             cudaStream_t s) {
+  if (p.d < 1) return ldt::kErrUnsupported;
+  if (dtype == 1) return launch_f32(p, batch, scratch, bytes, s);
+  if (dtype != 0) return ldt::kErrUnsupported;
+  if (p.d <= 64) return ldt::launch_tiles<64>(p, batch, scratch, bytes, s);
+  if (p.d <= 80) return ldt::launch_tiles<80>(p, batch, scratch, bytes, s);
+  if (p.d <= 96) return ldt::launch_tiles<96>(p, batch, scratch, bytes, s);
+  if (p.d <= 128) return ldt::launch_tiles<128>(p, batch, scratch, bytes, s);
+  if (p.d <= 160) return ldt::launch_tiles<160>(p, batch, scratch, bytes, s);
+  if (p.d <= 256) return ldt::launch_split<false, 128>(p, batch, scratch, bytes, s);
+  if (p.d <= 512) return ldt::launch_split<false, 256>(p, batch, scratch, bytes, s);
+  return ldt::kErrUnsupported;
+}
 
 }  // namespace
 
 extern "C" int ldt_flash_attention_fwd(LDT_FLASH_ARGS) {
-  return ldt::run(LDT_MAKE_PARAMS, dtype, batch, scratch,
-                  static_cast<cudaStream_t>(stream), Dispatch{});
+  return dispatch(LDT_MAKE_PARAMS, dtype, batch, scratch, scratch_bytes,
+                  static_cast<cudaStream_t>(stream));
 }
 
-extern "C" const char* ldt_error_string(int code) {
-  return ldt::error_string(code);
-}
+extern "C" const char* ldt_error_string(int code) { return ldt::error_string(code); }

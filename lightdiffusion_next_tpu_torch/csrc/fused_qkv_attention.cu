@@ -73,7 +73,7 @@
 // barrier per tile, and the producer without the turns. Left for later: the
 // k and v prologue folded into the main launch (TMA tensor maps for v), and
 // a persistent grid (816 blocks are 6.2 waves at L = 4352).
-#include "hopper.cuh"
+#include "softmax_tile.cuh"
 
 namespace {
 
@@ -84,7 +84,6 @@ constexpr int kBN = 128;           // kv rows per tile
 constexpr int kTileElems = kBN * kD;          // one K or V image
 constexpr int kTileBytes = kTileElems * 2;
 constexpr int kErrUnsupported = 1000;
-constexpr float kNegInf = -1e30f;
 constexpr int kRowsPerBlock = 8;   // norm_rope_kv_kernel: one warp per row
 
 struct Params {
@@ -123,12 +122,6 @@ struct Cfg {
 __device__ __forceinline__ int swizzled8(int r, int rows, int lane) {
   return (lane >> 4) * (rows * 128) + r * 128 + ((((lane & 15) >> 1) ^ (r & 7)) << 4) +
          (lane & 1) * 8;
-}
-
-__device__ __forceinline__ float fast_exp2(float x) {
-  float y;
-  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
-  return y;
 }
 
 // One 128-lane row of a Flux q or k head, normed and roped in f32: each
@@ -260,83 +253,8 @@ __device__ __forceinline__ void pv_issue(float (&o)[64], const uint32_t (&pf)[kB
 #pragma unroll
   for (int kk = 0; kk < kBN / 16; ++kk) {
     // V: k16 = two 8-row atoms (SBO), 64-column blocks a tile's rows apart (LBO)
-    wgmma_rs_n128(o, pf[kk], make_desc(vt + kk * 2 * kAtom, kBN * 128, kAtom));
+    wgmma_rs<128, 1>(o, pf[kk], make_desc(vt + kk * 2 * kAtom, kBN * 128, kAtom));
   }
-}
-
-// The accumulator fragment: warp w of the warpgroup holds rows 16w + g and
-// 16w + g + 8 (g = lane / 4); per 8 columns j, s[4j], s[4j+1] are row g's
-// columns 8j + 2 (lane % 4) + {0, 1} and s[4j+2], s[4j+3] row g + 8's.
-__device__ __forceinline__ void mask_tail(float (&s)[kBN / 2], int k0, int lk) {
-  const int c0 = k0 + (threadIdx.x & 3) * 2;
-#pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
-    const int col = c0 + j * 8;
-    if (col >= lk) s[4 * j] = s[4 * j + 2] = kNegInf;
-    if (col + 1 >= lk) s[4 * j + 1] = s[4 * j + 3] = kNegInf;
-  }
-}
-
-// The online softmax (base 2) of one tile: new running maxima over the
-// quad's rows, p = exp2(s - m) in place, and per row the factor
-// exp2(m_old - m) and the tile's partial row sum.
-__device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2], float (&m_i)[2],
-                                             float (&alpha)[2], float (&rsum)[2]) {
-  float mx[2] = {m_i[0], m_i[1]};
-#pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
-    mx[0] = fmaxf(mx[0], fmaxf(s[4 * j], s[4 * j + 1]));
-    mx[1] = fmaxf(mx[1], fmaxf(s[4 * j + 2], s[4 * j + 3]));
-  }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 1));
-    mx[r] = fmaxf(mx[r], __shfl_xor_sync(0xffffffffu, mx[r], 2));
-    alpha[r] = fast_exp2(m_i[r] - mx[r]);
-    m_i[r] = mx[r];
-  }
-  float rs0 = 0.f, rs1 = 0.f;
-#pragma unroll
-  for (int j = 0; j < kBN / 8; ++j) {
-    s[4 * j] = fast_exp2(s[4 * j] - mx[0]);
-    s[4 * j + 1] = fast_exp2(s[4 * j + 1] - mx[0]);
-    s[4 * j + 2] = fast_exp2(s[4 * j + 2] - mx[1]);
-    s[4 * j + 3] = fast_exp2(s[4 * j + 3] - mx[1]);
-    rs0 += s[4 * j] + s[4 * j + 1];
-    rs1 += s[4 * j + 2] + s[4 * j + 3];
-  }
-  rsum[0] = rs0;
-  rsum[1] = rs1;
-}
-
-// o and the per-thread sums l (reduced at the end) rescaled to the new maxima
-__device__ __forceinline__ void rescale(float (&o)[64], float (&l_i)[2],
-                                        const float (&alpha)[2], const float (&rsum)[2]) {
-  l_i[0] = l_i[0] * alpha[0] + rsum[0];
-  l_i[1] = l_i[1] * alpha[1] + rsum[1];
-#pragma unroll
-  for (int i = 0; i < 16; ++i) {
-    o[4 * i] *= alpha[0];
-    o[4 * i + 1] *= alpha[0];
-    o[4 * i + 2] *= alpha[1];
-    o[4 * i + 3] *= alpha[1];
-  }
-}
-
-// p rounded to bf16: the s fragments of two adjacent 8-column groups are
-// the register-A fragment of one k16 step of 16 kv rows
-__device__ __forceinline__ void pack_p(uint32_t (&pf)[kBN / 16][4], const float (&s)[kBN / 2]) {
-#pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) {
-#pragma unroll
-    for (int i = 0; i < 4; ++i) pf[kk][i] = pack_bf16(s[8 * kk + 2 * i], s[8 * kk + 2 * i + 1]);
-    fence_operands(pf[kk]);
-  }
-}
-
-__device__ __forceinline__ void fence_p(uint32_t (&pf)[kBN / 16][4]) {
-#pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk) fence_operands(pf[kk]);
 }
 
 // s of tile t through the softmax: masked past lk, p = exp2(s - m) in
@@ -344,10 +262,10 @@ __device__ __forceinline__ void fence_p(uint32_t (&pf)[kBN / 16][4]) {
 __device__ __forceinline__ void softmax_step(float (&s)[kBN / 2], float (&o)[64],
                                              float (&m_i)[2], float (&l_i)[2], int t,
                                              int lk) {
-  if ((t + 1) * kBN > lk) mask_tail(s, t * kBN, lk);
+  if ((t + 1) * kBN > lk) mask_tail<kBN>(s, t * kBN, lk);
   float alpha[2] = {1.f, 1.f};
   float rsum[2] = {0.f, 0.f};
-  softmax_tile(s, m_i, alpha, rsum);
+  softmax_tile<kBN>(s, m_i, alpha, rsum);
   rescale(o, l_i, alpha, rsum);
 }
 
@@ -388,7 +306,7 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, ui
   wgmma_wait<0>();
   fence_operands(s);
   softmax_step(s, o, m_i, l_i, 0, p.lk);
-  pack_p(pf, s);
+  pack_p<kBN, false>(pf, pf, s);
 
   // Tile t: s = q k_t^T is issued, then o += p_{t-1} v_{t-1}; tile t's
   // softmax runs while the latter is in flight. Tile t - 1's stage is
@@ -409,14 +327,14 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, ui
     fence_operands(s);
     float alpha[2] = {1.f, 1.f};
     float rsum[2] = {0.f, 0.f};
-    if ((t + 1) * kBN > p.lk) mask_tail(s, t * kBN, p.lk);
-    softmax_tile(s, m_i, alpha, rsum);
+    if ((t + 1) * kBN > p.lk) mask_tail<kBN>(s, t * kBN, p.lk);
+    softmax_tile<kBN>(s, m_i, alpha, rsum);
     wgmma_wait<0>();  // p_{t-1} v_{t-1} has finished: o and pf are free
     fence_operands(o);
     fence_p(pf);
     mbar_arrive(empty + 8 * prev);  // done with tile t - 1's stage
     rescale(o, l_i, alpha, rsum);
-    pack_p(pf, s);
+    pack_p<kBN, false>(pf, pf, s);
   }
   fence_operands(o);
   wgmma_fence();

@@ -1,9 +1,10 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
-// (quant_matmul.cu, fused_qkv_attention.cu, sage_attention.cu): cp.async and
-// bulk copies, mbarriers and named barriers, the proxy fence, wgmma's
-// synchronisation, its shared-memory descriptors, its m64nNk16 bf16 products
-// with f32 accumulators and its m64nNk32 s8 products with s32 accumulators,
-// all in registers.
+// (quant_matmul.cu, fused_qkv_attention.cu, sage_attention.cu,
+// flash_attention.cu, packed_flash_attention.cu): cp.async and bulk copies,
+// mbarriers and named barriers, the proxy fence, wgmma's synchronisation and
+// its shared-memory descriptors. The products themselves (m64nNk16 bf16 with
+// f32 accumulators, m64nNk32 s8 with s32 accumulators, all in registers) are
+// generated into wgmma_forms.cuh by wgmma_forms.py.
 //
 // The bf16 operands use the 128-byte swizzle: an atom is 8 rows of 128 bytes
 // (1024 bytes), and 16-byte chunk j of row r lies at chunk j ^ (r & 7). A
@@ -18,6 +19,8 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include "wgmma_forms.cuh"
 
 namespace hopper {
 
@@ -150,221 +153,11 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
-#define HOPPER_ACC8(i)                                              \
-  "+f"(d[i]), "+f"(d[i + 1]), "+f"(d[i + 2]), "+f"(d[i + 3]),       \
-      "+f"(d[i + 4]), "+f"(d[i + 5]), "+f"(d[i + 6]), "+f"(d[i + 7])
-
-// d (64 x N, f32) = A (64 x 16, shared, K-major) * B (16 x N, shared;
-// TNSP_B = 0: K-major, 1: N-major) + (scale_d ? d : 0)
-template <int N, int TNSP_B>
-__device__ __forceinline__ void wgmma(float (&d)[N / 2], uint64_t a, uint64_t b,
-                                      int scale_d = 1);
-
-template <>
-__device__ __forceinline__ void wgmma<64, 1>(float (&d)[32], uint64_t a, uint64_t b,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p, 1, 1, 0, 1;\n}\n"
-      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24)
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<128, 0>(float (&d)[64], uint64_t a, uint64_t b,
-                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24),
-        HOPPER_ACC8(32), HOPPER_ACC8(40), HOPPER_ACC8(48), HOPPER_ACC8(56)
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma<128, 1>(float (&d)[64], uint64_t a, uint64_t b,
-                                              int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 1;\n}\n"
-      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24),
-        HOPPER_ACC8(32), HOPPER_ACC8(40), HOPPER_ACC8(48), HOPPER_ACC8(56)
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-// d (64 x 128, f32) += A (64 x 16, bf16 in registers: a[0..3] is
-// mma.sync m16n8k16's A fragment of the warp's 16 rows) * B (16 x 128,
-// shared, N-major)
-__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64], const uint32_t (&a)[4],
-                                              uint64_t b) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : HOPPER_ACC8(0), HOPPER_ACC8(8), HOPPER_ACC8(16), HOPPER_ACC8(24),
-        HOPPER_ACC8(32), HOPPER_ACC8(40), HOPPER_ACC8(48), HOPPER_ACC8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "n"(1));
-}
-
-#undef HOPPER_ACC8
-
 // wgmma shared-memory descriptor of a K-major s8 operand with the 32-byte
 // swizzle: start address and the 256-byte stride of 8-row atoms (SBO)
 __device__ __forceinline__ uint64_t make_desc_sw32(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          (static_cast<uint64_t>(256 >> 4) << 32) | (3ull << 62);
 }
-
-#define HOPPER_S32X8(i)                                             \
-  "+r"(d[i]), "+r"(d[i + 1]), "+r"(d[i + 2]), "+r"(d[i + 3]),       \
-      "+r"(d[i + 4]), "+r"(d[i + 5]), "+r"(d[i + 6]), "+r"(d[i + 7])
-
-// d (64 x N, s32) = A (64 x 32, s8, shared) * B (32 x N, s8, shared), both
-// K-major, + (scale_d ? d : 0)
-template <int N>
-__device__ __forceinline__ void wgmma_s8(uint32_t (&d)[N / 2], uint64_t a, uint64_t b,
-                                         int scale_d);
-
-// d (64 x N, s32) = A (64 x 32, s8 in registers: a[0..3] is mma.sync
-// m16n8k32's A fragment of the warp's 16 rows) * B (32 x N, s8, shared,
-// K-major) + (scale_d ? d : 0)
-template <int N>
-__device__ __forceinline__ void wgmma_rs_s8(uint32_t (&d)[N / 2], const uint32_t (&a)[4],
-                                            uint64_t b, int scale_d);
-
-template <>
-__device__ __forceinline__ void wgmma_s8<64>(uint32_t (&d)[32], uint64_t a, uint64_t b,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "%32, %33, p;\n}\n"
-      : HOPPER_S32X8(0), HOPPER_S32X8(8), HOPPER_S32X8(16), HOPPER_S32X8(24)
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_s8<128>(uint32_t (&d)[64], uint64_t a, uint64_t b,
-                                             int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p;\n}\n"
-      : HOPPER_S32X8(0), HOPPER_S32X8(8), HOPPER_S32X8(16), HOPPER_S32X8(24),
-        HOPPER_S32X8(32), HOPPER_S32X8(40), HOPPER_S32X8(48), HOPPER_S32X8(56)
-      : "l"(a), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_s8<32>(uint32_t (&d)[16], const uint32_t (&a)[4],
-                                                uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n32k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15}, "
-      "{%16, %17, %18, %19}, %20, p;\n}\n"
-      : HOPPER_S32X8(0), HOPPER_S32X8(8)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_s8<48>(uint32_t (&d)[24], const uint32_t (&a)[4],
-                                                uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %29, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n48k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23}, "
-      "{%24, %25, %26, %27}, %28, p;\n}\n"
-      : HOPPER_S32X8(0), HOPPER_S32X8(8), HOPPER_S32X8(16)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_s8<64>(uint32_t (&d)[32], const uint32_t (&a)[4],
-                                                uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p;\n}\n"
-      : HOPPER_S32X8(0), HOPPER_S32X8(8), HOPPER_S32X8(16), HOPPER_S32X8(24)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_s8<80>(uint32_t (&d)[40], const uint32_t (&a)[4],
-                                                uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %45, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n80k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39}, "
-      "{%40, %41, %42, %43}, %44, p;\n}\n"
-      : HOPPER_S32X8(0), HOPPER_S32X8(8), HOPPER_S32X8(16), HOPPER_S32X8(24),
-        HOPPER_S32X8(32)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_s8<128>(uint32_t (&d)[64], const uint32_t (&a)[4],
-                                                uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p;\n}\n"
-      : HOPPER_S32X8(0), HOPPER_S32X8(8), HOPPER_S32X8(16), HOPPER_S32X8(24),
-        HOPPER_S32X8(32), HOPPER_S32X8(40), HOPPER_S32X8(48), HOPPER_S32X8(56)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-template <>
-__device__ __forceinline__ void wgmma_rs_s8<160>(uint32_t (&d)[80], const uint32_t (&a)[4],
-                                                uint64_t b, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %85, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n160k32.s32.s8.s8 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15, "
-      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31, "
-      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47, "
-      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63, "
-      "%64, %65, %66, %67, %68, %69, %70, %71, %72, %73, %74, %75, %76, %77, %78, %79}, "
-      "{%80, %81, %82, %83}, %84, p;\n}\n"
-      : HOPPER_S32X8(0), HOPPER_S32X8(8), HOPPER_S32X8(16), HOPPER_S32X8(24),
-        HOPPER_S32X8(32), HOPPER_S32X8(40), HOPPER_S32X8(48), HOPPER_S32X8(56),
-        HOPPER_S32X8(64), HOPPER_S32X8(72)
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(b), "r"(scale_d));
-}
-
-#undef HOPPER_S32X8
 
 }  // namespace hopper

@@ -34,7 +34,8 @@ _FLASH_ARGTYPES = (
     + [ctypes.c_int] * 6             # dtype, batch, heads, lq, lk, d
     + [ctypes.c_longlong] * 12       # (b, h, l) strides of q, k, v, o
     + [ctypes.c_float, ctypes.c_int]  # q_scale, vec
-    + [ctypes.c_void_p] * 2          # scratch (f32 inputs), stream
+    + [ctypes.c_void_p, ctypes.c_longlong]  # the tile images' scratch, its bytes
+    + [ctypes.c_void_p]              # stream
 )
 
 _FUSED_QKV_ARGTYPES = (

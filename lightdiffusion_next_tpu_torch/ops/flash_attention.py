@@ -18,6 +18,10 @@ For f32 inputs the kernels keep f32 products (split-bf16 on the tensor
 cores, see ``csrc/flash_attention.cuh``), as the JAX kernels multiply f32
 operands in f32.
 
+K1 and K2 run in two launches: the first writes k and v into a scratch of
+kv tile images laid out for the second's shared memory (``kv_geometry``;
+``pack_kv`` is its plain mirror and ``unpack_kv`` reads it back).
+
 A wrapper takes the plain PyTorch version for a tensor on the CPU (the
 tests) and launches its kernel for a CUDA tensor, or raises. It counts its
 launches in ``<wrapper>.launches``. ``agreement`` is the check that holds a
@@ -32,9 +36,11 @@ the heads back is then free.
 
 from __future__ import annotations
 
+import dataclasses
 import math
 
 import torch
+import torch.nn.functional as F
 
 from lightdiffusion_next_tpu_torch.ops import cuda_build
 
@@ -135,9 +141,132 @@ def agreement(out, ref, max_ulps=None, rel_rmse_limit=None) -> dict:
             "rel_rmse": rel_rmse, "rel_rmse_limit": rel_limit, "ok": ok}
 
 
-def _launch(name: str, q, k, v, q_scale=None):
-    """Check what the kernel takes, allocate the output and launch.
-    ``q_scale`` defaults to ``LOG2E / sqrt(d)``."""
+# ---------------------------------------------------------------------------
+# K1 and K2's kv tile images (csrc/flash_attention.cuh, flash_kv_kernel)
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class KvGeometry:
+    """The tile images the kernel of one (d, dtype) reads. Per (batch, head)
+    a row of tiles of ``bn`` kv rows, each ``tile_bytes``: the K image, then
+    the V image. K is K-major: ``parts`` images (f32: the bf16 hi, then the
+    lo halves) of [``blocks`` 64-column blocks][bn rows][128 bytes]. V is the
+    same (``split``: flash_split_kernel) or transposed, [bn / 64 blocks][``dv``
+    rows][128 bytes] (flash_wgmma_kernel). Every 128-byte row carries the
+    128-byte swizzle; rows past Lk and columns past d are zero."""
+
+    split: bool
+    bn: int
+    blocks: int
+    dv: int
+    parts: int
+
+    @property
+    def k_bytes(self) -> int:
+        return self.parts * self.blocks * self.bn * 128
+
+    @property
+    def tile_bytes(self) -> int:
+        v_bytes = self.k_bytes if self.split else (self.bn // 64) * self.dv * 128
+        return self.k_bytes + v_bytes
+
+    def tiles(self, lk: int) -> int:
+        return -(-lk // self.bn)
+
+
+def kv_geometry(d: int, dtype, packed: bool = False) -> KvGeometry:
+    """The layout of the kernel each entry point runs at (d, dtype): bf16 up
+    to d = 160 on flash_wgmma_kernel, its d rounded up to 32, 40 or 64 (K1,
+    ``packed``) or to 64, 80, 96, 128 or 160 (K2), the K image padded to
+    the k16 step and V transposed to d padded to 8 rows, tiles of 128 kv rows
+    (64 above d = 128); f32, and bf16 above d = 160, on flash_split_kernel,
+    d padded to 128, 256 or 512 and tiles of 16 kv rows."""
+    if dtype == torch.bfloat16 and d <= 160:
+        buckets = (32, 40, 64) if packed else (64, 80, 96, 128, 160)
+        bucket = next(b for b in buckets if d <= b)
+        dp = -(-bucket // 16) * 16
+        return KvGeometry(False, 64 if bucket > 128 else 128, -(-dp // 64),
+                          -(-bucket // 8) * 8, 1)
+    dh = 64 if d <= 128 else 128 if d <= 256 else 256
+    return KvGeometry(True, 16, 2 * dh // 64, 0, 2 if dtype == torch.float32 else 1)
+
+
+def _swizzle(x):
+    """(..., rows, 128) bytes with the 128-byte swizzle applied: 16-byte
+    chunk j of row r moves to chunk j ^ (r % 8). Its own inverse."""
+    rows = x.shape[-2]
+    r = torch.arange(rows, device=x.device) % 8
+    idx = torch.arange(8, device=x.device)[None, :] ^ r[:, None]
+    chunks = x.unflatten(-1, (8, 16))
+    return torch.gather(chunks, -2, idx[:, :, None].expand(chunks.shape)).flatten(-2)
+
+
+def _bytes(x):
+    return x.to(torch.bfloat16).contiguous().view(torch.uint8)
+
+
+def _parts(x, parts):
+    """x as its bf16 images: itself, or the hi and lo halves of f32."""
+    if parts == 1:
+        return [x.to(torch.bfloat16)]
+    hi = x.to(torch.bfloat16)
+    return [hi, (x.float() - hi.float()).to(torch.bfloat16)]
+
+
+def _row_image(x, geom: KvGeometry, tiles: int):
+    """(BH, Lk, d) -> (BH, tiles, blocks * bn * 128) K-major tile images."""
+    bh, lk, d = x.shape
+    xp = F.pad(x, (0, geom.blocks * 64 - d, 0, tiles * geom.bn - lk))
+    xp = xp.view(bh, tiles, geom.bn, geom.blocks, 64).transpose(2, 3)
+    return _swizzle(_bytes(xp)).reshape(bh, tiles, -1)
+
+
+def _unrow_image(img, geom: KvGeometry):
+    """The inverse of ``_row_image``: (BH, tiles * bn, blocks * 64) bf16."""
+    bh, tiles = img.shape[:2]
+    x = _swizzle(img.reshape(bh, tiles, geom.blocks, geom.bn, 128)).view(torch.bfloat16)
+    return x.transpose(2, 3).reshape(bh, tiles * geom.bn, geom.blocks * 64)
+
+
+def pack_kv(k, v, geom: KvGeometry):
+    """Plain version of flash_kv_kernel: (B, H, Lk, d) k and v -> the
+    (B*H, tiles, tile_bytes) uint8 scratch it writes."""
+    b, h, lk, d = k.shape
+    tiles = geom.tiles(lk)
+    kp, vp = (_parts(x.reshape(b * h, lk, d), geom.parts) for x in (k, v))
+    images = [_row_image(x, geom, tiles) for x in kp]
+    if geom.split:
+        images += [_row_image(x, geom, tiles) for x in vp]
+    else:
+        vt = F.pad(vp[0], (0, geom.dv - d, 0, tiles * geom.bn - lk))
+        vt = vt.view(b * h, tiles, geom.bn // 64, 64, geom.dv).transpose(-1, -2)
+        images.append(_swizzle(_bytes(vt)).reshape(b * h, tiles, -1))
+    return torch.cat(images, dim=-1)
+
+
+def unpack_kv(img, geom: KvGeometry):
+    """The images read back, padding included: a list of K parts (B*H, kv
+    rows, blocks * 64) and one of V parts ((B*H, kv rows, dv) transposed
+    back, or as K's), each bf16; f32 k is ``parts[0].float() +
+    parts[1].float()`` to about 16 bits."""
+    bh, tiles = img.shape[:2]
+    part = geom.blocks * geom.bn * 128
+    ks = [_unrow_image(img[..., i * part:(i + 1) * part], geom) for i in range(geom.parts)]
+    if geom.split:
+        vs = [_unrow_image(img[..., geom.k_bytes + i * part:geom.k_bytes + (i + 1) * part], geom)
+              for i in range(geom.parts)]
+        return ks, vs
+    vimg = img[..., geom.k_bytes:].reshape(bh, tiles, geom.bn // 64, geom.dv, 128)
+    vt = _swizzle(vimg).view(torch.bfloat16).transpose(-1, -2)
+    return ks, [vt.reshape(bh, tiles * geom.bn, geom.dv)]
+
+
+def _launch(name: str, q, k, v, q_scale=None, scratch=None):
+    """Check what the kernel takes, allocate the output and the tile images'
+    scratch (or take ``scratch``, a (B*H, tiles, tile_bytes) uint8 tensor of
+    ``kv_geometry``'s size) and launch. ``q_scale`` defaults to
+    ``LOG2E / sqrt(d)``."""
     if not (q.is_cuda and k.is_cuda and v.is_cuda):
         raise ValueError(
             f"{name}: no kernel for devices {q.device}, {k.device}, {v.device}"
@@ -155,10 +284,10 @@ def _launch(name: str, q, k, v, q_scale=None):
     if lq == 0 or lk == 0:
         raise ValueError(f"{name}: empty sequence")
     out = torch.empty((b, lq, h, d), dtype=q.dtype, device=q.device)
-    # f32: the kernel splits k and v into bf16 hi and lo halves, once per
-    # call, into this buffer (k hi, k lo, v hi, v lo)
-    scratch = (torch.empty((4, b, h, lk, d), dtype=torch.bfloat16, device=q.device)
-               if q.dtype == torch.float32 else None)
+    geom = kv_geometry(d, q.dtype, packed=name == "packed_flash_attention")
+    if scratch is None:
+        scratch = torch.empty((b * h, geom.tiles(lk), geom.tile_bytes), dtype=torch.uint8,
+                              device=q.device)
     elt = q.element_size()
     vec = all(
         t.data_ptr() % 16 == 0 and all((s * elt) % 16 == 0 for s in t.stride()[:3])
@@ -170,7 +299,7 @@ def _launch(name: str, q, k, v, q_scale=None):
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
         out.stride(0), out.stride(2), out.stride(1),
         LOG2E / math.sqrt(d) if q_scale is None else q_scale, int(vec),
-        None if scratch is None else scratch.data_ptr(),
+        scratch.data_ptr(), scratch.numel(),
         torch.cuda.current_stream(q.device).cuda_stream,
     )
     if rc != 0:

@@ -41,10 +41,14 @@ def kernel_category(name: str) -> str:
         return "K4 sage_attention (UNet, int8)"
     if "sage_stats_kernel" in name or "sage_quantize_kernel" in name:
         return "K4's preparation sage_prepare (UNet, int8)"
-    if "flash_fwd_kernel<__nv_bfloat16, 48" in name:
+    if "flash_wgmma_kernel<40" in name:
         return "K1 packed_flash_attention (UNet d=40)"
-    if "flash_fwd_kernel<float" in name or "split_kernel" in name:
+    if "flash_split_kernel<true" in name:
         return "K2 flash_attention (VAE f32 d=512)"
+    if "flash_kv_kernel<float" in name:
+        return "K2's tile-image prologue flash_kv_kernel (VAE f32)"
+    if "flash_kv_kernel" in name:
+        return "K1's and K2's tile-image prologue flash_kv_kernel (UNet bf16)"
     if "norm_rope_kv_kernel" in name or "fused_attention_kernel" in name:
         return "K3 fused_qkv_attention (Flux)"
     if "quant_matmul_kernel" in name:
@@ -62,7 +66,7 @@ def kernel_category(name: str) -> str:
         return "K10 row_quantize_concat_gelu (Flux W8A8)"
     if "row_quantize_kernel" in name:
         return "K9 row_quantize_fused (Flux W8A8)"
-    if "flash_fwd_kernel" in name:
+    if "flash_wgmma_kernel" in name:
         return "K2 flash_attention (UNet d=80, 160)"
     if "fprop" in name:
         return "convolutions, f32 (VAE)" if "f32f32_f32f32" in name \

@@ -50,11 +50,17 @@ def _check(out, q, k, v):
         ("packed", 2, 8, 1024, 1024, 40, torch.bfloat16),
         ("packed", 1, 2, 600, 700, 40, torch.bfloat16),   # ragged, masked tail
         ("packed", 1, 3, 512, 520, 64, torch.bfloat16),
+        ("packed", 1, 2, 530, 650, 24, torch.bfloat16),   # the d <= 32 bucket
+        ("packed", 1, 2, 520, 530, 40, torch.float32),    # the split kernel at d <= 64
         ("flash", 2, 8, 1024, 1024, 160, torch.bfloat16),
         ("flash", 1, 3, 577, 650, 80, torch.bfloat16),
+        ("flash", 1, 2, 530, 1000, 160, torch.bfloat16),  # 64-row kv tiles, ragged
+        ("flash", 1, 2, 600, 777, 128, torch.bfloat16),
+        ("flash", 1, 2, 530, 700, 256, torch.bfloat16),   # bf16 on the split kernel
         ("flash", 1, 2, 530, 700, 36, torch.float32),     # d not a multiple of 8
         ("flash", 1, 1, 1024, 1024, 512, torch.float32),  # the VAE's head
-        ("flash", 1, 1, 600, 600, 300, torch.float32),    # column slices, ragged d
+        ("flash", 1, 1, 1000, 1100, 512, torch.float32),  # ragged Lq and Lk
+        ("flash", 1, 1, 600, 600, 300, torch.float32),    # ragged d
     ],
 )
 def test_kernel_matches_plain(cuda, kernel, b, h, lq, lk, d, dtype):
@@ -111,27 +117,78 @@ def test_unsupported_input_raises(cuda):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize(
-    "name,b,h,l,d,dtype",
+    "name,b,h,lq,lk,d,dtype",
     [
-        ("packed_flash_attention", 2, 8, 16384, 40, torch.bfloat16),  # K1 unwindowed
-        ("flash_attention", 2, 8, 4096, 80, torch.bfloat16),
-        ("flash_attention", 1, 1, 16384, 512, torch.float32),          # the VAE's call
+        ("packed_flash_attention", 2, 8, 16384, 16384, 40, torch.bfloat16),  # K1 unwindowed
+        ("flash_attention", 2, 8, 4096, 4096, 80, torch.bfloat16),
+        ("flash_attention", 1, 1, 16384, 16384, 512, torch.float32),          # the VAE's call
+        ("packed_flash_attention", 1, 2, 600, 700, 40, torch.bfloat16),      # ragged
+        ("flash_attention", 1, 3, 577, 650, 80, torch.bfloat16),
+        ("flash_attention", 1, 2, 530, 1000, 160, torch.bfloat16),
+        ("flash_attention", 1, 1, 1000, 1100, 512, torch.float32),
     ],
 )
-def test_planted_faults_fail_the_check(cuda, name, b, h, l, d, dtype):
+def test_planted_faults_fail_the_check(cuda, name, b, h, lq, lk, d, dtype):
     """The check passes the kernel and fails it with a fault planted through
     its C interface: the q scale without LOG2E, or the last kv tile of 64
     rows skipped. The longest sequences of the main path, where a dropped
-    tile weighs least."""
+    tile weighs least, and a ragged shape of each (d, dtype) the kernels
+    serve on the main path."""
     gen = torch.Generator(device="cuda").manual_seed(3)
-    q, k, v = (torch.randn((b, h, l, d), generator=gen, device="cuda").to(dtype)
-               for _ in range(3))
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+               for s in ((b, h, lq, d), (b, h, lk, d), (b, h, lk, d)))
     ref = fa.attention_plain(q, k, v)
     assert fa.agreement(fa._launch(name, q, k, v), ref)["ok"]
     wrong_scale = fa._launch(name, q, k, v, q_scale=d**-0.5)
     assert not fa.agreement(wrong_scale, ref)["ok"]
     tile_skipped = fa._launch(name, q, k[:, :, :-64], v[:, :, :-64])
     assert not fa.agreement(tile_skipped, ref)["ok"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "name,lk,d,dtype",
+    [
+        ("packed_flash_attention", 128, 40, torch.bfloat16),  # one 128-row kv tile
+        ("flash_attention", 128, 80, torch.bfloat16),
+        ("flash_attention", 64, 160, torch.bfloat16),         # one 64-row kv tile
+        ("flash_attention", 16, 512, torch.float32),          # one 16-row kv tile
+        ("flash_attention", 16, 256, torch.bfloat16),
+    ],
+)
+def test_single_tile_pins_the_layout(cuda, name, lk, d, dtype):
+    """One q tile of 64 rows against one kv tile: the first launch's tile
+    images equal the layout mirror ``pack_kv`` bit for bit, and the result,
+    which reads every k16 step of q and K and every V row exactly once
+    through the descriptors, agrees with the plain version."""
+    gen = torch.Generator(device="cuda").manual_seed(9)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").to(dtype)
+               for s in ((1, 1, 64, d), (1, 1, lk, d), (1, 1, lk, d)))
+    geom = fa.kv_geometry(d, dtype, packed=name == "packed_flash_attention")
+    assert geom.tiles(lk) == 1
+    scratch = torch.full((1, 1, geom.tile_bytes), 0xAB, dtype=torch.uint8, device="cuda")
+    out = fa._launch(name, q, k, v, scratch=scratch)
+    torch.cuda.synchronize()
+    assert torch.equal(scratch, fa.pack_kv(k, v, geom))
+    _check(out, q, k, v)
+
+
+@pytest.mark.cuda
+def test_kv_images_match_the_layout_mirror(cuda):
+    """Strided views of a fused projection, several tiles and a ragged Lk:
+    the first launch writes exactly ``pack_kv``'s images."""
+    gen = torch.Generator(device="cuda").manual_seed(10)
+    for name, d, dtype in (("packed_flash_attention", 40, torch.bfloat16),
+                           ("flash_attention", 160, torch.bfloat16),
+                           ("flash_attention", 512, torch.float32)):
+        x = torch.randn((2, 700, 3 * 2 * d), generator=gen, device="cuda").to(dtype)
+        q, k, v = (t.reshape(2, 700, 2, d).transpose(1, 2) for t in x.chunk(3, dim=-1))
+        geom = fa.kv_geometry(d, dtype, packed=name == "packed_flash_attention")
+        scratch = torch.full((4, geom.tiles(700), geom.tile_bytes), 0xAB, dtype=torch.uint8,
+                             device="cuda")
+        fa._launch(name, q, k, v, scratch=scratch)
+        torch.cuda.synchronize()
+        assert torch.equal(scratch, fa.pack_kv(k, v, geom)), (name, d, dtype)
 
 
 def _q8_weight(k, n, gen):

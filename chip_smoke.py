@@ -8,10 +8,12 @@ Phases, in order; any failure exits non-zero:
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
 2. build: every hand-written kernel from ``lightdiffusion_next_tpu_torch/csrc``,
    with each source's register and spill report; the ``wgmma`` kernels (K5's
-   and K6's, K3's attention kernel, K4, K1's and K2's two templates) must
+   and K6's, K3's attention kernel, K4, K1's and K2's two templates, and the
+   one W8A8 matmul template of K7, K8, K11 and the stacked K11) must
    spill nothing and, in the built
    library's SASS (``cuobjdump``), run on ``wgmma`` (HGMMA for bf16, IGMMA
-   for K4's int8) with no ``mma.sync`` (HMMA, IMMA) left, or the run fails;
+   for K4's and the W8A8 matmul's int8) with no ``mma.sync`` (HMMA, IMMA)
+   left, or the run fails;
    K4's conversions and exps (I2F, F2I, FRND, MUFU.EX2) are counted;
 3. SD1.5 kernels: K1 and K2 at each shape the SD1.5 1024^2 path gives them
    (derived from the UNet plan, the multi-scale plan and the MSW-MSA gate),
@@ -234,7 +236,8 @@ WGMMA_KERNELS = (("quant_matmul.cu", "quant_matmul_kernel", "HGMMA", "HMMA"),
                  ("packed_flash_attention.cu", "flash_wgmma_kernel", "HGMMA", "HMMA"),
                  ("packed_flash_attention.cu", "flash_split_kernel", "HGMMA", "HMMA"),
                  ("flash_attention.cu", "flash_wgmma_kernel", "HGMMA", "HMMA"),
-                 ("flash_attention.cu", "flash_split_kernel", "HGMMA", "HMMA"))
+                 ("flash_attention.cu", "flash_split_kernel", "HGMMA", "HMMA"),
+                 ("w8a8_matmul.cu", "w8a8_matmul_kernel", "IGMMA", "IMMA"))
 # conversions and exps counted in the wgmma kernels' SASS: K4's work per score
 # should hold none but MUFU.EX2 (its I2F convert the P.V sums once per
 # softmax block)
@@ -1968,10 +1971,13 @@ def main() -> int:
 
     # calls per image of each path, summed over the paths a kernel runs on
     # (the unfused DiT calls count once)
-    all_calls = dict(sd_calls)
-    for path_calls in (sage_calls, fcalls, w8_calls, off_plan, scan_calls, scan_off_plan,
-                       hit_calls):
-        for key, n in path_calls.items():
+    path_calls = {"sd15": sd_calls, "sd15_sage": sage_calls, "flux": fcalls,
+                  "flux_w8a8": w8_calls, "w8a8_dit_call_fused_ew_off": off_plan,
+                  "flux_w8a8_scan": scan_calls, "w8a8_scan_dit_call_fused_ew_off": scan_off_plan,
+                  "flux_w8a8_scan_fbcache_hits": hit_calls}
+    all_calls = {}
+    for calls in path_calls.values():
+        for key, n in calls.items():
             all_calls[key] = all_calls.get(key, 0) + n
     paths = {"sd15": sd_launches, "sd15_sage": sage_launches, "flux": flux_launches,
              "flux_w8a8": w8_launches, "w8a8_dit_call_fused_ew_off": off_launches,
@@ -2001,6 +2007,10 @@ def main() -> int:
             "plain_ms": per_image("plain_ms"), "bound_ms": per_image("bound_ms"),
             "bound_by": max(set(bound_shapes), key=bound_shapes.count),
             "library_ms": per_image("library_ms"), "ok": entry["ok"],
+            # the kernel's time per image of each path it runs on
+            "ms_by_path": {path: sum(calls.get(tuple(s_["key"]), 0) * s_["ms"] for s_ in shapes)
+                           for path, calls in path_calls.items()
+                           if any(tuple(s_["key"]) in calls for s_ in shapes)},
             "per": "image: the sum over its main-path shapes of calls x time, over one "
                    "image of each path it runs on (SD1.5 with flash or sage attention, "
                    "Flux Q8_0, Flux W8A8 unrolled and scan, Flux W8A8 scan with FBCache "

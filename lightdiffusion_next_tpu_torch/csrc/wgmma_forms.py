@@ -32,7 +32,7 @@ FORMS = (
     + [("ss", n, 1) for n in (64, 128)]
     + [("rs", n, 0) for n in (32, 40, 64, 80, 96, 128, 160)]
     + [("rs", n, 1) for n in (64, 128, 256)]
-    + [("ss_s8", n, 0) for n in (64, 128)]
+    + [("ss_s8", n, 0) for n in (64, 128, 256)]
     + [("rs_s8", n, 0) for n in (32, 48, 64, 80, 128, 160)]
 )
 

@@ -63,6 +63,7 @@ _W8A8_ARGTYPES = (
     [ctypes.c_void_p] * 5            # xq, sx, q, cs, out
     + [ctypes.c_int] * 3             # m, n, k
     + [ctypes.c_longlong] * 2        # row strides of xq, q
+    + [ctypes.c_int]                 # tile id (quant_matmul.w8a8_tile)
     + [ctypes.c_void_p]              # stream
 )
 
@@ -70,6 +71,7 @@ _W8A8_EP_ARGTYPES = (
     [ctypes.c_void_p] * 7            # xq, sx, q, cs, bias, residual, out
     + [ctypes.c_int] * 3             # m, n, k
     + [ctypes.c_longlong] * 3        # row strides of xq, q, residual
+    + [ctypes.c_int]                 # tile id
     + [ctypes.c_void_p]              # stream
 )
 

@@ -231,6 +231,40 @@ def supported_w8a8(m: int, k: int, n: int) -> bool:
     return k % 128 == 0 and n % 128 == 0 and m >= 1
 
 
+# The W8A8 kernel's tiles by id, as csrc/w8a8_matmul.cu dispatches them:
+# (rows, columns, consumer warpgroups). Each block stages K steps of
+# W8A8_BK codes of its A (rows x BK) and B (columns x BK) tiles in a ring of
+# W8A8_STAGES, plus one 1024-byte atom of alignment; the source's header
+# holds the times the choice below came from.
+W8A8_TILES = ((256, 128, 2), (192, 256, 3), (64, 64, 1))
+W8A8_BK = 128
+W8A8_STAGES = 4
+SMS = 132  # an H100's streaming multiprocessors
+
+
+def w8a8_smem_bytes(tile: int) -> int:
+    """Shared memory of one block of ``tile``, bytes."""
+    bm, bn, _ = W8A8_TILES[tile]
+    return W8A8_STAGES * (bm + bn) * W8A8_BK + 1024
+
+
+def w8a8_tile(m: int, n: int, k: int) -> int:
+    """The tile id the W8A8 kernel takes for (M, K, N): 256 x 128 (one
+    block per SM); 192 x 256 where its grid is one or two whole waves of
+    the SMs (the N = 3072 matmuls at M = 4096: 264 blocks, where 256 x 128
+    leaves its third wave partly empty); 64 x 64 where a 256 x 128 grid
+    would leave more than a third of the SMs idle (M = 256)."""
+    del k  # the choice does not depend on K at the path's shapes
+    blocks = -(-m // 256) * (n // 128)
+    if 3 * blocks < 2 * SMS:
+        return 2
+    if n % 256 == 0:
+        wide = -(-m // 192) * (n // 256)
+        if wide % SMS == 0 and wide <= 2 * SMS:
+            return 1
+    return 0
+
+
 def supported_rowquant(k: int) -> bool:
     return k % 128 == 0
 
@@ -278,16 +312,20 @@ def _check_matmul_operands(xq, sx, q, cs, stacked=False):
                          "16-byte aligned")
 
 
-def _launch_w8a8(xq, sx, q, cs, bias=None, residual=None, k=None, ep=False, idx=None):
+def _launch_w8a8(xq, sx, q, cs, bias=None, residual=None, k=None, ep=False, idx=None,
+                 tile=None):
     """Launch K7 (``ep=False``) or K11 on 2-D codes xq (M, K) and q (N, K);
     with ``idx``, K8 or the stacked K11 on block ``idx`` of the (D, N, K)
     stack q (K8: cs the stack's (D, 1, N) column scales, read at ``idx``
     too; K11: cs the folded (N,) vector). ``k`` (default K) is the number
-    of K bytes summed."""
+    of K bytes summed; ``tile`` (default ``w8a8_tile``) the tile's id."""
     stacked = idx is not None
     _check_matmul_operands(xq, sx, q, cs, stacked)
     m, kx = xq.shape
     n = q.shape[-2]
+    tile = w8a8_tile(m, n, kx) if tile is None else tile
+    if not 0 <= tile < len(W8A8_TILES) or n % W8A8_TILES[tile][1]:
+        raise ValueError(f"w8a8 matmul: tile {tile} does not take N = {n}")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=xq.device)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
     k = kx if k is None else k
@@ -300,7 +338,7 @@ def _launch_w8a8(xq, sx, q, cs, bias=None, residual=None, k=None, ep=False, idx=
     if not ep:
         name = "w8a8_matmul_stacked" if stacked else "w8a8_matmul"
         args = (xq.data_ptr(), sx.data_ptr(), q.data_ptr(), cs.data_ptr(), out.data_ptr(),
-                m, n, k, kx, kx)
+                m, n, k, kx, kx, tile)
         rc = cuda_build.entry_point(name)(*args, *((depth, idx) if stacked else ()), stream)
     else:
         name = "w8a8_matmul_ep_stacked" if stacked else "w8a8_matmul_ep"
@@ -310,13 +348,14 @@ def _launch_w8a8(xq, sx, q, cs, bias=None, residual=None, k=None, ep=False, idx=
         res_ptr, ldr = None, 0
         if residual is not None:
             if residual.dtype != torch.bfloat16 or residual.shape != (m, n) \
-                    or residual.stride(1) != 1 or residual.stride(0) % 2 \
-                    or residual.data_ptr() % 4:
-                raise ValueError("w8a8_matmul_ep: the residual must be bf16 (M, N) rows")
+                    or residual.stride(1) != 1 or residual.stride(0) % 8 \
+                    or residual.data_ptr() % 16:
+                raise ValueError("w8a8_matmul_ep: the residual must be bf16 (M, N) rows, "
+                                 "16-byte aligned")
             res_ptr, ldr = residual.data_ptr(), residual.stride(0)
         rc = cuda_build.entry_point(name)(
             xq.data_ptr(), sx.data_ptr(), q.data_ptr(), cs.data_ptr(), bias.data_ptr(),
-            res_ptr, out.data_ptr(), m, n, k, kx, kx, ldr,
+            res_ptr, out.data_ptr(), m, n, k, kx, kx, ldr, tile,
             *((depth, idx) if stacked else ()), stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel failed: " + cuda_build.error_string(name, rc))
@@ -378,11 +417,12 @@ def w8a8_matmul_ep_plain(xq, sx, q, cs_eff, b_eff, residual=None, out_dtype=torc
 
 def _residual_rows(residual, n):
     """The residual as 2-D (M, N) bf16 rows the kernel reads through their
-    stride (copied only when they are not 4-byte aligned pairs)."""
+    stride in 16-byte chunks (copied only when the rows are not 16-byte
+    aligned)."""
     if residual is None:
         return None
     res2 = residual.reshape(-1, n)
-    if res2.stride(1) != 1 or res2.stride(0) % 2 or res2.data_ptr() % 4:
+    if res2.stride(1) != 1 or res2.stride(0) % 8 or res2.data_ptr() % 16:
         res2 = res2.contiguous()
     return res2
 

@@ -34,8 +34,9 @@ import chip_smoke
 
 
 def kernel_category(name: str) -> str:
-    """Coarse class of a device kernel by its name. The stacked kernels are
-    the unstacked ones' templates instantiated with STACKED = true."""
+    """Coarse class of a device kernel by its name. K6 is K5's template
+    instantiated with STACKED = true; K8 and the stacked K11 launch K7's
+    and K11's own instantiations."""
     stacked = "true>" in name
     if "sage_attention_kernel" in name:
         return "K4 sage_attention (UNet, int8)"
@@ -55,13 +56,12 @@ def kernel_category(name: str) -> str:
         return ("K6 quant_matmul_stacked (T5, Q8_0 scan)" if stacked
                 else "K5 quant_matmul (Flux Q8_0, T5)")
     if "w8a8_matmul_kernel" in name:
-        # template <BM, MODE, STACKED>: MODE 0 is K7's and K8's plain
-        # epilogue, 1 and 2 K11's
-        if ", 0, " in name:
-            return ("K8 w8a8_matmul_stacked (scan, fused_ew off)" if stacked
-                    else "K7 w8a8_matmul (Flux W8A8, fused_ew off)")
-        return ("K11 stacked w8a8_matmul_ep (Flux W8A8 scan)" if stacked
-                else "K11 w8a8_matmul_ep (Flux W8A8)")
+        # template <WGS, MT, BN, MODE>: MODE 0 is K7's and K8's plain
+        # epilogue, 1 and 2 K11's; the stacked entry points launch the same
+        # instantiations (on the scan layout, every launch is a stacked one)
+        if ", 0>" in name:
+            return "K7 w8a8_matmul / K8 stacked (fused_ew off)"
+        return "K11 w8a8_matmul_ep / stacked K11 (Flux W8A8)"
     if "row_quantize_kernel<true>" in name:
         return "K10 row_quantize_concat_gelu (Flux W8A8)"
     if "row_quantize_kernel" in name:

@@ -440,6 +440,49 @@ def test_row_quantize_planted_faults_fail_the_check(cuda):
     assert not qm.codes_agreement(*qm._launch_concat(a, b, 9216, 21504, gelu=0), *ref)["ok"]
 
 
+def _w8a8_operands(m, k, n, mode, gen):
+    """Codes, scales and the epilogue's operands of one W8A8 launch; the
+    keyword arguments of ``_launch_w8a8`` for ``mode`` ("k7": K7's plain
+    epilogue, "bias", "residual")."""
+    w = _w8_weight(k, n, gen)
+    xq, sx = qm.row_quantize_fused(_activations(m, k, gen))
+    cs, kw = w.col_scales.reshape(-1).contiguous(), {}
+    if mode != "k7":
+        kw = dict(bias=0.1 * torch.randn((n,), generator=gen, device="cuda"), ep=True,
+                  residual=_activations(m, n, gen) if mode == "residual" else None)
+    return w, xq, sx, cs, kw
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["k7", "bias", "residual"])
+@pytest.mark.parametrize("tile", range(len(qm.W8A8_TILES)))
+def test_w8a8_every_tile_and_mode_matches_plain(cuda, tile, mode):
+    """Every tile of ``quant_matmul.W8A8_TILES`` in every epilogue, forced,
+    at a ragged M (a partial last row tile for every tile height)."""
+    gen = torch.Generator(device="cuda").manual_seed(16)
+    m, k, n = 1000, 3072, 768
+    w, xq, sx, cs, kw = _w8a8_operands(m, k, n, mode, gen)
+    out = qm._launch_w8a8(xq, sx.reshape(-1), w.q, cs, tile=tile, **kw)
+    torch.cuda.synchronize()
+    ref = qm._epilogue_plain(xq, sx, w.q, cs, kw.get("bias"), kw.get("residual"))
+    check = qm.matmul_agreement(out, ref)
+    assert check["ok"], (tile, check)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k", [(64, 128), (130, 256), (1, 384), (257, 640)])
+def test_w8a8_short_k_matches_plain(cuda, m, k):
+    """K shorter than the copy ring (1-3 steps of 128) and just past it."""
+    gen = torch.Generator(device="cuda").manual_seed(17)
+    for tile in range(len(qm.W8A8_TILES)):
+        w, xq, sx, cs, kw = _w8a8_operands(m, k, 512, "residual", gen)
+        out = qm._launch_w8a8(xq, sx.reshape(-1), w.q, cs, tile=tile, **kw)
+        torch.cuda.synchronize()
+        ref = qm._epilogue_plain(xq, sx, w.q, cs, kw["bias"], kw["residual"])
+        check = qm.matmul_agreement(out, ref)
+        assert check["ok"], (tile, check)
+
+
 @pytest.mark.cuda
 def test_w8a8_kernels_refuse_what_they_do_not_take(cuda):
     xq = torch.zeros((8, 192), dtype=torch.int8, device="cuda")
@@ -447,6 +490,10 @@ def test_w8a8_kernels_refuse_what_they_do_not_take(cuda):
     ones = torch.ones((128,), device="cuda")
     with pytest.raises(ValueError):
         qm._launch_w8a8(xq, torch.ones((8,), device="cuda"), q, ones)  # K % 128
+    xq2, q2 = xq[:, :128].contiguous(), q[:, :128].contiguous()
+    with pytest.raises(ValueError):  # a 256-column tile on N = 128
+        qm._launch_w8a8(xq2, torch.ones((8,), device="cuda"), q2, ones,
+                        tile=[t[1] for t in qm.W8A8_TILES].index(256))
     with pytest.raises(TypeError):
         qm.row_quantize_fused(torch.zeros((8, 256), device="cuda"))  # f32 x
     with pytest.raises(ValueError):
@@ -552,6 +599,33 @@ def test_w8a8_stacked_matches_plain(cuda, d, m, k, n, mode, idx):
     assert not qm.matmul_agreement(qm._launch_w8a8(xq, sx1, q3, cs, idx=near, **kw), ref)["ok"]
     assert not qm.matmul_agreement(qm._launch_w8a8(xq, sx1, q3, cs, k=k - 128, idx=idx, **kw),
                                    ref)["ok"]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["k8", "bias", "residual"])
+@pytest.mark.parametrize("tile", range(len(qm.W8A8_TILES)))
+def test_w8a8_stacked_equals_unstacked_at_first_and_last_block(cuda, tile, mode):
+    """The stacked entry points launch the unstacked kernel at the block's
+    offset: bit for bit the unstacked launch on a copy of the block, at
+    blocks 0 and D - 1, in every tile and epilogue."""
+    gen = torch.Generator(device="cuda").manual_seed(18)
+    d, m, k, n = 3, 300, 1024, 512
+    q3, cs3 = _w8_stack(d, k, n, gen)
+    xq, sx = qm.row_quantize_fused(_activations(m, k, gen))
+    sx1 = sx.reshape(-1)
+    kw = {}
+    if mode != "k8":
+        kw = dict(bias=0.1 * torch.randn((n,), generator=gen, device="cuda"), ep=True,
+                  residual=_activations(m, n, gen) if mode == "residual" else None)
+    for idx in (0, d - 1):
+        cs = cs3[idx].reshape(-1).contiguous()
+        out = qm._launch_w8a8(xq, sx1, q3, cs if kw else cs3, idx=idx, tile=tile, **kw)
+        alone = qm._launch_w8a8(xq, sx1, q3[idx].contiguous(), cs, tile=tile, **kw)
+        torch.cuda.synchronize()
+        ref = qm._epilogue_plain(xq, sx, q3[idx], cs, kw.get("bias"), kw.get("residual"))
+        assert torch.equal(out, alone), (tile, idx)
+        check = qm.matmul_agreement(out, ref)
+        assert check["ok"], (tile, idx, check)
 
 
 @pytest.mark.cuda

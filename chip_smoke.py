@@ -13,7 +13,8 @@ Phases, in order; any failure exits non-zero:
    spill nothing and, in the built
    library's SASS (``cuobjdump``), run on ``wgmma`` (HGMMA for bf16, IGMMA
    for K4's and the W8A8 matmul's int8) with no ``mma.sync`` (HMMA, IMMA)
-   left, or the run fails;
+   left, or the run fails; K9's and K10's row-quantize kernel must spill
+   nothing too;
    K4's conversions and exps (I2F, F2I, FRND, MUFU.EX2) are counted;
 3. SD1.5 kernels: K1 and K2 at each shape the SD1.5 1024^2 path gives them
    (derived from the UNet plan, the multi-scale plan and the MSW-MSA gate),
@@ -238,6 +239,9 @@ WGMMA_KERNELS = (("quant_matmul.cu", "quant_matmul_kernel", "HGMMA", "HMMA"),
                  ("flash_attention.cu", "flash_wgmma_kernel", "HGMMA", "HMMA"),
                  ("flash_attention.cu", "flash_split_kernel", "HGMMA", "HMMA"),
                  ("w8a8_matmul.cu", "w8a8_matmul_kernel", "IGMMA", "IMMA"))
+# Kernels without wgmma whose instantiations must spill nothing either (K9
+# and K10 keep a row's f32 values in registers)
+NO_SPILL_KERNELS = (("row_quantize.cu", "row_quantize_kernel"),)
 # conversions and exps counted in the wgmma kernels' SASS: K4's work per score
 # should hold none but MUFU.EX2 (its I2F convert the P.V sums once per
 # softmax block)
@@ -467,6 +471,10 @@ def phase_build():
             f"{sorted(set(regs))}; spills: {spills or 'none'}")
     for source, kernel, mma, old_mma in WGMMA_KERNELS:
         check_wgmma_build(source, report[source], cuda_build.nvcc_path(), kernel, mma, old_mma)
+    for source, kernel in NO_SPILL_KERNELS:
+        spilled = spilled_functions(source, report[source], kernel)[1]
+        if spilled:
+            raise RuntimeError(f"{source}: spills in {spilled}")
 
 
 def ptxas_functions(build_log):
@@ -484,16 +492,10 @@ def ptxas_functions(build_log):
     return funcs
 
 
-def check_wgmma_build(source, rep, nvcc, kernel, mma, old_mma):
-    """A ``wgmma`` kernel's instantiations in the library of ``source``
-    (``kernel``: its template's name, e.g. ``quant_matmul_kernel`` for K5
-    and K6; ``rep``: the source's build report): log each
-    one's registers and spills as ptxas reports them, then read the
-    library's SASS (``cuobjdump --dump-sass``) and log each one's MMA
-    opcodes and its ``SASS_COUNTED`` instructions. Raises unless every
-    instantiation spills 0 bytes and runs its products on wgmma (``mma``:
-    HGMMA, or IGMMA for int8) with no mma.sync (``old_mma``: HMMA, IMMA)
-    left."""
+def spilled_functions(source, rep, kernel):
+    """The instantiations of ``kernel`` in the build report ``rep`` of
+    ``source`` ({mangled name: its ptxas lines}), each logged with its
+    registers and spills, and those that spill any bytes."""
     funcs = {f: lines for f, lines in ptxas_functions(rep["log"]).items() if kernel in f}
     if not funcs:
         raise RuntimeError(f"{source}: no {kernel} in the ptxas report")
@@ -504,6 +506,20 @@ def check_wgmma_build(source, rep, nvcc, kernel, mma, old_mma):
         if any(" 0 bytes spill stores, 0 bytes spill loads" not in ln
                for ln in lines if "spill" in ln):
             spilled.append(f)
+    return funcs, spilled
+
+
+def check_wgmma_build(source, rep, nvcc, kernel, mma, old_mma):
+    """A ``wgmma`` kernel's instantiations in the library of ``source``
+    (``kernel``: its template's name, e.g. ``quant_matmul_kernel`` for K5
+    and K6; ``rep``: the source's build report): log each
+    one's registers and spills as ptxas reports them, then read the
+    library's SASS (``cuobjdump --dump-sass``) and log each one's MMA
+    opcodes and its ``SASS_COUNTED`` instructions. Raises unless every
+    instantiation spills 0 bytes and runs its products on wgmma (``mma``:
+    HGMMA, or IGMMA for int8) with no mma.sync (``old_mma``: HMMA, IMMA)
+    left."""
+    funcs, spilled = spilled_functions(source, rep, kernel)
     for ln in rep["log"].splitlines():
         if "wgmma" in ln:
             log(f"  ptxas: {ln.strip()}")

@@ -104,6 +104,8 @@ _ROW_QUANTIZE_ARGTYPES = (
     + [ctypes.c_longlong]            # row stride of x
     + [ctypes.c_int] * 2             # prologue, center
     + [ctypes.c_float] * 2           # eps, inv_qmax
+    + [ctypes.c_int] * 4             # chunks per lane, warps per row, rows
+                                     # per block, blocks (rowquant_geometry)
     + [ctypes.c_void_p]              # stream
 )
 
@@ -112,6 +114,7 @@ _ROW_QUANTIZE_CONCAT_ARGTYPES = (
     + [ctypes.c_int] * 3             # m, ka, kb
     + [ctypes.c_longlong] * 2        # row strides of a, b
     + [ctypes.c_int, ctypes.c_float]  # prologue of the window, inv_qmax
+    + [ctypes.c_int] * 4             # the geometry, as for K9
     + [ctypes.c_void_p]              # stream
 )
 

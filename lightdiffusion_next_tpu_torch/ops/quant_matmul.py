@@ -45,6 +45,8 @@ semantics.
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
 from lightdiffusion_next_tpu_torch.ops import cuda_build
@@ -267,6 +269,57 @@ def w8a8_tile(m: int, n: int, k: int) -> int:
 
 def supported_rowquant(k: int) -> bool:
     return k % 128 == 0
+
+
+# K9's and K10's launch geometry (csrc/row_quantize.cu checks it): a group of
+# W warps takes one row at a time, each lane holding VPT 16-byte chunks of it
+# in registers; a block holds G groups, at most ROWQ_WARPS warps, and
+# ROWQ_STAGES stages of K bf16 per group in shared memory; a persistent grid
+# of at most the blocks that fit on the SMs at once walks the rows. The Flux
+# path's row widths have instantiations of their own (K: (VPT, W, the
+# prologues that have one)), bounded to 128 registers, so 16 warps fit an
+# SM; every other shape takes the generic one, 16 chunks per lane and up to
+# 255 registers (8 warps per SM).
+ROWQ_FIXED = {3072: (6, 2, ("none", "ln_mod")), 12288: (6, 8, ("none", "gelu")),
+              15360: (10, 6, ("none", "concat_gelu"))}
+ROWQ_GENERIC_VPT = 16
+ROWQ_STAGES = 2         # a group's ring: its row and the next one in flight
+ROWQ_WARPS = 8
+ROWQ_MAX_K = 32768
+ROWQ_SMEM = 231424      # dynamic shared bytes one block may use
+ROWQ_SMEM_SM = 233472   # shared bytes of one SM; each block also takes 1024
+                        # and its 192 bytes of static scratch
+
+
+def rowquant_smem(k: int, rows_per_block: int) -> int:
+    """Dynamic shared memory of one K9/K10 block, bytes: the groups' rings."""
+    return ROWQ_STAGES * 2 * k * rows_per_block
+
+
+@functools.lru_cache(maxsize=256)
+def rowquant_geometry(m: int, k: int, prologue: str = "none") -> tuple:
+    """(chunks per lane, warps per row, rows per block, blocks) of K9 (the
+    ``prologue``) or K10 ("concat_gelu") at M rows of K elements: the fixed
+    instantiation of K where it has the prologue, else the generic one at
+    the fewest warps that hold the row; then the rows per block that keep
+    the most warps resident on an SM, at most one per SMS-th of M so that
+    short calls spread over the SMs; then one resident set of blocks, or
+    fewer where M runs out."""
+    if m < 1 or k % 8 or not 0 < k <= ROWQ_MAX_K:
+        raise ValueError(f"row quantize: no geometry for M = {m}, K = {k}")
+    vpt, w, prologues = ROWQ_FIXED.get(k, (0, 0, ()))
+    resident_warps = 16
+    if prologue not in prologues:
+        vpt, resident_warps = ROWQ_GENERIC_VPT, 8
+        w = -(-k // (8 * 32 * vpt))
+
+    def per_sm(g):
+        return min(resident_warps // (w * g),
+                   ROWQ_SMEM_SM // (rowquant_smem(k, g) + 1024 + 192))
+
+    candidates = range(max(1, min(ROWQ_WARPS // w, m // SMS)), 0, -1)
+    g = max(candidates, key=lambda g: per_sm(g) * g)
+    return vpt, w, g, min(-(-m // g), SMS * per_sm(g))
 
 
 def _epilogue_plain(xq, sx, q, cs, bias=None, residual=None, out_dtype=torch.bfloat16):
@@ -498,9 +551,27 @@ def _rows(x):
     return x2
 
 
-def _launch_rowquant(x2, prologue, mod_scale, mod_shift, eps, center=1, inv_qmax=INV_QMAX):
+def _stream(t) -> int:
+    """The raw current CUDA stream of ``t``'s device: the public
+    ``torch.cuda.current_stream(device).cuda_stream`` builds a Stream object
+    for it, 3.7-7.3 µs of host time per call on the H100's host
+    (``ablate_rowquant.py``), which K9's short launches pay 4180 times an
+    image."""
+    return torch._C._cuda_getCurrentRawStream(t.device.index)
+
+
+def _modulation(v, k):
+    """ln_mod's scale or shift as the (K,) f32 vector K9 reads, 16-byte
+    aligned: ``v`` itself where it already is one."""
+    v = v.float().reshape(k).contiguous()
+    return v.clone() if v.data_ptr() % 16 else v
+
+
+def _launch_rowquant(x2, prologue, mod_scale, mod_shift, eps, center=1, inv_qmax=INV_QMAX,
+                     geometry=None):
     """Launch K9 on 2-D rows; ``center`` and ``inv_qmax`` other than 1 and
-    1/127 plant a fault (for the checks)."""
+    1/127 plant a fault (for the checks); ``geometry`` forces a launch
+    geometry other than ``rowquant_geometry``'s (for the card tests)."""
     if not x2.is_cuda:
         raise ValueError(f"row_quantize_fused: no kernel for device {x2.device}")
     if x2.dtype != torch.bfloat16:
@@ -510,15 +581,14 @@ def _launch_rowquant(x2, prologue, mod_scale, mod_shift, eps, center=1, inv_qmax
         raise ValueError(f"row_quantize_fused: K = {k} is not a multiple of 128")
     s = t = None
     if prologue == "ln_mod":
-        s = mod_scale.float().reshape(k).contiguous()
-        t = mod_shift.float().reshape(k).contiguous()
+        s, t = _modulation(mod_scale, k), _modulation(mod_shift, k)
     codes = torch.empty((m, k), dtype=torch.int8, device=x2.device)
     sx = torch.empty((m, 1), dtype=torch.float32, device=x2.device)
     rc = cuda_build.entry_point("row_quantize_fused")(
         x2.data_ptr(), None if s is None else s.data_ptr(),
         None if t is None else t.data_ptr(), codes.data_ptr(), sx.data_ptr(),
         m, k, x2.stride(0), PROLOGUES.index(prologue), center, eps, inv_qmax,
-        torch.cuda.current_stream(x2.device).cuda_stream)
+        *(geometry or rowquant_geometry(m, k, prologue)), _stream(x2))
     if rc != 0:
         raise RuntimeError("row_quantize_fused kernel failed: "
                            + cuda_build.error_string("row_quantize_fused", rc))
@@ -550,9 +620,10 @@ def row_quantize_concat_gelu_plain(a, b, b_lo, b_hi):
     return _quantize_f32(torch.cat([a.float(), bf], dim=-1))
 
 
-def _launch_concat(a2, b2, b_lo, b_hi, gelu=1):
+def _launch_concat(a2, b2, b_lo, b_hi, gelu=1, geometry=None):
     """Launch K10 on 2-D rows; the window [b_lo, b_hi) of b2 is read through
-    b2's row stride. ``gelu=0`` plants a fault (for the checks)."""
+    b2's row stride. ``gelu=0`` plants a fault (for the checks); ``geometry``
+    as for ``_launch_rowquant``."""
     if not (a2.is_cuda and b2.is_cuda):
         raise ValueError(f"row_quantize_concat_gelu: no kernel for device {a2.device}")
     if a2.dtype != torch.bfloat16 or b2.dtype != torch.bfloat16:
@@ -569,7 +640,8 @@ def _launch_concat(a2, b2, b_lo, b_hi, gelu=1):
     rc = cuda_build.entry_point("row_quantize_concat_gelu")(
         a2.data_ptr(), window.data_ptr(), codes.data_ptr(), sx.data_ptr(), m, ka, kb,
         a2.stride(0), b2.stride(0), gelu, INV_QMAX,
-        torch.cuda.current_stream(a2.device).cuda_stream)
+        *(geometry or rowquant_geometry(m, ka + kb, "concat_gelu" if gelu else "none")),
+        _stream(a2))
     if rc != 0:
         raise RuntimeError("row_quantize_concat_gelu kernel failed: "
                            + cuda_build.error_string("row_quantize_concat_gelu", rc))

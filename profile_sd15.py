@@ -62,7 +62,9 @@ def kernel_category(name: str) -> str:
         if ", 0>" in name:
             return "K7 w8a8_matmul / K8 stacked (fused_ew off)"
         return "K11 w8a8_matmul_ep / stacked K11 (Flux W8A8)"
-    if "row_quantize_kernel<true>" in name:
+    # template <prologue of a, prologue of the window, chunks per lane>: K10
+    # is the one with the GELU on its second segment
+    if "row_quantize_kernel<0,1," in name.replace(" ", ""):
         return "K10 row_quantize_concat_gelu (Flux W8A8)"
     if "row_quantize_kernel" in name:
         return "K9 row_quantize_fused (Flux W8A8)"

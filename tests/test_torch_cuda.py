@@ -440,6 +440,71 @@ def test_row_quantize_planted_faults_fail_the_check(cuda):
     assert not qm.codes_agreement(*qm._launch_concat(a, b, 9216, 21504, gelu=0), *ref)["ok"]
 
 
+def _finite_bf16_rows(device):
+    """Every finite bf16 value sorted by magnitude (v and -v side by side),
+    as 510 rows of 128: each row's scale resolves its own codes."""
+    bits = torch.arange(1 << 16, dtype=torch.int32).to(torch.int16)
+    x = bits.view(torch.bfloat16)
+    x = x[torch.isfinite(x.float())]
+    x = x[torch.sort(x.float().abs(), stable=True).indices]
+    return x.reshape(-1, 128).to(device)
+
+
+@pytest.mark.cuda
+def test_row_quantize_gelu_every_bf16(cuda):
+    """K9's GELU (2^x and a reciprocal on the SFU) over every finite bf16
+    input, under the unchanged codes_agreement limits."""
+    x = _finite_bf16_rows(cuda)
+    codes, sx = qm.row_quantize_fused(x, prologue="gelu")
+    torch.cuda.synchronize()
+    check = qm.codes_agreement(codes, sx, *qm.row_quantize_fused_plain(x, prologue="gelu"))
+    assert check["ok"], check
+
+
+def _rowquant_case(prologue, m, k, gen, ld=None):
+    """K9's input (a view of row stride ``ld`` if given) and its s, t."""
+    x = _activations(m, ld or k, gen)[:, :k]
+    s = 1 + 0.2 * torch.randn((1, k), generator=gen, device="cuda")
+    t = 0.1 * torch.randn((1, k), generator=gen, device="cuda")
+    return x, s, t
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("prologue", ["none", "gelu", "ln_mod"])
+@pytest.mark.parametrize("m,k,ld,grid", [
+    (1, 3072, None, "picked"), (255, 3072, None, "picked"), (257, 3072, None, "picked"),
+    (4353, 3072, None, "picked"), (4353, 3072, None, "one block"),
+    (257, 12288, None, "one row each"), (300, 3072, 3456, "picked"),
+    (129, 12288, 12800, "picked"), (300, 32768, None, "picked"),
+    (33, 32768, 33024, "one block")])
+def test_row_quantize_tails_strides_and_grids(cuda, prologue, m, k, ld, grid):
+    """The persistent grid's tails (M = 1, 255, 257, 4353), one block
+    walking every row or one row per group, row strides larger than K, and
+    the longest rows (K = 32768: 16 chunks per lane, ln_mod's s and t
+    through L1)."""
+    gen = torch.Generator(device="cuda").manual_seed(13)
+    x, s, t = _rowquant_case(prologue, m, k, gen, ld)
+    vpt, w, g, blocks = qm.rowquant_geometry(m, k, prologue)
+    blocks = {"picked": blocks, "one block": 1, "one row each": -(-m // g)}[grid]
+    codes, sx = qm._launch_rowquant(x, prologue, s, t, 1e-6, geometry=(vpt, w, g, blocks))
+    torch.cuda.synchronize()
+    ref = qm.row_quantize_fused_plain(x, s, t, prologue=prologue)
+    check = qm.codes_agreement(codes, sx, *ref, exact=prologue == "none")
+    assert check["ok"], check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,lda", [(1, 3072), (257, 3072), (4353, 3584)])
+def test_row_quantize_concat_gelu_tails_and_strides(cuda, m, lda):
+    """K10 at the grid's tails, with ``a`` a view of row stride > K."""
+    gen = torch.Generator(device="cuda").manual_seed(14)
+    a, b = _activations(m, lda, gen)[:, :3072], _activations(m, 21504, gen)
+    codes, sx = qm.row_quantize_concat_gelu(a, b, 9216, 21504)
+    torch.cuda.synchronize()
+    check = qm.codes_agreement(codes, sx, *qm.row_quantize_concat_gelu_plain(a, b, 9216, 21504))
+    assert check["ok"], check
+
+
 def _w8a8_operands(m, k, n, mode, gen):
     """Codes, scales and the epilogue's operands of one W8A8 launch; the
     keyword arguments of ``_launch_w8a8`` for ``mode`` ("k7": K7's plain

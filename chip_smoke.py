@@ -89,10 +89,28 @@ Phases, in order; any failure exits non-zero:
    (``FORCED_HITS``), the same pipeline call with the launches checked
    against the plan of its counted hits and misses (a hit runs double block
    0: its matmuls and one K3 launch), its output checked; fails unless the
-   cache hit.
+   cache hit;
+17. SD1.5 defaults (run after phase 13, before the Flux phases): under its
+   own asset root (``build/chip_smoke/defaults``, ``LDT_OFFLINE=1``) it
+   writes phase 5's seeded UNet, VAE and CLIP-L as an f16 one-file
+   checkpoint (about 2.1 GB, by its own writer), a seeded Kohya add_detail
+   LoRA over every attention and feed-forward linear, and the four
+   embeddings ``DEFAULT_NEGATIVE`` names (A1111 ``.pt``); then
+   ``pipeline(prompt, 1024, 1024, output_dir=...)`` with every default and
+   no models (loader, LoRA merge, textual inversion, ``dpmpp_sde_cfgpp``
+   with the Brownian-tree noise, multi-scale, MSW-MSA, AutoHDR, PNG),
+   checked: the K1/K2 launches against the SDE plan (midpoint calls
+   included), every loaded parameter bit for bit the f16-rounded seed in
+   the device policy's dtype, every LoRA module patched, the negative
+   prompt's rows carrying the embeddings, a finite latent, the PNG equal to
+   the AutoHDR of the decode; a timed second call; the load, the LoRA
+   merge, the Brownian noise and AutoHDR timed alone; last the CLI with its
+   defaults (SDE, AutoHDR off), which must print its PNG's path and take
+   the model from the cache.
 
 Phases 5 to 11 pin ``RuntimeConfig(flux_scan=False)``, so their launch plans
-are the unrolled layout's.
+are the unrolled layout's. K1's and K2's shapes in phase 3 are those of both
+SD1.5 plans (``dpmpp_2m_cfgpp``, ``dpmpp_sde_cfgpp``).
 
 Prints one ``{"kernels": [...]}`` JSON line (``ms``: the kernel's time per
 image, summed over its main-path shapes and over the paths it runs on; K7's
@@ -105,11 +123,15 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import functools
 import gc
+import io
 import json
+import logging
 import math
 import os
 import re
+import struct
 import subprocess
 import sys
 import time
@@ -271,12 +293,15 @@ def gpu_line() -> str:
 # --------------------------------------------------------------------------
 
 
-def attention_calls(width=1024, height=1024, batch=1, steps=20, sage=False):
+def attention_calls(width=1024, height=1024, batch=1, steps=20, sage=False,
+                    sampler="dpmpp_2m_cfgpp"):
     """{(kernel, B, H, L, D, dtype): calls per image} for the pipeline's
-    SD1.5 txt2img at width x height: 20 karras steps, the default
-    multi-scale plan, MSW-MSA with its sigma gate, CFG batch 2, the VAE's
-    mid-block attention. ``sage``: the UNet's calls go to K4 and its
-    preparation."""
+    SD1.5 txt2img at width x height: 20 karras steps of ``sampler``, the
+    default multi-scale plan, MSW-MSA with its sigma gate, CFG batch 2, the
+    VAE's mid-block attention. ``dpmpp_sde_cfgpp`` adds each step's midpoint
+    call (every step but the last) at ``sde_sigma_mid``, on its step's
+    full-res or low-res route, with the gate evaluated at that sigma.
+    ``sage``: the UNet's calls go to K4 and its preparation."""
     import torch
 
     from lightdiffusion_next_tpu_torch import config
@@ -288,6 +313,7 @@ def attention_calls(width=1024, height=1024, batch=1, steps=20, sage=False):
 
     msd = ModelSamplingDiscrete()
     sigmas = ksampler.sigmas_for(msd, "karras", steps)
+    mids = samplers._step_consts(sigmas)["sde_sigma_mid"]
     lh, lw = height // 8, width // 8
     ms = samplers.MultiScale(enabled=True)
     flags = samplers.fullres_flags(steps, ms, lh, lw)
@@ -298,9 +324,8 @@ def attention_calls(width=1024, height=1024, batch=1, steps=20, sage=False):
     def add(key, n=1):
         calls[key] = calls.get(key, 0) + n
 
-    for i in range(steps):
-        h, w = (lh, lw) if flags[i] else samplers.scaled_dims(lh, lw, ms.factor)
-        t = msd.timestep(torch.tensor([sigmas[i]] * 2 * batch, dtype=torch.float32))
+    def model_call(sigma, h, w):
+        t = msd.timestep(torch.tensor([sigma] * 2 * batch, dtype=torch.float32))
         _, active = window.msw_step_state(t, bounds)
         for block, level, ch, depth in unet.attention_blocks(unet.SD15_CONFIG):
             hh, ww = h, w
@@ -317,6 +342,12 @@ def attention_calls(width=1024, height=1024, batch=1, steps=20, sage=False):
                     add(("sage_prepare", b, heads, tokens, d, "bf16"), depth)
                     name = "sage_attention"
                 add((name, b, heads, tokens, d, "bf16"), depth)
+
+    for i in range(steps):
+        h, w = (lh, lw) if flags[i] else samplers.scaled_dims(lh, lw, ms.factor)
+        model_call(sigmas[i], h, w)
+        if sampler == "dpmpp_sde_cfgpp" and sigmas[i + 1] > 0:
+            model_call(mids[i], h, w)
     add(("flash_attention", batch, 1, lh * lw, 512, "f32"))
     return calls
 
@@ -721,22 +752,35 @@ def read_png(path):
     return rows[:, 1:].reshape(h, w, c)
 
 
+@functools.lru_cache(maxsize=1)
+def seeded_sd15_params():
+    """Full-width SD1.5 UNet, VAE and CLIP-L params from seeds 0, 1, 2 (host
+    numpy f32, checkpoint keys): phase 5 builds its models from them, phase
+    17 writes them into its checkpoint."""
+    from lightdiffusion_next_tpu_torch.models import unet
+    from lightdiffusion_next_tpu_torch.models import vae as vae_mod
+    from lightdiffusion_next_tpu_torch.models.clip import text_encoder as te
+
+    return (unet.init_params(unet.SD15_CONFIG, seed=0),
+            vae_mod.init_params(vae_mod.SD_VAE, seed=1),
+            te.init_params(num_layers=12, width=768, heads=12, seed=2))
+
+
 def build_models():
     """Full-width SD1.5 UNet, VAE and CLIP-L on the card from seeded random
     weights (seeds 0, 1, 2): (model, vae, clip)."""
     import torch
 
-    from lightdiffusion_next_tpu_torch.models import base, unet
+    from lightdiffusion_next_tpu_torch.models import base
     from lightdiffusion_next_tpu_torch.models import vae as vae_mod
     from lightdiffusion_next_tpu_torch.models.clip import facade
-    from lightdiffusion_next_tpu_torch.models.clip import text_encoder as te
 
     t0 = time.perf_counter()
-    model = base.sd15_model(unet.init_params(unet.SD15_CONFIG, seed=0))
-    vae = vae_mod.VAE(vae_mod.init_params(vae_mod.SD_VAE, seed=1))
+    unet_p, vae_p, clip_p = seeded_sd15_params()
+    model = base.sd15_model(unet_p)
+    vae = vae_mod.VAE(vae_p)
     clip = facade.sd1_clip_from_params(
-        te.init_params(num_layers=12, width=768, heads=12, seed=2),
-        embedding_directory=os.path.join(OUT_DIR, "embeddings"),
+        clip_p, embedding_directory=os.path.join(OUT_DIR, "embeddings"),
     )
     torch.cuda.synchronize()
     log(f"pipeline: built SD1.5 UNet, VAE, CLIP-L from seeds in "
@@ -971,6 +1015,308 @@ def phase_sage_pipeline(models, flash_latent):
         e2e = timed_sd15_run(models, "SD1.5 sage pipeline")
     log(f"SD1.5 sage: first run {first['wall']:.3f} s/image")
     e2e.update(first_run_s_per_image=first["wall"], latent_drift_vs_flash=drift)
+    return ok, launches, e2e, calls
+
+
+# --------------------------------------------------------------------------
+# SD1.5 with every default, from a checkpoint file
+# --------------------------------------------------------------------------
+
+DEFAULTS_DIR = os.path.join(OUT_DIR, "defaults")  # its own asset root
+DEFAULTS_CKPT = os.path.join(DEFAULTS_DIR, "checkpoints", "Meina V10 - baked VAE.safetensors")
+DEFAULTS_PROMPT = "a photograph of an astronaut riding a horse, (detailed:1.2)"
+# the four textual-inversion embeddings DEFAULT_NEGATIVE names, with the
+# vector counts of their published files
+EMBEDDING_VECTORS = {"EasyNegative": 8, "badhandv4": 6, "lr": 2,
+                     "ng_deepnegative_v1_75t": 75}
+LORA_RANK = 8
+LORA_TARGETS = re.compile(
+    r"(transformer_blocks\.\d+\.(attn[12]\.(to_[qkv]|to_out\.0)|ff\.net\.(0\.proj|2))"
+    r"|layers\.\d+\.(self_attn\.(q|k|v|out)_proj|mlp\.fc[12]))\.weight$")
+ST_DTYPES = {"float16": "F16", "float32": "F32", "bfloat16": "BF16"}
+
+
+def write_safetensors(path, tensors):
+    """A ``.safetensors`` file from CPU tensors, without the safetensors
+    package: the header's length (8 bytes, little-endian), the JSON header
+    padded to 8 bytes, the tensors' bytes in order."""
+    import torch
+
+    header, offset = {"__metadata__": {"format": "pt"}}, 0
+    for key, t in tensors.items():
+        n = t.numel() * t.element_size()
+        header[key] = {"dtype": ST_DTYPES[str(t.dtype).split(".")[-1]],
+                       "shape": list(t.shape), "data_offsets": [offset, offset + n]}
+        offset += n
+    blob = json.dumps(header).encode()
+    blob += b" " * (-len(blob) % 8)
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    with open(path, "wb") as f:
+        f.write(struct.pack("<Q", len(blob)) + blob)
+        for t in tensors.values():
+            f.write(memoryview(t.contiguous().reshape(-1).view(torch.uint8).numpy()))
+
+
+def write_default_assets():
+    """The checkpoint (phase 5's seeded UNet, VAE and CLIP-L in f16 under
+    the checkpoint's keys), a seeded Kohya add_detail LoRA over every
+    attention and feed-forward linear of the UNet and CLIP, and the four
+    embeddings as A1111 .pt files. Returns (the checkpoint's f16 tensors by
+    part, the LoRA's module count by model, the embeddings' vectors)."""
+    import numpy as np
+    import torch
+
+    unet_p, vae_p, clip_p = seeded_sd15_params()
+    parts = {"unet": {k: torch.from_numpy(np.asarray(v, np.float16)) for k, v in unet_p.items()},
+             "vae": {k: torch.from_numpy(np.asarray(v, np.float16)) for k, v in vae_p.items()},
+             "clip": {k: torch.from_numpy(np.asarray(v, np.float16)) for k, v in clip_p.items()}}
+    prefixes = {"unet": "model.diffusion_model.", "vae": "first_stage_model.",
+                "clip": "cond_stage_model.transformer."}
+    write_safetensors(DEFAULTS_CKPT, {prefixes[part] + k: v for part, sd in parts.items()
+                                      for k, v in sd.items()})
+
+    gen = torch.Generator().manual_seed(7)
+    lora, modules = {}, {"unet": 0, "clip": 0}
+    for part, tag in (("unet", "lora_unet_"), ("clip", "lora_te_")):
+        for key, w in parts[part].items():
+            if not LORA_TARGETS.search(key):
+                continue
+            name = tag + key[: -len(".weight")].replace(".", "_")
+            out_f, in_f = w.shape
+            lora[f"{name}.lora_down.weight"] = (
+                torch.randn(LORA_RANK, in_f, generator=gen) * in_f**-0.5).half()
+            lora[f"{name}.lora_up.weight"] = (
+                torch.randn(out_f, LORA_RANK, generator=gen) * 0.01).half()
+            lora[f"{name}.alpha"] = torch.tensor(LORA_RANK / 2, dtype=torch.float16)
+            modules[part] += 1
+    write_safetensors(os.path.join(DEFAULTS_DIR, "loras", "add_detail.safetensors"), lora)
+
+    vectors = {}
+    os.makedirs(os.path.join(DEFAULTS_DIR, "embeddings"), exist_ok=True)
+    for name, n in EMBEDDING_VECTORS.items():
+        vectors[name] = torch.randn(n, 768, generator=gen) * 0.02
+        torch.save({"string_to_token": {"*": 265}, "string_to_param": {"*": vectors[name]},
+                    "name": name, "step": 1000},
+                   os.path.join(DEFAULTS_DIR, "embeddings", f"{name}.pt"))
+    return parts, modules, vectors
+
+
+class LogRecords(logging.Handler):
+    """The port's log messages while attached."""
+
+    def __init__(self):
+        super().__init__(logging.INFO)
+        self.messages = []
+
+    def emit(self, record):
+        self.messages.append(record.getMessage())
+
+    def count(self, prefix):
+        return sum(m.startswith(prefix) for m in self.messages)
+
+
+def run_default_pipeline():
+    """``pipeline(prompt, 1024, 1024, output_dir=...)`` with every other
+    argument at its default and no models: paths, wall seconds, the time
+    after each step (device synced) and the last step's callback info."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.pipelines import pipeline as pl
+
+    step_times, last = [], {}
+
+    def on_step(info):
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter())
+        last.update(info)
+
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with torch.no_grad():
+        paths = pl.pipeline(DEFAULTS_PROMPT, 1024, 1024,
+                            output_dir=os.path.join(DEFAULTS_DIR, "out"),
+                            progress_callback=on_step)
+    torch.cuda.synchronize()
+    return {"paths": paths, "wall": time.perf_counter() - start,
+            "step_times": step_times, "last": last}
+
+
+def check_loaded_params(model, vae, clip, parts):
+    """Every UNet, VAE and CLIP parameter the loader built equals the
+    f16-rounded seed cast to the device policy's dtype, bit for bit (the
+    UNet's q|k|v and k|v joined as ``sd15_model`` joins them)."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch import config
+    from lightdiffusion_next_tpu_torch.models import unet
+
+    policy = config.DtypePolicy.for_device("cuda")
+    dev = torch.device("cuda")
+    bad, n = [], 0
+    for got, want, dtype in ((model.params, unet.fuse_projections(parts["unet"]),
+                              policy.param_dtype),
+                             (vae.params, parts["vae"], policy.vae_dtype),
+                             (clip.model.model.params, parts["clip"],
+                              policy.text_encoder_dtype)):
+        if set(got) != set(want):
+            bad.append(f"keys differ: {sorted(set(got) ^ set(want))[:4]}")
+        for key, w in want.items():
+            n += 1
+            g = got.get(key)
+            if g is None or g.dtype != dtype or not torch.equal(g, w.to(dev).to(dtype)):
+                bad.append(key)
+    log(f"SD1.5 defaults: {n} loaded params against the f16-rounded seeds: "
+        f"{'bit for bit' if not bad else f'FAIL: {len(bad)} differ, e.g. {bad[:3]}'}")
+    return not bad
+
+
+def check_embeddings(clip, vectors):
+    """DEFAULT_NEGATIVE's token rows carry the four embeddings' vectors, in
+    order, and the encoder's rows put them in their slots."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.pipelines import pipeline as pl
+
+    rows = clip.tokenize(pl.DEFAULT_NEGATIVE)["l"]
+    tokens = [[t for t, _ in row] for row in rows]
+    found = [torch.from_numpy(t) for row in tokens for t in row if not isinstance(t, int)]
+    want = torch.cat([vectors[n] for n in EMBEDDING_VECTORS])
+    ok = len(found) == len(want) and torch.equal(torch.stack(found), want)
+    embeds, ids = clip.model.model._embed_rows(tokens)
+    ok = ok and torch.equal(embeds[ids < 0].float().cpu(), want.to(embeds.dtype).float())
+    log(f"SD1.5 defaults: negative prompt {len(rows)} rows, {len(found)} embedding vectors "
+        f"(the four files hold {len(want)}) {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def check_hdr_output(run, vae):
+    """A finite final latent, and the PNG equal to to_uint8(apply_hdr_batch(
+    decode(latent)))."""
+    import numpy as np
+    import torch
+
+    from lightdiffusion_next_tpu_torch.utils import hdr
+    from lightdiffusion_next_tpu_torch.utils import image as image_utils
+    from lightdiffusion_next_tpu_torch.utils import latent as latent_mod
+
+    x = run["last"]["x"]
+    latent_ok = tuple(x.shape) == (1, 128, 128, 4) and bool(torch.isfinite(x).all())
+    with torch.no_grad():
+        pixels = vae.decode(latent_mod.SD15.process_out(x))
+        shaped = hdr.apply_hdr_batch(pixels)
+    want = image_utils.to_uint8(shaped.cpu().numpy())[0]
+    png = read_png(run["paths"][0])
+    png_ok = png.shape == (1024, 1024, 3) and np.array_equal(png, want)
+    changed = not np.array_equal(want, image_utils.to_uint8(pixels.cpu().numpy())[0])
+    log(f"SD1.5 defaults output: latent {tuple(x.shape)} finite={latent_ok}, png {png.shape} "
+        f"matches the AutoHDR of the decode={png_ok} (AutoHDR changed it: {changed}), "
+        f"pixel mean {png.mean():.2f} std {png.std():.2f}")
+    return latent_ok and png_ok and changed, pixels
+
+
+def phase_sd15_defaults(gpu):
+    """Phase 17: SD1.5 from a checkpoint file with every default. Returns
+    (ok, launches, e2e, calls)."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.app import cli
+    from lightdiffusion_next_tpu_torch.pipelines import loader
+    from lightdiffusion_next_tpu_torch.pipelines import pipeline as pl
+    from lightdiffusion_next_tpu_torch.sampling import ksampler, noise
+    from lightdiffusion_next_tpu_torch.sampling.model_sampling import ModelSamplingDiscrete
+    from lightdiffusion_next_tpu_torch.utils import hdr
+
+    calls = attention_calls(sampler="dpmpp_sde_cfgpp")
+    t0 = time.perf_counter()
+    parts, modules, vectors = write_default_assets()
+    gb = os.path.getsize(DEFAULTS_CKPT) / 1e9
+    log(f"SD1.5 defaults: wrote the {gb:.3f} GB checkpoint, the LoRA ({modules['unet']} UNet "
+        f"and {modules['clip']} CLIP modules) and {len(vectors)} embeddings in "
+        f"{time.perf_counter() - t0:.1f} s")
+    saved_env = {k: os.environ.get(k) for k in ("LDT_ASSET_ROOT", "LDT_OFFLINE")}
+    os.environ.update(LDT_ASSET_ROOT=DEFAULTS_DIR, LDT_OFFLINE="1")
+    records = LogRecords()
+    port_log = logging.getLogger("lightdiffusion_next_tpu_torch")
+    port_log.addHandler(records)
+    port_log.setLevel(logging.INFO)
+    try:
+        reset_launches()
+        first = run_default_pipeline()
+        launches = read_launches()
+        ok = check_sd15_launches(launches, calls, "SD1.5 defaults",
+                                 ("packed_flash_attention", "flash_attention"))
+        n_lora = sum(modules.values())
+        lora_msg = (f"LoRA: {modules['unet']} UNet and {modules['clip']} CLIP modules patched "
+                    f"of the file's {n_lora}")
+        lora_ok = lora_msg in records.messages and records.count("LoRA ") == 0
+        log(f"SD1.5 defaults: LoRA merged with every module matched: "
+            f"{'ok' if lora_ok else 'FAIL'} ({[m for m in records.messages if 'LoRA' in m]})")
+        model, clip, vae = loader.CheckpointLoaderSimple().load_checkpoint(
+            DEFAULTS_CKPT, os.path.join(DEFAULTS_DIR, "embeddings"))
+        ok = ok and lora_ok and records.count("loaded ") == 1
+        ok = check_loaded_params(model, vae, clip, parts) and ok
+        del parts
+        ok = check_embeddings(clip, vectors) and ok
+        out_ok, pixels = check_hdr_output(first, vae)
+        ok = out_ok and ok
+
+        torch.cuda.reset_peak_memory_stats()
+        timed = run_default_pipeline()
+        steps = timed["step_times"]
+        it_s = (len(steps) - 1) / (steps[-1] - steps[0])
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fresh = loader.load_checkpoint_guess_config(DEFAULTS_CKPT, os.path.join(
+            DEFAULTS_DIR, "embeddings"))
+        load_s = time.perf_counter() - t0
+        del fresh
+        torch.cuda.empty_cache()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        merged = pl._apply_lora_add_detail(model, clip)
+        torch.cuda.synchronize()
+        lora_s = time.perf_counter() - t0
+        del merged
+        sigmas = ksampler.sigmas_for(ModelSamplingDiscrete(), "karras", 20)
+        t0 = time.perf_counter()
+        noise.sde_noise_for_steps((1, 128, 128, 4), sigmas, 0.5, 1.0, 1234)
+        noise_ms = (time.perf_counter() - t0) * 1e3
+        hdr_ms = cuda_ms(lambda: hdr.apply_hdr_batch(pixels), 5)
+
+        n_loaded = records.count("loaded ")
+        out = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(out):
+            rc = cli.main([DEFAULTS_PROMPT, "1024", "1024", "1", "1", "--output-dir",
+                           os.path.join(DEFAULTS_DIR, "cli")])
+        cli_s = time.perf_counter() - t0
+        printed = out.getvalue().split()
+        cli_ok = (rc == 0 and len(printed) == 1 and printed[0].endswith(".png")
+                  and os.path.exists(printed[0]) and records.count("loaded ") == n_loaded
+                  and read_png(printed[0]).shape == (1024, 1024, 3))
+        log(f"SD1.5 defaults CLI: printed {printed}, from the cached model (loads "
+            f"{records.count('loaded ')}): {'ok' if cli_ok else 'FAIL'}; {cli_s:.3f} s")
+        ok = ok and cli_ok
+    finally:
+        port_log.removeHandler(records)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+    loader.get_model_cache().clear()
+    e2e = {"s_per_image": timed["wall"], "it_per_s": it_s, "peak_gib": peak,
+           "first_run_s_per_image_with_load": first["wall"], "load_s": load_s,
+           "load_gb_per_s": gb / load_s, "checkpoint_gb": gb, "lora_merge_s": lora_s,
+           "brownian_noise_ms": noise_ms, "autohdr_ms_per_image": hdr_ms,
+           "cli_s_per_image": cli_s, "gpu": gpu}
+    log(f"SD1.5 defaults ({gpu}): {timed['wall']:.3f} s/image end to end; sampler steps "
+        f"2..{len(steps)}: {it_s:.3f} it/s (two model calls each); first run with the load "
+        f"{first['wall']:.3f} s/image; checkpoint load {load_s:.3f} s ({gb / load_s:.3f} "
+        f"GB/s); LoRA merge {lora_s:.3f} s; Brownian noise {noise_ms:.1f} ms; AutoHDR "
+        f"{hdr_ms:.3f} ms per image; peak memory {peak:.1f} GiB")
     return ok, launches, e2e, calls
 
 
@@ -1943,8 +2289,11 @@ def main() -> int:
     line = timed("environment", phase_environment)
     timed("build", phase_build)
     sd_calls = attention_calls()
+    sde_calls = attention_calls(sampler="dpmpp_sde_cfgpp")
     log("plan SD1.5:", {f"{k[0]} {k[1:]}": v for k, v in sorted(sd_calls.items())})
-    per_kernel = timed("sd15 kernels", phase_kernels, sd_calls)
+    log("plan SD1.5 defaults (dpmpp_sde_cfgpp):",
+        {f"{k[0]} {k[1:]}": v for k, v in sorted(sde_calls.items())})
+    per_kernel = timed("sd15 kernels", phase_kernels, {**sd_calls, **sde_calls})
     ref_ok, _ = timed("sd15 reference", phase_reference)
     pipe_ok, sd_launches, sd_e2e, sd_models, sd_latent = timed(
         "sd15 pipeline", phase_pipeline, sd_calls)
@@ -1952,6 +2301,9 @@ def main() -> int:
     timed("sage kernels", phase_sage_kernels, sage_plan, per_kernel)
     sage_ok, sage_launches, sage_e2e, sage_calls = timed(
         "sd15 sage pipeline", phase_sage_pipeline, sd_models, sd_latent)
+    def_ok, def_launches, def_e2e, def_calls = timed(
+        "sd15 defaults", phase_sd15_defaults, line)
+    seeded_sd15_params.cache_clear()
     del sd_models
     gc.collect()
     torch.cuda.empty_cache()
@@ -1987,7 +2339,8 @@ def main() -> int:
 
     # calls per image of each path, summed over the paths a kernel runs on
     # (the unfused DiT calls count once)
-    path_calls = {"sd15": sd_calls, "sd15_sage": sage_calls, "flux": fcalls,
+    path_calls = {"sd15": sd_calls, "sd15_sage": sage_calls, "sd15_defaults": def_calls,
+                  "flux": fcalls,
                   "flux_w8a8": w8_calls, "w8a8_dit_call_fused_ew_off": off_plan,
                   "flux_w8a8_scan": scan_calls, "w8a8_scan_dit_call_fused_ew_off": scan_off_plan,
                   "flux_w8a8_scan_fbcache_hits": hit_calls}
@@ -1995,7 +2348,8 @@ def main() -> int:
     for calls in path_calls.values():
         for key, n in calls.items():
             all_calls[key] = all_calls.get(key, 0) + n
-    paths = {"sd15": sd_launches, "sd15_sage": sage_launches, "flux": flux_launches,
+    paths = {"sd15": sd_launches, "sd15_sage": sage_launches, "sd15_defaults": def_launches,
+             "flux": flux_launches,
              "flux_w8a8": w8_launches, "w8a8_dit_call_fused_ew_off": off_launches,
              "flux_w8a8_scan": scan_launches,
              "w8a8_scan_dit_call_fused_ew_off": scan_off_launches,
@@ -2029,14 +2383,15 @@ def main() -> int:
                            if any(tuple(s_["key"]) in calls for s_ in shapes)},
             "per": "image: the sum over its main-path shapes of calls x time, over one "
                    "image of each path it runs on (SD1.5 with flash or sage attention, "
-                   "Flux Q8_0, Flux W8A8 unrolled and scan, Flux W8A8 scan with FBCache "
-                   "forced to hit) and one missed W8A8 DiT call with fused_ew off in each "
-                   "layout",
+                   "SD1.5 with every default, Flux Q8_0, Flux W8A8 unrolled and scan, "
+                   "Flux W8A8 scan with FBCache forced to hit) and one missed W8A8 DiT "
+                   "call with fused_ew off in each layout",
             "shapes": shapes,
         })
-    e2e = {"sd15": sd_e2e, "sd15_sage": sage_e2e, "flux": flux_e2e, "flux_w8a8": w8_e2e,
+    e2e = {"sd15": sd_e2e, "sd15_sage": sage_e2e, "sd15_defaults": def_e2e, "flux": flux_e2e,
+           "flux_w8a8": w8_e2e,
            "flux_w8a8_scan": scan_e2e, "flux_w8a8_scan_fbcache_hits": hit_e2e}
-    ok = (ref_ok and pipe_ok and sage_ok and flux_ref_ok and flux_ok and w8_ref_ok and w8_ok
+    ok = (ref_ok and pipe_ok and sage_ok and def_ok and flux_ref_ok and flux_ok and w8_ref_ok and w8_ok
           and requant_ok and scan_ok and hit_ok and all(k["ok"] for k in kernels_line))
     record = {"gpu": line, "kernels": kernels_line, "e2e": e2e, "phase_seconds": seconds,
               "seconds": time.perf_counter() - t_start}

@@ -25,11 +25,18 @@ from lightdiffusion_next_tpu_torch.utils import latent as latent_mod
 
 def params_to_device(params: Dict[str, Any], dtype: torch.dtype,
                      device: torch.device) -> Dict[str, torch.Tensor]:
-    """Every leaf to ``device`` in ``dtype`` (numpy arrays or tensors)."""
-    return {
-        k: torch.as_tensor(v).to(device=device, dtype=dtype)
-        for k, v in params.items()
-    }
+    """Every leaf to ``device`` in ``dtype`` (numpy arrays or tensors), in
+    the narrower of its own dtype and ``dtype`` across the bus: a leaf no
+    wider than ``dtype`` (a checkpoint's f16) is moved and then cast, a
+    wider one (f32 seeds) is cast and then moved."""
+
+    def to(v):
+        t = torch.as_tensor(v)
+        if t.dtype.itemsize <= dtype.itemsize:
+            return t.to(device=device).to(dtype=dtype)
+        return t.to(device=device, dtype=dtype)
+
+    return {k: to(v) for k, v in params.items()}
 
 
 @dataclasses.dataclass

@@ -66,7 +66,9 @@ class CLIPSetLastLayer:
 def sd1_clip_from_params(clip_params: Dict, embedding_directory: Optional[str] = None,
                          dtype=None, device: _config.DeviceLike = None) -> CLIP:
     """The SD1.5 CLIP stack from a text-encoder param dict (keys
-    "text_model.*"); layer count and width come from the shapes."""
+    "text_model.*"); layer count and width come from the shapes. The
+    tokenizer resolves ``embedding:name`` against ``embedding_directory``
+    (textual inversion)."""
     num_layers = 0
     while f"text_model.encoder.layers.{num_layers}.layer_norm1.weight" in clip_params:
         num_layers += 1
@@ -75,5 +77,5 @@ def sd1_clip_from_params(clip_params: Dict, embedding_directory: Optional[str] =
         clip_params, layer="last", num_layers=num_layers or te.CLIP_L_LAYERS,
         heads=max(1, width // 64), dtype=dtype, device=device,
     )
-    tk = tok.SD1Tokenizer(embedding_directory=embedding_directory)
+    tk = tok.SD1Tokenizer(embedding_directory=embedding_directory, embedding_size=width)
     return CLIP(tk, te.SD1ClipModel(model))

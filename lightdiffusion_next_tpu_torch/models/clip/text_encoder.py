@@ -4,7 +4,9 @@ Counterpart of lightdiffusion_next_tpu/models/clip/text_encoder.py: causal
 transformer with a clip-skip tap and eos pooling, prompt weights as a lerp
 against the empty prompt. Param keys are the HF ones ("text_model.*").
 Attention runs through ``sdpa`` (77 causal tokens: no kernel). Textual
-inversion rows are not ported yet (ROADMAP Queue 1, item 7).
+inversion: a row entry may be an embedding vector instead of a token id
+(``tokenizer.load_embed``); ``_embed_rows`` gathers the token rows from the
+table on the device and puts the vectors in their slots.
 """
 
 from __future__ import annotations
@@ -42,15 +44,15 @@ def _clip_layer(p: nn.ParamView, x, mask, heads: int):
     return x + nn.linear(h, p("mlp.fc2.weight"), p("mlp.fc2.bias"))
 
 
-def apply_clip_text(params: dict, tokens,
+def apply_clip_text(params: dict, tokens, embeds,
                     intermediate_output: Optional[int] = None,
                     final_layer_norm_intermediate: bool = True,
                     num_layers: int = CLIP_L_LAYERS, heads: int = CLIP_L_HEADS,
                     eos_token_id: int = SPECIAL_TOKENS["end"]):
-    """tokens (B, 77) int -> (last_hidden, intermediate, pooled)."""
+    """(tokens (B, 77) int, their embeddings (B, 77, width), from
+    ``SDClipModel._embed_rows``) -> (last_hidden, intermediate, pooled)."""
     p = nn.ParamView(params, "text_model.")
-    x = p("embeddings.token_embedding.weight")[tokens]
-    x = x + p("embeddings.position_embedding.weight")[: x.shape[1]][None]
+    x = embeds + p("embeddings.position_embedding.weight")[: embeds.shape[1]][None]
 
     L = x.shape[1]
     mask = torch.triu(
@@ -95,6 +97,13 @@ class SDClipModel:
         self.return_projected_pooled = return_projected_pooled
         self.options_default = (layer, layer_idx, return_projected_pooled)
 
+    def clone(self) -> "SDClipModel":
+        """A shallow copy (the same params dict) whose options and params
+        can be replaced without touching this one."""
+        c = SDClipModel.__new__(SDClipModel)
+        c.__dict__.update(self.__dict__)
+        return c
+
     def set_clip_options(self, options: dict):
         layer_idx = options.get("layer", self.layer_idx)
         self.return_projected_pooled = options.get(
@@ -109,18 +118,42 @@ class SDClipModel:
     def reset_clip_options(self):
         self.layer, self.layer_idx, self.return_projected_pooled = self.options_default
 
-    def encode(self, token_rows: List[List[int]]):
-        """token_rows: 77-length rows of ints -> (z, pooled), f32 tensors."""
-        for row in token_rows:
-            for t in row:
-                if not isinstance(t, (int, np.integer)):
-                    raise NotImplementedError(
-                        "textual-inversion rows are not ported yet "
-                        "(ROADMAP Queue 1, item 7)"
-                    )
-        tokens = torch.tensor(token_rows, dtype=torch.long, device=self.device)
+    def _embed_rows(self, token_rows: List[List]):
+        """Rows of token ids and textual-inversion vectors -> (embeds (B, L,
+        width) in the encoder's dtype, token ids (B, L)), both on the
+        device. A vector's slot holds id -1, not the pad id: SD1.5 pads with
+        the end token, and the end token's position is where pooling reads.
+        A vector of another width leaves its slot zero, as in the JAX
+        package."""
+        table = self.params["text_model.embeddings.token_embedding.weight"]
+        width = table.shape[1]
+        ids = np.zeros((len(token_rows), len(token_rows[0])), dtype=np.int64)
+        slots, vectors = [], []
+        for i, row in enumerate(token_rows):
+            for j, t in enumerate(row):
+                if isinstance(t, (int, np.integer)):
+                    ids[i, j] = int(t)
+                    continue
+                ids[i, j] = -1
+                vec = np.asarray(t, dtype=np.float32)
+                if vec.shape[0] == width:
+                    slots.append((i, j))
+                    vectors.append(vec)
+        tokens = torch.from_numpy(ids).to(self.device)
+        embeds = table[tokens.clamp(min=0)]
+        embeds[tokens < 0] = 0
+        if slots:
+            rows, cols = zip(*slots)
+            embeds[list(rows), list(cols)] = torch.from_numpy(np.stack(vectors)).to(
+                device=self.device, dtype=embeds.dtype)
+        return embeds, tokens
+
+    def encode(self, token_rows: List[List]):
+        """token_rows: 77-length rows of token ids or textual-inversion
+        vectors -> (z, pooled), f32 tensors."""
+        embeds, tokens = self._embed_rows(token_rows)
         x, inter, pooled = apply_clip_text(
-            self.params, tokens,
+            self.params, tokens, embeds,
             intermediate_output=self.layer_idx if self.layer == "hidden" else None,
             final_layer_norm_intermediate=self.layer_norm_hidden_state,
             num_layers=self.num_layers, heads=self.heads,

@@ -8,10 +8,10 @@ copy of its own (the JAX module imports the JAX package's config):
 - 77-token rows with start/end/pad, long words (>= 8 tokens) spanning rows.
 
 The byte-pair encoder reads the vocabulary vendored in
-``assets/tokenizer/clip``. Textual inversion (``embedding:name`` splices) is
-not ported yet (ROADMAP Queue 1, item 7): a name that resolves to a file
-raises, and a missing one is skipped with a warning, as the JAX package
-skips it.
+``assets/tokenizer/clip``. Textual inversion: ``embedding:name`` splices
+the named embedding's vectors into the row (``load_embed``); a name that
+resolves to no file is skipped with a warning, as the JAX package skips
+it.
 """
 
 from __future__ import annotations
@@ -25,6 +25,9 @@ import os
 import re
 import unicodedata
 from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
 
 from lightdiffusion_next_tpu_torch import config as _config
 
@@ -308,27 +311,83 @@ def _whitespace_clean(text: str) -> str:
     return text.strip()
 
 
-def _embedding_file(name: str, directories) -> Optional[str]:
-    """The textual-inversion file ``name`` resolves to, if any (the JAX
-    package's lookup rule: the directories and their subdirectories, the
-    name as given or with .safetensors/.pt/.bin)."""
-    if not directories:
+def load_embed(embedding_name: str, embedding_directories,
+               embedding_size: int, embed_key: Optional[str] = None) -> Optional[np.ndarray]:
+    """The textual-inversion vectors ``embedding_name`` resolves to, as an
+    (n, embedding_size) f32 array, or None. Searched in the directories and
+    their subdirectories, the name as given or with .safetensors, .pt or
+    .bin; a name that escapes its directory is skipped. ``.safetensors``
+    through the port's reader; ``.pt``/``.bin`` through ``torch.load`` (A1111
+    files pickle more than tensors, so not weights-only, as in the JAX
+    package)."""
+    if not embedding_directories:
         return None
-    if isinstance(directories, str):
-        directories = [directories]
-    for d in directories:
+    if isinstance(embedding_directories, str):
+        embedding_directories = [embedding_directories]
+    expanded: List[str] = []
+    seen = set()
+    for d in embedding_directories:
         for root in [d] + [r for r, _, _ in os.walk(d, followlinks=True)]:
-            path = os.path.abspath(os.path.join(root, name))
-            root_abs = os.path.abspath(root)
-            try:
-                if os.path.commonpath((root_abs, path)) != root_abs:
-                    continue
-            except ValueError:
+            if root not in seen:
+                seen.add(root)
+                expanded.append(root)
+    valid_file = None
+    for embed_dir in expanded:
+        embed_path = os.path.abspath(os.path.join(embed_dir, embedding_name))
+        embed_dir_abs = os.path.abspath(embed_dir)
+        try:
+            if os.path.commonpath((embed_dir_abs, embed_path)) != embed_dir_abs:
                 continue
-            for candidate in (path, path + ".safetensors", path + ".pt", path + ".bin"):
-                if os.path.isfile(candidate):
-                    return candidate
-    return None
+        except ValueError:
+            continue
+        if not os.path.isfile(embed_path):
+            for ext in (".safetensors", ".pt", ".bin"):
+                if os.path.isfile(embed_path + ext):
+                    valid_file = embed_path + ext
+                    break
+        else:
+            valid_file = embed_path
+        if valid_file is not None:
+            break
+    if valid_file is None:
+        return None
+
+    if valid_file.endswith(".safetensors"):
+        from lightdiffusion_next_tpu_torch.utils import state_dict as sd_utils
+
+        embed = sd_utils.read_safetensors(valid_file)
+    else:
+        data = torch.load(valid_file, map_location="cpu", weights_only=False)
+        embed = _flatten_embed_dict(data)
+    embed = {k: (v.float().numpy() if isinstance(v, torch.Tensor) else v)
+             for k, v in embed.items()}
+
+    values = list(embed.values())
+    if embed_key is not None and embed_key in embed:
+        out = embed[embed_key]
+    elif len(values) == 1:
+        out = values[0]
+    else:
+        out = next((np.asarray(v) for v in values
+                    if np.asarray(v).ndim and np.asarray(v).shape[-1] == embedding_size),
+                   values[0])
+    out = np.asarray(out, dtype=np.float32)
+    if out.ndim == 1:
+        out = out[None]
+    if out.shape[-1] != embedding_size:
+        return None
+    return out
+
+
+def _flatten_embed_dict(data):
+    """A1111 .pt embeddings nest their tensors under "string_to_param"."""
+    if isinstance(data, dict):
+        if "string_to_param" in data:
+            return dict(data["string_to_param"].items())
+        if "emb_params" in data:
+            return {"emb_params": data["emb_params"]}
+        return {k: v for k, v in data.items() if hasattr(v, "shape")}
+    return {"embed": data}
 
 
 # ---------------------------------------------------------------------------
@@ -337,13 +396,17 @@ def _embedding_file(name: str, directories) -> Optional[str]:
 
 
 class SDTokenizer:
-    """Weighted tokenizer (the JAX package's SDTokenizer without TI)."""
+    """Weighted tokenizer with textual inversion: an ``embedding:name`` word
+    becomes that embedding's vectors, one (f32 numpy vector, weight) entry
+    per vector, in place of BPE ids."""
 
     def __init__(
         self,
         max_length: int = 77,
         pad_with_end: bool = True,
         embedding_directory=None,
+        embedding_size: int = 768,
+        embedding_key: str = "clip_l",
         has_start_token: bool = True,
         pad_to_max_length: bool = True,
         min_length: Optional[int] = None,
@@ -359,10 +422,29 @@ class SDTokenizer:
         self.embedding_directory = embedding_directory
         self.max_word_length = 8
         self.embedding_identifier = "embedding:"
+        self.embedding_size = embedding_size
+        self.embedding_key = embedding_key
+
+    def _lookup_embedding(self, name: str):
+        """(vectors, suffix) for a textual-inversion name. A name with
+        trailing commas glued to it ("embedding:foo,") that misses is
+        retried without them, and the commas come back as the suffix to
+        tokenize normally."""
+        hit = load_embed(name, self.embedding_directory, self.embedding_size,
+                         self.embedding_key)
+        if hit is not None:
+            return hit, ""
+        bare = name.rstrip(",")
+        if bare != name:
+            hit = load_embed(bare, self.embedding_directory, self.embedding_size,
+                             self.embedding_key)
+            if hit is not None:
+                return hit, name[len(bare):]
+        return None, ""
 
     def _word_groups(self, text: str) -> List[List[Tuple]]:
-        """Prompt -> per-word token groups [[(token, weight)]]. Words split
-        on spaces within each weighted run."""
+        """Prompt -> per-word token groups [[(token or vector, weight)]].
+        Words split on spaces within each weighted run."""
         groups: List[List[Tuple]] = []
         for run, weight in parse_prompt_weights(protect_escaped_parens(text)):
             run = restore_escaped_parens(run).replace("\n", " ")
@@ -372,17 +454,16 @@ class SDTokenizer:
                     and word.startswith(self.embedding_identifier)
                 ):
                     name = word[len(self.embedding_identifier):].strip("\n")
-                    for candidate in (name, name.rstrip(",")):
-                        found = _embedding_file(candidate, self.embedding_directory)
-                        if found is not None:
-                            raise NotImplementedError(
-                                f"textual inversion ({found}) is not ported yet "
-                                "(ROADMAP Queue 1, item 7)"
-                            )
-                    logging.warning(
-                        "warning, embedding:%s does not exist, ignoring", name
-                    )
-                    continue
+                    embed, suffix = self._lookup_embedding(name)
+                    if embed is None:
+                        logging.warning(
+                            "warning, embedding:%s does not exist, ignoring", name
+                        )
+                        continue
+                    groups.append([(row, weight) for row in embed])
+                    if not suffix:
+                        continue
+                    word = suffix
                 groups.append([(t, weight) for t in self.bpe.encode(word)])
         return groups
 

@@ -3,27 +3,35 @@
 Counterpart of lightdiffusion_next_tpu/pipelines/pipeline.py ``pipeline``
 with two of its flows:
 
-- ``_sd15_generate``: CLIP-L with clip-skip -2 encodes the prompt and the
-  negative prompt, the UNet runs ``dpmpp_2m_cfgpp`` for 20 karras steps
-  under the batched CFG denoiser with the multi-scale plan and MSW-MSA
-  windowing, the VAE decodes, and the image is saved under "Classic/LD";
-- ``_flux_txt2img`` (``flux_enabled=True``): CLIP-L's projected pooled
-  vector and T5-XXL's sequence (at least 256 tokens) with guidance 3.0
-  (``encode_flux_conditioning``), a zero 16-channel latent, 20 steps of
-  ``euler_cfgpp`` at cfg 1.0 over the "beta" schedule with FBCache (the
-  model's option), the Flux AE decodes, and the image is saved under
-  "Flux/LD".
+- ``_sd15_generate``: without models given, the checkpoint (Meina V10, or
+  DreamShaper 8 with ``realistic_model``) is loaded from the asset root
+  through the model cache with the textual-inversion directory
+  ``<asset_root>/embeddings``, and ``loras/add_detail.safetensors`` is
+  merged at 0.7/0.7 when it exists; CLIP-L with clip-skip -2 encodes the
+  prompt and the negative prompt, the UNet runs ``dpmpp_sde_cfgpp`` (or
+  ``dpmpp_2m_cfgpp`` with ``prio_speed``) for 20 karras steps under the
+  batched CFG denoiser with the multi-scale plan and MSW-MSA windowing,
+  the VAE decodes, AutoHDR runs (``autohdr``), and the image is saved
+  under "Classic/LD";
+- ``_flux_txt2img`` (``flux_enabled=True``, models given): CLIP-L's
+  projected pooled vector and T5-XXL's sequence (at least 256 tokens) with
+  guidance 3.0 (``encode_flux_conditioning``), a zero 16-channel latent,
+  20 steps of ``euler_cfgpp`` at cfg 1.0 over the "beta" schedule with
+  FBCache (the model's option), the Flux AE decodes, AutoHDR, and the
+  image is saved under "Flux/LD".
 
-It takes the JAX function's arguments plus the models, built from params
-(``model``, ``clip``, ``vae`` and, for Flux, ``t5``), since checkpoint
-loading is not ported yet, and an optional ``seed``. Arguments whose
-modules are not ported raise ``NotImplementedError`` naming their ROADMAP
-item.
+Beyond the JAX function's arguments it takes the models (``model``,
+``clip``, ``vae`` and, for Flux, ``t5``; the SD1.5 ones are loaded when
+none is given, and only a loaded checkpoint gets the LoRA), an optional
+``seed`` and the ``device`` (the GPU by default). Arguments whose modules
+are not ported raise ``NotImplementedError`` naming their ROADMAP item,
+before anything is loaded.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 import os
 import random
 from typing import List, Optional
@@ -31,15 +39,23 @@ from typing import List, Optional
 import torch
 
 from lightdiffusion_next_tpu_torch import config as _config
+from lightdiffusion_next_tpu_torch.models import lora as lora_mod
 from lightdiffusion_next_tpu_torch.models.clip import facade as clip_facade
 from lightdiffusion_next_tpu_torch.models.clip import t5_tokenizer
+from lightdiffusion_next_tpu_torch.models.clip import text_encoder as te
 from lightdiffusion_next_tpu_torch.models.clip import tokenizer as clip_tokenizer
 from lightdiffusion_next_tpu_torch.ops import window
+from lightdiffusion_next_tpu_torch.pipelines import downloader, loader
 from lightdiffusion_next_tpu_torch.sampling import cfg as cfg_mod
 from lightdiffusion_next_tpu_torch.sampling import ksampler as ks
 from lightdiffusion_next_tpu_torch.sampling import samplers as samplers_mod
+from lightdiffusion_next_tpu_torch.utils import hdr as hdr_mod
 from lightdiffusion_next_tpu_torch.utils import image as image_utils
 from lightdiffusion_next_tpu_torch.utils import latent as latent_mod
+from lightdiffusion_next_tpu_torch.utils import params_io
+from lightdiffusion_next_tpu_torch.utils import state_dict as sd_utils
+
+logger = logging.getLogger(__name__)
 
 DEFAULT_NEGATIVE = (
     "(worst quality, low quality:1.4), (zombie, sketch, interlocked fingers, "
@@ -51,7 +67,6 @@ _NOT_PORTED = {
     "hires_fix": "hires-fix (ROADMAP Queue 1, item 8)",
     "adetailer": "ADetailer (ROADMAP Queue 1, item 8)",
     "img2img": "img2img / UltimateSDUpscale (ROADMAP Queue 1, item 8)",
-    "autohdr": "AutoHDR (ROADMAP Queue 1, item 7)",
     "enhance_prompt": "prompt enhancement (ROADMAP Queue 1, item 10)",
 }
 
@@ -89,7 +104,7 @@ def pipeline(
     flux_enabled: bool = False,
     prio_speed: bool = False,
     autohdr: bool = True,
-    realistic_model: bool = False,  # chooses a checkpoint; the models are given here
+    realistic_model: bool = False,
     negative_prompt: Optional[str] = None,
     multiscale_preset: Optional[str] = None,
     enable_multiscale: bool = True,
@@ -101,35 +116,35 @@ def pipeline(
     progress_callback=None,
     hidiffusion: bool = True,
     *,
-    model,
-    clip,
-    vae,
+    model=None,
+    clip=None,
+    vae=None,
     t5=None,
     seed: Optional[int] = None,
+    device: _config.DeviceLike = None,
 ) -> List[str]:
     """Run txt2img; returns the saved image paths. ``model`` is a
     ``models.base.DiffusionModel`` (``sd15_model``, or ``flux_model`` with
     ``flux_enabled=True``), ``vae`` a ``models.vae.VAE``. SD1.5: ``clip`` is
-    a ``models.clip.facade.CLIP``. Flux: ``clip`` is a CLIP-L
+    a ``models.clip.facade.CLIP``; with none of the three given they are
+    loaded on ``device``. Flux: ``clip`` is a CLIP-L
     ``models.clip.text_encoder.SDClipModel`` (its projected pooled vector is
     used) and ``t5`` a ``models.clip.t5.T5XXLModel``. With ``seed`` given,
     no seed file is read or written; otherwise the JAX package's seed
     handling applies. ``progress_callback`` is called after every sampler
     step with the step's dict (``x``, ``i``, ``sigma``, ``denoised``)."""
-    requested = {
-        "hires_fix": hires_fix, "adetailer": adetailer, "img2img": img2img,
-        "autohdr": autohdr, "enhance_prompt": enhance_prompt,
-    }
+    requested = {"hires_fix": hires_fix, "adetailer": adetailer, "img2img": img2img,
+                 "enhance_prompt": enhance_prompt}
     for name, on in requested.items():
         if on:
             raise NotImplementedError(f"{name}=True: {_NOT_PORTED[name]} is not ported yet")
-    if flux_enabled and t5 is None:
-        raise ValueError("flux_enabled=True needs the T5-XXL encoder: pass t5=")
-    if not prio_speed and not flux_enabled:
+    given = [m is not None for m in (model, clip, vae)]
+    if flux_enabled and not all(given + [t5 is not None]):
         raise NotImplementedError(
-            "prio_speed=False runs dpmpp_sde_cfgpp, which is not ported yet "
-            "(ROADMAP Queue 1, item 5)"
-        )
+            "flux_enabled=True loads nothing yet: Flux's GGUF loading is not ported "
+            "(ROADMAP Queue 1, item 7); pass model=, clip=, vae= and t5=")
+    if any(given) and not all(given):
+        raise ValueError("pass all of model=, clip= and vae=, or none to load the checkpoint")
 
     if multiscale_preset is not None:
         ms = samplers_mod.MultiScale.preset(multiscale_preset)
@@ -147,23 +162,69 @@ def pipeline(
     if seed is None:
         seed = load_last_seed() if reuse_seed else random.randint(1, 2**63 - 1)
         save_last_seed(seed)
+    try:
+        params_io.write_parameters_to_file(prompt, negative_prompt, w, h, 7)
+    except OSError:
+        pass
 
     saver = image_utils.SaveImage(output_dir=output_dir)
     saved: List[str] = []
     for _ in range(number):
         if flux_enabled:
-            saved += _flux_txt2img(prompt, w, h, batch, seed, saver,
+            saved += _flux_txt2img(prompt, w, h, batch, seed, autohdr, saver,
                                    progress_callback, model, clip, vae, t5)
         else:
             saved += _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms,
-                                    saver, progress_callback, hidiffusion,
-                                    model, clip, vae)
+                                    prio_speed, autohdr, realistic_model, saver,
+                                    progress_callback, hidiffusion, model, clip, vae,
+                                    device)
         seed = random.randint(1, 2**63 - 1)
     return saved
 
 
-def _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms, saver,
-                   callback, hidiffusion, model, clip, vae):
+def _load_sd15(realistic_model: bool, device):
+    missing = downloader.check_and_download()
+    ckpt = downloader.asset_path(
+        "checkpoints",
+        "DreamShaper_8_pruned.safetensors" if realistic_model
+        else "Meina V10 - baked VAE.safetensors",
+    )
+    if not os.path.exists(ckpt):
+        raise FileNotFoundError(f"checkpoint missing: {ckpt}"
+                                + (f" (downloads failed: {missing})" if missing else ""))
+    return loader.CheckpointLoaderSimple().load_checkpoint(
+        ckpt, embedding_directory=os.path.join(_config.asset_root(), "embeddings"),
+        device=device)
+
+
+def _apply_lora_add_detail(model, clip):
+    """The add_detail LoRA merged at 0.7 (UNet) and 0.7 (CLIP), into new
+    models, when its file exists. A failure leaves the models as they were,
+    as in the JAX package, and is logged with its traceback."""
+    path = downloader.asset_path("loras", "add_detail.safetensors")
+    if not os.path.exists(path):
+        return model, clip
+    try:
+        lora_sd = sd_utils.load_torch_file(path)
+        inner = clip.model.model  # SD1ClipModel -> SDClipModel
+        new_unet, new_clip_params = lora_mod.load_and_apply_lora(
+            lora_sd, model.params, inner.params, 0.7, 0.7)
+        new_inner = inner.clone()
+        new_inner.params = new_clip_params
+        clip = clip.clone()
+        clip.model = te.SD1ClipModel(new_inner)
+        return dataclasses.replace(model, params=new_unet), clip
+    except Exception:
+        logger.exception("LoRA %s not applied", path)
+        return model, clip
+
+
+def _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms, prio_speed, autohdr,
+                   realistic_model, saver, callback, hidiffusion, model, clip, vae,
+                   device):
+    if model is None:
+        model, clip, vae = _load_sd15(realistic_model, device)
+        model, clip = _apply_lora_add_detail(model, clip)
     clip = clip_facade.CLIPSetLastLayer().set_last_layer(clip, -2)
     encode = clip_facade.CLIPTextEncode()
     positive = encode.encode(clip, prompt)
@@ -181,7 +242,7 @@ def _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms, saver,
         seed=seed,
         steps=20,
         cfg_scale=7.0,
-        sampler_name="dpmpp_2m_cfgpp",
+        sampler_name="dpmpp_2m_cfgpp" if prio_speed else "dpmpp_sde_cfgpp",
         scheduler="karras",
         positive=positive,
         negative=negative,
@@ -190,11 +251,14 @@ def _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms, saver,
         ms=ms,
         callback=callback,
     )
-    images = vae.decode(result.latent).cpu().numpy()
-    return saver.save_images(images, "Classic/LD", prompt=prompt)
+    images = vae.decode(result.latent)
+    if autohdr:
+        images = hdr_mod.apply_hdr_batch(images)
+    return saver.save_images(images.cpu().numpy(), "Classic/LD", prompt=prompt)
 
 
-def _flux_txt2img(prompt, w, h, batch, seed, saver, callback, model, clip, vae, t5):
+def _flux_txt2img(prompt, w, h, batch, seed, autohdr, saver, callback, model, clip, vae,
+                  t5):
     positive = encode_flux_conditioning(prompt, prompt, guidance=3.0,
                                         t5_model=t5, clip_model=clip)
     negative = dataclasses.replace(  # ConditioningZeroOut
@@ -215,8 +279,10 @@ def _flux_txt2img(prompt, w, h, batch, seed, saver, callback, model, clip, vae, 
         denoise=1.0,
         callback=callback,
     )
-    images = vae.decode(result.latent).cpu().numpy()
-    return saver.save_images(images, "Flux/LD", prompt=prompt)
+    images = vae.decode(result.latent)
+    if autohdr:
+        images = hdr_mod.apply_hdr_batch(images)
+    return saver.save_images(images.cpu().numpy(), "Flux/LD", prompt=prompt)
 
 
 def encode_flux_conditioning(clip_l_text: str, t5xxl_text: str, guidance: float = 3.0,

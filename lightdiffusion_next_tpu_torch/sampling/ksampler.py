@@ -1,4 +1,5 @@
-"""KSampler facade: schedule, noise, CFG denoiser, sampler loop.
+"""KSampler facade: schedule, noise (with the SDE samplers' Brownian-tree
+noise), CFG denoiser, sampler loop.
 
 Counterpart of lightdiffusion_next_tpu/sampling/ksampler.py ``ksample``,
 with the FBCache dispatch (``fbcache=`` or the model's ``"fbcache"``
@@ -94,12 +95,19 @@ def ksample(
 
     # the JAX package's "torch" rng mode (the only mode ported): drawn on
     # the CPU in the latent's own NHWC shape, as that package does
-    init_noise = noise_mod.prepare_noise(tuple(latent_image.shape), seed)
+    shape = tuple(latent_image.shape)
+    init_noise = noise_mod.prepare_noise(shape, seed)
     opts = (
         dataclasses.replace(sampler_opts, cfg_scale=cfg_scale)
         if sampler_opts is not None
         else samplers_mod.SamplerOptions(cfg_scale=cfg_scale)
     )
+    sde_noise = None
+    if samplers_mod.SAMPLER_ALIASES.get(sampler_name, sampler_name) in (
+            "dpmpp_sde", "dpmpp_sde_cfgpp"):
+        # the Brownian-tree noise of every step, on the host before the loop
+        sde_noise = noise_mod.sde_noise_for_steps(
+            shape, sigmas, r=samplers_mod.R, eta=samplers_mod.ETA, seed=seed)
 
     max_denoise = (
         abs(float(msampling.sigma_max) - float(sigmas[0])) < 1e-4
@@ -130,7 +138,7 @@ def ksample(
     out = samplers_mod.sample(
         denoise_fn, x, sigmas, sampler=sampler_name,
         ms=ms if ms is not None else samplers_mod.MultiScale(),
-        opts=opts, callback=callback,
+        opts=opts, callback=callback, sde_noise=sde_noise,
     )
     sigma_last = torch.tensor(float(sigmas[-1]), dtype=torch.float32, device=device)
     raw = msampling.inverse_noise_scaling(sigma_last, out)

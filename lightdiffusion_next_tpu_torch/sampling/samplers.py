@@ -1,5 +1,5 @@
-"""Sampler loop: DPM++(2M) with its CFG++ name, Euler with its dy CFG++
-variant (``euler_cfgpp``), and the multi-scale plan.
+"""Sampler loop: DPM++(2M) and DPM++ SDE with their CFG++ names, Euler
+with its dy CFG++ variant (``euler_cfgpp``), and the multi-scale plan.
 
 Counterpart of lightdiffusion_next_tpu/sampling/samplers.py. Every
 schedule-derived scalar is computed on the host from the numpy sigma table
@@ -20,8 +20,15 @@ anew when the model-call resolution changes; each dy extra call gets a
 fresh state of its own and leaves the loop's untouched, as in the JAX
 driver.
 
-Not ported yet: euler, euler_ancestral and the ancestral CFG++ variants,
-dpmpp_sde and dpmpp_sde_cfgpp (ROADMAP Queue 1, item 5).
+``dpmpp_sde`` (and ``dpmpp_sde_cfgpp``) calls the model twice a step, the
+second time at the midpoint sigma ``sde_sigma_mid`` on the step's own
+full-res or low-res route, with the two Brownian noises drawn beforehand
+(``noise.sde_noise_for_steps``, passed as ``sde_noise``); its last step
+(sigma_next = 0) is one Euler step, chosen on the host from the f32
+constants.
+
+Not ported yet: euler, euler_ancestral and the ancestral CFG++ variants
+(ROADMAP Queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -33,9 +40,16 @@ import numpy as np
 import torch
 
 from lightdiffusion_next_tpu_torch.ops import nn
+from lightdiffusion_next_tpu_torch.sampling import schedules
 
-SAMPLER_NAMES = ("euler_dy_cfg_pp", "dpmpp_2m", "dpmpp_2m_cfgpp")
+SAMPLER_NAMES = ("euler_dy_cfg_pp", "dpmpp_2m", "dpmpp_2m_cfgpp", "dpmpp_sde",
+                 "dpmpp_sde_cfgpp")
 SAMPLER_ALIASES = {"euler_cfgpp": "euler_dy_cfg_pp"}
+# DPM++ SDE's ancestral eta, noise scale and midpoint ratio: the JAX
+# package's SamplerOptions defaults, which no caller changes
+ETA = 1.0
+S_NOISE = 1.0
+R = 0.5
 
 
 class SampleInterrupted(Exception):
@@ -101,20 +115,53 @@ def segment_flags(flags: np.ndarray) -> List[Tuple[int, int, bool]]:
     return segs
 
 
-def _step_consts(sigmas: np.ndarray) -> dict:
-    """Per-step constants of the DPM++(2M) update, as float32 numpy arrays
-    (the subset of the JAX package's table that this sampler reads,
-    computed the same way)."""
+def _step_consts(sigmas: np.ndarray, eta: float = ETA, r: float = R) -> dict:
+    """Per-step constants of every sampler, as float32 numpy arrays,
+    computed as the JAX package computes them: the ancestral split, the
+    DPM++(2M) exponential integrator and the two stages of DPM++ SDE
+    (``sde_*``; on the last step, sigma_next = 0, they are 0 and
+    ``sde_sigma_mid`` is sigma)."""
     sig = np.asarray(sigmas, dtype=np.float64)
+    n = len(sig) - 1
     c = {"sigma": sig[:-1], "sigma_next": sig[1:],
          "is_last": (sig[1:] == 0).astype(np.float64)}
+    sd = np.zeros(n)
+    su = np.zeros(n)
+    for i in range(n):
+        sd[i], su[i] = schedules.get_ancestral_step(sig[i], sig[i + 1], eta)
+    c["sigma_down"], c["sigma_up"] = sd, su
     with np.errstate(divide="ignore", over="ignore", invalid="ignore"):
         t = -np.log(np.maximum(sig, 1e-38))
         h = t[1:] - t[:-1]
         c["ratio"] = np.where(sig[:-1] > 0, sig[1:] / sig[:-1], 0.0)
         c["h_expm1"] = np.expm1(-np.minimum(h, 80.0))
+        c["h"] = h
         h_prev = np.concatenate([[np.nan], h[:-1]])
         c["h_ratio"] = np.where(np.isfinite(h_prev / (2 * h)), h_prev / (2 * h), 0.0)
+        t_, t_next = t[:-1], t[1:]
+        sig_s = np.exp(-(t_ + (t_next - t_) * r))
+        sd1, su1, sd2, su2 = (np.zeros(n) for _ in range(4))
+        for i in range(n):
+            if sig[i + 1] == 0:
+                continue
+            sd1[i], su1[i] = schedules.get_ancestral_step(sig[i], sig_s[i], eta)
+            sd2[i], su2[i] = schedules.get_ancestral_step(sig[i], sig[i + 1], eta)
+        s_ = -np.log(np.maximum(sd1, 1e-38))
+        t_next_ = -np.log(np.maximum(sd2, 1e-38))
+        last = sig[1:] == 0
+        c["sde_sigma_mid"] = np.where(last, sig[:-1], sig_s)
+        c["sde_fac1"] = np.where(last, 0.0, sd1 / np.maximum(sig[:-1], 1e-38))
+        c["sde_expm1_1"] = np.where(last, 0.0, np.expm1(np.maximum(t_ - s_, -80.0)))
+        c["sde_su1"] = su1
+        c["sde_fac2"] = np.where(last, 0.0, sd2 / np.maximum(sig[:-1], 1e-38))
+        c["sde_expm1_2"] = np.where(last, 0.0, np.expm1(np.maximum(t_ - t_next_, -80.0)))
+        c["sde_su2"] = su2
+        # the true-CFG++ momentum ratio (t - s_) / (2 (t - t_next)): both
+        # negative, so guarded by |den|
+        den = 2.0 * (t_ - t_next)
+        safe_den = np.where(np.abs(den) > 1e-12, den, 1.0)
+        c["sde_h_ratio"] = np.where((sig[1:] > 0) & (np.abs(den) > 1e-12),
+                                    (t_ - s_) / safe_den, 0.0)
     return {k: np.asarray(v, dtype=np.float32) for k, v in c.items()}
 
 
@@ -171,6 +218,29 @@ def _dpmpp_2m_step(carry, cs, denoise, *, true_cfgpp, cfg_w):
     return (x, denoised, uncond)
 
 
+def _dpmpp_sde_step(carry, cs, denoise, noise1, noise2, *, true_cfgpp, cfg_w):
+    """Two-stage DPM++ SDE step; the last step is one Euler step."""
+    x, old_den, old_unc = carry
+    sigma = cs["sigma"]
+    denoised, uncond = denoise(x, sigma)
+    if cs["is_last"] > 0:
+        return (x + to_d(x, sigma, denoised) * (cs["sigma_next"] - sigma), denoised, uncond)
+
+    def momentum(d, od):
+        return (1 + cs["sde_h_ratio"]) * d - cs["sde_h_ratio"] * od
+
+    cfg_den = _cfg_combine(denoised, uncond, old_den, old_unc, cs, cfg_w, true_cfgpp,
+                           momentum_fn=momentum)
+    x2 = (cs["sde_fac1"] * x - cs["sde_expm1_1"] * cfg_den
+          + noise1 * (S_NOISE * cs["sde_su1"]))
+    denoised2, uncond2 = denoise(x2, cs["sde_sigma_mid"])
+    cfg_den2 = _cfg_combine(denoised2, uncond2, denoised, uncond, cs, cfg_w, true_cfgpp,
+                            momentum_fn=momentum)
+    mix = (1 - 1 / (2 * R)) * cfg_den + (1 / (2 * R)) * cfg_den2
+    x = cs["sde_fac2"] * x - cs["sde_expm1_2"] * mix + noise2 * (S_NOISE * cs["sde_su2"])
+    return (x, denoised, uncond)
+
+
 @dataclasses.dataclass(frozen=True)
 class SamplerOptions:
     """The CFG++ schedule (read only with ``true_cfgpp``)."""
@@ -189,11 +259,14 @@ def sample(
     ms: MultiScale = MultiScale(),
     opts: SamplerOptions = SamplerOptions(),
     callback: Optional[Callable] = None,
+    sde_noise: Optional[Tuple] = None,
 ):
     """Run the sampler loop. ``denoise_fn(x, sigma) -> (denoised, uncond)``
     is the CFG guider, or a stateful one (``init_state``; ``(x, sigma,
     state) -> (denoised, uncond, state)``); ``x`` is the NHWC latent at full
-    resolution. Returns the final latent (f32)."""
+    resolution. ``sde_noise``: dpmpp_sde's (noise1, noise2), each (n_steps,
+    *x.shape), moved to x's device once (zeros when not given). Returns the
+    final latent (f32)."""
     sampler = SAMPLER_ALIASES.get(sampler, sampler)
     if sampler not in SAMPLER_NAMES:
         raise NotImplementedError(
@@ -242,6 +315,14 @@ def sample(
     def fresh_state(shape):
         return denoise_fn.init_state(torch.zeros(shape, device=x.device)) if stateful else None
 
+    is_sde = sampler in ("dpmpp_sde", "dpmpp_sde_cfgpp")
+    if is_sde:
+        noise1, noise2 = (
+            (torch.zeros((n_steps,) + tuple(x.shape), device=x.device),) * 2
+            if sde_noise is None
+            else (torch.as_tensor(n).to(device=x.device, dtype=torch.float32)
+                  for n in sde_noise))
+
     x = x.float()
     nanfill = torch.full_like(x, float("nan"))
     inner = (x, nanfill, nanfill)
@@ -262,9 +343,15 @@ def sample(
                 inner = (_dy_extra_step(inner[0], with_state(half), cs),) + inner[1:]
         else:
             cs = {k: float(v[i]) for k, v in consts.items()}
-            cs["sigma"] = torch.tensor(cs["sigma"], dtype=torch.float32, device=x.device)
-            inner = _dpmpp_2m_step(inner, cs, den, true_cfgpp=opts.true_cfgpp,
-                                   cfg_w=float(cfg_sched[i]))
+            for key in ("sigma", "sde_sigma_mid"):
+                cs[key] = torch.tensor(cs[key], dtype=torch.float32, device=x.device)
+            if is_sde:
+                inner = _dpmpp_sde_step(inner, cs, den, noise1[i], noise2[i],
+                                        true_cfgpp=opts.true_cfgpp,
+                                        cfg_w=float(cfg_sched[i]))
+            else:
+                inner = _dpmpp_2m_step(inner, cs, den, true_cfgpp=opts.true_cfgpp,
+                                       cfg_w=float(cfg_sched[i]))
         if callback is not None:
             try:
                 callback({"x": inner[0], "i": i, "sigma": float(sigmas[i]),

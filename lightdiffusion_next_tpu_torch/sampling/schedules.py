@@ -9,6 +9,7 @@ yet: the "normal" and "simple" schedulers (ROADMAP Queue 1, item 2).
 from __future__ import annotations
 
 import math
+from typing import Tuple
 
 import numpy as np
 import torch
@@ -78,6 +79,19 @@ def calculate_sigmas(model_sampling, scheduler_name: str, steps: int) -> np.ndar
         f"scheduler {scheduler_name!r} is not ported yet (ROADMAP Queue 1, "
         f"item 5): ported are {SCHEDULERS}"
     )
+
+
+def get_ancestral_step(sigma_from: float, sigma_to: float,
+                       eta: float = 1.0) -> Tuple[float, float]:
+    """(sigma_down, sigma_up) split of an ancestral step."""
+    if not eta:
+        return sigma_to, 0.0
+    sigma_up = min(
+        sigma_to,
+        eta * (sigma_to**2 * (sigma_from**2 - sigma_to**2) / sigma_from**2) ** 0.5,
+    )
+    sigma_down = (sigma_to**2 - sigma_up**2) ** 0.5
+    return sigma_down, sigma_up
 
 
 def timestep_embedding(timesteps, dim: int, max_period: int = 10000):

@@ -122,13 +122,24 @@ def test_tokenizer_matches_jax(prompt):
 
 
 def test_tokenizer_skips_missing_embeddings(tmp_path):
+    """A missing embedding is skipped, as in the JAX package; once its file
+    exists its vectors take the word's place (tests/test_torch_lora_ti.py
+    holds textual inversion to the JAX package in full)."""
     prompt = "a cat, (embedding:EasyNegative), dog"
     j = jtok.SD1Tokenizer(embedding_directory=str(tmp_path)).tokenize_with_weights(prompt)
     t = ttok.SD1Tokenizer(embedding_directory=str(tmp_path)).tokenize_with_weights(prompt)
     assert t == j
-    (tmp_path / "EasyNegative.pt").write_bytes(b"")
-    with pytest.raises(NotImplementedError):
-        ttok.SD1Tokenizer(embedding_directory=str(tmp_path)).tokenize_with_weights(prompt)
+    vecs = np.random.default_rng(0).standard_normal((2, 768)).astype(np.float32)
+    torch.save({"string_to_param": {"*": torch.from_numpy(vecs)}},
+               str(tmp_path / "EasyNegative.pt"))
+    rows = ttok.SD1Tokenizer(embedding_directory=str(tmp_path)).tokenize_with_weights(prompt)
+    jrows = jtok.SD1Tokenizer(embedding_directory=str(tmp_path)).tokenize_with_weights(prompt)
+    got = [(t, w) for t, w in rows["l"][0] if not isinstance(t, int)]
+    want = [(t, w) for t, w in jrows["l"][0] if not isinstance(t, int)]
+    assert len(got) == len(want) == 2 and [w for _, w in got] == [w for _, w in want]
+    np.testing.assert_array_equal(np.stack([t for t, _ in got]), vecs)
+    assert [t for t, _ in rows["l"][0] if isinstance(t, int)] == [
+        t for t, _ in jrows["l"][0] if isinstance(t, int)]
 
 
 @pytest.mark.parametrize("layer", [None, -2])

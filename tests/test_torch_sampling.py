@@ -172,6 +172,8 @@ def test_dpmpp_2m_cfgpp_loop_matches_jax(ms, true_cfgpp):
 
 
 def test_unported_sampler_raises():
-    with pytest.raises(NotImplementedError):
+    """dpmpp_sde_cfgpp is ported (tests/test_torch_sde.py); hires-fix's
+    euler_ancestral_cfgpp is not."""
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
         tsamp.sample(lambda x, s: (x, x), torch.zeros(1, 8, 8, 4),
-                     np.array([1.0, 0.0], np.float32), sampler="dpmpp_sde_cfgpp")
+                     np.array([1.0, 0.0], np.float32), sampler="euler_ancestral_cfgpp")

@@ -13,6 +13,7 @@ summation order differs over 20 steps, and a value near a rounding edge
 can land on either side); the final latents agree to 1e-4 relative RMS.
 """
 
+import dataclasses
 import os
 import subprocess
 import sys
@@ -122,14 +123,84 @@ def test_png_writer_round_trip(tmp_path):
 @pytest.mark.parametrize(
     "kwargs",
     [dict(hires_fix=True), dict(adetailer=True), dict(img2img=True),
-     dict(flux_enabled=True, autohdr=True), dict(autohdr=True), dict(prio_speed=False),
-     dict(enhance_prompt=True)],
+     dict(flux_enabled=True), dict(flux_enabled=True, hires_fix=True),
+     dict(realistic_model=True, adetailer=True), dict(enhance_prompt=True)],
 )
-def test_unported_pipeline_arguments_raise(kwargs):
-    args = dict(prio_speed=True, autohdr=False, model=None, clip=None, vae=None, seed=1)
-    args.update(kwargs)
+def test_unported_pipeline_arguments_raise(kwargs, tmp_path, monkeypatch):
+    """With every other default and no models, each still-unported argument
+    (and Flux, whose GGUF loading is not ported) raises before anything is
+    read: the asset root holds no checkpoint, so a load would raise
+    FileNotFoundError instead."""
+    monkeypatch.setenv("LDT_ASSET_ROOT", str(tmp_path))
+    monkeypatch.setenv("LDT_OFFLINE", "1")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.pipeline("a cat", 64, 64, **args)
+        tpipe.pipeline("a cat", 64, 64, seed=1, device="cpu", **kwargs)
+    with pytest.raises(FileNotFoundError):
+        tpipe.pipeline("a cat", 64, 64, seed=1, device="cpu")
+
+
+def _tiny_sd15():
+    ucfg, vcfg = tunet.UNetConfig(**TINY), tvae.VAEConfig(**TINY_VAE)
+    model = tbase.sd15_model(from_jax(junet.init_params(junet.UNetConfig(**TINY), seed=0)),
+                             cfg=ucfg, device="cpu")
+    vae = tvae.VAE(from_jax(jvae.init_params(jvae.VAEConfig(**TINY_VAE), seed=1)), vcfg,
+                   device="cpu")
+    clip = tfacade.sd1_clip_from_params(
+        from_jax(jte.init_params(num_layers=2, width=64, heads=4, seed=2)), device="cpu")
+    return model, clip, vae
+
+
+def _tiny_flux():
+    from lightdiffusion_next_tpu_torch.models import flux as tflux
+    from lightdiffusion_next_tpu_torch.models.clip import t5 as tt5
+    from lightdiffusion_next_tpu_torch.models.clip import text_encoder as tte
+
+    fcfg = tflux.FluxConfig(hidden_size=256, num_heads=2, depth=1, depth_single_blocks=1,
+                            context_in_dim=256, vec_in_dim=64, axes_dim=(16, 56, 56))
+    t5cfg = tt5.T5Config(d_model=256, d_ff=512, num_heads=4, num_layers=1)
+    model = tbase.flux_model(tflux.random_params(fcfg, seed=3, device="cpu",
+                                                 dtype=torch.float32), cfg=fcfg, device="cpu")
+    t5 = tt5.T5XXLModel(tt5.random_params(t5cfg, seed=4, device="cpu", dtype=torch.float32),
+                        cfg=t5cfg, device="cpu")
+    clip = tte.SDClipModel(from_jax(jte.init_params(num_layers=1, width=64, heads=4, seed=5,
+                                                    with_projection=True)),
+                           num_layers=1, heads=4, device="cpu")
+    vcfg = tvae.VAEConfig(ch=32, ch_mult=(1, 2), num_res_blocks=1, z_channels=16,
+                          has_quant_conv=False)
+    vae = tvae.VAE(tvae.init_params(vcfg, seed=6), vcfg, device="cpu")
+    return model, clip, vae, t5
+
+
+@pytest.mark.parametrize("kwargs", [dict(prio_speed=True, autohdr=True),
+                                    dict(prio_speed=False, autohdr=False),
+                                    dict(flux_enabled=True, autohdr=True)])
+def test_default_flags_run(kwargs, tmp_path):
+    """The flags that raised before this slice (AutoHDR, ``prio_speed=False``
+    and Flux's AutoHDR) run with given models: 20 steps (dpmpp_sde_cfgpp
+    with ``prio_speed=False``: 39 model calls), and the PNG is the decode
+    of the final latent, through AutoHDR when it is on."""
+    from lightdiffusion_next_tpu_torch.utils import hdr as thdr
+
+    if kwargs.get("flux_enabled"):
+        model, clip, vae, t5 = _tiny_flux()
+        extra = dict(t5=t5)
+    else:
+        (model, clip, vae), extra = _tiny_sd15(), {}
+    calls = []
+    real = model.apply_fn
+    model = dataclasses.replace(model, apply_fn=lambda *a, **k: calls.append(1) or real(*a, **k))
+    latents = []
+    paths = tpipe.pipeline(PROMPT, 128, 128, model=model, clip=clip, vae=vae, seed=SEED,
+                           device="cpu", output_dir=str(tmp_path),
+                           progress_callback=lambda info: latents.append(info["x"]), **extra,
+                           **kwargs)
+    assert len(latents) == 20
+    if not kwargs.get("flux_enabled"):
+        assert len(calls) == (20 if kwargs["prio_speed"] else 39)
+    pixels = vae.decode(model.latent_format.process_out(latents[-1]))
+    if kwargs["autohdr"]:
+        pixels = thdr.apply_hdr_batch(pixels)
+    np.testing.assert_array_equal(_read_png(paths[0]), timage.to_uint8(pixels.numpy())[0])
 
 
 def test_entry_points_default_to_cuda():

@@ -106,7 +106,29 @@ Phases, in order; any failure exits non-zero:
    the AutoHDR of the decode; a timed second call; the load, the LoRA
    merge, the Brownian noise and AutoHDR timed alone; last the CLI with its
    defaults (SDE, AutoHDR off), which must print its PNG's path and take
-   the model from the cache.
+   the model from the cache;
+18. Flux from files (after phase 16): K2 at the unfused Flux attention's
+   two shapes, (1, 24, 4352, 128) and (1, 24, 1280, 128) in bf16, as phase
+   3 holds K1 and K2; then, under its own asset root
+   (``build/chip_smoke/flux``, ``LDT_OFFLINE=1``), phase 8's models written
+   at full width and depth by the port's writers, each leaf streamed from
+   the card (the DiT's Q8_0 GGUF with f16 scales, T5-XXL's GGUF in
+   llama.cpp names, CLIP-L and the AE as safetensors: 28.2 GB, the free
+   space checked first); ``pipeline(prompt, 1024, 1024, flux_enabled=True)``
+   with every default and no models (W8A8, scan, fused attention, FBCache,
+   AutoHDR), its launches against phase 15's scan plan, the loaded DiT bit
+   for bit ``base.flux_model``'s from the file's records, the PNG equal to
+   the AutoHDR of the decode, the final latent against phase 15's logged; a
+   timed second call that reads no file; the GGUF load alone (s, GB/s, the
+   host's peak RSS, the device's peak); the CLI's ``--flux`` from the
+   cache; then the LoRA on the unfused path: the unrolled, unfused W8A8
+   variant loaded through the cache (which evicts the scan one), a seeded
+   rank-16 Kohya LoRA on every block linear, the same pipeline call with
+   its launches against the plan (K9 "none" and K7 on every quantized
+   matmul, K2 at (1, 24, L, 128) for every attention, no K3), a finite
+   image, a timed second call, and one double and one single block under
+   the LoRA, bf16 kernels against the f32 plain versions. The files are
+   removed when the phase ends, also on failure.
 
 Phases 5 to 11 pin ``RuntimeConfig(flux_scan=False)``, so their launch plans
 are the unrolled layout's. K1's and K2's shapes in phase 3 are those of both
@@ -387,10 +409,11 @@ def w8a8_matmul_calls(add, rows, k, n, prologue, residual, n_calls, fused_ew):
         add(("w8a8_matmul", rows, k, n), n_calls)
 
 
-def flux_dit_calls(img, add, n=1, w8a8=False, fused_ew=True):
+def flux_dit_calls(img, add, n=1, w8a8=False, fused_ew=True, fused_attn=True):
     """Kernel calls of one DiT call at ``img`` image tokens that misses the
     cache (all 57 blocks), added ``n`` times to the dict ``add``: K5 on
-    Q8_0 weights, the W8A8 kernels on W8A8 weights; K3."""
+    Q8_0 weights, the W8A8 kernels on W8A8 weights; K3, or with
+    ``fused_attn`` off K2 on the (1, 24, joint, 128) heads."""
     joint = img + FLUX_TXT
     for rows in (img, FLUX_TXT):  # 19 double blocks, image and text streams
         for k, nn_, prologue, res in DOUBLE_MATMULS:
@@ -408,8 +431,16 @@ def flux_dit_calls(img, add, n=1, w8a8=False, fused_ew=True):
             add(("w8a8_matmul_ep", joint, *LINEAR2, True), 38 * n)
         else:
             w8a8_matmul_calls(add, joint, *LINEAR2, "none", True, 38 * n, False)
-    add(("fused_qkv_attention", joint, 3 * FLUX_H, FLUX_TXT), 19 * n)
-    add(("fused_qkv_attention", joint, 3 * FLUX_H + FLUX_MLP, 0), 38 * n)
+    if fused_attn:
+        add(("fused_qkv_attention", joint, 3 * FLUX_H, FLUX_TXT), 19 * n)
+        add(("fused_qkv_attention", joint, 3 * FLUX_H + FLUX_MLP, 0), 38 * n)
+    else:
+        add(flux_k2_key(joint), 57 * n)
+
+
+def flux_k2_key(joint):
+    """K2's key on the unfused Flux attention at ``joint`` tokens."""
+    return ("flash_attention", 1, FLUX_HEADS, joint, 128, "bf16")
 
 
 def _adder(calls):
@@ -453,6 +484,27 @@ def flux_calls(hits=0, misses=20, dy_calls=2, w8a8=False, scan=False):
             else:
                 add(("quant_matmul", rows, k, nn_), hits)
     add(("fused_qkv_attention", 4096 + FLUX_TXT, 3 * FLUX_H, FLUX_TXT), hits)
+    for k, nn_, n in ((4096, 4096, 4), (4096, 10240, 2), (10240, 4096, 1)):
+        add(("quant_matmul", FLUX_TXT, k, nn_), 24 * n)
+    add(("flash_attention", 1, 1, 16384, 512, "f32"), 1)
+    return calls
+
+
+def lora_flux_calls(hits=0, misses=20, dy_calls=2):
+    """{(kernel, *shape): calls per image} of the Flux path with a LoRA on
+    every block linear of a W8A8 DiT, unrolled, with the unfused attention:
+    no quantized matmul has ``modulated_matmul`` (``QTensorLoRA``), so each
+    runs K9 "none" and K7; the attention runs K2 at (1, 24, L, 128); a hit
+    runs double block 0 (8 matmuls, one K2 launch); T5 unrolled (K5), the
+    AE's K2 call."""
+    calls = {}
+    add = _adder(calls)
+    flux_dit_calls(4096, add, misses, w8a8=True, fused_ew=False, fused_attn=False)
+    flux_dit_calls(1024, add, dy_calls, w8a8=True, fused_ew=False, fused_attn=False)
+    for rows in (4096, FLUX_TXT):
+        for k, nn_, prologue, res in DOUBLE_MATMULS:
+            w8a8_matmul_calls(add, rows, k, nn_, prologue, res, hits, False)
+    add(flux_k2_key(4096 + FLUX_TXT), hits)
     for k, nn_, n in ((4096, 4096, 4), (4096, 10240, 2), (10240, 4096, 1)):
         add(("quant_matmul", FLUX_TXT, k, nn_), 24 * n)
     add(("flash_attention", 1, 1, 16384, 512, "f32"), 1)
@@ -632,14 +684,17 @@ def planted_fault(fault, name, q, k, v):
     return fa._launch(name, q, k[:, :, :-64], v[:, :, :-64])
 
 
-def phase_kernels(calls):
+def phase_kernels(calls, per_kernel=None):
+    """K1 and K2 at the (kernel, B, H, L, D, dtype) keys of ``calls``:
+    agreement with the plain version, both planted faults, times; folded
+    into ``per_kernel`` (a new dict by default)."""
     import torch
     import torch.nn.functional as F
 
     from lightdiffusion_next_tpu_torch.ops import flash_attention as fa
 
     gen = torch.Generator(device="cuda").manual_seed(0)
-    per_kernel = {}
+    per_kernel = {} if per_kernel is None else per_kernel
     for (name, b, h, l, d, dtype), n_calls in sorted(calls.items()):
         q, k, v = make_inputs(b, h, l, d, dtype, gen)
         wrapper = getattr(fa, name)
@@ -1341,16 +1396,22 @@ def fused_bound(l, heads=FLUX_HEADS, d=128):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def flux_rope(l):
-    """(cos, sin) of a joint sequence of 256 text and l - 256 image tokens."""
+def flux_ids(l):
+    """Position ids of a joint sequence of 256 text and l - 256 image tokens."""
     import torch
 
     from lightdiffusion_next_tpu_torch.models import flux
 
     side = int(round(math.sqrt(l - FLUX_TXT)))
-    ids = torch.cat([torch.zeros((1, FLUX_TXT, 3), device="cuda"),
-                     flux.img_ids(1, 2 * side, 2 * side, device="cuda")], dim=1)
-    return flux.rope_cos_sin(ids, flux.FLUX_DEV.axes_dim)
+    return torch.cat([torch.zeros((1, FLUX_TXT, 3), device="cuda"),
+                      flux.img_ids(1, 2 * side, 2 * side, device="cuda")], dim=1)
+
+
+def flux_rope(l):
+    """(cos, sin) of ``flux_ids(l)``: the fused attention's tables."""
+    from lightdiffusion_next_tpu_torch.models import flux
+
+    return flux.rope_cos_sin(flux_ids(l), flux.FLUX_DEV.axes_dim)
 
 
 def phase_flux_kernels(calls, per_kernel):
@@ -1648,16 +1709,18 @@ def check_flux_output(run, model, vae, label):
     return latent_ok and pixels_ok and png_ok
 
 
-def check_flux_launches(run, launches, w8a8, label, scan=False):
+def check_flux_launches(run, launches, w8a8, label, scan=False, plan=None):
     """The pipeline call's launches against the plan derived from its
-    counted FBCache hits. Returns (ok, the plan's calls per image)."""
+    counted FBCache hits (``plan(hits, misses, dy_calls)``, by default
+    ``flux_calls`` with ``w8a8`` and ``scan``). Returns (ok, the plan's
+    calls per image)."""
     hist = run["hits"]
     # calls in order: steps 0-2, the dy call of step 2, step 3, its dy call, steps 4-19
     main = [h for i, h in enumerate(hist) if i not in (3, 5)]
     dy = [hist[i] for i in (3, 5) if i < len(hist)]
     hits = sum(main)
-    calls = flux_calls(hits=hits, misses=len(main) - hits, dy_calls=len(dy), w8a8=w8a8,
-                       scan=scan)
+    plan = plan or functools.partial(flux_calls, w8a8=w8a8, scan=scan)
+    calls = plan(hits=hits, misses=len(main) - hits, dy_calls=len(dy))
     predicted = predicted_launches(calls)
     ok = len(hist) == 22 and not any(dy)
     log(f"{label} FBCache: {''.join('H' if h else '.' for h in hist)} ({hits} hits of "
@@ -2230,7 +2293,7 @@ def phase_flux_scan_pipeline(models, refs):
                missed_dit_call_fused_ew_off_s=miss_off[-1], stacking_peak_gib=stack_peak,
                bit_for_bit_with_unrolled={"final_latent": eq_latent, "dit_call": eq_on,
                                           "dit_call_fused_ew_off": eq_off})
-    return ok, launches, e2e, calls, off_launches, models
+    return ok, launches, e2e, calls, off_launches, models, first["last"]["x"]
 
 
 def phase_flux_fbcache_hits(models):
@@ -2256,6 +2319,482 @@ def phase_flux_fbcache_hits(models):
     log(f"{label}: {hits} hits {'ok' if hits else 'FAIL: none'}; {run['wall']:.3f} s/image")
     return ok and hits > 0, launches, calls, {"s_per_image": run["wall"], "fbcache_hits": hits,
                                              "fbcache_history": run["hits"]}
+
+
+# --------------------------------------------------------------------------
+# Flux from files (phase 18)
+# --------------------------------------------------------------------------
+
+FLUX_DIR = os.path.join(OUT_DIR, "flux")  # its own asset root, removed after
+FLUX_PROMPT = "a photograph of an astronaut riding a horse on the moon, detailed"
+FLUX_LORA_RANK = 16
+# what the four files take on disk, with room to spare: the DiT's 9.1 GB of
+# Q8_0 (``flux.Q8_0_SUFFIXES``) and 13.2 GB of F32 (the modulation weights
+# are dense), T5-XXL's 5.1 GB, CLIP-L's 0.5 GB, the AE's 0.3 GB
+FLUX_FILES_BYTES = 30e9
+# every block linear of the DiT (the LoRA's targets)
+FLUX_BLOCK_LINEARS = re.compile(
+    r"^(double|single)_blocks\.\d+\..*(qkv|proj|mlp\.[02]|linear[12]|mod\.lin|modulation\.lin)"
+    r"\.weight$")
+
+
+def flux_asset_paths():
+    """The four files of the Flux flow under ``FLUX_DIR``, in
+    ``pipeline._get_flux_models``' order (DiT, T5, CLIP-L, AE)."""
+    return (os.path.join(FLUX_DIR, "unet", "flux1-dev-Q8_0.gguf"),
+            os.path.join(FLUX_DIR, "clip", "t5-v1_1-xxl-encoder-Q8_0.gguf"),
+            os.path.join(FLUX_DIR, "clip", "clip_l.safetensors"),
+            os.path.join(FLUX_DIR, "vae", "ae.safetensors"))
+
+
+def write_flux_assets():
+    """Phase 8's models as the files of the Flux flow, written by the port's
+    writers with every leaf streamed from the card: the DiT (seed 20, its
+    Q8_0 records as ``flux.random_params`` draws them, the scales to f16 as
+    GGUF stores them), T5-XXL (seed 21, llama.cpp names), CLIP-L (seed 22)
+    and the AE (seed 23) as safetensors. Fails if the disk lacks the room.
+    Returns the bytes of each file."""
+    import shutil
+
+    import torch
+
+    from lightdiffusion_next_tpu_torch.models import flux
+    from lightdiffusion_next_tpu_torch.models import vae as vae_mod
+    from lightdiffusion_next_tpu_torch.models.clip import t5 as t5_mod
+    from lightdiffusion_next_tpu_torch.models.clip import text_encoder as te
+    from lightdiffusion_next_tpu_torch.ops import ggml
+
+    unet, t5, clip, ae = flux_asset_paths()
+    for path in (unet, t5, ae):
+        os.makedirs(os.path.dirname(path), exist_ok=True)
+    free = shutil.disk_usage(FLUX_DIR).free
+    log(f"flux files: {free / 1e9:.1f} GB free under {FLUX_DIR}, {FLUX_FILES_BYTES / 1e9:.1f} "
+        "GB needed")
+    if free < FLUX_FILES_BYTES:
+        raise RuntimeError(f"flux files: {free} bytes free, {FLUX_FILES_BYTES:.0f} needed")
+    layout = [(k, shape, kind == "lin" and k.endswith(flux.Q8_0_SUFFIXES))
+              for k, shape, kind in flux._layout(flux.FLUX_DEV)]
+    ggml.write_gguf(unet, flux.random_leaves(flux.FLUX_DEV, seed=20), arch="flux",
+                    layout=layout)
+    layout = [(ggml.t5_gguf_name(k), shape, std is not None and k.endswith(t5_mod.Q8_0_SUFFIXES))
+              for k, shape, std in t5_mod._layout(t5_mod.T5_XXL)]
+    ggml.write_gguf(t5, ((ggml.t5_gguf_name(k), v) for k, v in
+                         t5_mod.random_leaves(t5_mod.T5_XXL, seed=21)),
+                    arch="t5encoder", layout=layout)
+    write_safetensors(clip, {k: torch.from_numpy(v) for k, v in te.init_params(
+        num_layers=12, width=768, heads=12, seed=22, with_projection=True).items()})
+    write_safetensors(ae, {k: torch.from_numpy(v) for k, v in vae_mod.init_params(
+        vae_mod.FLUX_AE, seed=23).items()})
+    return {os.path.basename(p): os.path.getsize(p) for p in (unet, t5, clip, ae)}
+
+
+@contextlib.contextmanager
+def counted_reads(reads):
+    """Every read of a model file by the port (GGUF, safetensors) appended
+    to ``reads`` while inside."""
+    from lightdiffusion_next_tpu_torch.ops import ggml
+    from lightdiffusion_next_tpu_torch.utils import state_dict
+
+    saved = {(mod, name): getattr(mod, name)
+             for mod, name in ((ggml, "gguf_sd_loader"), (state_dict, "load_torch_file"))}
+    for (mod, name), fn in saved.items():
+        setattr(mod, name, lambda path, *a, _fn=fn, **k: reads.append(path) or _fn(path, *a, **k))
+    try:
+        yield
+    finally:
+        for (mod, name), fn in saved.items():
+            setattr(mod, name, fn)
+
+
+class PeakRss:
+    """The process's peak resident set size while inside, sampled from
+    /proc/self/statm every 10 ms by a thread."""
+
+    def __enter__(self):
+        import threading
+
+        self.peak, self._stop = 0, threading.Event()
+        page = os.sysconf("SC_PAGE_SIZE")
+
+        def sample():
+            while not self._stop.is_set():
+                with open("/proc/self/statm") as f:
+                    self.peak = max(self.peak, int(f.read().split()[1]) * page)
+                self._stop.wait(0.01)
+
+        self._thread = threading.Thread(target=sample, daemon=True)
+        self._thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self._thread.join()
+
+
+def run_flux_defaults(seed, **kw):
+    """``pipeline(FLUX_PROMPT, 1024, 1024, flux_enabled=True, seed=...)``
+    with every other argument at its default (``kw`` adds the models): the
+    paths, wall seconds, the time after each step (device synced), the last
+    step's callback info and FBCache's decisions."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.pipelines import pipeline as pl
+    from lightdiffusion_next_tpu_torch.sampling import fbcache
+
+    step_times, last = [], {}
+
+    def on_step(info):
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter())
+        last.update(info)
+
+    fbcache.history.clear()
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with torch.no_grad():
+        paths = pl.pipeline(FLUX_PROMPT, 1024, 1024, flux_enabled=True, seed=seed,
+                            output_dir=os.path.join(FLUX_DIR, "out"),
+                            progress_callback=on_step, **kw)
+    torch.cuda.synchronize()
+    return {"paths": paths, "wall": time.perf_counter() - start, "step_times": step_times,
+            "last": last, "hits": list(fbcache.history)}
+
+
+def check_flux_hdr_output(run, vae, label):
+    """A finite final latent, and the PNG equal to to_uint8(apply_hdr_batch(
+    decode(latent)))."""
+    import numpy as np
+    import torch
+
+    from lightdiffusion_next_tpu_torch.utils import hdr
+    from lightdiffusion_next_tpu_torch.utils import image as image_utils
+    from lightdiffusion_next_tpu_torch.utils import latent as latent_mod
+
+    x = run["last"]["x"]
+    latent_ok = tuple(x.shape) == (1, 128, 128, 16) and bool(torch.isfinite(x).all())
+    with torch.no_grad():
+        shaped = hdr.apply_hdr_batch(vae.decode(latent_mod.FLUX1.process_out(x)))
+    png = read_png(run["paths"][0])
+    png_ok = png.shape == (1024, 1024, 3) and np.array_equal(
+        png, image_utils.to_uint8(shaped.cpu().numpy())[0])
+    log(f"{label} output: latent {tuple(x.shape)} finite={latent_ok}, png {png.shape} matches "
+        f"the AutoHDR of the decode={png_ok}, pixel mean {png.mean():.2f} std "
+        f"{png.std():.2f}, {run['paths'][0]}")
+    return latent_ok and png_ok
+
+
+def _leaf_tensors(leaf, idx=None):
+    """A leaf's tensors (a record's fields), block ``idx`` of a stack's."""
+    import torch
+
+    if isinstance(leaf, torch.Tensor):
+        return [leaf if idx is None else leaf[idx]]
+    return [getattr(leaf, f.name) if idx is None else getattr(leaf, f.name)[idx]
+            for f in dataclasses.fields(leaf) if f.name != "shape"]
+
+
+def same_dit(got, want):
+    """The loaded DiT's params against ``flux_model``'s from the same
+    records: every flat leaf, and each stacked family's first and last
+    block, bit for bit (types, dtypes, values). Returns the keys that
+    differ and the count compared."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.models import flux
+
+    bad, n = [], 0
+    if set(got) != set(want):
+        return [f"keys differ: {sorted(set(got) ^ set(want))[:4]}"], 0
+    for key, w in want.items():
+        g = got[key]
+        if key in (flux.DOUBLE_STACK_KEY, flux.SINGLE_STACK_KEY):
+            if set(g) != set(w):
+                bad.append(key)
+                continue
+            for rel, ws in w.items():
+                depth = _leaf_tensors(ws)[0].shape[0]
+                for idx in (0, depth - 1):
+                    n += 1
+                    pairs = zip(_leaf_tensors(g[rel], idx), _leaf_tensors(ws, idx))
+                    if type(g[rel]) is not type(ws) or not all(
+                            a.dtype == b.dtype and torch.equal(a, b) for a, b in pairs):
+                        bad.append(f"{key}/{rel}[{idx}]")
+            continue
+        n += 1
+        pairs = zip(_leaf_tensors(g), _leaf_tensors(w))
+        if type(g) is not type(w) or not all(a.dtype == b.dtype and torch.equal(a, b)
+                                             for a, b in pairs):
+            bad.append(key)
+    return bad, n
+
+
+def flux_lora_sd(seed=24, rank=FLUX_LORA_RANK):
+    """A seeded Kohya-named LoRA over every block linear of Flux.1-dev (CPU
+    f32): its state dict and module count."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.models import flux
+
+    gen = torch.Generator().manual_seed(seed)
+    sd, n = {}, 0
+    for key, (out_f, in_f), _ in ((k, s, kind) for k, s, kind in flux._layout(flux.FLUX_DEV)
+                                  if kind == "lin"):
+        if not FLUX_BLOCK_LINEARS.match(key):
+            continue
+        name = "lora_unet_" + key[: -len(".weight")].replace(".", "_")
+        sd[f"{name}.lora_down.weight"] = torch.randn(rank, in_f, generator=gen) * in_f**-0.5
+        sd[f"{name}.lora_up.weight"] = torch.randn(out_f, rank, generator=gen) * 0.01
+        sd[f"{name}.alpha"] = torch.tensor(rank / 2)
+        n += 1
+    return sd, n
+
+
+def flux_pe(l):
+    """``embed_nd`` tables of ``flux_ids(l)``: the unfused attention's."""
+    from lightdiffusion_next_tpu_torch.models import flux
+    from lightdiffusion_next_tpu_torch.ops import rope
+
+    return rope.embed_nd(flux_ids(l), flux.FLUX_DEV.axes_dim)
+
+
+def flux_lora_reference():
+    """One double block and one single block at full width and 1024^2
+    token counts on W8A8 weights under the rank-16 LoRA, the attention
+    unfused: bf16 through K9, K7 and K2, against f32 through the plain
+    versions (the weights dequantized by their plain matmuls, attention in
+    ``sdpa``). Returns (ok, the rel RMSE of img, txt, single)."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.models import flux, lora
+    from lightdiffusion_next_tpu_torch.ops import ggml, nn
+
+    cfg = dataclasses.replace(flux.FLUX_DEV, depth=1, depth_single_blocks=1)
+    params = ggml.to_w8a8(flux.random_params(cfg, seed=30))
+    lora_sd, _ = flux_lora_sd()
+    params, _ = lora.load_and_apply_lora(lora_sd, params, None, 1.0, 0.0, model_cfg=cfg)
+    img, txt, vec, _ = flux_block_inputs()
+    pe = flux_pe(4096 + FLUX_TXT)
+    outs = {}
+    for label, dtype, backend in (("kernels", torch.bfloat16, "flash"),
+                                  ("plain", torch.float32, "sdpa")):
+        c = dataclasses.replace(cfg, dtype=dtype)
+        p = {k: v if isinstance(v, ggml.QTensorLoRA) or k.endswith("norm.scale")
+             else v.to(dtype) for k, v in params.items()}
+        plain = plain_w8a8() if dtype == torch.float32 else contextlib.nullcontext()
+        with runtime_config(attention_backend=backend, fused_ew=True), plain, torch.no_grad():
+            im, tx = flux._double_block(nn.ParamView(p, "double_blocks.0."),
+                                        img.to(dtype), txt.to(dtype), vec.to(dtype), pe, c)
+            xx = flux._single_block(nn.ParamView(p, "single_blocks.0."),
+                                    torch.cat([tx, im], dim=1), vec.to(dtype), pe, c)
+        outs[label] = (im.float(), tx.float(), xx.float())
+        del p
+        torch.cuda.empty_cache()
+    rels = block_rel_rmse(outs["kernels"], outs["plain"])
+    ok = all(math.isfinite(r) and r <= TOL_FLUX_BLOCK_REL_RMSE for r in rels)
+    log(f"flux LoRA reference: double block img/txt and single block, W8A8 + rank-"
+        f"{FLUX_LORA_RANK} LoRA, unfused attention, bf16 kernels vs f32 plain: rel RMSE "
+        f"{[f'{r:.4g}' for r in rels]} (tol {TOL_FLUX_BLOCK_REL_RMSE}) "
+        f"{'ok' if ok else 'FAIL'}")
+    del params, outs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ok, rels
+
+
+def flux_files_flow(gpu, scan_latent):
+    """Phase 18's checks, with the files written (see ``phase_flux_files``).
+    Returns (ok, launches and calls per image of the default and LoRA
+    paths, e2e)."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.app import cli
+    from lightdiffusion_next_tpu_torch.models import base, flux, lora
+    from lightdiffusion_next_tpu_torch.models.clip import t5 as t5_mod
+    from lightdiffusion_next_tpu_torch.ops import ggml
+    from lightdiffusion_next_tpu_torch.pipelines import loader
+    from lightdiffusion_next_tpu_torch.pipelines import pipeline as pl
+
+    unet_path = flux_asset_paths()[0]
+    cache = loader.get_model_cache()
+    cache.clear()
+    reads = []
+    # the defaults: W8A8, scan, fused attention, FBCache, AutoHDR, from the files
+    with counted_reads(reads):
+        reset_launches()
+        first = run_flux_defaults(4321)
+        launches = read_launches()
+    label = "Flux from files, defaults"
+    ok, calls = check_flux_launches(first, launches, True, label, scan=True)
+    model, vae, t5, clip = pl._get_flux_models(*flux_asset_paths(), "cuda")
+    cfg_ok = (model.config.fused_attn and flux.is_stacked(model.params)
+              and isinstance(model.params[flux.SINGLE_STACK_KEY]["linear1.weight"],
+                             ggml.StackedQTensor8W) and t5_mod.is_stacked(t5.params)
+              and len(reads) == 4)
+    log(f"{label}: W8A8, scan, fused attention, 4 files read ({len(reads)}): "
+        f"{'ok' if cfg_ok else 'FAIL'}")
+    ok = ok and cfg_ok and check_flux_hdr_output(first, vae, label)
+    x = first["last"]["x"]
+    drift = ((x - scan_latent).pow(2).mean().sqrt() / scan_latent.pow(2).mean().sqrt()).item()
+    log(f"{label}: final latent against phase 15's (the same seeds in memory; the file "
+        f"rounds the Q8_0 scales to f16): rel RMSE {drift:.4g} (logged only)")
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ref = base.flux_model(ggml.gguf_sd_loader(unet_path))
+    torch.cuda.synchronize()
+    ref_s = time.perf_counter() - t0
+    bad, n = same_dit(model.params, ref.params)
+    same_ok = not bad and ref.config == model.config
+    log(f"{label}: the loaded DiT against flux_model on the file's records ({n} leaves and "
+        f"stack ends; built in {ref_s:.1f} s): "
+        f"{'bit for bit' if same_ok else f'FAIL: {len(bad)} differ, e.g. {bad[:3]}'}")
+    ok = ok and same_ok
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    n_reads = len(reads)
+    with counted_reads(reads):
+        torch.cuda.reset_peak_memory_stats()
+        timed = run_flux_defaults(8765)
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    steps = timed["step_times"]
+    it_s = (len(steps) - 1) / (steps[-1] - steps[0])
+    warm_ok = len(reads) == n_reads
+    log(f"{label} ({gpu}) timed run: {timed['wall']:.3f} s/image, {it_s:.3f} it/s, FBCache "
+        f"{''.join('H' if h else '.' for h in timed['hits'])}, peak {peak:.1f} GiB; files read: "
+        f"{len(reads) - n_reads} {'ok' if warm_ok else 'FAIL'}")
+    ok = ok and warm_ok
+
+    # the GGUF load alone, beside the cached DiT
+    gb = os.path.getsize(unet_path) / 1e9
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    with PeakRss() as rss:
+        t0 = time.perf_counter()
+        fresh = loader.load_diffusion_model_gguf(unet_path)
+        load_s = time.perf_counter() - t0
+    dev_peak = (torch.cuda.max_memory_allocated() - before) / 2**30
+    dev_kept = (torch.cuda.memory_allocated() - before) / 2**30
+    del fresh
+    gc.collect()
+    torch.cuda.empty_cache()
+    log(f"{label}: GGUF load {load_s:.3f} s for {gb:.3f} GB ({gb / load_s:.3f} GB/s); host peak "
+        f"RSS {rss.peak / 2**30:.1f} GiB; device peak {dev_peak:.2f} GiB above the resident "
+        f"models, {dev_kept:.2f} GiB kept")
+
+    # the CLI with its defaults, from the cache
+    out = io.StringIO()
+    n_reads = len(reads)
+    t0 = time.perf_counter()
+    with counted_reads(reads), contextlib.redirect_stdout(out):
+        rc = cli.main([FLUX_PROMPT, "1024", "1024", "--flux", "--output-dir",
+                       os.path.join(FLUX_DIR, "cli")])
+    cli_s = time.perf_counter() - t0
+    printed = out.getvalue().split()
+    cli_ok = (rc == 0 and len(printed) == 1 and printed[0].endswith(".png")
+              and os.path.exists(printed[0]) and len(reads) == n_reads
+              and read_png(printed[0]).shape == (1024, 1024, 3))
+    log(f"{label} CLI: printed {printed}, files read {len(reads) - n_reads}: "
+        f"{'ok' if cli_ok else 'FAIL'}; {cli_s:.3f} s")
+    ok = ok and cli_ok
+
+    # LoRA on the unfused path: the unrolled, unfused variant evicts the scan one
+    lora_label = "Flux LoRA, unfused attention"
+    with runtime_config(flux_scan=False, fused_attn=False):
+        n_reads = len(reads)
+        with counted_reads(reads):
+            t0 = time.perf_counter()
+            lmodel, vae, t5, clip = pl._get_flux_models(*flux_asset_paths(), "cuda")
+            lload_s = time.perf_counter() - t0
+        dits = [k for k in cache._cache if k.startswith(os.path.abspath(unet_path) + ":")]
+        evict_ok = (len(dits) == 1 and not lmodel.config.fused_attn
+                    and "__double_stack__" not in lmodel.params
+                    and reads[n_reads:] == [unet_path, flux_asset_paths()[1]])
+        log(f"{lora_label}: the unrolled unfused DiT and T5 loaded in {lload_s:.1f} s, "
+            f"{len(dits)} DiT resident: {'ok' if evict_ok else 'FAIL'}")
+        lora_sd, n_modules = flux_lora_sd()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        params, _ = lora.load_and_apply_lora(lora_sd, lmodel.params, None, 1.0, 0.0,
+                                             model_cfg=lmodel.config)
+        torch.cuda.synchronize()
+        lora_s = time.perf_counter() - t0
+        n_lora = sum(isinstance(v, ggml.QTensorLoRA) for v in params.values())
+        patched_ok = n_lora == 19 * 8 + 38 * 2 and n_modules == 19 * 10 + 38 * 3
+        log(f"{lora_label}: rank {FLUX_LORA_RANK} on {n_modules} block linears, "
+            f"{n_lora} of them quantized (QTensorLoRA), in {lora_s:.3f} s: "
+            f"{'ok' if patched_ok else 'FAIL'}")
+        lmodel = dataclasses.replace(lmodel, params=params)
+        kw = dict(model=lmodel, clip=clip, vae=vae, t5=t5)
+        reset_launches()
+        lfirst = run_flux_defaults(4321, **kw)
+        llaunches = read_launches()
+        lok, lcalls = check_flux_launches(lfirst, llaunches, True, lora_label,
+                                          plan=lora_flux_calls)
+        lok = check_flux_hdr_output(lfirst, vae, lora_label) and lok
+        ltimed = run_flux_defaults(8765, **kw)
+        lsteps = ltimed["step_times"]
+        lit_s = (len(lsteps) - 1) / (lsteps[-1] - lsteps[0])
+        log(f"{lora_label} ({gpu}) timed run: {ltimed['wall']:.3f} s/image, {lit_s:.3f} it/s; "
+            f"first run {lfirst['wall']:.3f} s")
+        del lmodel, params, kw
+    ok = ok and evict_ok and patched_ok and lok
+    cache.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    ref_ok, rels = flux_lora_reference()
+    ok = ok and ref_ok
+    e2e = {"defaults": {"s_per_image": timed["wall"], "it_per_s": it_s, "peak_gib": peak,
+                        "first_run_s_per_image_with_load": first["wall"],
+                        "gguf_load_s": load_s, "gguf_load_gb_per_s": gb / load_s,
+                        "gguf_gb": gb, "load_host_peak_rss_gib": rss.peak / 2**30,
+                        "load_device_peak_gib": dev_peak, "reference_build_s": ref_s,
+                        "cli_s_per_image": cli_s, "latent_drift_vs_phase_15": drift,
+                        "fbcache_hits": sum(timed["hits"]), "gpu": gpu},
+           "lora_unfused": {"s_per_image": ltimed["wall"], "it_per_s": lit_s,
+                            "first_run_s_per_image": lfirst["wall"], "load_s": lload_s,
+                            "lora_apply_s": lora_s, "fbcache_hits": sum(ltimed["hits"]),
+                            "block_rel_rmse": rels, "gpu": gpu}}
+    return ok, (launches, calls), (llaunches, lcalls), e2e
+
+
+def phase_flux_files(gpu, scan_latent, per_kernel):
+    """Phase 18: Flux.1-dev from files, under its own asset root
+    (``FLUX_DIR``, ``LDT_OFFLINE=1``). K2 at the unfused attention's two
+    new shapes first; then the four files written at full width and depth
+    (``write_flux_assets``, 28.2 GB), ``pipeline(..., flux_enabled=True)``
+    with every default and no models, the CLI's ``--flux``, and the LoRA on
+    the unfused path (``flux_files_flow``). The files are removed when the
+    phase ends, also on failure. Returns (ok, the two paths' launches and
+    calls, e2e)."""
+    import shutil
+
+    import torch
+
+    phase_kernels({flux_k2_key(4096 + FLUX_TXT): 1, flux_k2_key(1024 + FLUX_TXT): 1},
+                  per_kernel)
+    saved_env = {k: os.environ.get(k) for k in ("LDT_ASSET_ROOT", "LDT_OFFLINE")}
+    try:
+        t0 = time.perf_counter()
+        sizes = write_flux_assets()
+        write_s = time.perf_counter() - t0
+        total = sum(sizes.values())
+        log(f"flux files: wrote {total / 1e9:.3f} GB ({sizes}) in {write_s:.1f} s "
+            f"({total / 1e9 / write_s:.3f} GB/s)")
+        os.environ.update(LDT_ASSET_ROOT=FLUX_DIR, LDT_OFFLINE="1")
+        ok, defaults, lora_path, e2e = flux_files_flow(gpu, scan_latent)
+        e2e["defaults"].update(files_bytes=sizes, write_s=write_s)
+    finally:
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+        shutil.rmtree(FLUX_DIR, ignore_errors=True)
+        torch.cuda.empty_cache()
+    return ok, defaults, lora_path, e2e
 
 
 def main() -> int:
@@ -2331,11 +2870,16 @@ def main() -> int:
                if k[0] == "quant_matmul_stacked" and k[1] in (4096, 4096 + FLUX_TXT, FLUX_TXT)}
     requant_ok = timed("stacked kernels", phase_stacked_kernels,
                        {**k6_plan, **scan_plan, **scan_off_plan}, per_kernel)
-    scan_ok, scan_launches, scan_e2e, scan_calls, scan_off_launches, flux_models = timed(
-        "flux w8a8 scan pipeline", phase_flux_scan_pipeline, flux_models, w8_refs)
+    (scan_ok, scan_launches, scan_e2e, scan_calls, scan_off_launches, flux_models,
+     scan_latent) = timed("flux w8a8 scan pipeline", phase_flux_scan_pipeline, flux_models,
+                          w8_refs)
     hit_ok, hit_launches, hit_calls, hit_e2e = timed(
         "flux fbcache hits", phase_flux_fbcache_hits, flux_models)
-    del flux_models
+    del flux_models, w8_refs
+    gc.collect()
+    torch.cuda.empty_cache()
+    files_ok, (files_launches, files_calls), (lora_launches, lora_calls), files_e2e = timed(
+        "flux files", phase_flux_files, line, scan_latent, per_kernel)
 
     # calls per image of each path, summed over the paths a kernel runs on
     # (the unfused DiT calls count once)
@@ -2343,7 +2887,8 @@ def main() -> int:
                   "flux": fcalls,
                   "flux_w8a8": w8_calls, "w8a8_dit_call_fused_ew_off": off_plan,
                   "flux_w8a8_scan": scan_calls, "w8a8_scan_dit_call_fused_ew_off": scan_off_plan,
-                  "flux_w8a8_scan_fbcache_hits": hit_calls}
+                  "flux_w8a8_scan_fbcache_hits": hit_calls, "flux_files_defaults": files_calls,
+                  "flux_lora_unfused_attention": lora_calls}
     all_calls = {}
     for calls in path_calls.values():
         for key, n in calls.items():
@@ -2353,7 +2898,8 @@ def main() -> int:
              "flux_w8a8": w8_launches, "w8a8_dit_call_fused_ew_off": off_launches,
              "flux_w8a8_scan": scan_launches,
              "w8a8_scan_dit_call_fused_ew_off": scan_off_launches,
-             "flux_w8a8_scan_fbcache_hits": hit_launches}
+             "flux_w8a8_scan_fbcache_hits": hit_launches, "flux_files_defaults": files_launches,
+             "flux_lora_unfused_attention": lora_launches}
     kernels_line = []
     for name, meta in KERNELS.items():
         entry = per_kernel[name]
@@ -2384,15 +2930,19 @@ def main() -> int:
             "per": "image: the sum over its main-path shapes of calls x time, over one "
                    "image of each path it runs on (SD1.5 with flash or sage attention, "
                    "SD1.5 with every default, Flux Q8_0, Flux W8A8 unrolled and scan, "
-                   "Flux W8A8 scan with FBCache forced to hit) and one missed W8A8 DiT "
-                   "call with fused_ew off in each layout",
+                   "Flux W8A8 scan with FBCache forced to hit, Flux from files with every "
+                   "default, Flux with a LoRA on the unfused attention) and one missed "
+                   "W8A8 DiT call with fused_ew off in each layout",
             "shapes": shapes,
         })
     e2e = {"sd15": sd_e2e, "sd15_sage": sage_e2e, "sd15_defaults": def_e2e, "flux": flux_e2e,
            "flux_w8a8": w8_e2e,
-           "flux_w8a8_scan": scan_e2e, "flux_w8a8_scan_fbcache_hits": hit_e2e}
+           "flux_w8a8_scan": scan_e2e, "flux_w8a8_scan_fbcache_hits": hit_e2e,
+           "flux_files_defaults": files_e2e["defaults"],
+           "flux_lora_unfused_attention": files_e2e["lora_unfused"]}
     ok = (ref_ok and pipe_ok and sage_ok and def_ok and flux_ref_ok and flux_ok and w8_ref_ok and w8_ok
-          and requant_ok and scan_ok and hit_ok and all(k["ok"] for k in kernels_line))
+          and requant_ok and scan_ok and hit_ok and files_ok
+          and all(k["ok"] for k in kernels_line))
     record = {"gpu": line, "kernels": kernels_line, "e2e": e2e, "phase_seconds": seconds,
               "seconds": time.perf_counter() - t_start}
     with open(os.path.join(OUT_DIR, "result.json"), "w") as f:

@@ -3,16 +3,18 @@
 Counterpart of lightdiffusion_next_tpu/app/cli.py: the same parser and
 mutual-exclusion checks, on the port's ``pipeline()`` and ``RuntimeConfig``
 (``--w8a8``, ``--sage-attention``, ``--flux-scan``, ``--fused-ew``,
-``--packed-attn`` and their ``--no-`` forms). The JAX flags with no port
-field (``--stable-fast``, ``--fused-attn``, ``--qkv-fuse`` and their
-``--no-`` forms: the port always fuses) are accepted and change nothing.
-Runs on the GPU. Usage:
+``--packed-attn``, ``--fused-attn`` and their ``--no-`` forms). The JAX
+flags with no port field (``--stable-fast``, ``--qkv-fuse`` and its
+``--no-`` form: the port always joins the UNet's projections) are accepted
+and change nothing. ``--flux`` runs Flux.1-dev from the four files under
+the asset root. Runs on the GPU. Usage:
 
     python -m lightdiffusion_next_tpu_torch.app.cli "a cat" 1024 1024
+    python -m lightdiffusion_next_tpu_torch.app.cli "a cat" 1024 1024 --flux
 
-Not ported yet: ``--flux`` (Flux's GGUF loading, ROADMAP Queue 1, item 7),
-``--preview`` (TAESD previews), ``--hires-fix``, ``--img2img``,
-``--adetailer`` (item 8) and ``--enhance-prompt`` (item 10); each raises.
+Not ported yet: ``--preview`` (TAESD previews), ``--hires-fix``,
+``--img2img``, ``--adetailer`` (ROADMAP Queue 1, item 8) and
+``--enhance-prompt`` (item 10); each raises.
 """
 
 from __future__ import annotations
@@ -24,7 +26,6 @@ import sys
 from lightdiffusion_next_tpu_torch import config as _config
 
 _NOT_PORTED = {
-    "flux": "Flux's GGUF checkpoint loading (ROADMAP Queue 1, item 7)",
     "preview": "TAESD previews (ROADMAP Queue 1, item 8)",
     "hires_fix": "hires-fix (ROADMAP Queue 1, item 8)",
     "img2img": "img2img / UltimateSDUpscale (ROADMAP Queue 1, item 8)",
@@ -34,7 +35,7 @@ _NOT_PORTED = {
 
 # (flag, the RuntimeConfig field it sets or None); each has a --no- form
 _TOGGLES = (("w8a8", "w8a8"), ("flux_scan", "flux_scan"), ("fused_ew", "fused_ew"),
-            ("packed_attn", "packed_attn"), ("fused_attn", None), ("qkv_fuse", None))
+            ("packed_attn", "packed_attn"), ("fused_attn", "fused_attn"), ("qkv_fuse", None))
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -110,6 +111,7 @@ def main(argv=None, device: _config.DeviceLike = None) -> int:
         batch=args.batch,
         stable_fast=args.stable_fast,
         reuse_seed=args.reuse_seed,
+        flux_enabled=args.flux,
         prio_speed=args.prio_speed,
         autohdr=args.autohdr,
         realistic_model=args.realistic_model,

@@ -12,7 +12,8 @@ GPU. What the port consults:
 - ``RuntimeConfig``: ``attention_backend``, ``packed_attn`` and
   ``sage_attention`` (the UNet's attention), ``w8a8`` and ``fused_ew`` (the
   Flux DiT's int8 path), ``flux_scan`` (the stacked block layout of the
-  Flux DiT and T5).
+  Flux DiT and T5), ``fused_attn`` (Flux's attention through K3 on params
+  in the permuted RoPE basis, or the unfused attention).
 
 The JAX package's ``qkv_fuse`` has no counterpart: the port always joins the
 q|k|v (and k|v) projection weights, once, when the UNet is built
@@ -115,10 +116,16 @@ class RuntimeConfig:
       ``T5XXLModel`` stacks its blocks (``t5.stack_t5_block_params``);
       every quantized matmul then reads block ``idx`` of a stack in place
       (K6 on Q8_0 stacks, K8 and the stacked K11 on W8A8 stacks).
-    ``w8a8``, ``fused_ew`` and ``flux_scan`` take True, False or "auto";
-    "auto" is on for a model (``w8a8``, ``flux_scan``) or an activation
-    (``fused_ew``) on the GPU and off on the CPU, as the JAX package's is
-    on for the TPU and off on the CPU.
+    fused_attn: a Flux DiT built by ``models.base.flux_model`` or
+      ``pipelines.loader.load_diffusion_model_gguf`` has its q/k projection
+      columns permuted into the half-split RoPE basis, and its attention
+      runs QKNorm, RoPE and the product in one kernel (K3). Off: the
+      unfused attention (QKNorm, ``ops/rope.py``, then K2 for long
+      sequences), which LoRA on the q/k projections needs.
+    ``w8a8``, ``fused_ew``, ``flux_scan`` and ``fused_attn`` take True,
+    False or "auto"; "auto" is on for a model (``w8a8``, ``flux_scan``,
+    ``fused_attn``) or an activation (``fused_ew``) on the GPU and off on
+    the CPU, as the JAX package's is on for the TPU and off on the CPU.
     """
 
     attention_backend: str = "flash"
@@ -127,11 +134,12 @@ class RuntimeConfig:
     w8a8: object = "auto"
     fused_ew: object = "auto"
     flux_scan: object = "auto"
+    fused_attn: object = "auto"
 
     def __post_init__(self):
         if self.attention_backend not in _VALID_ATTENTION:
             raise ValueError(f"attention_backend must be one of {_VALID_ATTENTION}")
-        for name in ("w8a8", "fused_ew", "flux_scan"):
+        for name in ("w8a8", "fused_ew", "flux_scan", "fused_attn"):
             if getattr(self, name) not in _TRI_STATE:
                 raise ValueError(f'{name} must be True, False or "auto"')
 
@@ -147,6 +155,10 @@ class RuntimeConfig:
         """Whether a Flux model or a T5 encoder built on ``device`` takes
         the stacked scan layout."""
         return _on_gpu(device) if self.flux_scan == "auto" else bool(self.flux_scan)
+
+    def resolve_fused_attn(self, device: DeviceLike) -> bool:
+        """Whether a Flux DiT built on ``device`` takes the fused attention."""
+        return _on_gpu(device) if self.fused_attn == "auto" else bool(self.fused_attn)
 
 
 _current: Optional[RuntimeConfig] = None

@@ -10,6 +10,7 @@ format. ``with_options`` returns a new bundle sharing the params.
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Any, Callable, Dict, Optional
 
 import torch
@@ -21,6 +22,8 @@ from lightdiffusion_next_tpu_torch.ops import ggml
 from lightdiffusion_next_tpu_torch.sampling import fbcache as fb_mod
 from lightdiffusion_next_tpu_torch.sampling import model_sampling as ms_mod
 from lightdiffusion_next_tpu_torch.utils import latent as latent_mod
+
+logger = logging.getLogger(__name__)
 
 
 def params_to_device(params: Dict[str, Any], dtype: torch.dtype,
@@ -83,37 +86,67 @@ def sd15_model(params: Dict[str, Any], cfg: Optional[unet_mod.UNetConfig] = None
     )
 
 
+def fused_attn_for(cfg: flux_mod.FluxConfig, device: _config.DeviceLike) -> bool:
+    """Whether a Flux DiT of ``cfg`` built on ``device`` takes the fused
+    attention: ``RuntimeConfig.fused_attn`` resolved for the device, and a
+    head dim of 128 (K3's), as in the JAX loader, which warns and keeps the
+    unfused path otherwise."""
+    if not _config.get_config().resolve_fused_attn(device):
+        return False
+    if cfg.head_dim != 128:
+        logger.warning("fused_attn kernel is 128-lane head_dim only (got %d); "
+                       "keeping the unfused attention path", cfg.head_dim)
+        return False
+    return True
+
+
 def flux_model(params: Dict[str, Any], cfg: Optional[flux_mod.FluxConfig] = None,
                dtype: Optional[torch.dtype] = None,
-               device: _config.DeviceLike = None) -> DiffusionModel:
+               device: _config.DeviceLike = None, w8a8: Optional[bool] = None,
+               scan: Optional[bool] = None) -> DiffusionModel:
     """Assemble a Flux DiT bundle from checkpoint-keyed params (numpy
     arrays, tensors or Q8_0 records, e.g. from ``ggml.gguf_sd_loader`` or
-    ``flux.random_params``): Q8_0 matmul weights as ``QTensor8T``, dense
-    leaves in ``dtype`` (the device's compute dtype by default), requantized
-    per output column to W8A8 (``ggml.to_w8a8``) when
-    ``RuntimeConfig.w8a8`` resolves on for the device (on the GPU by
-    default), the RoPE basis permuted once for the fused attention (K3,
-    after the requant, as the JAX loader does), the QKNorm scales in f32
-    (the kernel's), the blocks stacked into the scan layout
-    (``flux.stack_block_params``, consuming the flat dict) when
-    ``RuntimeConfig.flux_scan`` resolves on for the device (on the GPU by
-    default), ``ModelSamplingFlux``, the FLUX1 latent format and FBCache at
-    threshold 0.120 in the options. That is the order of the JAX loader's
-    device path: requant, permute, stack."""
+    ``flux.random_params``), in the order of the JAX loader's device path:
+    Q8_0 matmul weights as ``QTensor8T``, dense leaves in ``dtype`` (the
+    device's compute dtype by default); requantized per output column to
+    W8A8 (``ggml.to_w8a8``) when ``w8a8`` (default: ``RuntimeConfig.w8a8``
+    resolved for the device, on for the GPU); the RoPE basis permuted for
+    the fused attention (K3) when ``fused_attn_for`` says so, which sets
+    ``cfg.fused_attn``; the QKNorm scales in f32; the blocks stacked into
+    the scan layout (``flux.stack_block_params``, consuming the flat dict)
+    when ``scan`` (default: ``RuntimeConfig.flux_scan`` resolved for the
+    device). Params that cannot be permuted or stacked (LoRA-patched
+    leaves) keep the unfused attention or the unrolled layout, with a
+    warning, as in the JAX loader. The bundle holds ``ModelSamplingFlux``,
+    the FLUX1 latent format and FBCache at threshold 0.120 in the
+    options."""
     dev = _config.resolve_device(device)
+    rc = _config.get_config()
+    w8a8 = rc.resolve_w8a8(dev) if w8a8 is None else w8a8
+    scan = rc.resolve_flux_scan(dev) if scan is None else scan
     dtype = dtype or _config.DtypePolicy.for_device(dev).compute_dtype
     p = ggml.to_device_quantized(params, dtype=dtype, device=dev)
     del params  # so that to_w8a8 frees each Q8_0 leaf nothing else holds
     cfg = dataclasses.replace(cfg or flux_mod.detect_config(p), dtype=dtype,
-                              fused_attn=True)
-    if _config.get_config().resolve_w8a8(dev):
+                              fused_attn=False)
+    if w8a8:
         p = ggml.to_w8a8(p)
-    p = flux_mod.permute_rope_basis(p, cfg)
+    if fused_attn_for(cfg, dev):
+        try:
+            p = flux_mod.permute_rope_basis(p, cfg)
+            cfg = dataclasses.replace(cfg, fused_attn=True)
+        except ValueError as e:
+            logger.warning("fused_attn unavailable for these params (%s); keeping the "
+                           "unfused attention path", e)
     for key in p:
         if key.endswith(("query_norm.scale", "key_norm.scale")):
             p[key] = p[key].float().contiguous()
-    if _config.get_config().resolve_flux_scan(dev):
-        p = flux_mod.stack_block_params(p, cfg)
+    if scan:
+        try:
+            p = flux_mod.stack_block_params(p, cfg)
+        except ValueError as e:
+            logger.warning("flux_scan unavailable for these params (%s); keeping the "
+                           "unrolled forward", e)
     return DiffusionModel(
         apply_fn=flux_mod.make_apply_fn(cfg),
         params=p,

@@ -260,6 +260,21 @@ def init_params(cfg: T5Config = T5_XXL, seed: int = 0) -> Dict[str, np.ndarray]:
     return P
 
 
+def random_leaves(cfg: T5Config = T5_XXL, seed: int = 0, device="cuda",
+                  dtype=torch.bfloat16):
+    """``random_params``' leaves one at a time, as (key, leaf) in
+    ``_layout``'s order, the Q8_0 weights as row-layout ``QTensor8`` records
+    (what a GGUF file holds)."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for key, shape, std in _layout(cfg):
+        if std is None:
+            yield key, torch.ones(shape, dtype=dtype, device=device)
+            continue
+        w = torch.randn(shape, generator=gen, device=device) * std
+        yield key, ggml.quantize(w) if key.endswith(Q8_0_SUFFIXES) else w.to(dtype)
+        del w
+
+
 def random_params(cfg: T5Config = T5_XXL, seed: int = 0, device="cuda",
                   dtype=torch.bfloat16) -> Dict:
     """Seeded params at any width, drawn on ``device`` by a
@@ -267,17 +282,6 @@ def random_params(cfg: T5Config = T5_XXL, seed: int = 0, device="cuda",
     named by ``Q8_0_SUFFIXES`` become Q8_0 there (the matmuls ``QTensor8T``,
     the embedding a row-layout ``QTensor8``), the rest ``dtype``. At
     T5-XXL's width about 5.1 GB of Q8_0."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    P = {}
-    for key, shape, std in _layout(cfg):
-        if std is None:
-            P[key] = torch.ones(shape, dtype=dtype, device=device)
-            continue
-        w = torch.randn(shape, generator=gen, device=device) * std
-        if key.endswith(Q8_0_SUFFIXES):
-            q = ggml.quantize(w)
-            P[key] = q if key in ggml.EMBED_KEYS else ggml.transpose_for_matmul(q)
-        else:
-            P[key] = w.to(dtype)
-        del w
-    return P
+    return {key: ggml.transpose_for_matmul(leaf)
+            if isinstance(leaf, ggml.QTensor8) and key not in ggml.EMBED_KEYS else leaf
+            for key, leaf in random_leaves(cfg, seed, device, dtype)}

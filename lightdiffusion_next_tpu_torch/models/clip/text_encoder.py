@@ -87,6 +87,11 @@ class SDClipModel:
                  device: _config.DeviceLike = None):
         self.device = _config.resolve_device(device)
         self.dtype = dtype or _config.DtypePolicy.for_device(self.device).text_encoder_dtype
+        if num_layers == CLIP_L_LAYERS:  # as in the JAX package: the file's count
+            n = 0
+            while f"text_model.encoder.layers.{n}.self_attn.q_proj.weight" in params:
+                n += 1
+            num_layers = n or num_layers
         self.params = params_to_device(params, self.dtype, self.device)
         self.layer = layer
         self.layer_idx = layer_idx

@@ -3,21 +3,25 @@
 Counterpart of lightdiffusion_next_tpu/models/flux.py in the configurations
 this port runs: unrolled blocks or the scan layout (``stack_block_params``:
 every block family stacked along a depth axis, the forward looping over
-block indices with ``ops.nn.StackView``), the fused-prologue attention (K3,
-``ops.flash_attention.fused_qkv_attention``) with the params in the
-permuted half-split RoPE basis (``permute_rope_basis``), and the matmul
-weights as Q8_0 (``QTensor8T``, K5) or W8A8 (``QTensor8W``, K7). On W8A8
-weights with ``RuntimeConfig.fused_ew`` on, the LayerNorm + modulation or
-the GELU before a matmul runs in its row quantization (K9, K10) and the
-bias, gate and residual in the matmul's epilogue (K11). In the scan layout
-the same matmuls read block ``idx`` of their stack in place: K6 on Q8_0
-stacks, K8 and the stacked K11 on W8A8 stacks. The same BFL checkpoint keys
-("double_blocks.0.img_attn.qkv.weight", ...), NHWC latent in and out,
-LayerNorm eps 1e-6, f32 norms.
+block indices with ``ops.nn.StackView``), and the matmul weights as Q8_0
+(``QTensor8T``, K5), W8A8 (``QTensor8W``, K7) or either under an unmerged
+LoRA (``QTensorLoRA``). On W8A8 weights with
+``RuntimeConfig.fused_ew`` on, the LayerNorm + modulation or the GELU
+before a matmul runs in its row quantization (K9, K10) and the bias, gate
+and residual in the matmul's epilogue (K11). In the scan layout the same
+matmuls read block ``idx`` of their stack in place: K6 on Q8_0 stacks, K8
+and the stacked K11 on W8A8 stacks.
 
-Not ported yet (ROADMAP Queue 1, item 9): the unfused attention path with
-``ops/rope.py``, the tensor-parallel layouts, LoRA, and the host-side
-stacker of the checkpoint loader (``stack_block_params_host``).
+Attention takes one of two paths, as ``FluxConfig.fused_attn`` says:
+fused, where the params are in the permuted half-split RoPE basis
+(``permute_rope_basis``) and QKNorm, RoPE and the product run in K3
+(``ops.flash_attention.fused_qkv_attention``); or unfused, where the heads
+are split, normed, roped by ``ops/rope.py`` and attended through
+``ops.attention.attention_heads`` (K2 for sequences of 512 tokens or
+more). The same BFL checkpoint keys ("double_blocks.0.img_attn.qkv.weight",
+...), NHWC latent in and out, LayerNorm eps 1e-6, f32 norms.
+
+Not ported yet (ROADMAP Queue 1, item 11): the tensor-parallel layouts.
 """
 
 from __future__ import annotations
@@ -29,8 +33,10 @@ import numpy as np
 import torch
 
 from lightdiffusion_next_tpu_torch import config as _config
+from lightdiffusion_next_tpu_torch.ops import attention as attn_ops
 from lightdiffusion_next_tpu_torch.ops import flash_attention as fa
 from lightdiffusion_next_tpu_torch.ops import ggml, nn
+from lightdiffusion_next_tpu_torch.ops import rope as rope_ops
 from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
 from lightdiffusion_next_tpu_torch.sampling.schedules import timestep_embedding_flux
 
@@ -52,7 +58,8 @@ class FluxConfig:
     patch_size: int = 2
     dtype: Any = torch.float32
     # the params are in the permuted RoPE basis and attention runs through
-    # K3; set by models.base.flux_model, which permutes
+    # K3; set by models.base.flux_model exactly when it permutes, so config
+    # and weights cannot disagree
     fused_attn: bool = False
 
     @property
@@ -109,8 +116,8 @@ def permute_rope_basis(params: Dict, cfg: FluxConfig) -> Dict:
     projection (weights, biases and QKNorm scales) into the half-split RoPE
     basis. Attention logits are invariant (the same permutation hits q and
     k); v and every other weight are untouched. Returns a new dict.
-    Refuses a stacked dict: permute before stacking, as the JAX loader
-    does."""
+    Refuses a stacked dict (permute before stacking, as the JAX loader
+    does) and LoRA-patched weights, as the JAX function does."""
     if is_stacked(params):
         raise ValueError("permute before stacking (the scan layout is not permuted)")
     hidden, d = cfg.hidden_size, cfg.head_dim
@@ -119,15 +126,15 @@ def permute_rope_basis(params: Dict, cfg: FluxConfig) -> Dict:
         return torch.index_select(t, dim, torch.as_tensor(idx, device=t.device))
 
     def permute_out(leaf, idx):
+        if isinstance(leaf, ggml.QTensorLoRA):
+            raise ValueError("fused_attn cannot permute LoRA-patched qkv weights; load "
+                             "with fused_attn off or merge the LoRA first")
         if isinstance(leaf, ggml.QTensor8T):
             return ggml.QTensor8T(qt=take(leaf.qt, idx, 1),
                                   scales_t=take(leaf.scales_t, idx, 1), shape=leaf.shape)
         if isinstance(leaf, ggml.QTensor8W):  # codes (N, K): output columns are rows
             return ggml.QTensor8W(q=take(leaf.q, idx, 0),
                                   col_scales=take(leaf.col_scales, idx, 1), shape=leaf.shape)
-        if isinstance(leaf, ggml.QTensor8):
-            return ggml.QTensor8(q=take(leaf.q, idx, 0), scales=take(leaf.scales, idx, 0),
-                                 shape=leaf.shape)
         return take(leaf, idx, 0)
 
     out = dict(params)
@@ -218,19 +225,26 @@ def _fused_attention(*args, **kw):
     return fa.fused_qkv_attention_plain(*args, **kw)
 
 
-def _require_fused(cfg: FluxConfig):
-    if not cfg.fused_attn:
-        raise NotImplementedError(
-            "the unfused Flux attention (ops/rope.py) is not ported yet (ROADMAP "
-            "Queue 1, item 9): build the model with models.base.flux_model, which "
-            "permutes the RoPE basis for the fused kernel"
-        )
+def _qk_norm(p: nn.ParamView, q, k):
+    """QKNorm: RMSNorm of each head's q and k with their scales."""
+    return nn.rms_norm(q, p("query_norm.scale")), nn.rms_norm(k, p("key_norm.scale"))
+
+
+def _attention(q, k, v, pe):
+    """RoPE, then attention on (B, H, L, D) heads; returns (B, L, H*D)."""
+    q, k = rope_ops.apply_rope(q, k, pe)
+    return attn_ops.attention_heads(q, k, v)
+
+
+def _split_heads(qkv, num_heads: int):
+    """(B, L, 3 * hidden) -> q, k, v, each a (B, heads, L, head_dim) view."""
+    b, l, _ = qkv.shape
+    qkv = qkv.reshape(b, l, 3, num_heads, -1).permute(2, 0, 3, 1, 4)
+    return qkv[0], qkv[1], qkv[2]
 
 
 def _double_block(p: nn.ParamView, img, txt, vec, pe, cfg: FluxConfig):
-    """DoubleStreamBlock with the fused-prologue attention; text rows come
-    first in the joint sequence."""
-    _require_fused(cfg)
+    """DoubleStreamBlock; text rows come first in the joint sequence."""
     im1_shift, im1_scale, im1_gate, im2_shift, im2_scale, im2_gate = _modulation(
         p.scope("img_mod."), vec, 6)
     tx1_shift, tx1_scale, tx1_gate, tx2_shift, tx2_scale, tx2_gate = _modulation(
@@ -238,14 +252,22 @@ def _double_block(p: nn.ParamView, img, txt, vec, pe, cfg: FluxConfig):
 
     img_qkv = _mod_linear(p, "img_attn.qkv", img, im1_scale, im1_shift)
     txt_qkv = _mod_linear(p, "txt_attn.qkv", txt, tx1_scale, tx1_shift)
-    cos, sin = pe
-    attn = _fused_attention(
-        torch.cat([txt_qkv, img_qkv], dim=1),
-        p("img_attn.norm.query_norm.scale"), p("img_attn.norm.key_norm.scale"),
-        cos, sin, num_heads=cfg.num_heads, txt_len=txt.shape[1],
-        txt_q_scale=p("txt_attn.norm.query_norm.scale"),
-        txt_k_scale=p("txt_attn.norm.key_norm.scale"),
-    )
+    if cfg.fused_attn:
+        cos, sin = pe
+        attn = _fused_attention(
+            torch.cat([txt_qkv, img_qkv], dim=1),
+            p("img_attn.norm.query_norm.scale"), p("img_attn.norm.key_norm.scale"),
+            cos, sin, num_heads=cfg.num_heads, txt_len=txt.shape[1],
+            txt_q_scale=p("txt_attn.norm.query_norm.scale"),
+            txt_k_scale=p("txt_attn.norm.key_norm.scale"),
+        )
+    else:
+        img_q, img_k, img_v = _split_heads(img_qkv, cfg.num_heads)
+        img_q, img_k = _qk_norm(p.scope("img_attn.norm."), img_q, img_k)
+        txt_q, txt_k, txt_v = _split_heads(txt_qkv, cfg.num_heads)
+        txt_q, txt_k = _qk_norm(p.scope("txt_attn.norm."), txt_q, txt_k)
+        attn = _attention(torch.cat([txt_q, img_q], dim=2), torch.cat([txt_k, img_k], dim=2),
+                          torch.cat([txt_v, img_v], dim=2), pe)
     txt_attn, img_attn = attn[:, :txt.shape[1]], attn[:, txt.shape[1]:]
 
     img = _gated_out_linear(img, img_attn, p("img_attn.proj.weight"),
@@ -263,17 +285,21 @@ def _double_block(p: nn.ParamView, img, txt, vec, pe, cfg: FluxConfig):
 
 
 def _single_block(p: nn.ParamView, x, vec, pe, cfg: FluxConfig):
-    """SingleStreamBlock: K3 reads the q/k/v stripes straight out of the
-    full linear1 output (its MLP lanes are never touched)."""
-    _require_fused(cfg)
+    """SingleStreamBlock. Fused, K3 reads the q/k/v stripes straight out of
+    the full linear1 output (its MLP lanes are never touched)."""
     shift, scale, gate = _modulation(p.scope("modulation."), vec, 3)
     hidden = cfg.hidden_size
     proj = _mod_linear(p, "linear1", x, scale, shift)
-    cos, sin = pe
-    attn = _fused_attention(
-        proj, p("norm.query_norm.scale"), p("norm.key_norm.scale"), cos, sin,
-        num_heads=cfg.num_heads,
-    )
+    if cfg.fused_attn:
+        cos, sin = pe
+        attn = _fused_attention(
+            proj, p("norm.query_norm.scale"), p("norm.key_norm.scale"), cos, sin,
+            num_heads=cfg.num_heads,
+        )
+    else:
+        q, k, v = _split_heads(proj[..., :3 * hidden], cfg.num_heads)
+        q, k = _qk_norm(p.scope("norm."), q, k)
+        attn = _attention(q, k, v, pe)
     mlp = proj[..., 3 * hidden:]
     w2, b2 = p("linear2.weight"), p("linear2.bias")
     fm = getattr(w2, "modulated_matmul", None) if _fused_ew(x) else None
@@ -404,7 +430,10 @@ def apply_flux(params: Dict, x, timesteps, context, y, guidance=None,
 
     txt_ids = torch.zeros((b, txt.shape[1], 3), dtype=torch.float32, device=x.device)
     ids = torch.cat([txt_ids, img_ids(b, h, w, cfg.patch_size, device=x.device)], dim=1)
-    pe = rope_cos_sin(ids, cfg.axes_dim, cfg.theta)
+    if cfg.fused_attn:
+        pe = rope_cos_sin(ids, cfg.axes_dim, cfg.theta)
+    else:
+        pe = rope_ops.embed_nd(ids, cfg.axes_dim, cfg.theta)
 
     if is_stacked(params):
         dstack, sstack = params[DOUBLE_STACK_KEY], params[SINGLE_STACK_KEY]
@@ -559,26 +588,32 @@ def init_params(cfg: FluxConfig = FLUX_DEV, seed: int = 0) -> Dict[str, np.ndarr
     return {k: np.asarray(v, dtype=np.float32) for k, v in P.items()}
 
 
+def random_leaves(cfg: FluxConfig = FLUX_DEV, seed: int = 0, device="cuda",
+                  dtype=torch.bfloat16):
+    """``random_params``' leaves one at a time, as (key, leaf) in
+    ``_layout``'s order, with the weights named by ``Q8_0_SUFFIXES`` as
+    row-layout ``QTensor8`` records (what a GGUF file holds): a writer can
+    stream a full-width model with one leaf in memory."""
+    gen = torch.Generator(device=device).manual_seed(seed)
+    for key, shape, kind in _layout(cfg):
+        if kind == "lin":
+            w = torch.randn(shape, generator=gen, device=device) * shape[1] ** -0.5
+            yield key, ggml.quantize(w) if key.endswith(Q8_0_SUFFIXES) else w.to(dtype)
+            del w
+        elif kind == "bias":
+            yield key, torch.zeros(shape, dtype=dtype, device=device)
+        else:
+            yield key, torch.ones(shape, dtype=torch.float32, device=device)
+
+
 def random_params(cfg: FluxConfig = FLUX_DEV, seed: int = 0, device="cuda",
                   dtype=torch.bfloat16):
     """Seeded params at any width, drawn on ``device`` by a
     ``torch.Generator`` with ``init_params``' distributions (not its
     numbers): the weights named by ``Q8_0_SUFFIXES`` are quantized there to
     Q8_0 (``QTensor8T``), the other 2-D weights and biases are ``dtype``,
-    the QKNorm scales f32. At Flux.1-dev's width that is about 12.7 GB of
-    Q8_0 and 0.9 GB of dense weights."""
-    gen = torch.Generator(device=device).manual_seed(seed)
-    P = {}
-    for key, shape, kind in _layout(cfg):
-        if kind == "lin":
-            w = torch.randn(shape, generator=gen, device=device) * shape[1] ** -0.5
-            if key.endswith(Q8_0_SUFFIXES):
-                P[key] = ggml.transpose_for_matmul(ggml.quantize(w))
-            else:
-                P[key] = w.to(dtype)
-            del w
-        elif kind == "bias":
-            P[key] = torch.zeros(shape, dtype=dtype, device=device)
-        else:
-            P[key] = torch.ones(shape, dtype=torch.float32, device=device)
-    return P
+    the QKNorm scales f32. At Flux.1-dev's width that is 8.6e9 Q8_0
+    weights (9.7 GB with their f32 scales) and 3.3e9 dense ones (6.6 GB in
+    bf16, most of them the modulation weights)."""
+    return {key: ggml.transpose_for_matmul(leaf) if isinstance(leaf, ggml.QTensor8) else leaf
+            for key, leaf in random_leaves(cfg, seed, device, dtype)}

@@ -1,4 +1,5 @@
-"""LoRA: key maps and the weight merge over flat param dicts, SD1.5.
+"""LoRA: key maps and the weight merge over flat param dicts, SD1.5 and
+Flux.
 
 Counterpart of lightdiffusion_next_tpu/models/lora.py (``unet_key_map``,
 ``clip_key_map``, ``load_lora``, ``_lora_delta``, ``apply_lora``,
@@ -6,15 +7,24 @@ Counterpart of lightdiffusion_next_tpu/models/lora.py (``unet_key_map``,
 up @ down), computed on the weight's device, into new tensors (the params
 given are not changed, so a cached model stays as it was loaded).
 
+Flux's quantized matmul weights (``QTensor8T``, ``QTensor8W``) are not
+merged: each patched one becomes a ``ggml.QTensorLoRA`` that applies the
+low-rank product at compute time, so the weight stays int8 and keeps its
+kernel; a second LoRA on the same weight concatenates its rank onto the
+first's. Stacked (scan layout) params raise, as in the JAX package. So do
+params built for the fused attention (``model_cfg.fused_attn``) when a
+patch targets a ``qkv`` or ``linear1`` weight: their q/k rows are in the
+permuted RoPE basis and the patch's are not. The JAX package applies such
+a patch in the wrong basis without an error; the port refuses it, and
+refuses Flux DiT params given without their ``model_cfg``, which alone
+tells the two bases apart.
+
 The port's UNet params hold each self-attention's q|k|v weights joined
 as ``attn1.to_qkv.weight`` and each cross-attention's k|v as
 ``attn2.to_kv.weight`` (``unet.fuse_projections``). ``unet_key_map`` maps
 the LoRA names of the parts (``..._attn1_to_q``) to their rows of the
 joined weight, so a patch lands on the same values either way: merging
 into the joined weight equals merging into the parts and joining them.
-
-Not ported yet (ROADMAP Queue 1, item 8): LoRA on Flux's quantized
-weights (the JAX package's ``QTensorLoRA``).
 """
 
 from __future__ import annotations
@@ -23,6 +33,9 @@ import logging
 from typing import Dict, List, Optional, Tuple, Union
 
 import torch
+
+from lightdiffusion_next_tpu_torch.models import flux as flux_mod
+from lightdiffusion_next_tpu_torch.ops import ggml
 
 logger = logging.getLogger(__name__)
 
@@ -111,10 +124,44 @@ def _lora_delta(up: torch.Tensor, down: torch.Tensor, alpha: Optional[float]):
     return scale * mat.reshape((up.shape[0],) + tuple(down.shape[1:]))
 
 
-def apply_lora(params: Dict, patches: Dict[Target, Tuple], strength: float = 1.0) -> Dict:
-    """A new param dict with the patches merged at ``strength``; patched
-    weights are new tensors, the others are shared. Targets missing from
-    ``params`` are skipped."""
+# the Flux projections whose q/k rows the fused attention permutes
+PERMUTED_SUFFIXES = ("qkv.weight", "linear1.weight")
+_LORA_BASES = (ggml.QTensor8T, ggml.QTensor8W, ggml.QTensorLoRA)
+
+
+def _device(w):
+    """The device of a tensor, a Q8_0 or W8A8 record or a ``QTensorLoRA``."""
+    w = w.base if isinstance(w, ggml.QTensorLoRA) else w
+    if isinstance(w, ggml.QTensor8T):
+        return w.qt.device
+    return w.q.device if ggml.is_quantized(w) else w.device
+
+
+def apply_lora(params: Dict, patches: Dict[Target, Tuple], strength: float = 1.0,
+               model_cfg=None) -> Dict:
+    """A new param dict with the patches applied at ``strength``; patched
+    weights are new tensors or records, the others are shared. Targets
+    missing from ``params`` are skipped. A 2-D quantized target becomes a
+    ``ggml.QTensorLoRA`` (up scaled by strength * alpha / rank, f32);
+    other targets merge. ``model_cfg`` is the model's config: a Flux
+    ``FluxConfig`` with ``fused_attn`` refuses patches on ``qkv`` and
+    ``linear1`` weights. Raises ValueError on stacked Flux params, and on
+    Flux DiT params given without ``model_cfg``."""
+    if flux_mod.is_stacked(params):
+        raise ValueError("cannot apply LoRA to a scan-mode (stacked) Flux model: load "
+                         "with flux_scan disabled, or apply the LoRA before stacking")
+    if model_cfg is None and any(k.startswith(("double_blocks.", "single_blocks."))
+                                 and k.endswith(PERMUTED_SUFFIXES) for k in params):
+        raise ValueError("LoRA on a Flux DiT needs its model_cfg: whether fused_attn "
+                         "permuted the q/k rows decides whether the patch may apply")
+    if getattr(model_cfg, "fused_attn", False):
+        permuted = sorted(t for t in patches if isinstance(t, str) and t in params
+                          and t.endswith(PERMUTED_SUFFIXES))
+        if permuted:
+            raise ValueError(
+                f"LoRA patches {permuted[:2]}... target q/k rows that fused_attn permuted "
+                "into its RoPE basis; load the model with fused_attn off "
+                "(RuntimeConfig(fused_attn=False), --no-fused-attn)")
     out = dict(params)
     copied = set()
     for target, (up, down, alpha) in patches.items():
@@ -122,7 +169,21 @@ def apply_lora(params: Dict, patches: Dict[Target, Tuple], strength: float = 1.0
         if key not in out:
             continue
         w = out[key]
-        delta = _lora_delta(up.to(w.device), down.to(w.device), alpha) * strength
+        dev = _device(w)
+        if isinstance(w, _LORA_BASES) and len(w.shape) == 2 and up.dim() == 2 \
+                and down.dim() == 2:
+            scale = strength * (1.0 if alpha is None else alpha / down.shape[0])
+            new_up, new_down = up.to(dev).float() * scale, down.to(dev).float()
+            if isinstance(w, ggml.QTensorLoRA):
+                out[key] = ggml.QTensorLoRA(w.base, torch.cat([w.up, new_up], dim=1),
+                                            torch.cat([w.down, new_down], dim=0))
+            else:
+                out[key] = ggml.QTensorLoRA(w, new_up, new_down)
+            continue
+        delta = _lora_delta(up.to(dev), down.to(dev), alpha) * strength
+        if ggml.is_quantized(w):  # no 2-D matmul layout: densify, as in JAX
+            out[key] = (w.dequantize(torch.float32) + delta).to(torch.bfloat16)
+            continue
         if rows is None:
             out[key] = (w.float() + delta).to(w.dtype)
             continue
@@ -139,14 +200,15 @@ def lora_modules(lora_sd: Dict) -> List[str]:
 
 
 def load_and_apply_lora(lora_sd: Dict, unet_params: Dict, clip_params: Optional[Dict],
-                        strength_model: float, strength_clip: float):
-    """New (unet_params, clip_params) with the LoRA merged; logs how many of
-    the file's modules each model took."""
+                        strength_model: float, strength_clip: float, model_cfg=None):
+    """New (unet_params, clip_params) with the LoRA applied; logs how many
+    of the file's modules each model took. ``model_cfg``: the diffusion
+    model's config (see ``apply_lora``)."""
     new_unet, new_clip = unet_params, clip_params
     n_unet = n_clip = 0
     if strength_model != 0:
         patches, _ = load_lora(lora_sd, unet_key_map(unet_params))
-        new_unet = apply_lora(unet_params, patches, strength_model)
+        new_unet = apply_lora(unet_params, patches, strength_model, model_cfg)
         n_unet = len(patches)
     if clip_params is not None and strength_clip != 0:
         patches, _ = load_lora(lora_sd, clip_key_map(clip_params))

@@ -9,8 +9,9 @@ the ``QTensor8T`` matmul layout (codes transposed to (K, N), scales to
 (``ops/quant_matmul.py``) and the rest to dequantize + ``torch.matmul``,
 and the W8A8 record ``QTensor8W`` (``to_w8a8``: int8 codes with one f32
 scale per output column) with K7 in ``fused_matmul`` and the fused
-K9/K10 + K11 path in ``modulated_matmul``. Q8_0's 34-byte blocks (f16
-scale, 32 int8 codes) are split in numpy.
+K9/K10 + K11 path in ``modulated_matmul``. Each tensor is read into a
+buffer of its own and Q8_0's 34-byte blocks (f16 scale, 32 int8 codes)
+are split by torch's copies.
 
 The scan layout stacks D same-shaped records along a leading depth axis
 (``stack_leaves``): ``StackedQTensor8T`` (codes (D, K, N), scales (D, K/32,
@@ -19,9 +20,14 @@ layout, the JAX record's (D, K, N) transposed per block; column scales (D,
 1, N)). ``at_index(idx)`` returns a view of block ``idx`` whose matmuls go
 to K6, K8 and the stacked K11, which read the block in place.
 
-Leaves are torch tensors; a record's ``to`` moves both of its tensors.
-Not ported: the tensor-parallel flag, ``QTensorLoRA`` and ``write_gguf``
-(the tests use the JAX package's writer).
+``QTensorLoRA`` is a quantized weight (``QTensor8T`` or ``QTensor8W``)
+under an unmerged low-rank patch, applied at compute time. ``write_gguf``
+writes a GGUF v3 file as the JAX package's writer does (the same bytes for
+the same f32 inputs), and also takes ``QTensor8`` records, and streams
+leaves one at a time when given their layout.
+
+Leaves are torch tensors; a record's ``to`` moves its tensors.
+Not ported (ROADMAP Queue 1, item 11): the tensor-parallel flag.
 """
 
 from __future__ import annotations
@@ -270,6 +276,40 @@ def is_quantized(x) -> bool:
 
 
 @dataclasses.dataclass
+class QTensorLoRA:
+    """A quantized matmul weight (``QTensor8T`` or ``QTensor8W``) under an
+    unmerged LoRA: ``y = base(x) + (x @ down^T) @ up^T``. The base keeps its
+    kernel (K5, or K9 "none" and K7) and the weight stays int8 in memory;
+    merging would make it dense. ``up`` (out, rank) f32 carries strength *
+    alpha / rank; ``down`` (rank, in) f32. Stacked LoRAs concatenate their
+    ranks. There is no ``modulated_matmul``: the fused-elementwise path
+    does not apply and the block takes its plain ops, as in the JAX
+    package."""
+
+    base: Any
+    up: torch.Tensor
+    down: torch.Tensor
+
+    @property
+    def shape(self) -> Tuple[int, ...]:
+        return self.base.shape
+
+    def fused_matmul(self, x, out_dtype=None):
+        """The base's matmul plus the two skinny products in x's dtype."""
+        y = self.base.fused_matmul(x, out_dtype)
+        h = torch.matmul(x, self.down.to(x.dtype).t())
+        corr = torch.matmul(h, self.up.to(x.dtype).t())
+        return y + corr.to(y.dtype)
+
+    def dequantize(self, dtype=torch.bfloat16):
+        """The logical (N, K) weight with the patch added in f32."""
+        return (self.base.dequantize(torch.float32) + self.up @ self.down).to(dtype)
+
+    def to(self, device):
+        return QTensorLoRA(self.base.to(device), self.up.to(device), self.down.to(device))
+
+
+@dataclasses.dataclass
 class StackedQTensor8T:
     """D same-shaped ``QTensor8T`` weights stacked for the scan layout:
     codes ``qt3`` int8 (D, K, N), scales ``scales3`` f32 (D, K/32, N);
@@ -387,7 +427,7 @@ def check_stackable(leaves) -> None:
                or _leaf_device(leaf) != _leaf_device(first) for leaf in leaves):
             raise ValueError(f"non-uniform {kind.__name__} group")
         return
-    if is_quantized(first) or isinstance(first, _STACKED):
+    if is_quantized(first) or isinstance(first, _STACKED + (QTensorLoRA,)):
         raise ValueError(f"cannot stack {type(first).__name__} leaves (matmul layouts only)")
     if any(not isinstance(leaf, torch.Tensor) or leaf.shape != first.shape
            or leaf.dtype != first.dtype or leaf.device != first.device for leaf in leaves):
@@ -451,9 +491,10 @@ def requant_col_stacked(t: StackedQTensor8T) -> StackedQTensor8W:
 
 def to_w8a8(params: Dict[str, Any]) -> Dict[str, Any]:
     """Every ``QTensor8T`` leaf of a param dict as its per-column
-    ``QTensor8W``, and every ``StackedQTensor8T`` (in the nested dicts of
-    the scan layout) as its ``StackedQTensor8W``; embeddings (row-layout
-    ``QTensor8``) and dense leaves pass through. ``params`` is consumed:
+    ``QTensor8W`` (also the base of a ``QTensorLoRA``), and every
+    ``StackedQTensor8T`` (in the nested dicts of the scan layout) as its
+    ``StackedQTensor8W``; embeddings (row-layout ``QTensor8``) and dense
+    leaves pass through. ``params`` is consumed:
     each leaf is taken out of it as it converts, so the old codes are freed
     leaf by leaf (when nothing else holds them) and the 12 GB of a Flux
     DiT's codes never exist twice."""
@@ -464,6 +505,8 @@ def to_w8a8(params: Dict[str, Any]) -> Dict[str, Any]:
             out[key] = to_w8a8(leaf)
         elif isinstance(leaf, QTensor8T):
             out[key] = requant_col(leaf)
+        elif isinstance(leaf, QTensorLoRA) and isinstance(leaf.base, QTensor8T):
+            out[key] = QTensorLoRA(requant_col(leaf.base), leaf.up, leaf.down)
         elif isinstance(leaf, StackedQTensor8T):
             out[key] = requant_col_stacked(leaf)
         else:
@@ -492,6 +535,87 @@ def quantize(w: torch.Tensor) -> QTensor8:
     return QTensor8(q=q, scales=scales, shape=tuple(w.shape))
 
 
+def _q8_0_blob(q, scales) -> np.ndarray:
+    """Q8_0 codes (…, nb, 32) and scales (…, nb) -> the file's (blocks, 34)
+    bytes: each block's scale as f16, then its 32 codes. Built on the
+    record's device, copied to the host once."""
+    blob = torch.cat([scales.reshape(-1, 1).to(torch.float16).view(torch.uint8),
+                      q.reshape(-1, 32).view(torch.uint8)], dim=1)
+    return blob.cpu().numpy()
+
+
+def _gguf_header(arch: str, layout) -> Tuple[bytes, list]:
+    """The header (magic, counts, metadata, tensor infos, padding to the
+    32-byte alignment) of ``layout`` [(name, shape, q8)], and each tensor's
+    byte count in the file."""
+    align = 32
+
+    def enc_string(s: str) -> bytes:
+        b = s.encode("utf-8")
+        return struct.pack("<Q", len(b)) + b
+
+    metadata = {"general.architecture": arch}
+    head = struct.pack("<IIQQ", GGUF_MAGIC, 3, len(layout), len(metadata))
+    for k, v in metadata.items():
+        head += enc_string(k) + struct.pack("<I", 8) + enc_string(v)
+    sizes, offset = [], 0
+    for name, shape, q8 in layout:
+        n = math.prod(shape)
+        size = n // 32 * 34 if q8 else 4 * n
+        dims = list(reversed(shape))
+        head += enc_string(name) + struct.pack("<I", len(dims))
+        head += b"".join(struct.pack("<Q", d) for d in dims)
+        head += struct.pack("<IQ", GGML_Q8_0 if q8 else GGML_F32, offset)
+        sizes.append(size)
+        offset += size + (-size) % align
+    return head + b"\0" * ((-len(head)) % align), sizes
+
+
+def write_gguf(path: str, tensors, arch: str = "flux", quantize: Tuple[str, ...] = (),
+               layout=None) -> int:
+    """GGUF v3 writer: the JAX package's ``write_gguf`` layout and bytes
+    (Q8_0 for names ending in a ``quantize`` suffix whose last dim is a
+    multiple of 32, F32 otherwise, 32-byte alignment). A value is an
+    array or tensor (f32 values), or a ``QTensor8`` record, written as it
+    is (Q8_0).
+
+    ``tensors`` is a dict, or, with ``layout`` ([(name, shape, q8)] in file
+    order), an iterable of (name, value) pairs in that order, written as
+    they come: a model streams with one leaf in memory. Returns the bytes
+    written."""
+    if layout is None:
+        def q8(name, w):
+            return isinstance(w, QTensor8) or (
+                any(name.endswith(sfx) for sfx in quantize) and w.shape[-1] % 32 == 0)
+        layout = [(name, tuple(w.shape), q8(name, w)) for name, w in tensors.items()]
+        tensors = tensors.items()
+    header, sizes = _gguf_header(arch, layout)
+    written = 0
+    with open(path, "wb") as f:
+        f.write(header)
+        written += len(header)
+        entries = iter(tensors)
+        for (name, shape, q8), size in zip(layout, sizes):
+            got, w = next(entries)
+            if got != name or tuple(w.shape) != tuple(shape):
+                raise ValueError(f"write_gguf: {got} {tuple(w.shape)} where the layout "
+                                 f"has {name} {tuple(shape)}")
+            if isinstance(w, QTensor8):
+                if not q8:
+                    raise ValueError(f"write_gguf: {name} is Q8_0 but laid out as F32")
+                blob = _q8_0_blob(w.q, w.scales)
+            else:
+                wf = torch.as_tensor(w).detach().to("cpu", torch.float32)
+                blob = _q8_0_blob(*quantize_q8_0(wf)) if q8 else wf.contiguous().numpy()
+            del w
+            if blob.nbytes != size:
+                raise ValueError(f"write_gguf: {name} has {blob.nbytes} bytes, not {size}")
+            f.write(memoryview(np.ascontiguousarray(blob)).cast("B"))
+            f.write(b"\0" * ((-size) % 32))
+            written += size + (-size) % 32
+    return written
+
+
 def transpose_for_matmul(t: QTensor8) -> QTensor8T:
     """2-D ``QTensor8`` -> ``QTensor8T`` on the same device."""
     if len(t.shape) != 2:
@@ -504,33 +628,34 @@ def transpose_for_matmul(t: QTensor8) -> QTensor8T:
     )
 
 
-def _load_tensor(info: GGUFTensorInfo, buf, data_start: int):
-    n_elems = int(np.prod(info.shape))
-    off = data_start + info.offset
+def _load_tensor(info: GGUFTensorInfo, f, data_start: int):
+    """One tensor read from the open file ``f`` with ``readinto`` into a
+    buffer of its own (no page of the file stays mapped, and the kernel
+    copies from its page cache without a fault per page); Q8_0's 34-byte
+    blocks are split by torch's threaded copies."""
+    n_elems = math.prod(info.shape)
+    nbytes = {GGML_F32: 4 * n_elems, GGML_F16: 2 * n_elems, GGML_BF16: 2 * n_elems,
+              GGML_Q8_0: n_elems // 32 * 34}.get(info.ggml_type)
+    if nbytes is None:
+        raise NotImplementedError(f"GGML type {info.ggml_type} for {info.name} not supported")
+    raw = torch.empty(nbytes, dtype=torch.uint8)
+    f.seek(data_start + info.offset)
+    if f.readinto(memoryview(raw.numpy())) != nbytes:
+        raise ValueError(f"{info.name}: the file ends inside the tensor")
     if info.ggml_type == GGML_F32:
-        arr = np.frombuffer(buf, dtype=np.float32, count=n_elems, offset=off)
-        return torch.from_numpy(arr.reshape(info.shape).copy())
+        return raw.view(torch.float32).reshape(info.shape)
     if info.ggml_type == GGML_F16:
-        arr = np.frombuffer(buf, dtype=np.float16, count=n_elems, offset=off)
-        return torch.from_numpy(arr.reshape(info.shape).astype(np.float32))
+        return raw.view(torch.float16).reshape(info.shape).float()
     if info.ggml_type == GGML_BF16:
-        raw = np.frombuffer(buf, dtype=np.uint16, count=n_elems, offset=off)
-        arr = (raw.astype(np.uint32) << 16).view(np.float32)
-        return torch.from_numpy(arr.reshape(info.shape))
-    if info.ggml_type == GGML_Q8_0:
-        n_blocks = n_elems // 32
-        raw = np.frombuffer(buf, dtype=np.uint8, count=n_blocks * 34, offset=off)
-        raw = raw.reshape(n_blocks, 34)
-        scales = raw[:, :2].copy().view(np.float16).astype(np.float32).reshape(-1)
-        q = raw[:, 2:].copy().view(np.int8)
-        rows = info.shape[:-1]
-        per_row = info.shape[-1] // 32
-        return QTensor8(
-            q=torch.from_numpy(q.reshape(rows + (per_row, 32))),
-            scales=torch.from_numpy(scales.reshape(rows + (per_row,))),
-            shape=tuple(info.shape),
-        )
-    raise NotImplementedError(f"GGML type {info.ggml_type} for {info.name} not supported")
+        return raw.view(torch.bfloat16).reshape(info.shape).float()
+    blocks = raw.reshape(-1, 34)
+    rows = info.shape[:-1]
+    per_row = info.shape[-1] // 32
+    return QTensor8(
+        q=blocks[:, 2:].contiguous().view(torch.int8).reshape(rows + (per_row, 32)),
+        scales=blocks[:, :2].contiguous().view(torch.float16).float().reshape(rows + (per_row,)),
+        shape=tuple(info.shape),
+    )
 
 
 KNOWN_ARCHS = {"flux", "sd1", "sdxl", "t5", "t5encoder"}
@@ -540,18 +665,20 @@ def gguf_sd_loader(path: str, keep_quantized: bool = True) -> Dict[str, Any]:
     """GGUF -> flat state dict of f32 CPU tensors and ``QTensor8`` records.
     Strips a leading 'model.diffusion_model.' prefix if every tensor has it."""
     metadata, infos, data_start, buf = parse_gguf(path)
+    buf.close()
     arch = metadata.get("general.architecture")
     if arch is not None and arch not in KNOWN_ARCHS:
         raise ValueError(f"unexpected GGUF architecture {arch!r}")
     sd = {}
     prefix = "model.diffusion_model."
     has_prefix = all(i.name.startswith(prefix) for i in infos) if infos else False
-    for info in infos:
-        key = info.name[len(prefix):] if has_prefix else info.name
-        t = _load_tensor(info, buf, data_start)
-        if not keep_quantized and is_quantized(t):
-            t = t.dequantize(torch.float32)
-        sd[key] = t
+    with open(path, "rb", buffering=0) as f:
+        for info in infos:
+            key = info.name[len(prefix):] if has_prefix else info.name
+            t = _load_tensor(info, f, data_start)
+            if not keep_quantized and is_quantized(t):
+                t = t.dequantize(torch.float32)
+            sd[key] = t
     return sd
 
 
@@ -572,6 +699,15 @@ T5_KEY_MAP = {
     "ffn_gate": "layer.1.DenseReluDense.wi_0",
     "ffn_norm": "layer.1.layer_norm",
 }
+
+
+def t5_gguf_name(key: str) -> str:
+    """An HF T5 key -> its llama.cpp GGUF name: ``T5_KEY_MAP`` inverted
+    (its replacements undone in reverse order), so ``gguf_clip_loader``
+    maps the name back to ``key``."""
+    for s, d in reversed(T5_KEY_MAP.items()):
+        key = key.replace(d, s)
+    return key
 
 
 def gguf_clip_loader(path: str) -> Dict[str, Any]:
@@ -600,8 +736,8 @@ def to_device_quantized(sd: Dict[str, Any], dtype=torch.bfloat16, device=None,
     """Place a state dict on ``device``: 2-D Q8_0 matmul weights as
     ``QTensor8T``, Q8_0 embedding tables (``embed_keys``) and other Q8_0
     leaves as row-layout ``QTensor8``, W8A8 and stacked records as they
-    are, dense tensors cast to ``dtype``; the nested dicts of the scan
-    layout likewise."""
+    are, dense tensors cast to ``dtype`` (None: kept); the nested dicts of
+    the scan layout likewise."""
     out = {}
     for k, v in sd.items():
         if isinstance(v, dict):
@@ -611,7 +747,7 @@ def to_device_quantized(sd: Dict[str, Any], dtype=torch.bfloat16, device=None,
                 out[k] = transpose_for_matmul(v.to(device))
             else:
                 out[k] = v.to(device)
-        elif isinstance(v, (QTensor8T, QTensor8W) + _STACKED):
+        elif isinstance(v, (QTensor8T, QTensor8W, QTensorLoRA) + _STACKED):
             out[k] = v.to(device)
         else:
             out[k] = torch.as_tensor(v).to(device=device, dtype=dtype)

@@ -1,17 +1,20 @@
-"""Checkpoint loading: a one-file SD1.5 checkpoint -> (model, clip, vae),
-with architecture detection and a model cache kept between calls.
+"""Checkpoint loading: a one-file SD1.5 checkpoint -> (model, clip, vae), a
+Flux GGUF -> the Flux DiT, with architecture detection and a model cache
+kept between calls.
 
-Counterpart of lightdiffusion_next_tpu/pipelines/loader.py, its SD1.5 half
-(``load_checkpoint_guess_config``, ``ModelCache``, ``get_model_cache``,
-``CheckpointLoaderSimple``; the cache's Flux variant eviction and the
-WebUI's keep-loaded switch come with those callers). Each model is built
-on the given device (the GPU by default) in the device's dtype policy: the
-UNet through
+Counterpart of lightdiffusion_next_tpu/pipelines/loader.py, its
+single-device part: ``load_checkpoint_guess_config``,
+``load_diffusion_model_gguf``, ``ModelCache`` (with
+``evict_other_variants``), ``get_model_cache``,
+``CheckpointLoaderSimple``. Each model is built on the given device (the
+GPU by default) in the device's dtype policy: the UNet through
 ``base.sd15_model`` (which joins its attention projections), the VAE with
 its encoder weights kept (unused until img2img is ported), CLIP-L with the
-textual-inversion directory. Not ported yet (ROADMAP Queue 1, item 7):
-Flux's GGUF loading; a one-file Flux checkpoint raises, as in the JAX
-package.
+textual-inversion directory, the Flux DiT through ``base.flux_model``
+(requant, permutation and stacking on the device). A one-file Flux
+checkpoint raises, as in the JAX package. Not ported (ROADMAP Queue 1,
+item 11): the tensor-parallel loads on a mesh; the WebUI's keep-loaded
+switch comes with the WebUI (item 10).
 """
 
 from __future__ import annotations
@@ -26,8 +29,10 @@ import torch
 
 from lightdiffusion_next_tpu_torch import config as _config
 from lightdiffusion_next_tpu_torch.models import base as base_mod
+from lightdiffusion_next_tpu_torch.models import flux as flux_mod
 from lightdiffusion_next_tpu_torch.models import vae as vae_mod
 from lightdiffusion_next_tpu_torch.models.clip import facade as clip_facade
+from lightdiffusion_next_tpu_torch.ops import ggml
 from lightdiffusion_next_tpu_torch.utils import state_dict as sd_utils
 
 logger = logging.getLogger(__name__)
@@ -48,8 +53,7 @@ def load_checkpoint_guess_config(
     if not unet_sd:
         raise RuntimeError(f"no diffusion model weights in {ckpt_path}")
     if sd_utils.detect_model_type(unet_sd) != "unet":
-        raise RuntimeError("one-file flux checkpoints not supported; use GGUF "
-                           "(not ported yet: ROADMAP Queue 1, item 7)")
+        raise RuntimeError("one-file flux checkpoints not supported; use GGUF")
     unet_cfg = dataclasses.replace(sd_utils.detect_unet_config(unet_sd),
                                    dtype=policy.compute_dtype)
     model = base_mod.sd15_model(unet_sd, cfg=unet_cfg, dtype=policy.param_dtype,
@@ -64,6 +68,33 @@ def load_checkpoint_guess_config(
     logger.info("loaded %s (%d bytes) in %.3f s", ckpt_path,
                 os.path.getsize(ckpt_path), time.perf_counter() - t0)
     return model, clip, vae
+
+
+def load_diffusion_model_gguf(path: str, w8a8: Optional[bool] = None,
+                              scan_blocks: Optional[bool] = None,
+                              device: _config.DeviceLike = None) -> base_mod.DiffusionModel:
+    """A Flux GGUF -> its quantized DiT on ``device`` (the GPU by default),
+    through ``base.flux_model``: upload, then ``w8a8`` (default:
+    ``RuntimeConfig.w8a8`` for the device) requantizes the matmul weights
+    per output column, the RoPE basis is permuted when
+    ``base.fused_attn_for`` says so, and ``scan_blocks`` (default:
+    ``RuntimeConfig.flux_scan``) stacks the blocks on the device. Raises on
+    a GGUF that holds no Flux DiT."""
+    dev = _config.resolve_device(device)
+    dtype = _config.DtypePolicy.for_device(dev).compute_dtype
+    t0 = time.perf_counter()
+    sd = ggml.gguf_sd_loader(path)
+    if "double_blocks.0.img_attn.qkv.weight" not in sd:
+        raise RuntimeError(f"{path} is not a Flux GGUF")
+    fcfg = flux_mod.detect_config(sd, dtype=dtype)
+    model = base_mod.flux_model(sd, cfg=fcfg, dtype=dtype, device=dev, w8a8=w8a8,
+                                scan=scan_blocks)
+    del sd
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+    logger.info("loaded %s (%d bytes) in %.3f s", path, os.path.getsize(path),
+                time.perf_counter() - t0)
+    return model
 
 
 class ModelCache:
@@ -87,6 +118,15 @@ class ModelCache:
 
     def put(self, path: str, value, variant: str = "") -> None:
         self._cache[self._key(path, variant)] = value
+
+    def evict_other_variants(self, path: str, keep_variant: str = "") -> None:
+        """Drop every other variant of ``path`` before a new one loads: one
+        resident Flux DiT at a time across the variant keys (``:w8a8``,
+        ``:scan``, ``:fusedattn``), as in the JAX package."""
+        base = f"{os.path.abspath(path)}:"
+        keep = self._key(path, keep_variant)
+        for k in [k for k in self._cache if k.startswith(base) and k != keep]:
+            del self._cache[k]
 
     def clear(self) -> None:
         self._cache.clear()

@@ -13,19 +13,25 @@ with two of its flows:
   batched CFG denoiser with the multi-scale plan and MSW-MSA windowing,
   the VAE decodes, AutoHDR runs (``autohdr``), and the image is saved
   under "Classic/LD";
-- ``_flux_txt2img`` (``flux_enabled=True``, models given): CLIP-L's
-  projected pooled vector and T5-XXL's sequence (at least 256 tokens) with
-  guidance 3.0 (``encode_flux_conditioning``), a zero 16-channel latent,
-  20 steps of ``euler_cfgpp`` at cfg 1.0 over the "beta" schedule with
-  FBCache (the model's option), the Flux AE decodes, AutoHDR, and the
-  image is saved under "Flux/LD".
+- ``_flux_txt2img`` (``flux_enabled=True``): without models given, the
+  four Flux assets are loaded from the asset root through the model cache
+  (``_get_flux_models``: the DiT from ``unet/flux1-dev-Q8_0.gguf`` with
+  FBCache at 0.120, in the W8A8, scan and fused-attention variant that
+  ``RuntimeConfig`` resolves for the device; T5-XXL from its GGUF, stacked
+  when ``flux_scan`` resolves on; CLIP-L and the AE from safetensors);
+  CLIP-L's projected pooled vector and T5-XXL's sequence (at least 256
+  tokens) with guidance 3.0 (``encode_flux_conditioning``), a zero
+  16-channel latent, 20 steps of ``euler_cfgpp`` at cfg 1.0 over the "beta"
+  schedule with FBCache (the model's option), the Flux AE decodes,
+  AutoHDR, and the image is saved under "Flux/LD".
 
 Beyond the JAX function's arguments it takes the models (``model``,
-``clip``, ``vae`` and, for Flux, ``t5``; the SD1.5 ones are loaded when
-none is given, and only a loaded checkpoint gets the LoRA), an optional
+``clip``, ``vae`` and, for Flux, ``t5``; they are loaded when none is
+given, and only a loaded SD1.5 checkpoint gets the LoRA), an optional
 ``seed`` and the ``device`` (the GPU by default). Arguments whose modules
 are not ported raise ``NotImplementedError`` naming their ROADMAP item,
-before anything is loaded.
+before anything is loaded. ``LDT_FLUX_TP`` (the multi-chip Flux of ROADMAP
+Queue 1, item 11) is not read.
 """
 
 from __future__ import annotations
@@ -40,11 +46,13 @@ import torch
 
 from lightdiffusion_next_tpu_torch import config as _config
 from lightdiffusion_next_tpu_torch.models import lora as lora_mod
+from lightdiffusion_next_tpu_torch.models import vae as vae_mod
 from lightdiffusion_next_tpu_torch.models.clip import facade as clip_facade
+from lightdiffusion_next_tpu_torch.models.clip import t5 as t5_mod
 from lightdiffusion_next_tpu_torch.models.clip import t5_tokenizer
 from lightdiffusion_next_tpu_torch.models.clip import text_encoder as te
 from lightdiffusion_next_tpu_torch.models.clip import tokenizer as clip_tokenizer
-from lightdiffusion_next_tpu_torch.ops import window
+from lightdiffusion_next_tpu_torch.ops import ggml, window
 from lightdiffusion_next_tpu_torch.pipelines import downloader, loader
 from lightdiffusion_next_tpu_torch.sampling import cfg as cfg_mod
 from lightdiffusion_next_tpu_torch.sampling import ksampler as ks
@@ -126,10 +134,10 @@ def pipeline(
     """Run txt2img; returns the saved image paths. ``model`` is a
     ``models.base.DiffusionModel`` (``sd15_model``, or ``flux_model`` with
     ``flux_enabled=True``), ``vae`` a ``models.vae.VAE``. SD1.5: ``clip`` is
-    a ``models.clip.facade.CLIP``; with none of the three given they are
-    loaded on ``device``. Flux: ``clip`` is a CLIP-L
+    a ``models.clip.facade.CLIP``. Flux: ``clip`` is a CLIP-L
     ``models.clip.text_encoder.SDClipModel`` (its projected pooled vector is
-    used) and ``t5`` a ``models.clip.t5.T5XXLModel``. With ``seed`` given,
+    used) and ``t5`` a ``models.clip.t5.T5XXLModel``. With none of them
+    given, they are loaded on ``device`` from the asset root. With ``seed`` given,
     no seed file is read or written; otherwise the JAX package's seed
     handling applies. ``progress_callback`` is called after every sampler
     step with the step's dict (``x``, ``i``, ``sigma``, ``denoised``)."""
@@ -138,13 +146,11 @@ def pipeline(
     for name, on in requested.items():
         if on:
             raise NotImplementedError(f"{name}=True: {_NOT_PORTED[name]} is not ported yet")
-    given = [m is not None for m in (model, clip, vae)]
-    if flux_enabled and not all(given + [t5 is not None]):
-        raise NotImplementedError(
-            "flux_enabled=True loads nothing yet: Flux's GGUF loading is not ported "
-            "(ROADMAP Queue 1, item 7); pass model=, clip=, vae= and t5=")
+    given = [m is not None for m in (model, clip, vae)] + ([t5 is not None] if flux_enabled
+                                                          else [])
     if any(given) and not all(given):
-        raise ValueError("pass all of model=, clip= and vae=, or none to load the checkpoint")
+        raise ValueError("pass all of model=, clip=, vae= (and t5= with flux_enabled), or "
+                         "none to load them")
 
     if multiscale_preset is not None:
         ms = samplers_mod.MultiScale.preset(multiscale_preset)
@@ -172,7 +178,7 @@ def pipeline(
     for _ in range(number):
         if flux_enabled:
             saved += _flux_txt2img(prompt, w, h, batch, seed, autohdr, saver,
-                                   progress_callback, model, clip, vae, t5)
+                                   progress_callback, model, clip, vae, t5, device)
         else:
             saved += _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms,
                                     prio_speed, autohdr, realistic_model, saver,
@@ -257,8 +263,69 @@ def _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms, prio_speed, a
     return saver.save_images(images.cpu().numpy(), "Classic/LD", prompt=prompt)
 
 
+def _get_flux_models(unet_path, t5_path, clip_l_path, ae_path, device):
+    """The Flux DiT, AE, T5-XXL and CLIP-L from their files, each through
+    the model cache keyed by path, mtime and variant: a second call reads
+    nothing from disk. One resident DiT across its variants (``:w8a8``,
+    ``:scan``, ``:fusedattn``) and one T5 across its layouts."""
+    dev = _config.resolve_device(device)
+    rc = _config.get_config()
+    cache = loader.get_model_cache()
+    variant = f"dev={dev}"
+    w8a8 = rc.resolve_w8a8(dev)
+    scan = rc.resolve_flux_scan(dev)
+    if w8a8:
+        variant += ":w8a8"
+    if scan:
+        variant += ":scan"
+    if rc.resolve_fused_attn(dev):
+        variant += ":fusedattn"
+    model = cache.get(unet_path, variant=variant)
+    if model is None:
+        cache.evict_other_variants(unet_path, keep_variant=variant)
+        model = loader.load_diffusion_model_gguf(unet_path, w8a8=w8a8, scan_blocks=scan,
+                                                 device=dev)
+        cache.put(unet_path, model, variant=variant)
+
+    vae = cache.get(ae_path, variant=f"dev={dev}")
+    if vae is None:
+        ae_sd = sd_utils.load_torch_file(ae_path)
+        vae = vae_mod.VAE(ae_sd, cfg=vae_mod.detect_vae_config(ae_sd), device=dev)
+        cache.put(ae_path, vae, variant=f"dev={dev}")
+
+    t5_variant = f"dev={dev}" + (":scan" if scan else "")
+    t5_model = cache.get(t5_path, variant=t5_variant)
+    if t5_model is None:
+        cache.evict_other_variants(t5_path, keep_variant=t5_variant)
+        t5_params = ggml.gguf_clip_loader(t5_path)
+        t5_model = t5_mod.T5XXLModel(t5_params, cfg=t5_mod.detect_config(t5_params),
+                                     compute_dtype=torch.bfloat16, device=dev,
+                                     scan_blocks=scan)
+        cache.put(t5_path, t5_model, variant=t5_variant)
+
+    clip_model = cache.get(clip_l_path, variant=f"dev={dev}")
+    if clip_model is None:
+        clip_model = te.SDClipModel(sd_utils.load_torch_file(clip_l_path), device=dev)
+        cache.put(clip_l_path, clip_model, variant=f"dev={dev}")
+    return model, vae, t5_model, clip_model
+
+
+def _load_flux(device):
+    downloader.check_and_download_flux()
+    paths = (downloader.asset_path("unet", "flux1-dev-Q8_0.gguf"),
+             downloader.asset_path("clip", "t5-v1_1-xxl-encoder-Q8_0.gguf"),
+             downloader.asset_path("clip", "clip_l.safetensors"),
+             downloader.asset_path("vae", "ae.safetensors"))
+    for p in paths:
+        if not os.path.exists(p):
+            raise FileNotFoundError(f"flux asset missing: {p}")
+    return _get_flux_models(*paths, device)
+
+
 def _flux_txt2img(prompt, w, h, batch, seed, autohdr, saver, callback, model, clip, vae,
-                  t5):
+                  t5, device):
+    if model is None:
+        model, vae, t5, clip = _load_flux(device)
     positive = encode_flux_conditioning(prompt, prompt, guidance=3.0,
                                         t5_model=t5, clip_model=clip)
     negative = dataclasses.replace(  # ConditioningZeroOut

@@ -146,6 +146,38 @@ def test_planted_faults_fail_the_check(cuda, name, b, h, lq, lk, d, dtype):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("l", [4352, 1280])
+def test_flux_unfused_attention_shapes(cuda, l):
+    """K2 at the unfused Flux attention's shapes, 24 heads of 128 in bf16
+    over the 256 + 4096 tokens of a 1024^2 DiT call and the 256 + 1024 of
+    a dy call: q and k normed and roped (contiguous), v a head-split view
+    of the projection, as ``models.flux._attention`` hands them over;
+    through the dispatch, against the plain version, with both planted
+    faults caught."""
+    from lightdiffusion_next_tpu_torch.ops import rope
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    qkv = torch.randn((1, l, 3 * 24 * 128), generator=gen, device="cuda").bfloat16()
+    q, k, v = flux._split_heads(qkv, 24)
+    ids = torch.cat([torch.zeros((1, 256, 3), device="cuda"),
+                     flux.img_ids(1, 2 * int((l - 256) ** 0.5), 2 * int((l - 256) ** 0.5),
+                                  device="cuda")], dim=1)
+    q, k = rope.apply_rope(q.contiguous(), k.contiguous(),
+                           rope.embed_nd(ids, flux.FLUX_DEV.axes_dim))
+    launches = fa.flash_attention.launches
+    out = attn_ops.attention_heads(q, k, v)
+    assert fa.flash_attention.launches == launches + 1
+    assert out.shape == (1, l, 24 * 128) and out.dtype == torch.bfloat16
+    ref = fa.attention_plain(q, k, v)
+    check = fa.agreement(out.reshape(1, l, 24, 128).transpose(1, 2), ref)
+    assert check["ok"], check
+    assert not fa.agreement(fa._launch("flash_attention", q, k, v, q_scale=128**-0.5),
+                            ref)["ok"]
+    assert not fa.agreement(fa._launch("flash_attention", q, k[:, :, :-64], v[:, :, :-64]),
+                            ref)["ok"]
+
+
+@pytest.mark.cuda
 @pytest.mark.parametrize(
     "name,lk,d,dtype",
     [

@@ -194,7 +194,15 @@ def test_cli_defaults_end_to_end(runs, capsys):
 
 @pytest.mark.parametrize("flag", ["--flux", "--preview", "--hires-fix", "--img2img",
                                   "--adetailer", "--enhance-prompt"])
-def test_cli_unported_flags_raise(flag):
+def test_cli_unported_flags_raise(flag, tmp_path, monkeypatch):
+    """Each unported flag raises before anything loads; ``--flux`` is ported
+    and raises FileNotFoundError for its missing files."""
+    monkeypatch.setenv("LDT_ASSET_ROOT", str(tmp_path))
+    monkeypatch.setenv("LDT_OFFLINE", "1")
+    if flag == "--flux":
+        with pytest.raises(FileNotFoundError, match="flux asset missing"):
+            tcli.main(["a cat", "64", "64", flag], device="cpu")
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(["a cat", "64", "64", flag], device="cpu")
 
@@ -215,4 +223,5 @@ def test_cli_mutually_exclusive_flags_and_config():
                                      "--no-flux-scan", "--w8a8", "--no-fused-ew",
                                      "--fused-attn", "--no-qkv-fuse", "--stable-fast"]), base)
     assert got == tconfig.RuntimeConfig(packed_attn=False, sage_attention=True,
-                                        flux_scan=False, w8a8=True, fused_ew=False)
+                                        flux_scan=False, w8a8=True, fused_ew=False,
+                                        fused_attn=True)

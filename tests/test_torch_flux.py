@@ -14,6 +14,7 @@ relative RMS error of 1e-4; the whole slice (20 steps) to 1e-3 on the
 final latent, with the same FBCache hits and misses.
 """
 
+import contextlib
 import dataclasses
 import os
 import sys
@@ -39,6 +40,7 @@ from lightdiffusion_next_tpu.sampling import samplers as jsamp
 from lightdiffusion_next_tpu.sampling import schedules as jsched
 from lightdiffusion_next_tpu.utils import image as jimage
 from lightdiffusion_next_tpu.utils import latent as jlatent
+from lightdiffusion_next_tpu_torch import config as tconfig
 from lightdiffusion_next_tpu_torch.models import base as tbase
 from lightdiffusion_next_tpu_torch.models import flux as tflux
 from lightdiffusion_next_tpu_torch.models import vae as tvae
@@ -82,6 +84,20 @@ def _flux_params(seed):
         elif k.endswith(".bias"):
             params[k] = (0.05 * rng.standard_normal(params[k].shape)).astype(np.float32)
     return cfg, params
+
+
+@contextlib.contextmanager
+def fused_attn_on():
+    """The port's ``RuntimeConfig`` with ``fused_attn`` pinned on, restored
+    after: on the CPU "auto" builds the unfused attention, and these tests
+    hold the port's fused path (K3's plain version, the permuted basis) to
+    the JAX package's."""
+    saved = tconfig.get_config()
+    tconfig.set_config(dataclasses.replace(saved, fused_attn=True))
+    try:
+        yield
+    finally:
+        tconfig.set_config(saved)
 
 
 def _jax_flux(path, cfg, w8a8=False):
@@ -167,8 +183,9 @@ def test_apply_flux_matches_jax(tmp_path):
     cfg, params = _flux_params(2)
     path = _write_flux_gguf(tmp_path, params)
     jp, jcfg = _jax_flux(path, cfg)
-    model = tbase.flux_model(tggml.gguf_sd_loader(path), cfg=tflux.FluxConfig(**TINY),
-                             device="cpu")
+    with fused_attn_on():
+        model = tbase.flux_model(tggml.gguf_sd_loader(path), cfg=tflux.FluxConfig(**TINY),
+                                 device="cpu")
     assert model.config.fused_attn and model.model_type == "flux"
     assert model.model_options["fbcache"] == tfb.FBCacheConfig(0.120)
     rng = np.random.default_rng(3)
@@ -354,8 +371,9 @@ def run_flux_slice_against_jax(tmp_path, monkeypatch, w8a8=False, latent_tol=1e-
     # (0.120) this tiny random DiT misses on every call; at 0.5 it hits on
     # some, so both branches of the cache are compared.
     fb_cfg = tfb.FBCacheConfig(0.5)
-    model = tbase.flux_model(tggml.gguf_sd_loader(fpath), cfg=tflux.FluxConfig(**TINY),
-                             device="cpu").with_options(fbcache=fb_cfg)
+    with fused_attn_on():
+        model = tbase.flux_model(tggml.gguf_sd_loader(fpath), cfg=tflux.FluxConfig(**TINY),
+                                 device="cpu").with_options(fbcache=fb_cfg)
     if scan:
         lin1 = model.params[tflux.SINGLE_STACK_KEY]["linear1.weight"]
         assert isinstance(lin1, tggml.StackedQTensor8W if w8a8 else tggml.StackedQTensor8T)

@@ -57,9 +57,12 @@ DEPTH = 3  # blocks of the small stacks
 
 @pytest.fixture
 def port_config():
-    """The port's ``RuntimeConfig`` restored after the test."""
+    """The port's ``RuntimeConfig`` with the fields given and the fused
+    attention pinned on (the JAX forwards held against are fused); restored
+    after the test."""
     saved = tconfig.get_config()
-    yield lambda **kw: tconfig.set_config(dataclasses.replace(saved, **kw))
+    yield lambda **kw: tconfig.set_config(dataclasses.replace(saved, **{"fused_attn": True,
+                                                                       **kw}))
     tconfig.set_config(saved)
 
 

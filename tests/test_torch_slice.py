@@ -128,13 +128,17 @@ def test_png_writer_round_trip(tmp_path):
 )
 def test_unported_pipeline_arguments_raise(kwargs, tmp_path, monkeypatch):
     """With every other default and no models, each still-unported argument
-    (and Flux, whose GGUF loading is not ported) raises before anything is
-    read: the asset root holds no checkpoint, so a load would raise
-    FileNotFoundError instead."""
+    raises before anything is read: the asset root holds no checkpoint, so
+    a load would raise FileNotFoundError instead. Flux alone is ported and
+    loads: it raises FileNotFoundError for its missing files."""
     monkeypatch.setenv("LDT_ASSET_ROOT", str(tmp_path))
     monkeypatch.setenv("LDT_OFFLINE", "1")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tpipe.pipeline("a cat", 64, 64, seed=1, device="cpu", **kwargs)
+    if kwargs == dict(flux_enabled=True):
+        with pytest.raises(FileNotFoundError, match="flux asset missing"):
+            tpipe.pipeline("a cat", 64, 64, seed=1, device="cpu", **kwargs)
+    else:
+        with pytest.raises(NotImplementedError, match="ROADMAP"):
+            tpipe.pipeline("a cat", 64, 64, seed=1, device="cpu", **kwargs)
     with pytest.raises(FileNotFoundError):
         tpipe.pipeline("a cat", 64, 64, seed=1, device="cpu")
 

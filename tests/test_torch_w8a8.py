@@ -59,12 +59,13 @@ SLICE_LATENT_REL_RMSE = 5e-3
 @contextlib.contextmanager
 def w8a8_config(w8a8=True, fused_ew=True):
     """Both packages' ``RuntimeConfig`` with ``w8a8`` and ``fused_ew`` set
-    (and, in the JAX package, the fused attention on and the scan layout
-    off, the configuration the port runs); restored after."""
+    (and the fused attention on in both, in the JAX package the scan
+    layout off, the configuration the port runs); restored after."""
     saved_j, saved_t = jconfig.get_config(), tconfig.get_config()
     jconfig.set_config(dataclasses.replace(saved_j, w8a8=w8a8, fused_ew=fused_ew,
                                            fused_attn=True, flux_scan=False))
-    tconfig.set_config(dataclasses.replace(saved_t, w8a8=w8a8, fused_ew=fused_ew))
+    tconfig.set_config(dataclasses.replace(saved_t, w8a8=w8a8, fused_ew=fused_ew,
+                                           fused_attn=True))
     try:
         yield
     finally:

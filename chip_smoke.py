@@ -128,9 +128,30 @@ Phases, in order; any failure exits non-zero:
    matmul, K2 at (1, 24, L, 128) for every attention, no K3), a finite
    image, a timed second call, and one double and one single block under
    the LoRA, bf16 kernels against the f32 plain versions. The files are
-   removed when the phase ends, also on failure.
+   removed when the phase ends, also on failure;
+19. SD1.5 hires-fix (after phase 17, from its files): K1 and K2 at the
+   hires pass's new shapes (``hires_calls``: its level-0 windows at 16 384
+   tokens, levels 1-3 at 16 384, 4096 and 1024 tokens, the f32 decode at
+   65 536 tokens) and K1 unwindowed at 65 536 tokens, as phase 3 holds
+   them; ``pipeline(prompt, 1024, 1024, hires_fix=True)`` with every
+   default, Python's ``random`` seeded, its launches against the plan
+   derived from the hires pass's own sigmas ("normal", denoise 0.45, the
+   MSW gate), 20 steps at 128^2 then 10 at 256^2, a finite latent, the
+   2048^2 PNG equal to the AutoHDR of the decode; a timed second call; the
+   CLI's ``--hires-fix`` as a process;
+20. SD1.5 img2img: K1 and K2 at the USDU tiles' shapes (576^2 crops: 5184
+   and 1296 tokens, the f32 encoder and decoder at 5184) as above; a seeded
+   ESRGAN at RealESRGAN_x4plus's width (23 RRDB blocks, nf 64, gc 32; 67 MB
+   f32) written as ``ESRGAN/RealESRGAN_x4plus.pth`` under phase 17's asset
+   root; ``pipeline(<phase 17's PNG>, 1024, 1024, img2img=True)``, its
+   launches against the plan (``usdu_calls``: 16 redraw and 24 seam tiles,
+   each an encode, 8 steps, a decode), a 2048^2 PNG that is not constant,
+   a finite last latent; a timed second call, which must take ESRGAN from
+   the cache; ESRGAN, the tile's VAE encode and decode timed alone; the
+   CLI's ``--img2img`` as a process.
 
-Phases 5 to 11 pin ``RuntimeConfig(flux_scan=False)``, so their launch plans
+Phases 19 and 20 run after phase 17, before the Flux phases. Phases 5 to
+11 pin ``RuntimeConfig(flux_scan=False)``, so their launch plans
 are the unrolled layout's. K1's and K2's shapes in phase 3 are those of both
 SD1.5 plans (``dpmpp_2m_cfgpp``, ``dpmpp_sde_cfgpp``).
 
@@ -315,40 +336,36 @@ def gpu_line() -> str:
 # --------------------------------------------------------------------------
 
 
-def attention_calls(width=1024, height=1024, batch=1, steps=20, sage=False,
-                    sampler="dpmpp_2m_cfgpp"):
-    """{(kernel, B, H, L, D, dtype): calls per image} for the pipeline's
-    SD1.5 txt2img at width x height: 20 karras steps of ``sampler``, the
-    default multi-scale plan, MSW-MSA with its sigma gate, CFG batch 2, the
-    VAE's mid-block attention. ``dpmpp_sde_cfgpp`` adds each step's midpoint
-    call (every step but the last) at ``sde_sigma_mid``, on its step's
-    full-res or low-res route, with the gate evaluated at that sigma.
-    ``sage``: the UNet's calls go to K4 and its preparation."""
+def unet_calls(add, sigmas, lh, lw, batch=1, sampler="dpmpp_2m_cfgpp", ms=None, msw=True,
+               sage=False):
+    """Add to ``add`` the UNet's K1/K2 (or K4) calls, keyed (kernel, B, H, L,
+    D, dtype), of one sampler pass over ``sigmas`` at an lh x lw latent:
+    CFG batch 2, each step at full or reduced resolution as the multi-scale
+    plan ``ms`` says (None: every step at full resolution),
+    ``dpmpp_sde_cfgpp``'s midpoint call (every step but the last) at
+    ``sde_sigma_mid`` on its step's route, and with ``msw`` the MSW-MSA
+    windowing of level 0 where its sigma gate is open. ``sage``: the calls
+    go to K4 and its preparation."""
     import torch
 
     from lightdiffusion_next_tpu_torch import config
     from lightdiffusion_next_tpu_torch.models import unet
     from lightdiffusion_next_tpu_torch.ops import flash_attention as fa
     from lightdiffusion_next_tpu_torch.ops import window
-    from lightdiffusion_next_tpu_torch.sampling import ksampler, samplers
+    from lightdiffusion_next_tpu_torch.sampling import samplers
     from lightdiffusion_next_tpu_torch.sampling.model_sampling import ModelSamplingDiscrete
 
     msd = ModelSamplingDiscrete()
-    sigmas = ksampler.sigmas_for(msd, "karras", steps)
+    steps = len(sigmas) - 1
     mids = samplers._step_consts(sigmas)["sde_sigma_mid"]
-    lh, lw = height // 8, width // 8
-    ms = samplers.MultiScale(enabled=True)
-    flags = samplers.fullres_flags(steps, ms, lh, lw)
+    flags = (samplers.fullres_flags(steps, ms, lh, lw) if ms is not None
+             else [True] * steps)
     bounds = window.msw_gate_bounds(msd)
     packed = config.get_config().packed_attn
-    calls = {}
-
-    def add(key, n=1):
-        calls[key] = calls.get(key, 0) + n
 
     def model_call(sigma, h, w):
         t = msd.timestep(torch.tensor([sigma] * 2 * batch, dtype=torch.float32))
-        _, active = window.msw_step_state(t, bounds)
+        active = msw and window.msw_step_state(t, bounds)[1]
         for block, level, ch, depth in unet.attention_blocks(unet.SD15_CONFIG):
             hh, ww = h, w
             for _ in range(level):
@@ -370,7 +387,90 @@ def attention_calls(width=1024, height=1024, batch=1, steps=20, sage=False,
         model_call(sigmas[i], h, w)
         if sampler == "dpmpp_sde_cfgpp" and sigmas[i + 1] > 0:
             model_call(mids[i], h, w)
-    add(("flash_attention", batch, 1, lh * lw, 512, "f32"))
+
+
+def vae_call(add, lh, lw, batch=1):
+    """The VAE's mid-block attention on an lh x lw latent (encoder or
+    decoder): K2 in f32 at d = 512 from 512 tokens."""
+    if lh * lw >= 512:
+        add(("flash_attention", batch, 1, lh * lw, 512, "f32"), 1)
+
+
+def attention_calls(width=1024, height=1024, batch=1, steps=20, sage=False,
+                    sampler="dpmpp_2m_cfgpp"):
+    """{(kernel, B, H, L, D, dtype): calls per image} for the pipeline's
+    SD1.5 txt2img at width x height: 20 karras steps of ``sampler``, the
+    default multi-scale plan, MSW-MSA with its sigma gate, CFG batch 2, the
+    VAE's mid-block attention (``unet_calls``, ``vae_call``)."""
+    from lightdiffusion_next_tpu_torch.sampling import ksampler, samplers
+    from lightdiffusion_next_tpu_torch.sampling.model_sampling import ModelSamplingDiscrete
+
+    calls = {}
+    add = _adder(calls)
+    sigmas = ksampler.sigmas_for(ModelSamplingDiscrete(), "karras", steps)
+    unet_calls(add, sigmas, height // 8, width // 8, batch, sampler,
+               samplers.MultiScale(enabled=True), sage=sage)
+    vae_call(add, height // 8, width // 8, batch)
+    return calls
+
+
+def hires_calls(width=1024, height=1024):
+    """The calls of ``pipeline(prompt, width, height, hires_fix=True)`` with
+    every default: the first pass as ``attention_calls`` gives it for
+    ``dpmpp_sde_cfgpp`` without its decode, then the hires pass at twice
+    the size: 10 steps of ``euler_ancestral_cfgpp`` over the "normal"
+    schedule at denoise 0.45 (full resolution, MSW-MSA with its gate), and
+    the decode at twice the size."""
+    from lightdiffusion_next_tpu_torch.sampling import ksampler, samplers
+    from lightdiffusion_next_tpu_torch.sampling.model_sampling import ModelSamplingDiscrete
+
+    calls = {}
+    add = _adder(calls)
+    msd = ModelSamplingDiscrete()
+    unet_calls(add, ksampler.sigmas_for(msd, "karras", 20), height // 8, width // 8,
+               sampler="dpmpp_sde_cfgpp", ms=samplers.MultiScale(enabled=True))
+    lh, lw = (height * 2) // 8, (width * 2) // 8
+    unet_calls(add, ksampler.sigmas_for(msd, "normal", 10, denoise=0.45), lh, lw,
+               sampler="euler_ancestral_cfgpp")
+    vae_call(add, lh, lw)
+    return calls
+
+
+def usdu_tiles(height, width, cfg):
+    """(tiles, their model shape (h, w)) of USDU on an upscaled height x
+    width image with ``cfg`` (an ``upscaler.USDUConfig``): the redraw grid of
+    config tiles, then the seam bands between its rows and between its
+    columns; every crop at ceil((tile + 2 * padding) / 8) * 8, clamped to the
+    image (the two paddings are equal by default)."""
+    rows, cols = -(-height // cfg.tile_height), -(-width // cfg.tile_width)
+    seams = (rows - 1) * cols + rows * (cols - 1) if cfg.seam_fix_mode != "none" else 0
+    mh = min(-(-(cfg.tile_height + 2 * cfg.padding) // 8) * 8, height // 8 * 8)
+    mw = min(-(-(cfg.tile_width + 2 * cfg.padding) // 8) * 8, width // 8 * 8)
+    return rows * cols + seams, (mh, mw)
+
+
+def usdu_calls(width=1024, height=1024):
+    """The calls of ``pipeline(png, width, height, img2img=True)`` on a
+    width x height PNG: USDU at twice its size with its defaults, each tile
+    an encode, 8 steps of ``dpmpp_2m_cfgpp`` (karras; redraw at denoise 0.3,
+    seams at 0.2; no multi-scale, no MSW-MSA) and a decode at the model
+    tile's latent."""
+    from lightdiffusion_next_tpu_torch.pipelines import upscaler
+    from lightdiffusion_next_tpu_torch.sampling import ksampler
+    from lightdiffusion_next_tpu_torch.sampling.model_sampling import ModelSamplingDiscrete
+
+    cfg = upscaler.USDUConfig(upscale_by=2.0)
+    n_tiles, (mh, mw) = usdu_tiles(2 * height, 2 * width, cfg)
+    n_redraw = -(-2 * height // cfg.tile_height) * -(-2 * width // cfg.tile_width)
+    calls = {}
+    add = _adder(calls)
+    msd = ModelSamplingDiscrete()
+    for denoise, n in ((0.3, n_redraw), (cfg.seam_fix_denoise, n_tiles - n_redraw)):
+        for _ in range(n):
+            vae_call(add, mh // 8, mw // 8)
+            unet_calls(add, ksampler.sigmas_for(msd, "karras", 8, denoise), mh // 8, mw // 8,
+                       msw=False)
+            vae_call(add, mh // 8, mw // 8)
     return calls
 
 
@@ -1170,30 +1270,31 @@ class LogRecords(logging.Handler):
         return sum(m.startswith(prefix) for m in self.messages)
 
 
-def run_default_pipeline():
-    """``pipeline(prompt, 1024, 1024, output_dir=...)`` with every other
-    argument at its default and no models: paths, wall seconds, the time
-    after each step (device synced) and the last step's callback info."""
+def run_default_pipeline(prompt=DEFAULTS_PROMPT, out="out", **kw):
+    """``pipeline(prompt, 1024, 1024, output_dir=..., **kw)`` with every
+    other argument at its default and no models: paths, wall seconds, the
+    time and latent shape after each step (device synced) and the last
+    step's callback info."""
     import torch
 
     from lightdiffusion_next_tpu_torch.pipelines import pipeline as pl
 
-    step_times, last = [], {}
+    step_times, shapes, last = [], [], {}
 
     def on_step(info):
         torch.cuda.synchronize()
         step_times.append(time.perf_counter())
+        shapes.append(tuple(info["x"].shape))
         last.update(info)
 
     torch.cuda.synchronize()
     start = time.perf_counter()
     with torch.no_grad():
-        paths = pl.pipeline(DEFAULTS_PROMPT, 1024, 1024,
-                            output_dir=os.path.join(DEFAULTS_DIR, "out"),
-                            progress_callback=on_step)
+        paths = pl.pipeline(prompt, 1024, 1024, output_dir=os.path.join(DEFAULTS_DIR, out),
+                            progress_callback=on_step, **kw)
     torch.cuda.synchronize()
     return {"paths": paths, "wall": time.perf_counter() - start,
-            "step_times": step_times, "last": last}
+            "step_times": step_times, "shapes": shapes, "last": last}
 
 
 def check_loaded_params(model, vae, clip, parts):
@@ -1244,9 +1345,9 @@ def check_embeddings(clip, vectors):
     return ok
 
 
-def check_hdr_output(run, vae):
-    """A finite final latent, and the PNG equal to to_uint8(apply_hdr_batch(
-    decode(latent)))."""
+def check_hdr_output(run, vae, size=1024, label="SD1.5 defaults"):
+    """A finite final latent of a size x size image, and the PNG equal to
+    to_uint8(apply_hdr_batch(decode(latent)))."""
     import numpy as np
     import torch
 
@@ -1255,15 +1356,16 @@ def check_hdr_output(run, vae):
     from lightdiffusion_next_tpu_torch.utils import latent as latent_mod
 
     x = run["last"]["x"]
-    latent_ok = tuple(x.shape) == (1, 128, 128, 4) and bool(torch.isfinite(x).all())
+    latent_ok = (tuple(x.shape) == (1, size // 8, size // 8, 4)
+                 and bool(torch.isfinite(x).all()))
     with torch.no_grad():
         pixels = vae.decode(latent_mod.SD15.process_out(x))
         shaped = hdr.apply_hdr_batch(pixels)
     want = image_utils.to_uint8(shaped.cpu().numpy())[0]
     png = read_png(run["paths"][0])
-    png_ok = png.shape == (1024, 1024, 3) and np.array_equal(png, want)
+    png_ok = png.shape == (size, size, 3) and np.array_equal(png, want)
     changed = not np.array_equal(want, image_utils.to_uint8(pixels.cpu().numpy())[0])
-    log(f"SD1.5 defaults output: latent {tuple(x.shape)} finite={latent_ok}, png {png.shape} "
+    log(f"{label} output: latent {tuple(x.shape)} finite={latent_ok}, png {png.shape} "
         f"matches the AutoHDR of the decode={png_ok} (AutoHDR changed it: {changed}), "
         f"pixel mean {png.mean():.2f} std {png.std():.2f}")
     return latent_ok and png_ok and changed, pixels
@@ -1366,13 +1468,204 @@ def phase_sd15_defaults(gpu):
            "first_run_s_per_image_with_load": first["wall"], "load_s": load_s,
            "load_gb_per_s": gb / load_s, "checkpoint_gb": gb, "lora_merge_s": lora_s,
            "brownian_noise_ms": noise_ms, "autohdr_ms_per_image": hdr_ms,
-           "cli_s_per_image": cli_s, "gpu": gpu}
+           "cli_s_per_image": cli_s, "gpu": gpu, "png": first["paths"][0]}
     log(f"SD1.5 defaults ({gpu}): {timed['wall']:.3f} s/image end to end; sampler steps "
         f"2..{len(steps)}: {it_s:.3f} it/s (two model calls each); first run with the load "
         f"{first['wall']:.3f} s/image; checkpoint load {load_s:.3f} s ({gb / load_s:.3f} "
         f"GB/s); LoRA merge {lora_s:.3f} s; Brownian noise {noise_ms:.1f} ms; AutoHDR "
         f"{hdr_ms:.3f} ms per image; peak memory {peak:.1f} GiB")
     return ok, launches, e2e, calls
+
+
+# --------------------------------------------------------------------------
+# SD1.5 hires-fix and img2img (phases 19 and 20), from phase 17's files
+# --------------------------------------------------------------------------
+
+# K1 at the hires pass's level 0 with MSW-MSA off (``hidiffusion=False``):
+# not on the default path, whose gate is open at every hires sigma, but
+# checked beside it
+HIRES_UNWINDOWED = ("packed_flash_attention", 2, 8, 65536, 40, "bf16")
+ESRGAN_PATH = os.path.join(DEFAULTS_DIR, "ESRGAN", "RealESRGAN_x4plus.pth")
+
+
+def new_shapes(calls, per_kernel):
+    """The keys of ``calls`` that no earlier phase checked."""
+    seen = {tuple(s_["key"]) for entry in per_kernel.values() for s_ in entry["shapes"]}
+    return {k: n for k, n in calls.items() if k not in seen}
+
+
+@contextlib.contextmanager
+def defaults_assets():
+    """Phase 17's asset root (``LDT_ASSET_ROOT``, offline) and the port's
+    log records while inside."""
+    saved_env = {k: os.environ.get(k) for k in ("LDT_ASSET_ROOT", "LDT_OFFLINE")}
+    os.environ.update(LDT_ASSET_ROOT=DEFAULTS_DIR, LDT_OFFLINE="1")
+    records = LogRecords()
+    port_log = logging.getLogger("lightdiffusion_next_tpu_torch")
+    port_log.addHandler(records)
+    port_log.setLevel(logging.INFO)
+    try:
+        yield records
+    finally:
+        port_log.removeHandler(records)
+        for k, v in saved_env.items():
+            if v is None:
+                os.environ.pop(k, None)
+            else:
+                os.environ[k] = v
+
+
+def run_cli_process(args, out_dir, size):
+    """``python3 -m lightdiffusion_next_tpu_torch.app.cli *args`` as a process
+    from phase 17's asset root: ok when it exits 0 and prints one PNG path
+    whose image is size x size x 3 and not constant. Returns (ok, seconds)."""
+    env = dict(os.environ, LDT_ASSET_ROOT=DEFAULTS_DIR, LDT_OFFLINE="1")
+    t0 = time.perf_counter()
+    proc = subprocess.run([sys.executable, "-m", "lightdiffusion_next_tpu_torch.app.cli",
+                           *args, "--output-dir", out_dir], cwd=REPO, env=env,
+                          capture_output=True, text=True, timeout=600)
+    seconds = time.perf_counter() - t0
+    printed = proc.stdout.split()
+    ok = proc.returncode == 0 and len(printed) == 1 and os.path.exists(printed[0])
+    shape, std = None, 0.0
+    if ok:
+        png = read_png(printed[0])
+        shape, std = png.shape, float(png.std())
+        ok = shape == (size, size, 3) and std > 0
+    log(f"CLI process {args[1:]}: exit {proc.returncode}, printed {printed}, png {shape} "
+        f"std {std:.2f} {'ok' if ok else 'FAIL'}; {seconds:.3f} s")
+    if proc.returncode != 0:
+        log(proc.stderr[-4000:])
+    return ok, seconds
+
+
+def phase_hires(gpu, per_kernel):
+    """Phase 19: ``pipeline(prompt, 1024, 1024, hires_fix=True)`` with every
+    default from phase 17's files. Returns (ok, launches, e2e, calls)."""
+    import random
+
+    import torch
+
+    from lightdiffusion_next_tpu_torch.pipelines import loader
+
+    calls = hires_calls()
+    log("plan SD1.5 hires-fix:", {f"{k[0]} {k[1:]}": v for k, v in sorted(calls.items())})
+    phase_kernels({**new_shapes(calls, per_kernel), HIRES_UNWINDOWED: 0}, per_kernel)
+    with defaults_assets():
+        reset_launches()
+        random.seed(19)
+        first = run_default_pipeline(out="hires", hires_fix=True)
+        launches = read_launches()
+        ok = check_sd15_launches(launches, calls, "SD1.5 hires-fix",
+                                 ("packed_flash_attention", "flash_attention"))
+        shapes_ok = first["shapes"] == [(1, 128, 128, 4)] * 20 + [(1, 256, 256, 4)] * 10
+        log(f"SD1.5 hires-fix: 20 steps at 128^2 then 10 at 256^2: "
+            f"{'ok' if shapes_ok else 'FAIL: ' + str(sorted(set(first['shapes'])))}")
+        _, _, vae = loader.CheckpointLoaderSimple().load_checkpoint(
+            DEFAULTS_CKPT, os.path.join(DEFAULTS_DIR, "embeddings"))
+        out_ok, _ = check_hdr_output(first, vae, 2048, "SD1.5 hires-fix")
+        ok = ok and shapes_ok and out_ok and "HiresFix" in first["paths"][0]
+        torch.cuda.reset_peak_memory_stats()
+        random.seed(20)
+        timed = run_default_pipeline(out="hires", hires_fix=True)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+    hires_t = timed["step_times"][20:]
+    hires_it_s = (len(hires_t) - 1) / (hires_t[-1] - hires_t[0])
+    cli_ok, cli_s = run_cli_process([DEFAULTS_PROMPT, "1024", "1024", "--hires-fix"],
+                                    os.path.join(DEFAULTS_DIR, "cli_hires"), 2048)
+    e2e = {"s_per_image": timed["wall"], "hires_pass_it_per_s": hires_it_s, "peak_gib": peak,
+           "first_run_s_per_image_with_load": first["wall"], "cli_process_s": cli_s, "gpu": gpu}
+    log(f"SD1.5 hires-fix ({gpu}): {timed['wall']:.3f} s/image end to end (1024^2 then "
+        f"2048^2); hires pass steps 2..10: {hires_it_s:.3f} it/s; first run with the load "
+        f"{first['wall']:.3f} s; peak memory {peak:.1f} GiB; CLI process {cli_s:.3f} s")
+    return ok and cli_ok, launches, e2e, calls
+
+
+def write_esrgan():
+    """A seeded ESRGAN at RealESRGAN_x4plus's width (23 RRDB blocks, nf 64,
+    gc 32) as a flat f32 state dict under the RealESRGAN keys, which both
+    packages' loaders read. Returns its bytes."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.models import esrgan
+
+    os.makedirs(os.path.dirname(ESRGAN_PATH), exist_ok=True)
+    params = esrgan.init_params(num_body=23, nf=64, gc=32, seed=8)
+    torch.save({k: torch.from_numpy(v) for k, v in params.items()}, ESRGAN_PATH)
+    return os.path.getsize(ESRGAN_PATH)
+
+
+def phase_img2img(gpu, per_kernel, png):
+    """Phase 20: ``pipeline(png, 1024, 1024, img2img=True)`` from phase 17's
+    files and a seeded ESRGAN file, on phase 17's 1024^2 PNG. Returns (ok,
+    launches, e2e, calls)."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from lightdiffusion_next_tpu_torch.pipelines import loader, upscaler
+    from lightdiffusion_next_tpu_torch.utils import image as image_utils
+
+    calls = usdu_calls()
+    n_tiles, (mh, mw) = usdu_tiles(2048, 2048, upscaler.USDUConfig(upscale_by=2.0))
+    log(f"plan SD1.5 img2img: {n_tiles} USDU tiles of {mh}x{mw}:",
+        {f"{k[0]} {k[1:]}": v for k, v in sorted(calls.items())})
+    phase_kernels(new_shapes(calls, per_kernel), per_kernel)
+    mb = write_esrgan() / 1e6
+    with defaults_assets() as records:
+        reset_launches()
+        random.seed(21)
+        first = run_default_pipeline(png, out="img2img", img2img=True)
+        launches = read_launches()
+        ok = check_sd15_launches(launches, calls, "SD1.5 img2img",
+                                 ("packed_flash_attention", "flash_attention"))
+        steps_ok = first["shapes"] == [(1, mh // 8, mw // 8, 4)] * (8 * n_tiles)
+        out = read_png(first["paths"][0])
+        out_ok = (out.shape == (2048, 2048, 3) and float(out.std()) > 0
+                  and bool(torch.isfinite(first["last"]["x"]).all())
+                  and "Img2Img" in first["paths"][0])
+        log(f"SD1.5 img2img: {len(first['shapes'])} sampler steps of {n_tiles} tiles at "
+            f"{sorted(set(first['shapes']))}: {'ok' if steps_ok else 'FAIL'}; png {out.shape} "
+            f"mean {out.mean():.2f} std {out.std():.2f}: {'ok' if out_ok else 'FAIL'}")
+        torch.cuda.reset_peak_memory_stats()
+        random.seed(22)
+        timed = run_default_pipeline(png, out="img2img", img2img=True)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        esrgan_loads = records.count(f"loaded {ESRGAN_PATH}")
+        cache_ok = esrgan_loads == 1
+        log(f"SD1.5 img2img: ESRGAN loaded {esrgan_loads} time(s) in two runs "
+            f"{'ok' if cache_ok else 'FAIL'}")
+        ok = ok and steps_ok and out_ok and cache_ok
+
+        up_model = loader.load_upscale_model(ESRGAN_PATH)
+        _, _, vae = loader.CheckpointLoaderSimple().load_checkpoint(
+            DEFAULTS_CKPT, os.path.join(DEFAULTS_DIR, "embeddings"))
+        image = torch.from_numpy(image_utils.load_image(png)).cuda()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        up = up_model.upscale(image)
+        torch.cuda.synchronize()
+        esrgan_ms = (time.perf_counter() - t0) * 1e3
+        crop = up[:, :2 * mh:2, :2 * mw:2].contiguous()
+        with torch.no_grad():
+            latent = vae.encode(crop)
+            encode_ms = cuda_ms(lambda: vae.encode(crop), 3)
+            decode_ms = cuda_ms(lambda: vae.decode(latent), 3)
+        del up, crop, latent
+    cli_ok, cli_s = run_cli_process([png, "1024", "1024", "--img2img"],
+                                    os.path.join(DEFAULTS_DIR, "cli_img2img"), 2048)
+    e2e = {"s_per_image": timed["wall"], "first_run_s_per_image_with_load": first["wall"],
+           "tiles": n_tiles, "tile_px": [mh, mw], "esrgan_ms": esrgan_ms,
+           "esrgan_file_mb": mb, "vae_encode_ms_per_tile": encode_ms,
+           "vae_decode_ms_per_tile": decode_ms, "peak_gib": peak, "cli_process_s": cli_s,
+           "gpu": gpu}
+    log(f"SD1.5 img2img ({gpu}): {timed['wall']:.3f} s/image end to end (1024^2 PNG to "
+        f"2048^2); first run with the ESRGAN load {first['wall']:.3f} s; {n_tiles} tiles of "
+        f"{mh}x{mw}; ESRGAN x4 of the 1024^2 image {esrgan_ms:.1f} ms ({mb:.1f} MB file); VAE "
+        f"encode {encode_ms:.2f} ms and decode {decode_ms:.2f} ms per tile; peak memory "
+        f"{peak:.1f} GiB; CLI process {cli_s:.3f} s")
+    return ok and cli_ok, launches, e2e, calls
 
 
 # --------------------------------------------------------------------------
@@ -2808,6 +3101,7 @@ def main() -> int:
         return 2
     try:
         from lightdiffusion_next_tpu_torch import config
+        from lightdiffusion_next_tpu_torch.pipelines import loader
     except ImportError as e:
         print(f"chip_smoke: the port's package is missing ({e})", file=sys.stderr)
         return 2
@@ -2842,6 +3136,11 @@ def main() -> int:
         "sd15 sage pipeline", phase_sage_pipeline, sd_models, sd_latent)
     def_ok, def_launches, def_e2e, def_calls = timed(
         "sd15 defaults", phase_sd15_defaults, line)
+    hires_ok, hires_launches, hires_e2e, hires_plan = timed(
+        "sd15 hires-fix", phase_hires, line, per_kernel)
+    i2i_ok, i2i_launches, i2i_e2e, i2i_plan = timed(
+        "sd15 img2img", phase_img2img, line, per_kernel, def_e2e["png"])
+    loader.get_model_cache().clear()
     seeded_sd15_params.cache_clear()
     del sd_models
     gc.collect()
@@ -2884,6 +3183,7 @@ def main() -> int:
     # calls per image of each path, summed over the paths a kernel runs on
     # (the unfused DiT calls count once)
     path_calls = {"sd15": sd_calls, "sd15_sage": sage_calls, "sd15_defaults": def_calls,
+                  "sd15_hires_fix": hires_plan, "sd15_img2img_usdu": i2i_plan,
                   "flux": fcalls,
                   "flux_w8a8": w8_calls, "w8a8_dit_call_fused_ew_off": off_plan,
                   "flux_w8a8_scan": scan_calls, "w8a8_scan_dit_call_fused_ew_off": scan_off_plan,
@@ -2894,6 +3194,7 @@ def main() -> int:
         for key, n in calls.items():
             all_calls[key] = all_calls.get(key, 0) + n
     paths = {"sd15": sd_launches, "sd15_sage": sage_launches, "sd15_defaults": def_launches,
+             "sd15_hires_fix": hires_launches, "sd15_img2img_usdu": i2i_launches,
              "flux": flux_launches,
              "flux_w8a8": w8_launches, "w8a8_dit_call_fused_ew_off": off_launches,
              "flux_w8a8_scan": scan_launches,
@@ -2929,19 +3230,20 @@ def main() -> int:
                            if any(tuple(s_["key"]) in calls for s_ in shapes)},
             "per": "image: the sum over its main-path shapes of calls x time, over one "
                    "image of each path it runs on (SD1.5 with flash or sage attention, "
-                   "SD1.5 with every default, Flux Q8_0, Flux W8A8 unrolled and scan, "
+                   "SD1.5 with every default, its hires-fix and img2img, Flux Q8_0, Flux W8A8 unrolled and scan, "
                    "Flux W8A8 scan with FBCache forced to hit, Flux from files with every "
                    "default, Flux with a LoRA on the unfused attention) and one missed "
                    "W8A8 DiT call with fused_ew off in each layout",
             "shapes": shapes,
         })
-    e2e = {"sd15": sd_e2e, "sd15_sage": sage_e2e, "sd15_defaults": def_e2e, "flux": flux_e2e,
+    e2e = {"sd15": sd_e2e, "sd15_sage": sage_e2e, "sd15_defaults": def_e2e,
+           "sd15_hires_fix": hires_e2e, "sd15_img2img_usdu": i2i_e2e, "flux": flux_e2e,
            "flux_w8a8": w8_e2e,
            "flux_w8a8_scan": scan_e2e, "flux_w8a8_scan_fbcache_hits": hit_e2e,
            "flux_files_defaults": files_e2e["defaults"],
            "flux_lora_unfused_attention": files_e2e["lora_unfused"]}
-    ok = (ref_ok and pipe_ok and sage_ok and def_ok and flux_ref_ok and flux_ok and w8_ref_ok and w8_ok
-          and requant_ok and scan_ok and hit_ok and files_ok
+    ok = (ref_ok and pipe_ok and sage_ok and def_ok and hires_ok and i2i_ok and flux_ref_ok
+          and flux_ok and w8_ref_ok and w8_ok and requant_ok and scan_ok and hit_ok and files_ok
           and all(k["ok"] for k in kernels_line))
     record = {"gpu": line, "kernels": kernels_line, "e2e": e2e, "phase_seconds": seconds,
               "seconds": time.perf_counter() - t_start}

@@ -7,14 +7,17 @@ mutual-exclusion checks, on the port's ``pipeline()`` and ``RuntimeConfig``
 flags with no port field (``--stable-fast``, ``--qkv-fuse`` and its
 ``--no-`` form: the port always joins the UNet's projections) are accepted
 and change nothing. ``--flux`` runs Flux.1-dev from the four files under
-the asset root. Runs on the GPU. Usage:
+the asset root, ``--hires-fix`` adds SD1.5's second pass at twice the
+size, and ``--img2img`` takes the prompt as an image's path and upscales
+it twice with UltimateSDUpscale. Runs on the GPU. Usage:
 
     python -m lightdiffusion_next_tpu_torch.app.cli "a cat" 1024 1024
+    python -m lightdiffusion_next_tpu_torch.app.cli "a cat" 1024 1024 --hires-fix
+    python -m lightdiffusion_next_tpu_torch.app.cli image.png 1024 1024 --img2img
     python -m lightdiffusion_next_tpu_torch.app.cli "a cat" 1024 1024 --flux
 
-Not ported yet: ``--preview`` (TAESD previews), ``--hires-fix``,
-``--img2img``, ``--adetailer`` (ROADMAP Queue 1, item 8) and
-``--enhance-prompt`` (item 10); each raises.
+Not ported yet: ``--preview`` (TAESD previews), ``--adetailer`` (ROADMAP
+Queue 1, item 8) and ``--enhance-prompt`` (item 10); each raises.
 """
 
 from __future__ import annotations
@@ -27,8 +30,6 @@ from lightdiffusion_next_tpu_torch import config as _config
 
 _NOT_PORTED = {
     "preview": "TAESD previews (ROADMAP Queue 1, item 8)",
-    "hires_fix": "hires-fix (ROADMAP Queue 1, item 8)",
-    "img2img": "img2img / UltimateSDUpscale (ROADMAP Queue 1, item 8)",
     "adetailer": "ADetailer (ROADMAP Queue 1, item 8)",
     "enhance_prompt": "prompt enhancement (ROADMAP Queue 1, item 10)",
 }
@@ -109,6 +110,8 @@ def main(argv=None, device: _config.DeviceLike = None) -> int:
         args.height,
         number=args.number,
         batch=args.batch,
+        hires_fix=args.hires_fix,
+        img2img=args.img2img,
         stable_fast=args.stable_fast,
         reuse_seed=args.reuse_seed,
         flux_enabled=args.flux,

@@ -272,6 +272,55 @@ __device__ __forceinline__ void store_o(const Params& p, const float (&o)[N / 2]
   }
 }
 
+// The f32 path's running o folded into the output, which holds an f32
+// partial sum between folds: out = out * a + o (the first fold: out = o),
+// through store_o's fragment layout; FINAL also divides by l. a is the
+// product of the rescales o took since the last fold. The tensor cores do
+// not round to nearest when they add a wgmma's products into the
+// accumulator, so a sum carried in it through every kv tile drifts towards
+// zero in proportion to the tiles: on an H100 the VAE head came out 2.0e-4
+// to 4.0e-4 small at 65 536 kv rows (1.6e-8 to 3.3e-8 a wgmma, 3 a tile),
+// against a 1e-4 limit. Folded every kFoldTiles tiles with a rounded fma,
+// it drifts within a fold only: about 7e-6 in 128 tiles.
+constexpr int kFoldTiles = 256;
+
+template <int N, bool FINAL>
+__device__ __forceinline__ void fold_o(const Params& p, float (&o)[N / 2], const float (&a)[2],
+                                       const float (&l_i)[2], bool first, int q0, int c0) {
+  float l[2] = {1.f, 1.f};
+  if constexpr (FINAL) {
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      l[r] = l_i[r];
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+      l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    }
+  }
+  const int b = blockIdx.y / p.heads;
+  const int h = blockIdx.y - b * p.heads;
+  const int lane = threadIdx.x & 31;
+  const int row = q0 + ((threadIdx.x >> 5) & 3) * 16 + (lane >> 2);
+  float* go = static_cast<float*>(p.o) + b * p.o_sb + h * p.o_sh;
+#pragma unroll
+  for (int j = 0; j < N / 8; ++j) {
+    const int col = c0 + j * 8 + (lane & 3) * 2;
+#pragma unroll
+    for (int half = 0; half < 2; ++half) {
+      const int r = row + half * 8;
+      float* dst = go + static_cast<long long>(r) * p.o_sl + col;
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        float& v = o[4 * j + 2 * half + e];
+        if (r < p.lq && col + e < p.d) {
+          const float sum = first ? v : __fmaf_rn(dst[e], a[half], v);
+          dst[e] = FINAL ? sum / l[half] : sum;
+        }
+        if constexpr (!FINAL) v = 0.f;
+      }
+    }
+  }
+}
+
 // ---------------------------------------------------------------------------
 // flash_wgmma_kernel: bf16, d <= 160
 // ---------------------------------------------------------------------------
@@ -549,6 +598,8 @@ __device__ __forceinline__ void consume_split(const Params& p, unsigned char* sm
   uint32_t ph[1][4], pl[1][4];
   float m_i[2] = {kNegInf, kNegInf};
   float l_i[2] = {0.f, 0.f};
+  float a_i[2] = {1.f, 1.f};  // f32: the rescales since the last fold_o
+  bool folded = false;
 
   mbar_wait(full_k, 0);
   wgmma_fence();
@@ -590,6 +641,15 @@ __device__ __forceinline__ void consume_split(const Params& p, unsigned char* sm
     if constexpr (SPLIT) fence_p(pl);
     mbar_arrive(empty_v);  // the next V may land
     rescale(o, l_i, alpha, rsum);
+    if constexpr (SPLIT) {
+      a_i[0] *= alpha[0];
+      a_i[1] *= alpha[1];
+      if (t % kFoldTiles == 0) {  // o holds the P.V of tiles t - kFoldTiles .. t - 1
+        fold_o<DH, false>(p, o, a_i, l_i, !folded, q0, wg * DH);
+        a_i[0] = a_i[1] = 1.f;
+        folded = true;
+      }
+    }
     pack_p<C::BN, SPLIT>(ph, pl, s);
   }
   mbar_wait(full_v, (n_tiles - 1) & 1);
@@ -599,7 +659,11 @@ __device__ __forceinline__ void consume_split(const Params& p, unsigned char* sm
   wgmma_commit();
   wgmma_wait<0>();
   fence_operands(o);
-  store_o<T, DH>(p, o, l_i, q0, wg * DH);
+  if constexpr (SPLIT) {
+    fold_o<DH, true>(p, o, a_i, l_i, !folded, q0, wg * DH);
+  } else {
+    store_o<T, DH>(p, o, l_i, q0, wg * DH);
+  }
 }
 
 // Two consumer warpgroups (one half of the head dim each) and one producer

@@ -1,28 +1,38 @@
-"""SD VAE (AutoencoderKL) decoder, NHWC at the boundary.
+"""SD VAE (AutoencoderKL) encoder and decoder, NHWC at the boundary.
 
 Counterpart of lightdiffusion_next_tpu/models/vae.py: the same config,
 checkpoint keys ("decoder.up.3.upsample.conv.weight", ...) and math, for
 the SD VAE and the Flux AE (``FLUX_AE``: 16 latent channels, no quant
 convs). Conv weights are OIHW. The VAE computes in f32 (the dtype policy);
-its mid-block attention runs through K2 at 1024^2.
+the mid-block attention of the encoder and the decoder runs through K2
+from 512 tokens (a 1024^2 decode: 16 384, 2048^2: 65 536; a 576^2 USDU
+tile: 5184).
 
-Not ported yet (ROADMAP Queue 1, item 7): the encoder, ``VAE.encode``, and
-the tiled decode the JAX package falls back to when a decode runs out of
-memory.
+``VAE.decode`` decodes in sub-batches sized to the device's free memory
+(``torch.cuda.mem_get_info``) at the JAX package's estimate of 160 KiB per
+latent pixel; if even that runs out of memory (``torch.OutOfMemoryError``,
+nothing else), it logs it and decodes in overlapping 64-pixel latent tiles
+(``decode_tiled``). ``VAE.encode`` returns the latent distribution's mode,
+or a sample with the noise given.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import logging
 from typing import Optional, Tuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 from lightdiffusion_next_tpu_torch import config as _config
 from lightdiffusion_next_tpu_torch.models.base import params_to_device
 from lightdiffusion_next_tpu_torch.ops import attention as attn_ops
 from lightdiffusion_next_tpu_torch.ops import nn
+from lightdiffusion_next_tpu_torch.utils import tiling
+
+logger = logging.getLogger(__name__)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -97,6 +107,27 @@ def _attn_block(p: nn.ParamView, x):
     return x + nn.conv2d(out, p("proj_out.weight"), p("proj_out.bias"))
 
 
+def apply_encoder(params: dict, x, cfg: VAEConfig = SD_VAE):
+    """pixels (B, H, W, 3) in [-1, 1] -> moments (B, h, w, 2 * z)."""
+    p = nn.ParamView(params, "encoder.")
+    h = nn.conv2d(x, p("conv_in.weight"), p("conv_in.bias"), padding=1)
+    for i in range(len(cfg.ch_mult)):
+        for j in range(cfg.num_res_blocks):
+            h = _resnet(p.scope(f"down.{i}.block.{j}."), h)
+        if i != len(cfg.ch_mult) - 1:
+            # the asymmetric (0, 1) pad of H and W, then a stride-2 conv
+            h = nn.conv2d(F.pad(h, (0, 0, 0, 1, 0, 1)), p(f"down.{i}.downsample.conv.weight"),
+                          p(f"down.{i}.downsample.conv.bias"), stride=2)
+    h = _resnet(p.scope("mid.block_1."), h)
+    h = _attn_block(p.scope("mid.attn_1."), h)
+    h = _resnet(p.scope("mid.block_2."), h)
+    h = nn.silu(_gn(h, p("norm_out.weight"), p("norm_out.bias")))
+    h = nn.conv2d(h, p("conv_out.weight"), p("conv_out.bias"), padding=1)
+    if cfg.has_quant_conv:
+        h = nn.conv2d(h, params["quant_conv.weight"], params["quant_conv.bias"])
+    return h
+
+
 def apply_decoder(params: dict, z, cfg: VAEConfig = SD_VAE):
     """latent (B, h, w, z) -> pixels (B, H, W, 3) in [-1, 1]."""
     if cfg.has_quant_conv:
@@ -117,8 +148,24 @@ def apply_decoder(params: dict, z, cfg: VAEConfig = SD_VAE):
     return nn.conv2d(h, p("conv_out.weight"), p("conv_out.bias"), padding=1)
 
 
+def gaussian_sample(moments, noise=None):
+    """NHWC moments (mean | logvar on the channel axis) -> the mean, or with
+    ``noise`` a sample."""
+    mean, logvar = torch.chunk(moments, 2, dim=-1)
+    if noise is None:
+        return mean
+    logvar = torch.clamp(logvar, -30.0, 20.0)
+    return mean + torch.exp(0.5 * logvar) * noise
+
+
 class VAE:
-    """Decode facade: pixel-range scaling around ``apply_decoder``."""
+    """Encode and decode facade: pixel-range scaling around the encoder and
+    the decoder, the decode sub-batched and its tiled fallback."""
+
+    # the decoder's activation peak per latent pixel (the JAX package's
+    # measured constant): 64 output pixels x 128 channels x 4 bytes x the
+    # live buffers
+    _DECODE_BYTES_PER_LATENT_PIXEL = 160 * 1024
 
     def __init__(self, params: dict, cfg: VAEConfig = SD_VAE,
                  dtype: Optional[torch.dtype] = None,
@@ -128,11 +175,53 @@ class VAE:
         self.dtype = dtype or _config.DtypePolicy.for_device(self.device).vae_dtype
         self.params = params_to_device(params, self.dtype, self.device)
 
+    def _max_decode_batch(self, shape) -> int:
+        """The most images of ``shape``'s size one decode call fits in 80% of
+        the device's free memory (8 GiB assumed on the CPU)."""
+        if self.device.type == "cuda":
+            free, _ = torch.cuda.mem_get_info(self.device)
+        else:
+            free = 8 << 30
+        per_image = shape[1] * shape[2] * self._DECODE_BYTES_PER_LATENT_PIXEL
+        return max(1, int(free * 0.8) // max(per_image, 1))
+
+    def _decode_scaled(self, z):
+        out = apply_decoder(self.params, z.to(self.dtype), self.cfg)
+        return torch.clamp((out.float() + 1.0) / 2.0, 0.0, 1.0)
+
     def decode(self, samples):
         """latent NHWC -> images NHWC float32 in [0, 1], on the VAE's device."""
         z = torch.as_tensor(samples).to(device=self.device, dtype=self.dtype)
-        out = apply_decoder(self.params, z, self.cfg)
-        return torch.clamp((out.float() + 1.0) / 2.0, 0.0, 1.0)
+        b = z.shape[0]
+        step = min(self._max_decode_batch(z.shape), b)
+        try:
+            outs = [self._decode_scaled(z[i:i + step]) for i in range(0, b, step)]
+            return outs[0] if len(outs) == 1 else torch.cat(outs)
+        except torch.OutOfMemoryError:
+            # handled below, once this frame's partial results are freed
+            pass
+        logger.warning("VAE decode of %s ran out of device memory; decoding in tiles",
+                       tuple(z.shape))
+        if self.device.type == "cuda":
+            torch.cuda.empty_cache()
+        return self.decode_tiled(z)
+
+    def decode_tiled(self, samples, tile: int = 64, overlap: int = 16):
+        """The decode in overlapping ``tile`` x ``tile`` latent tiles, blended
+        by feathered weights (``utils.tiling``)."""
+        z = torch.as_tensor(samples).to(device=self.device, dtype=self.dtype)
+        return tiling.tiled_apply_2d(self._decode_scaled, z, tile=tile, overlap=overlap,
+                                     upscale=self.cfg.downscale_ratio,
+                                     out_channels=self.cfg.out_ch)
+
+    def encode(self, pixels, noise=None):
+        """images NHWC in [0, 1] -> latent NHWC f32 on the VAE's device: the
+        mode, or a sample with ``noise``."""
+        x = torch.as_tensor(pixels).to(device=self.device, dtype=self.dtype) * 2.0 - 1.0
+        moments = apply_encoder(self.params, x, self.cfg).float()
+        if noise is not None:
+            noise = torch.as_tensor(noise).to(device=self.device, dtype=torch.float32)
+        return gaussian_sample(moments, noise)
 
 
 def init_params(cfg: VAEConfig = SD_VAE, seed: int = 0):

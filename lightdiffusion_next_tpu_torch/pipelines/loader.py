@@ -1,15 +1,16 @@
 """Checkpoint loading: a one-file SD1.5 checkpoint -> (model, clip, vae), a
-Flux GGUF -> the Flux DiT, with architecture detection and a model cache
-kept between calls.
+Flux GGUF -> the Flux DiT, an ESRGAN file -> its upscaler, with
+architecture detection and a model cache kept between calls.
 
 Counterpart of lightdiffusion_next_tpu/pipelines/loader.py, its
 single-device part: ``load_checkpoint_guess_config``,
 ``load_diffusion_model_gguf``, ``ModelCache`` (with
 ``evict_other_variants``), ``get_model_cache``,
-``CheckpointLoaderSimple``. Each model is built on the given device (the
-GPU by default) in the device's dtype policy: the UNet through
-``base.sd15_model`` (which joins its attention projections), the VAE with
-its encoder weights kept (unused until img2img is ported), CLIP-L with the
+``CheckpointLoaderSimple``, and the cache's ``"esrgan"`` entry that the JAX
+``pipeline.py`` keeps (``load_upscale_model``). Each model is built on the
+given device (the GPU by default) in the device's dtype policy: the UNet
+through ``base.sd15_model`` (which joins its attention projections), the
+VAE with its encoder and decoder, ESRGAN in f32, CLIP-L with the
 textual-inversion directory, the Flux DiT through ``base.flux_model``
 (requant, permutation and stacking on the device). A one-file Flux
 checkpoint raises, as in the JAX package. Not ported (ROADMAP Queue 1,
@@ -29,6 +30,7 @@ import torch
 
 from lightdiffusion_next_tpu_torch import config as _config
 from lightdiffusion_next_tpu_torch.models import base as base_mod
+from lightdiffusion_next_tpu_torch.models import esrgan
 from lightdiffusion_next_tpu_torch.models import flux as flux_mod
 from lightdiffusion_next_tpu_torch.models import vae as vae_mod
 from lightdiffusion_next_tpu_torch.models.clip import facade as clip_facade
@@ -94,6 +96,24 @@ def load_diffusion_model_gguf(path: str, w8a8: Optional[bool] = None,
         torch.cuda.synchronize(dev)
     logger.info("loaded %s (%d bytes) in %.3f s", path, os.path.getsize(path),
                 time.perf_counter() - t0)
+    return model
+
+
+def load_upscale_model(path: str, device: _config.DeviceLike = None) -> esrgan.UpscaleModel:
+    """The ESRGAN file at ``path`` as an ``esrgan.UpscaleModel`` on ``device``,
+    through the model cache (variant ``"esrgan"``): one load a session."""
+    dev = _config.resolve_device(device)
+    cache = get_model_cache()
+    variant = f"esrgan;dev={dev}"
+    model = cache.get(path, variant)
+    if model is None:
+        t0 = time.perf_counter()
+        model = esrgan.UpscaleModel(sd_utils.load_torch_file(path), device=dev)
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+        logger.info("loaded %s (%d bytes) in %.3f s", path, os.path.getsize(path),
+                    time.perf_counter() - t0)
+        cache.put(path, model, variant)
     return model
 
 

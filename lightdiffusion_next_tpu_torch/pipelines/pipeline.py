@@ -1,7 +1,9 @@
-"""pipeline(): SD1.5 and Flux.1 txt2img on the GPU.
+"""pipeline(): SD1.5 txt2img with its hires-fix, SD1.5 img2img with
+UltimateSDUpscale, and Flux.1 txt2img, on the GPU.
 
 Counterpart of lightdiffusion_next_tpu/pipelines/pipeline.py ``pipeline``
-with two of its flows:
+with three of its flows, dispatched in its order (Flux first, then
+img2img, then SD1.5; so Flux ignores ``hires_fix`` and ``img2img``):
 
 - ``_sd15_generate``: without models given, the checkpoint (Meina V10, or
   DreamShaper 8 with ``realistic_model``) is loaded from the asset root
@@ -12,7 +14,19 @@ with two of its flows:
   ``dpmpp_2m_cfgpp`` with ``prio_speed``) for 20 karras steps under the
   batched CFG denoiser with the multi-scale plan and MSW-MSA windowing,
   the VAE decodes, AutoHDR runs (``autohdr``), and the image is saved
-  under "Classic/LD";
+  under "Classic/LD". With ``hires_fix`` the final latent is resized by
+  bislerp to twice the size, then ``euler_ancestral_cfgpp`` takes 10 steps
+  over the "normal" schedule at cfg 8.0 and denoise 0.45 from a new
+  ``random.randint`` seed (MSW-MSA still on, multi-scale off), and the
+  decode is saved under "HiresFix/LD";
+- ``_img2img_usdu`` (``img2img=True``; the prompt is the image's path):
+  the checkpoint as above without the LoRA, CLIP-L with clip-skip -2 on
+  fixed prompts, the image upscaled by ``ESRGAN/RealESRGAN_x4plus.pth``
+  (through the model cache) when it exists, then UltimateSDUpscale to
+  twice the size (``upscaler.USDUConfig(upscale_by=2.0)``: 512 tiles, 8
+  steps of ``dpmpp_2m_cfgpp`` over karras at cfg 6.0, denoise 0.3 and 0.2
+  on the seams, from a new ``random.randint`` seed), AutoHDR, saved under
+  "Img2Img/LD";
 - ``_flux_txt2img`` (``flux_enabled=True``): without models given, the
   four Flux assets are loaded from the asset root through the model cache
   (``_get_flux_models``: the DiT from ``unet/flux1-dev-Q8_0.gguf`` with
@@ -27,8 +41,10 @@ with two of its flows:
 
 Beyond the JAX function's arguments it takes the models (``model``,
 ``clip``, ``vae`` and, for Flux, ``t5``; they are loaded when none is
-given, and only a loaded SD1.5 checkpoint gets the LoRA), an optional
-``seed`` and the ``device`` (the GPU by default). Arguments whose modules
+given, and only a loaded SD1.5 checkpoint gets the LoRA, in txt2img), an
+optional ``seed`` (txt2img's first pass; the hires-fix and USDU seeds come
+from ``random`` as in the JAX package) and the ``device`` (the GPU by
+default). Arguments whose modules
 are not ported raise ``NotImplementedError`` naming their ROADMAP item,
 before anything is loaded. ``LDT_FLUX_TP`` (the multi-chip Flux of ROADMAP
 Queue 1, item 11) is not read.
@@ -53,7 +69,7 @@ from lightdiffusion_next_tpu_torch.models.clip import t5_tokenizer
 from lightdiffusion_next_tpu_torch.models.clip import text_encoder as te
 from lightdiffusion_next_tpu_torch.models.clip import tokenizer as clip_tokenizer
 from lightdiffusion_next_tpu_torch.ops import ggml, window
-from lightdiffusion_next_tpu_torch.pipelines import downloader, loader
+from lightdiffusion_next_tpu_torch.pipelines import downloader, loader, upscaler
 from lightdiffusion_next_tpu_torch.sampling import cfg as cfg_mod
 from lightdiffusion_next_tpu_torch.sampling import ksampler as ks
 from lightdiffusion_next_tpu_torch.sampling import samplers as samplers_mod
@@ -62,6 +78,7 @@ from lightdiffusion_next_tpu_torch.utils import image as image_utils
 from lightdiffusion_next_tpu_torch.utils import latent as latent_mod
 from lightdiffusion_next_tpu_torch.utils import params_io
 from lightdiffusion_next_tpu_torch.utils import state_dict as sd_utils
+from lightdiffusion_next_tpu_torch.utils import upscale as upscale_mod
 
 logger = logging.getLogger(__name__)
 
@@ -72,9 +89,7 @@ DEFAULT_NEGATIVE = (
 )
 
 _NOT_PORTED = {
-    "hires_fix": "hires-fix (ROADMAP Queue 1, item 8)",
     "adetailer": "ADetailer (ROADMAP Queue 1, item 8)",
-    "img2img": "img2img / UltimateSDUpscale (ROADMAP Queue 1, item 8)",
     "enhance_prompt": "prompt enhancement (ROADMAP Queue 1, item 10)",
 }
 
@@ -140,9 +155,10 @@ def pipeline(
     given, they are loaded on ``device`` from the asset root. With ``seed`` given,
     no seed file is read or written; otherwise the JAX package's seed
     handling applies. ``progress_callback`` is called after every sampler
-    step with the step's dict (``x``, ``i``, ``sigma``, ``denoised``)."""
-    requested = {"hires_fix": hires_fix, "adetailer": adetailer, "img2img": img2img,
-                 "enhance_prompt": enhance_prompt}
+    step with the step's dict (``x``, ``i``, ``sigma``, ``denoised``); a
+    ``should_stop`` method on it, when it returns true, stops the run
+    between images, passes and USDU tiles."""
+    requested = {"adetailer": adetailer, "enhance_prompt": enhance_prompt}
     for name, on in requested.items():
         if on:
             raise NotImplementedError(f"{name}=True: {_NOT_PORTED[name]} is not ported yet")
@@ -176,14 +192,20 @@ def pipeline(
     saver = image_utils.SaveImage(output_dir=output_dir)
     saved: List[str] = []
     for _ in range(number):
+        if samplers_mod.callback_requests_stop(progress_callback):
+            break
         if flux_enabled:
             saved += _flux_txt2img(prompt, w, h, batch, seed, autohdr, saver,
                                    progress_callback, model, clip, vae, t5, device)
+        elif img2img:
+            saved += _img2img_usdu(prompt, autohdr, saver, realistic_model, progress_callback,
+                                   model, clip, vae, device)
+            continue
         else:
             saved += _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms,
                                     prio_speed, autohdr, realistic_model, saver,
                                     progress_callback, hidiffusion, model, clip, vae,
-                                    device)
+                                    device, hires_fix)
         seed = random.randint(1, 2**63 - 1)
     return saved
 
@@ -227,7 +249,7 @@ def _apply_lora_add_detail(model, clip):
 
 def _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms, prio_speed, autohdr,
                    realistic_model, saver, callback, hidiffusion, model, clip, vae,
-                   device):
+                   device, hires_fix):
     if model is None:
         model, clip, vae = _load_sd15(realistic_model, device)
         model, clip = _apply_lora_add_detail(model, clip)
@@ -257,10 +279,49 @@ def _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms, prio_speed, a
         ms=ms,
         callback=callback,
     )
+    if hires_fix and not samplers_mod.callback_requests_stop(callback):
+        up = upscale_mod.bislerp(result.latent, (w * 2) // 8, (h * 2) // 8)
+        result = ks.ksample(
+            model,
+            seed=random.randint(1, 2**63 - 1),
+            steps=10,
+            cfg_scale=8.0,
+            sampler_name="euler_ancestral_cfgpp",
+            scheduler="normal",
+            positive=positive,
+            negative=negative,
+            latent_image=torch.from_numpy(up).to(model.device),
+            denoise=0.45,
+            callback=callback,
+        )
     images = vae.decode(result.latent)
     if autohdr:
         images = hdr_mod.apply_hdr_batch(images)
-    return saver.save_images(images.cpu().numpy(), "Classic/LD", prompt=prompt)
+    return saver.save_images(images.cpu().numpy(), "HiresFix/LD" if hires_fix else "Classic/LD",
+                             prompt=prompt)
+
+
+def _img2img_usdu(image_path, autohdr, saver, realistic_model, callback, model, clip, vae,
+                  device):
+    if model is None:
+        model, clip, vae = _load_sd15(realistic_model, device)
+    clip = clip_facade.CLIPSetLastLayer().set_last_layer(clip, -2)
+    encode = clip_facade.CLIPTextEncode()
+    positive = encode.encode(clip, "masterpiece, best quality, highly detailed")
+    negative = encode.encode(clip, DEFAULT_NEGATIVE)
+    image = image_utils.load_image(image_path)
+
+    up_model = None
+    esrgan_path = downloader.asset_path("ESRGAN", "RealESRGAN_x4plus.pth")
+    if os.path.exists(esrgan_path):
+        up_model = loader.load_upscale_model(esrgan_path, model.device)
+    usdu = upscaler.UltimateSDUpscale(model, vae, up_model, upscaler.USDUConfig(upscale_by=2.0))
+    out = usdu.upscale(image, positive, negative, seed=random.randint(1, 2**63 - 1), steps=8,
+                       cfg_scale=6.0, sampler_name="dpmpp_2m_cfgpp", scheduler="karras",
+                       denoise=0.3, callback=callback)
+    if autohdr:
+        out = hdr_mod.apply_hdr_batch(torch.from_numpy(out).to(model.device)).cpu().numpy()
+    return saver.save_images(out, "Img2Img/LD", prompt=image_path)
 
 
 def _get_flux_models(unet_path, t5_path, clip_l_path, ae_path, device):

@@ -1,10 +1,11 @@
-"""KSampler facade: schedule, noise (with the SDE samplers' Brownian-tree
-noise), CFG denoiser, sampler loop.
+"""KSampler facade: schedule, noise (with the ancestral samplers' per-step
+noise and the SDE samplers' Brownian-tree noise), CFG denoiser, sampler
+loop.
 
 Counterpart of lightdiffusion_next_tpu/sampling/ksampler.py ``ksample``,
 with the FBCache dispatch (``fbcache=`` or the model's ``"fbcache"``
-option), without denoise masks and differential diffusion (ROADMAP Queue 1,
-item 8). Latents are NHWC in and out.
+option). Not ported yet: denoise masks and differential diffusion, which
+ADetailer needs (ROADMAP Queue 1, item 8). Latents are NHWC in and out.
 """
 
 from __future__ import annotations
@@ -102,9 +103,11 @@ def ksample(
         if sampler_opts is not None
         else samplers_mod.SamplerOptions(cfg_scale=cfg_scale)
     )
-    sde_noise = None
-    if samplers_mod.SAMPLER_ALIASES.get(sampler_name, sampler_name) in (
-            "dpmpp_sde", "dpmpp_sde_cfgpp"):
+    sde_noise = step_noise = None
+    name = samplers_mod.SAMPLER_ALIASES.get(sampler_name, sampler_name)
+    if name in samplers_mod.ANCESTRAL:
+        step_noise = noise_mod.step_noise_batch(shape, len(sigmas) - 1, seed)
+    if name in ("dpmpp_sde", "dpmpp_sde_cfgpp"):
         # the Brownian-tree noise of every step, on the host before the loop
         sde_noise = noise_mod.sde_noise_for_steps(
             shape, sigmas, r=samplers_mod.R, eta=samplers_mod.ETA, seed=seed)
@@ -138,7 +141,7 @@ def ksample(
     out = samplers_mod.sample(
         denoise_fn, x, sigmas, sampler=sampler_name,
         ms=ms if ms is not None else samplers_mod.MultiScale(),
-        opts=opts, callback=callback, sde_noise=sde_noise,
+        opts=opts, callback=callback, sde_noise=sde_noise, step_noise=step_noise,
     )
     sigma_last = torch.tensor(float(sigmas[-1]), dtype=torch.float32, device=device)
     raw = msampling.inverse_noise_scaling(sigma_last, out)

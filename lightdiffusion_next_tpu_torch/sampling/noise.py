@@ -1,5 +1,5 @@
-"""Seeded noise: the initial latent noise and the Brownian-tree noise of
-the SDE samplers.
+"""Seeded noise: the initial latent noise, the ancestral samplers' per-step
+noise and the Brownian-tree noise of the SDE samplers.
 
 Counterpart of lightdiffusion_next_tpu/sampling/noise.py in its "torch"
 mode, bit for bit: torch's CPU generator, seeded per call, and the same
@@ -10,8 +10,7 @@ on the host before the sampler loop; the caller moves it to the device
 once.
 
 Not ported yet (ROADMAP Queue 1, item 2): the "jax" mode and its
-``BrownianIntervalSampler``, the batch-repeat ``noise_inds`` and the
-ancestral per-step noise.
+``BrownianIntervalSampler``, and the batch-repeat ``noise_inds``.
 """
 
 from __future__ import annotations
@@ -27,6 +26,16 @@ def prepare_noise(shape: Sequence[int], seed: int) -> torch.Tensor:
     """Initial latent noise, f32 on the CPU."""
     generator = torch.Generator(device="cpu").manual_seed(seed)
     return torch.randn(tuple(shape), generator=generator)
+
+
+def step_noise_batch(shape: Sequence[int], n: int, seed: int) -> torch.Tensor:
+    """(n, *shape) standard normals for the ancestral samplers, f32 on the
+    CPU: the stream ``prepare_noise(shape, seed)`` started, continued past
+    the initial noise (the reference's ``randn_like`` on the generator
+    state that call left behind)."""
+    generator = torch.Generator(device="cpu").manual_seed(seed)
+    torch.randn(tuple(shape), generator=generator)  # the initial noise
+    return torch.randn((n,) + tuple(shape), generator=generator)
 
 
 class TorchSDEBrownianTree:

@@ -1,5 +1,6 @@
-"""Sampler loop: DPM++(2M) and DPM++ SDE with their CFG++ names, Euler
-with its dy CFG++ variant (``euler_cfgpp``), and the multi-scale plan.
+"""Sampler loop: Euler and Euler-ancestral with their CFG++ and dy CFG++
+variants, DPM++(2M) and DPM++ SDE with their CFG++ names, and the
+multi-scale plan.
 
 Counterpart of lightdiffusion_next_tpu/sampling/samplers.py. Every
 schedule-derived scalar is computed on the host from the numpy sigma table
@@ -10,6 +11,16 @@ full resolution and only the model call is resized, bilinear down and up.
 
 CFG++ parity: ``true_cfgpp=False`` (the default) is the reference's
 effective behaviour, the plain CFG output; ``old_denoised`` starts as NaN.
+
+The Euler family steps with f32 host constants, as the JAX scan reads
+them. ``euler`` and ``euler_ancestral`` follow the multi-scale plan; the
+CFG++ variants run every step at full resolution, as in the JAX package.
+The ancestral samplers (``euler_ancestral``, ``euler_ancestral_cfg_pp``,
+``euler_ancestral_dy_cfg_pp``, alias ``euler_ancestral_cfgpp``: the
+hires-fix pass's) step to ``sigma_down`` and add the step's noise
+(``noise.step_noise_batch``, passed as ``step_noise``) times ``sigma_up``.
+``euler_ancestral_dy_cfg_pp`` takes no checkerboard extra steps: neither
+does the reference's, despite its name.
 
 ``euler_dy_cfg_pp`` (alias ``euler_cfgpp``, the Flux path's) runs every
 step at full resolution and, at steps 2 and 3, an extra Euler update of the
@@ -26,9 +37,6 @@ full-res or low-res route, with the two Brownian noises drawn beforehand
 (``noise.sde_noise_for_steps``, passed as ``sde_noise``); its last step
 (sigma_next = 0) is one Euler step, chosen on the host from the f32
 constants.
-
-Not ported yet: euler, euler_ancestral and the ancestral CFG++ variants
-(ROADMAP Queue 1, item 5).
 """
 
 from __future__ import annotations
@@ -42,9 +50,16 @@ import torch
 from lightdiffusion_next_tpu_torch.ops import nn
 from lightdiffusion_next_tpu_torch.sampling import schedules
 
-SAMPLER_NAMES = ("euler_dy_cfg_pp", "dpmpp_2m", "dpmpp_2m_cfgpp", "dpmpp_sde",
-                 "dpmpp_sde_cfgpp")
-SAMPLER_ALIASES = {"euler_cfgpp": "euler_dy_cfg_pp"}
+SAMPLER_NAMES = ("euler", "euler_ancestral", "euler_cfg_pp", "euler_ancestral_cfg_pp",
+                 "euler_dy_cfg_pp", "euler_ancestral_dy_cfg_pp", "dpmpp_2m",
+                 "dpmpp_2m_cfgpp", "dpmpp_sde", "dpmpp_sde_cfgpp")
+SAMPLER_ALIASES = {"euler_cfgpp": "euler_dy_cfg_pp",
+                   "euler_ancestral_cfgpp": "euler_ancestral_dy_cfg_pp"}
+ANCESTRAL = ("euler_ancestral", "euler_ancestral_cfg_pp", "euler_ancestral_dy_cfg_pp")
+# the samplers that follow the multi-scale plan; the other Euler variants
+# run every step at full resolution
+MULTISCALE = ("euler", "euler_ancestral", "dpmpp_2m", "dpmpp_2m_cfgpp", "dpmpp_sde",
+              "dpmpp_sde_cfgpp")
 # DPM++ SDE's ancestral eta, noise scale and midpoint ratio: the JAX
 # package's SamplerOptions defaults, which no caller changes
 ETA = 1.0
@@ -55,6 +70,14 @@ R = 0.5
 class SampleInterrupted(Exception):
     """Raised by a sampler callback to stop; the loop returns the current
     latent."""
+
+
+def callback_requests_stop(callback) -> bool:
+    """Poll a callback's optional ``should_stop`` hook: loops over units of
+    work (pipeline passes, USDU tiles) call it between units. An error the
+    hook raises propagates (the JAX package reads it as "keep running")."""
+    fn = getattr(callback, "should_stop", None)
+    return bool(fn and fn())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -183,14 +206,22 @@ def to_d(x, sigma, denoised):
     return (x - denoised) / sigma
 
 
-def _euler_step(carry, cs, denoise, *, true_cfgpp, cfg_w):
+def _euler_step(carry, cs, denoise, *, true_cfgpp, cfg_w, noise=None):
+    """Euler step to sigma_next, or with ``noise`` (ancestral) to
+    sigma_down, then the noise times sigma_up."""
     x, old_den, old_unc = carry
-    denoised, uncond = denoise(x, cs["sigma"])
+    sigma = cs["sigma"]
+    denoised, uncond = denoise(x, sigma)
     cfg_den = _cfg_combine(
         denoised, uncond, old_den, old_unc, cs, cfg_w, true_cfgpp,
         momentum_fn=lambda d, od: d,
     )
-    x = x + to_d(x, cs["sigma"], cfg_den) * (cs["sigma_next"] - cs["sigma"])
+    d = to_d(x, sigma, cfg_den)
+    if noise is None:
+        x = x + d * (cs["sigma_next"] - sigma)
+    else:
+        x = x + d * (cs["sigma_down"] - sigma)
+        x = x + noise * (S_NOISE * cs["sigma_up"])
     return (x, denoised, uncond)
 
 
@@ -260,19 +291,18 @@ def sample(
     opts: SamplerOptions = SamplerOptions(),
     callback: Optional[Callable] = None,
     sde_noise: Optional[Tuple] = None,
+    step_noise=None,
 ):
     """Run the sampler loop. ``denoise_fn(x, sigma) -> (denoised, uncond)``
     is the CFG guider, or a stateful one (``init_state``; ``(x, sigma,
     state) -> (denoised, uncond, state)``); ``x`` is the NHWC latent at full
     resolution. ``sde_noise``: dpmpp_sde's (noise1, noise2), each (n_steps,
-    *x.shape), moved to x's device once (zeros when not given). Returns the
-    final latent (f32)."""
+    *x.shape); ``step_noise``: the ancestral samplers' (n_steps, *x.shape);
+    each moved to x's device once (zeros when not given). Returns the final
+    latent (f32)."""
     sampler = SAMPLER_ALIASES.get(sampler, sampler)
     if sampler not in SAMPLER_NAMES:
-        raise NotImplementedError(
-            f"sampler {sampler!r} is not ported yet (ROADMAP Queue 1, item 5): "
-            f"ported are {SAMPLER_NAMES}"
-        )
+        raise ValueError(f"unknown sampler {sampler!r}")
     sigmas = np.asarray(sigmas, dtype=np.float32)
     n_steps = len(sigmas) - 1
     if n_steps <= 0:
@@ -280,8 +310,9 @@ def sample(
 
     b, h, w, ch = x.shape
     is_dy = sampler == "euler_dy_cfg_pp"
-    flags = (np.ones(n_steps, dtype=bool) if is_dy
-             else fullres_flags(n_steps, ms, h, w))
+    is_euler = sampler.startswith("euler")
+    flags = (fullres_flags(n_steps, ms, h, w) if sampler in MULTISCALE
+             else np.ones(n_steps, dtype=bool))
     sh, sw = scaled_dims(h, w, ms.factor) if ms.enabled else (h, w)
     consts = _step_consts(sigmas)
     steps = np.arange(n_steps, dtype=np.float32)
@@ -323,6 +354,13 @@ def sample(
             else (torch.as_tensor(n).to(device=x.device, dtype=torch.float32)
                   for n in sde_noise))
 
+    if sampler not in ANCESTRAL:
+        step_noise = None
+    elif step_noise is None:
+        step_noise = torch.zeros((n_steps,) + tuple(x.shape), device=x.device)
+    else:
+        step_noise = torch.as_tensor(step_noise).to(device=x.device, dtype=torch.float32)
+
     x = x.float()
     nanfill = torch.full_like(x, float("nan"))
     inner = (x, nanfill, nanfill)
@@ -333,11 +371,12 @@ def sample(
             box = [fresh_state((b, h, w, ch) if fullres else (b, sh, sw, ch))]
             box_fullres = fullres
         den = with_state(box) if fullres else scaled(with_state(box))
-        if is_dy:
+        if is_euler:
             # f32 host scalars: the values the JAX scan reads per step
             cs = {k: np.float32(v[i]) for k, v in consts.items()}
             inner = _euler_step(inner, cs, den, true_cfgpp=opts.true_cfgpp,
-                                cfg_w=float(cfg_sched[i]))
+                                cfg_w=float(cfg_sched[i]),
+                                noise=None if step_noise is None else step_noise[i])
             if i in dy_extra_steps:
                 half = [fresh_state((b, h // 2, w // 2, ch))]
                 inner = (_dy_extra_step(inner[0], with_state(half), cs),) + inner[1:]

@@ -2,8 +2,7 @@
 
 Counterpart of lightdiffusion_next_tpu/sampling/schedules.py. Schedules are
 small host computations in numpy (float32/float64 exactly as the JAX
-package computes them); the timestep embeddings run in torch. Not ported
-yet: the "normal" and "simple" schedulers (ROADMAP Queue 1, item 2).
+package computes them); the timestep embeddings run in torch.
 """
 
 from __future__ import annotations
@@ -45,6 +44,29 @@ def get_sigmas_karras(
     return append_zero(sigmas.astype(np.float32))
 
 
+def normal_scheduler(model_sampling, steps: int) -> np.ndarray:
+    """Timesteps evenly spaced from sigma_max's to sigma_min's, each mapped
+    back to its sigma (the hires-fix pass's schedule)."""
+    s = model_sampling
+    start = float(s.timestep(np.asarray(s.sigma_max, dtype=np.float32)))
+    end = float(s.timestep(np.asarray(s.sigma_min, dtype=np.float32)))
+    timesteps = np.linspace(start, end, steps, dtype=np.float32)
+    sigs = [float(s.sigma(np.asarray(ts, dtype=np.float32))) for ts in timesteps]
+    sigs.append(0.0)
+    return np.asarray(sigs, dtype=np.float32)
+
+
+def simple_scheduler(model_sampling, steps: int) -> np.ndarray:
+    """Every (len(sigmas) / steps)-th sigma of the table, from the top."""
+    s = model_sampling
+    sigs = []
+    ss = len(s.sigmas) / steps
+    for x in range(steps):
+        sigs.append(float(s.sigmas[-(1 + int(x * ss))]))
+    sigs.append(0.0)
+    return np.asarray(sigs, dtype=np.float32)
+
+
 def beta_scheduler(model_sampling, steps: int, alpha: float = 0.6,
                    beta: float = 0.6) -> np.ndarray:
     """Beta-distribution timestep spacing (arXiv 2407.12173), the Flux
@@ -62,23 +84,25 @@ def beta_scheduler(model_sampling, steps: int, alpha: float = 0.6,
     return np.asarray(sigs, dtype=np.float32)
 
 
-SCHEDULERS = ("karras", "beta")
+SCHEDULERS = ("karras", "normal", "simple", "beta")
 
 
 def calculate_sigmas(model_sampling, scheduler_name: str, steps: int) -> np.ndarray:
-    """Schedule entry: "karras" (the SD1.5 path's) and "beta" (Flux's)."""
+    """Schedule entry: "karras" (SD1.5's txt2img and img2img), "normal"
+    (hires-fix), "simple" and "beta" (Flux's)."""
     if scheduler_name == "karras":
         return get_sigmas_karras(
             steps,
             sigma_min=float(model_sampling.sigma_min),
             sigma_max=float(model_sampling.sigma_max),
         )
+    if scheduler_name == "normal":
+        return normal_scheduler(model_sampling, steps)
+    if scheduler_name == "simple":
+        return simple_scheduler(model_sampling, steps)
     if scheduler_name == "beta":
         return beta_scheduler(model_sampling, steps)
-    raise NotImplementedError(
-        f"scheduler {scheduler_name!r} is not ported yet (ROADMAP Queue 1, "
-        f"item 5): ported are {SCHEDULERS}"
-    )
+    raise ValueError(f"invalid scheduler {scheduler_name!r}")
 
 
 def get_ancestral_step(sigma_from: float, sigma_to: float,

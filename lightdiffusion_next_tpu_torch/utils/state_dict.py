@@ -56,15 +56,22 @@ def read_safetensors(path: str) -> Dict[str, torch.Tensor]:
     return out
 
 
+# the keys a torch file may nest its tensors under: Lightning's
+# "state_dict" and RealESRGAN's "params_ema" (the published x4plus file)
+NESTED_KEYS = ("state_dict", "params_ema")
+
+
 def load_torch_file(path: str) -> Dict[str, torch.Tensor]:
     """``.safetensors`` / ``.sft`` through ``read_safetensors``; ``.ckpt`` /
-    ``.pt`` through ``torch.load`` (weights only, a nested "state_dict"
-    unwrapped). CPU tensors in the file's dtype."""
+    ``.pt`` / ``.pth`` through ``torch.load`` (weights only; the first of
+    ``NESTED_KEYS`` that holds a dict unwrapped). CPU tensors in the file's
+    dtype."""
     if path.lower().endswith((".safetensors", ".sft")):
         return read_safetensors(path)
     sd = torch.load(path, map_location="cpu", weights_only=True)
-    if "state_dict" in sd:
-        sd = sd["state_dict"]
+    nested = next((k for k in NESTED_KEYS if isinstance(sd.get(k), dict)), None)
+    if nested is not None:
+        sd = sd[nested]
     return {k: v for k, v in sd.items() if isinstance(v, torch.Tensor)}
 
 

@@ -61,6 +61,12 @@ def _check(out, q, k, v):
         ("flash", 1, 1, 1024, 1024, 512, torch.float32),  # the VAE's head
         ("flash", 1, 1, 1000, 1100, 512, torch.float32),  # ragged Lq and Lk
         ("flash", 1, 1, 600, 600, 300, torch.float32),    # ragged d
+        # past the f32 fold every 256 kv tiles: one fold and a ragged tail,
+        # two heads at a ragged d, and the 2048^2 decode's 65 536 tokens,
+        # where an unfolded sum drifted 2.3e-4 (limit 1e-4)
+        ("flash", 1, 1, 1000, 4200, 512, torch.float32),
+        ("flash", 1, 2, 530, 8300, 300, torch.float32),
+        ("flash", 1, 1, 65536, 65536, 512, torch.float32),
     ],
 )
 def test_kernel_matches_plain(cuda, kernel, b, h, lq, lk, d, dtype):
@@ -74,6 +80,93 @@ def test_kernel_matches_plain(cuda, kernel, b, h, lq, lk, d, dtype):
     assert fn.launches == launches + 1
     assert out.shape == q.shape and out.dtype == dtype
     _check(out, q, k, v)
+
+
+@pytest.fixture(scope="module")
+def no_fold_flash():
+    """K2's C entry point built with its f32 fold out of reach
+    (``kFoldTiles`` = 2^30): the running sum stays in the tensor cores'
+    accumulator through every kv tile, as it did before the fold."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    import ctypes
+    import re
+    import shutil
+    import subprocess
+
+    from lightdiffusion_next_tpu_torch.ops import cuda_build
+
+    out = cuda_build.BUILD_DIR / "no_fold"
+    out.mkdir(parents=True, exist_ok=True)
+    header = (cuda_build.CSRC / "flash_attention.cuh").read_text()
+    header, n = re.subn(r"constexpr int kFoldTiles = \d+;", "constexpr int kFoldTiles = 1 << 30;",
+                        header)
+    assert n == 1
+    (out / "flash_attention.cuh").write_text(header)  # found before -I's copy
+    shutil.copy(cuda_build.CSRC / "flash_attention.cu", out / "flash_attention.cu")
+    subprocess.run([cuda_build.nvcc_path(), *cuda_build.NVCC_FLAGS, "-I", str(cuda_build.CSRC),
+                    "-o", str(out / "libflash_no_fold.so"), str(out / "flash_attention.cu")],
+                   check=True, capture_output=True)
+    fn = ctypes.CDLL(str(out / "libflash_no_fold.so")).ldt_flash_attention_fwd
+    fn.argtypes = cuda_build.KERNELS["flash_attention"][2]
+    fn.restype = ctypes.c_int
+    return fn
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("lk", [5184, 16384, 65536])
+@pytest.mark.parametrize("v_shift", [0.0, 1.0])
+def test_f32_fold_holds_the_drift(cuda, no_fold_flash, monkeypatch, lk, v_shift):
+    """K2's f32 path (the VAE head) at the USDU tile's, the 1024^2 and the
+    2048^2 decode's kv lengths, v centred and v + 1: within its limits and
+    within 3e-5 of the plain version's size (the bias, sum(out * plain) /
+    sum(plain^2) - 1), with its sum folded into the output every 256 kv
+    tiles. Without the fold the sum shrinks in proportion to the tiles (the
+    tensor cores' accumulation does not round to nearest). Prints one line
+    per case: both kernels against the plain version and against float64
+    on 256 q rows, their bias and ms (run with -s)."""
+    import json
+    import math
+
+    from lightdiffusion_next_tpu_torch.ops import cuda_build
+
+    gen = torch.Generator(device="cuda").manual_seed(5)
+    q, k, v = (torch.randn((1, 1, lk, 512), generator=gen, device="cuda") for _ in range(3))
+    v = v + v_shift
+    ref = fa.attention_plain(q, k, v)
+    s64 = (q[0, 0, :256].double() @ k[0, 0].double().T) / math.sqrt(512)
+    ref64 = torch.softmax(s64, -1) @ v[0, 0].double()
+
+    def rel(x, y):
+        x, y = x.double(), y.double()
+        return ((x - y).pow(2).mean().sqrt() / y.pow(2).mean().sqrt()).item()
+
+    def ms(fn):
+        fn()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(3):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        return start.elapsed_time(end) / 3
+
+    row = {"lk": lk, "v_shift": v_shift, "plain_vs_f64": rel(ref[0, 0, :256], ref64)}
+    built = cuda_build.entry_point("flash_attention")
+    for name, fn in (("folded", built), ("no_fold", no_fold_flash)):
+        monkeypatch.setattr(cuda_build, "entry_point", lambda _name, fn=fn: fn)
+        out = fa._launch("flash_attention", q, k, v)
+        torch.cuda.synchronize()
+        check = fa.agreement(out, ref)
+        row[name] = {"rel_rmse": check["rel_rmse"], "ok": check["ok"],
+                     "vs_f64": rel(out[0, 0, :256], ref64),
+                     "bias": ((out.double() * ref.double()).sum()
+                              / ref.double().pow(2).sum()).item() - 1.0,
+                     "ms": ms(lambda: fa._launch("flash_attention", q, k, v))}
+    monkeypatch.undo()
+    print("f32 drift", json.dumps(row))
+    assert row["folded"]["ok"], row
+    assert abs(row["folded"]["bias"]) < 3e-5, row
 
 
 @pytest.mark.cuda

@@ -195,12 +195,16 @@ def test_cli_defaults_end_to_end(runs, capsys):
 @pytest.mark.parametrize("flag", ["--flux", "--preview", "--hires-fix", "--img2img",
                                   "--adetailer", "--enhance-prompt"])
 def test_cli_unported_flags_raise(flag, tmp_path, monkeypatch):
-    """Each unported flag raises before anything loads; ``--flux`` is ported
-    and raises FileNotFoundError for its missing files."""
+    """Each unported flag raises before anything loads; ``--flux``,
+    ``--hires-fix`` and ``--img2img`` are ported and raise
+    FileNotFoundError for their missing files (the Flux assets, the SD1.5
+    checkpoint, which img2img loads before it reads the image)."""
     monkeypatch.setenv("LDT_ASSET_ROOT", str(tmp_path))
     monkeypatch.setenv("LDT_OFFLINE", "1")
-    if flag == "--flux":
-        with pytest.raises(FileNotFoundError, match="flux asset missing"):
+    missing = {"--flux": "flux asset missing", "--hires-fix": "checkpoint missing",
+               "--img2img": "checkpoint missing"}
+    if flag in missing:
+        with pytest.raises(FileNotFoundError, match=missing[flag]):
             tcli.main(["a cat", "64", "64", flag], device="cpu")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
@@ -214,7 +218,7 @@ def test_cli_mutually_exclusive_flags_and_config():
         tcli.main(["a cat", "64", "64", "--w8a8", "--no-w8a8"], device="cpu")
     saved = tconfig.get_config()
     with pytest.raises(NotImplementedError):
-        tcli.main(["a cat", "64", "64", "--no-packed-attn", "--hires-fix"], device="cpu")
+        tcli.main(["a cat", "64", "64", "--no-packed-attn", "--adetailer"], device="cpu")
     assert tconfig.get_config() == saved  # the unported flag raised first
     parse = tcli.build_parser().parse_args
     base = tconfig.RuntimeConfig()

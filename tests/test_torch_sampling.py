@@ -44,8 +44,12 @@ def test_trim_sigmas_equal():
 
 
 def test_unported_scheduler_raises():
-    with pytest.raises(NotImplementedError):
-        tks.sigmas_for(TMSD(), "normal", 10)
+    """"normal" (hires-fix's) is ported and equals the JAX schedule; an
+    unknown name raises ValueError, as in the JAX package."""
+    np.testing.assert_array_equal(tks.sigmas_for(TMSD(), "normal", 10),
+                                  jks.sigmas_for(JMSD(), "normal", 10))
+    with pytest.raises(ValueError, match="invalid scheduler"):
+        tks.sigmas_for(TMSD(), "exponential", 10)
 
 
 @pytest.mark.parametrize("steps", [6, 20])
@@ -172,8 +176,15 @@ def test_dpmpp_2m_cfgpp_loop_matches_jax(ms, true_cfgpp):
 
 
 def test_unported_sampler_raises():
-    """dpmpp_sde_cfgpp is ported (tests/test_torch_sde.py); hires-fix's
-    euler_ancestral_cfgpp is not."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tsamp.sample(lambda x, s: (x, x), torch.zeros(1, 8, 8, 4),
-                     np.array([1.0, 0.0], np.float32), sampler="euler_ancestral_cfgpp")
+    """Every sampler name of the JAX package is ported (hires-fix's
+    euler_ancestral_cfgpp: tests/test_torch_hires.py); an unknown name
+    raises ValueError, as in the JAX package."""
+    assert tsamp.SAMPLER_NAMES == jsamp.SAMPLER_NAMES
+    assert tsamp.SAMPLER_ALIASES == jsamp.SAMPLER_ALIASES
+    out = tsamp.sample(lambda x, s: (x * 0.5, x), torch.ones(1, 8, 8, 4),
+                       np.array([1.0, 0.0], np.float32), sampler="euler_ancestral_cfgpp")
+    torch.testing.assert_close(out, torch.full((1, 8, 8, 4), 0.5))
+    for samplers in (tsamp, jsamp):
+        with pytest.raises(ValueError, match="unknown sampler"):
+            samplers.sample(lambda x, s: (x, x), np.zeros((1, 8, 8, 4), np.float32),
+                            np.array([1.0, 0.0], np.float32), sampler="euler_a")

@@ -148,9 +148,29 @@ Phases, in order; any failure exits non-zero:
    each an encode, 8 steps, a decode), a 2048^2 PNG that is not constant,
    a finite last latent; a timed second call, which must take ESRGAN from
    the cache; ESRGAN, the tile's VAE encode and decode timed alone; the
-   CLI's ``--img2img`` as a process.
+   CLI's ``--img2img`` as a process;
+21. SD1.5 ADetailer and previews: K1 and K2 at the detailer's bucket
+   shapes (``adetailer_calls``: a person mask whose 2x crop takes the 768
+   cap, 512 x 768, and a face's, 512 x 640; level 0 windowed and
+   unwindowed, level 1, the f32 encode and decode at the bucket's latent)
+   as above; ``pipeline(prompt, 1024, 1024, adetailer=True)`` with no
+   ``yolos/`` files equal to the plain run's PNG bit for bit; with empty
+   ``yolos/`` placeholders and ``StandInDetector`` in
+   ``UltralyticsDetector``'s place (restored after, also on failure) both
+   passes, their launches against the plan (the first pass, then per
+   segment an encode, the detailer's 20 of 40 karras sigmas with the MSW
+   gate, a decode), a finite last latent, a PNG that is not constant; a
+   timed second call with each segment's seconds; ``Detailer.detail``
+   alone on a decoded image: the pixels outside every crop bit for bit;
+   a seeded TAESD decoder at the published widths under
+   ``vae_approx/``, ``PreviewHook`` previews (every 5): the steps at the
+   plan's chunk marks, 1024^2 PNGs that are not constant, progress 1.0,
+   the final PNG equal to the run without previews, timed in turns with
+   it (plain, preview, preview, plain), TAESD's decode alone; the CLI's
+   ``--adetailer --preview`` as a process; the linear RGB previews once
+   the decoder file is gone.
 
-Phases 19 and 20 run after phase 17, before the Flux phases. Phases 5 to
+Phases 19 to 21 run after phase 17, before the Flux phases. Phases 5 to
 11 pin ``RuntimeConfig(flux_scan=False)``, so their launch plans
 are the unrolled layout's. K1's and K2's shapes in phase 3 are those of both
 SD1.5 plans (``dpmpp_2m_cfgpp``, ``dpmpp_sde_cfgpp``).
@@ -1669,6 +1689,364 @@ def phase_img2img(gpu, per_kernel, png):
 
 
 # --------------------------------------------------------------------------
+# SD1.5 ADetailer and previews (phase 21), from phase 17's files
+# --------------------------------------------------------------------------
+
+YOLO_FILES = ("person_yolov8m-seg.pt", "face_yolov9c.pt")
+TAESD_PATH = os.path.join(DEFAULTS_DIR, "vae_approx", "taesd_decoder.safetensors")
+PREVIEW_EVERY = 5
+
+
+@functools.lru_cache(maxsize=1)
+def detailer_masks():
+    """{YOLO file: its stand-in's (1024, 1024) mask}: seeded ellipses, a
+    standing person (300 x 900 pixels: its 2x crop, clipped at the border,
+    takes the 768 cap) and a face (120 x 150), values in (0.8, 1]."""
+    import numpy as np
+
+    rng = np.random.default_rng(21)
+    yy, xx = np.mgrid[0:1024, 0:1024]
+    masks = {}
+    for name, (cx, cy, ax, ay) in zip(YOLO_FILES, ((512, 550, 150, 450), (500, 275, 60, 75))):
+        inside = ((xx - cx) / ax) ** 2 + ((yy - cy) / ay) ** 2 <= 1.0
+        masks[name] = (inside * (0.8 + 0.2 * rng.random((1024, 1024)))).astype(np.float32)
+    return masks
+
+
+class StandInDetector:
+    """Takes ``UltralyticsDetector``'s place in phase 21: the person file
+    finds ``detailer_masks()``'s person, the face file its face."""
+
+    def __init__(self, path):
+        self.mask = detailer_masks()[os.path.basename(path)]
+
+    def detect(self, image, threshold=0.5):
+        from lightdiffusion_next_tpu_torch.pipelines import detailer
+
+        return detailer.StaticMaskDetector([self.mask]).detect(image, threshold)
+
+
+def detailer_buckets(masks, size=1024):
+    """Each mask's (bbox, crop region, bucket (w, h)) as ``Detailer``
+    derives them with its defaults."""
+    import numpy as np
+
+    from lightdiffusion_next_tpu_torch.pipelines import detailer
+
+    cfg = detailer.DetailerConfig()
+    out = []
+    for m in masks:
+        for seg in detailer.StaticMaskDetector([m]).detect(np.zeros((1, size, size, 3))):
+            x0, y0, x1, y1 = detailer.crop_region_with_factor(seg.bbox, cfg.crop_factor,
+                                                              (size, size))
+            out.append((seg.bbox, (x0, y0, x1, y1),
+                        detailer._bucket_size(x1 - x0, y1 - y0, cfg.guide_size,
+                                              cfg.max_size)))
+    return out
+
+
+def adetailer_calls(buckets):
+    """The calls of ``pipeline(prompt, 1024, 1024, adetailer=True)`` with
+    every default: the first pass as ``attention_calls`` gives it for
+    ``dpmpp_sde_cfgpp`` with its decode, then per segment the encode at
+    the bucket's latent, the detailer's 20 of 40 karras sigmas (denoise
+    0.5) of ``dpmpp_2m_cfgpp`` at full resolution with MSW-MSA and its
+    gate, and the decode."""
+    from lightdiffusion_next_tpu_torch.sampling import ksampler
+    from lightdiffusion_next_tpu_torch.sampling.model_sampling import ModelSamplingDiscrete
+
+    calls = attention_calls(sampler="dpmpp_sde_cfgpp")
+    add = _adder(calls)
+    sigmas = ksampler.sigmas_for(ModelSamplingDiscrete(), "karras", 20, 0.5)
+    for _, _, (pw, ph) in buckets:
+        vae_call(add, ph // 8, pw // 8)
+        unet_calls(add, sigmas, ph // 8, pw // 8)
+        vae_call(add, ph // 8, pw // 8)
+    return calls
+
+
+def unwindowed_keys(calls, buckets):
+    """K1 at each bucket's level 0 with MSW-MSA's gate closed: checked
+    beside the windowed shapes the gate gives."""
+    names = {k[0] for k in calls if k[4] == 40}
+    return {(name, 2, 8, (ph // 8) * (pw // 8), 40, "bf16"): 0
+            for name in names for _, _, (pw, ph) in buckets}
+
+
+def write_taesd():
+    """A seeded TAESD decoder at the published widths (64 channels, 4
+    latent channels) under taesd_decoder.safetensors' bare ``N.*`` keys.
+    Returns its params as written."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.models import taesd
+
+    params = {k[len("decoder."):]: torch.from_numpy(v)
+              for k, v in taesd.init_params(seed=21).items() if k.startswith("decoder.")}
+    write_safetensors(TAESD_PATH, params)
+    return params
+
+
+def recording_instance(preview_dir):
+    """An ``AppInstance`` that also keeps the progress at each preview it
+    writes."""
+    from lightdiffusion_next_tpu_torch.app import instance
+
+    class Recording(instance.AppInstance):
+        def __init__(self):
+            super().__init__(preview_dir)
+            self.progress_at = []
+
+        def update_image(self, image):
+            self.progress_at.append(self.progress.get())
+            return super().update_image(image)
+
+    return Recording()
+
+
+def run_preview_pipeline(seed, out, preview_dir=None):
+    """``pipeline(prompt, 1024, 1024, seed=seed)`` with every default and,
+    with ``preview_dir``, a ``PreviewHook`` (every 5) on a recording
+    instance: (paths, wall seconds, the instance)."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.app import instance
+    from lightdiffusion_next_tpu_torch.pipelines import pipeline as pl
+
+    inst = recording_instance(preview_dir) if preview_dir else None
+    hook = instance.PreviewHook(inst, every=PREVIEW_EVERY) if inst else None
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    with torch.no_grad():
+        paths = pl.pipeline(DEFAULTS_PROMPT, 1024, 1024, seed=seed, progress_callback=hook,
+                            output_dir=os.path.join(DEFAULTS_DIR, out))
+    torch.cuda.synchronize()
+    return paths, time.perf_counter() - start, inst
+
+
+def check_previews(inst, side, label):
+    """The preview steps are the chunk marks of the default plan, progress
+    ends at 1.0, and the kept previews are side x side PNGs that are not
+    constant."""
+    from lightdiffusion_next_tpu_torch.sampling import samplers
+
+    flags = samplers.fullres_flags(20, samplers.MultiScale(enabled=True), 128, 128)
+    marks = samplers.chunk_marks(20, flags, set(), PREVIEW_EVERY)
+    want = [m - 1 for m in sorted(marks) if m > 0]
+    got = [round(p * 20) - 1 for p in inst.progress_at]
+    files = inst.get_latest_previews(8)
+    pngs = [read_png(p) for p in files if os.path.exists(p)]
+    ok = (got == want and inst.progress.get() == 1.0 and len(pngs) == len(files) == 4
+          and all(p.shape == (side, side, 3) and p.std() > 0 for p in pngs))
+    log(f"{label}: previews after steps {got} (the plan's marks {want}), progress "
+        f"{inst.progress.get()}, {len(pngs)} kept of {len(got)}, "
+        f"{[p.shape for p in pngs]}, std {[round(float(p.std()), 2) for p in pngs]}: "
+        f"{'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def timed_segments():
+    """A context that times (synced) each ``Detailer.enhance_detail``, each
+    ``detailer.dilate_masks`` and each ``StandInDetector.detect`` into the
+    lists of the dict it yields ("segment", "dilate", "detect")."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.pipelines import detailer
+
+    seconds = {"segment": [], "dilate": [], "detect": []}
+    patched = ((detailer.Detailer, "enhance_detail", "segment"),
+               (detailer, "dilate_masks", "dilate"), (StandInDetector, "detect", "detect"))
+    reals = [getattr(owner, name) for owner, name, _ in patched]
+
+    def timer(real, key):
+        def timed(*args, **kwargs):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = real(*args, **kwargs)
+            torch.cuda.synchronize()
+            seconds[key].append(time.perf_counter() - t0)
+            return out
+
+        return timed
+
+    @contextlib.contextmanager
+    def ctx():
+        for (owner, name, key), real in zip(patched, reals):
+            setattr(owner, name, timer(real, key))
+        try:
+            yield seconds
+        finally:
+            for (owner, name, _), real in zip(patched, reals):
+                setattr(owner, name, real)
+
+    return ctx()
+
+
+def check_detail_direct(model, vae, clip, x, masks, seed):
+    """``Detailer.detail`` on the decode of ``x`` with ``StaticMaskDetector``
+    over ``masks``: the pixels outside every crop region bit for bit the
+    input, those inside each mask changed."""
+    import numpy as np
+    import torch
+
+    from lightdiffusion_next_tpu_torch.models.clip import facade
+    from lightdiffusion_next_tpu_torch.ops import window
+    from lightdiffusion_next_tpu_torch.pipelines import detailer
+    from lightdiffusion_next_tpu_torch.pipelines import pipeline as pl
+
+    clip = facade.CLIPSetLastLayer().set_last_layer(clip, -2)
+    encode = facade.CLIPTextEncode()
+    pos, neg = encode.encode(clip, DEFAULTS_PROMPT), encode.encode(clip, pl.DEFAULT_NEGATIVE)
+    msw = model.with_options(attn1_override_factory=window.make_msw_msa_factory(
+        model_sampling=model.model_sampling))
+    with torch.no_grad():
+        image = vae.decode(model.latent_format.process_out(x)).cpu().numpy()
+        d = detailer.Detailer(msw, vae, detailer.DetailerConfig(denoise=0.5, seed=seed))
+        out, segs = d.detail(image, detailer.StaticMaskDetector(list(masks)), pos, neg)
+    outside = np.ones(image.shape[1:3], bool)
+    changed = []
+    for seg in segs:
+        x0, y0, x1, y1 = detailer.crop_region_with_factor(seg.bbox, d.cfg.crop_factor,
+                                                          image.shape[1:3])
+        outside[y0:y1, x0:x1] = False
+        inside = seg.mask > 0.5
+        changed.append(float(np.abs(out[0][inside] - image[0][inside]).mean()))
+    ok = (len(segs) == len(masks) and np.array_equal(out[0][outside], image[0][outside])
+          and all(c > 1e-3 for c in changed) and bool(np.isfinite(out).all()))
+    log(f"ADetailer Detailer.detail direct: {len(segs)} segments; outside every crop "
+        f"({int(outside.sum())} pixels) bit for bit; mean |change| inside the masks "
+        f"{[round(c, 4) for c in changed]}: {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def phase_adetailer(gpu, per_kernel):
+    """Phase 21: ``pipeline(prompt, 1024, 1024, adetailer=True)`` and the
+    TAESD previews with every default from phase 17's files. Returns (ok,
+    launches, e2e, calls)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from lightdiffusion_next_tpu_torch.models import taesd
+    from lightdiffusion_next_tpu_torch.pipelines import detailer, loader
+    from lightdiffusion_next_tpu_torch.pipelines import pipeline as pl
+
+    masks = detailer_masks()
+    buckets = detailer_buckets(masks.values())
+    calls = adetailer_calls(buckets)
+    log("plan SD1.5 ADetailer: segments (bbox, crop, bucket)", buckets,
+        {f"{k[0]} {k[1:]}": v for k, v in sorted(calls.items())})
+    phase_kernels({**new_shapes(calls, per_kernel), **unwindowed_keys(calls, buckets)},
+                  per_kernel)
+    yolo_dir = os.path.join(DEFAULTS_DIR, "yolos")
+    real_detector = detailer.UltralyticsDetector
+    seed = 2121
+    with defaults_assets():
+        try:
+            # (b) no yolos/ files: the images pass through
+            plain = run_default_pipeline(out="plain21", seed=seed)
+            through = run_default_pipeline(out="adetailer_through", adetailer=True, seed=seed)
+            same = np.array_equal(read_png(plain["paths"][0]), read_png(through["paths"][0]))
+            through_ok = same and "Adetailer" in through["paths"][0]
+            log(f"ADetailer without detector files: {through['paths'][0]} equal to the plain "
+                f"run's PNG bit for bit: {'ok' if through_ok else 'FAIL'}")
+
+            # (c) both passes with the stand-in detector
+            os.makedirs(yolo_dir, exist_ok=True)
+            for name in YOLO_FILES:
+                open(os.path.join(yolo_dir, name), "wb").close()
+            detailer.UltralyticsDetector = StandInDetector
+            reset_launches()
+            first = run_default_pipeline(out="adetailer", adetailer=True, seed=seed)
+            launches = read_launches()
+            ok = check_sd15_launches(launches, calls, "SD1.5 ADetailer",
+                                     ("packed_flash_attention", "flash_attention"))
+            x = first["last"]["x"]
+            pw, ph = buckets[-1][2]
+            png = read_png(first["paths"][0])
+            out_ok = (tuple(x.shape) == (1, ph // 8, pw // 8, 4)
+                      and bool(torch.isfinite(x).all()) and png.shape == (1024, 1024, 3)
+                      and float(png.std()) > 0
+                      and not np.array_equal(png, read_png(plain["paths"][0])))
+            n_steps = len(first["shapes"])
+            log(f"SD1.5 ADetailer: {n_steps} sampler steps at {sorted(set(first['shapes']))}, "
+                f"last latent {tuple(x.shape)} finite, png {png.shape} mean {png.mean():.2f} "
+                f"std {png.std():.2f}, differs from the plain run: "
+                f"{'ok' if out_ok else 'FAIL'}")
+            torch.cuda.reset_peak_memory_stats()
+            with timed_segments() as seg_s:
+                timed = run_default_pipeline(out="adetailer", adetailer=True, seed=seed + 1)
+            peak = torch.cuda.max_memory_allocated() / 2**30
+            ok = ok and through_ok and out_ok and n_steps == 20 + 20 * len(buckets)
+            model, clip, vae = loader.CheckpointLoaderSimple().load_checkpoint(
+                DEFAULTS_CKPT, os.path.join(DEFAULTS_DIR, "embeddings"))
+            ok = check_detail_direct(model, vae, clip, plain["last"]["x"], masks.values(),
+                                     seed) and ok
+        finally:
+            detailer.UltralyticsDetector = real_detector
+            shutil.rmtree(yolo_dir, ignore_errors=True)
+
+        # (d) previews through TAESD, then through the linear RGB map
+        try:
+            params = write_taesd()
+            runs = {}
+            for label in ("plain", "preview", "preview", "plain"):
+                pdir = os.path.join(DEFAULTS_DIR, "previews") if label == "preview" else None
+                runs.setdefault(label, []).append(run_preview_pipeline(seed, "p21_" + label,
+                                                                       pdir))
+            prev_ok = all(check_previews(r[2], 1024, "TAESD previews") for r in runs["preview"])
+            final_same = all(np.array_equal(read_png(r[0][0]), read_png(plain["paths"][0]))
+                             for label in runs for r in runs[label])
+            log(f"previews: the final PNGs equal the run without previews bit for bit: "
+                f"{'ok' if final_same else 'FAIL'}")
+            n_prev = len(runs["preview"][0][2].progress_at)
+            wall = {k: sum(r[1] for r in v) / len(v) for k, v in runs.items()}
+            per_preview_ms = (wall["preview"] - wall["plain"]) / n_prev * 1e3
+            lat = torch.randn((1, 128, 128, 4), generator=torch.Generator().manual_seed(3)).cuda()
+            dev_params = {k: v.cuda().float() for k, v in taesd.normalize_decoder_params(
+                dict(params)).items()}
+            with torch.no_grad():
+                taesd_ms = cuda_ms(lambda: taesd.decode(dev_params, lat), 5)
+            cli_ok, cli_s = run_cli_process([DEFAULTS_PROMPT, "1024", "1024", "--adetailer",
+                                             "--preview"],
+                                            os.path.join(DEFAULTS_DIR, "cli_adetailer"), 1024)
+            cli_prev = os.path.join(DEFAULTS_DIR, "cli_adetailer", "preview")
+            cli_previews = sorted(os.listdir(cli_prev)) if os.path.isdir(cli_prev) else []
+            cli_ok = cli_ok and len(cli_previews) == 4 and all(
+                read_png(os.path.join(cli_prev, p)).shape == (1024, 1024, 3)
+                for p in cli_previews)
+            log(f"CLI --adetailer --preview: {len(cli_previews)} previews kept of 1024^2: "
+                f"{'ok' if cli_ok else 'FAIL'}")
+        finally:
+            if os.path.exists(TAESD_PATH):
+                os.remove(TAESD_PATH)
+        _, _, inst = run_preview_pipeline(seed, "p21_linear",
+                                          os.path.join(DEFAULTS_DIR, "previews_linear"))
+        linear_ok = check_previews(inst, 128, "linear RGB previews (no TAESD file)")
+    loader.get_model_cache().clear()
+    ok = ok and prev_ok and final_same and linear_ok and cli_ok
+    # the ADetailer image's seconds outside the first pass (as the plain
+    # runs take it), the segments, the dilations and the detections
+    rest_s = timed["wall"] - wall["plain"] - sum(sum(v) for v in seg_s.values())
+    e2e = {"s_per_image": timed["wall"], "first_run_s_per_image": first["wall"],
+           "segment_s": seg_s["segment"], "dilate_s": seg_s["dilate"],
+           "detect_s": seg_s["detect"], "rest_s": rest_s,
+           "segments": [list(b[2]) for b in buckets], "peak_gib": peak,
+           "plain_s_per_image": wall["plain"], "preview_s_per_image": wall["preview"],
+           "previews_per_image": n_prev, "ms_per_preview": per_preview_ms,
+           "taesd_decode_ms_1024": taesd_ms, "cli_process_s": cli_s, "gpu": gpu}
+    log(f"SD1.5 ADetailer ({gpu}): {timed['wall']:.3f} s/image end to end with both passes "
+        f"(without ADetailer {wall['plain']:.3f}); segments {seg_s['segment']} s "
+        f"at buckets {[b[2] for b in buckets]}; dilate_masks {seg_s['dilate']} s; detect "
+        f"{seg_s['detect']} s; the rest {rest_s:.3f} s; peak memory {peak:.1f} GiB; previews: "
+        f"{wall['preview']:.3f} s/image against {wall['plain']:.3f} without, {n_prev} "
+        f"previews, {per_preview_ms:.1f} ms each; TAESD decode at 1024^2 {taesd_ms:.3f} ms; "
+        f"CLI process {cli_s:.3f} s")
+    return ok, launches, e2e, calls
+
+
+# --------------------------------------------------------------------------
 # Flux
 # --------------------------------------------------------------------------
 
@@ -3140,6 +3518,8 @@ def main() -> int:
         "sd15 hires-fix", phase_hires, line, per_kernel)
     i2i_ok, i2i_launches, i2i_e2e, i2i_plan = timed(
         "sd15 img2img", phase_img2img, line, per_kernel, def_e2e["png"])
+    ad_ok, ad_launches, ad_e2e, ad_plan = timed(
+        "sd15 adetailer", phase_adetailer, line, per_kernel)
     loader.get_model_cache().clear()
     seeded_sd15_params.cache_clear()
     del sd_models
@@ -3184,7 +3564,7 @@ def main() -> int:
     # (the unfused DiT calls count once)
     path_calls = {"sd15": sd_calls, "sd15_sage": sage_calls, "sd15_defaults": def_calls,
                   "sd15_hires_fix": hires_plan, "sd15_img2img_usdu": i2i_plan,
-                  "flux": fcalls,
+                  "sd15_adetailer": ad_plan, "flux": fcalls,
                   "flux_w8a8": w8_calls, "w8a8_dit_call_fused_ew_off": off_plan,
                   "flux_w8a8_scan": scan_calls, "w8a8_scan_dit_call_fused_ew_off": scan_off_plan,
                   "flux_w8a8_scan_fbcache_hits": hit_calls, "flux_files_defaults": files_calls,
@@ -3195,7 +3575,7 @@ def main() -> int:
             all_calls[key] = all_calls.get(key, 0) + n
     paths = {"sd15": sd_launches, "sd15_sage": sage_launches, "sd15_defaults": def_launches,
              "sd15_hires_fix": hires_launches, "sd15_img2img_usdu": i2i_launches,
-             "flux": flux_launches,
+             "sd15_adetailer": ad_launches, "flux": flux_launches,
              "flux_w8a8": w8_launches, "w8a8_dit_call_fused_ew_off": off_launches,
              "flux_w8a8_scan": scan_launches,
              "w8a8_scan_dit_call_fused_ew_off": scan_off_launches,
@@ -3230,19 +3610,22 @@ def main() -> int:
                            if any(tuple(s_["key"]) in calls for s_ in shapes)},
             "per": "image: the sum over its main-path shapes of calls x time, over one "
                    "image of each path it runs on (SD1.5 with flash or sage attention, "
-                   "SD1.5 with every default, its hires-fix and img2img, Flux Q8_0, Flux W8A8 unrolled and scan, "
+                   "SD1.5 with every default, its hires-fix, img2img and ADetailer, Flux Q8_0, "
+                   "Flux W8A8 unrolled and scan, "
                    "Flux W8A8 scan with FBCache forced to hit, Flux from files with every "
                    "default, Flux with a LoRA on the unfused attention) and one missed "
                    "W8A8 DiT call with fused_ew off in each layout",
             "shapes": shapes,
         })
     e2e = {"sd15": sd_e2e, "sd15_sage": sage_e2e, "sd15_defaults": def_e2e,
-           "sd15_hires_fix": hires_e2e, "sd15_img2img_usdu": i2i_e2e, "flux": flux_e2e,
+           "sd15_hires_fix": hires_e2e, "sd15_img2img_usdu": i2i_e2e,
+           "sd15_adetailer_previews": ad_e2e, "flux": flux_e2e,
            "flux_w8a8": w8_e2e,
            "flux_w8a8_scan": scan_e2e, "flux_w8a8_scan_fbcache_hits": hit_e2e,
            "flux_files_defaults": files_e2e["defaults"],
            "flux_lora_unfused_attention": files_e2e["lora_unfused"]}
-    ok = (ref_ok and pipe_ok and sage_ok and def_ok and hires_ok and i2i_ok and flux_ref_ok
+    ok = (ref_ok and pipe_ok and sage_ok and def_ok and hires_ok and i2i_ok and ad_ok
+          and flux_ref_ok
           and flux_ok and w8_ref_ok and w8_ok and requant_ok and scan_ok and hit_ok and files_ok
           and all(k["ok"] for k in kernels_line))
     record = {"gpu": line, "kernels": kernels_line, "e2e": e2e, "phase_seconds": seconds,

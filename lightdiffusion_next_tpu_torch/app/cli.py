@@ -8,29 +8,33 @@ flags with no port field (``--stable-fast``, ``--qkv-fuse`` and its
 ``--no-`` form: the port always joins the UNet's projections) are accepted
 and change nothing. ``--flux`` runs Flux.1-dev from the four files under
 the asset root, ``--hires-fix`` adds SD1.5's second pass at twice the
-size, and ``--img2img`` takes the prompt as an image's path and upscales
-it twice with UltimateSDUpscale. Runs on the GPU. Usage:
+size, ``--img2img`` takes the prompt as an image's path and upscales it
+twice with UltimateSDUpscale, ``--adetailer`` re-diffuses the people and
+faces the detectors under ``<asset_root>/yolos`` find, and ``--preview``
+writes progress previews (TAESD, or the linear RGB map) under
+``<output-dir>/preview`` through the ``app.instance.app`` singleton. Runs
+on the GPU. Usage:
 
     python -m lightdiffusion_next_tpu_torch.app.cli "a cat" 1024 1024
     python -m lightdiffusion_next_tpu_torch.app.cli "a cat" 1024 1024 --hires-fix
     python -m lightdiffusion_next_tpu_torch.app.cli image.png 1024 1024 --img2img
     python -m lightdiffusion_next_tpu_torch.app.cli "a cat" 1024 1024 --flux
+    python -m lightdiffusion_next_tpu_torch.app.cli "a cat" 1024 1024 --adetailer --preview
 
-Not ported yet: ``--preview`` (TAESD previews), ``--adetailer`` (ROADMAP
-Queue 1, item 8) and ``--enhance-prompt`` (item 10); each raises.
+Not ported yet: ``--enhance-prompt`` (ROADMAP Queue 1, item 10); it
+raises.
 """
 
 from __future__ import annotations
 
 import argparse
 import dataclasses
+import os
 import sys
 
 from lightdiffusion_next_tpu_torch import config as _config
 
 _NOT_PORTED = {
-    "preview": "TAESD previews (ROADMAP Queue 1, item 8)",
-    "adetailer": "ADetailer (ROADMAP Queue 1, item 8)",
     "enhance_prompt": "prompt enhancement (ROADMAP Queue 1, item 10)",
 }
 
@@ -102,7 +106,13 @@ def main(argv=None, device: _config.DeviceLike = None) -> int:
 
     _config.set_config(runtime_config(args, _config.get_config()))
 
+    from lightdiffusion_next_tpu_torch.app import instance
     from lightdiffusion_next_tpu_torch.pipelines.pipeline import pipeline
+
+    progress_callback = None
+    if args.preview:
+        instance.app.preview_dir = os.path.join(args.output_dir, "preview")
+        progress_callback = instance.PreviewHook(instance.app)
 
     paths = pipeline(
         args.prompt,
@@ -111,6 +121,7 @@ def main(argv=None, device: _config.DeviceLike = None) -> int:
         number=args.number,
         batch=args.batch,
         hires_fix=args.hires_fix,
+        adetailer=args.adetailer,
         img2img=args.img2img,
         stable_fast=args.stable_fast,
         reuse_seed=args.reuse_seed,
@@ -126,6 +137,7 @@ def main(argv=None, device: _config.DeviceLike = None) -> int:
         multiscale_fullres_end=args.multiscale_fullres_end,
         multiscale_intermittent_fullres=args.multiscale_intermittent_fullres,
         output_dir=args.output_dir,
+        progress_callback=progress_callback,
         device=device,
     )
     for path in paths:

@@ -1,9 +1,10 @@
-"""pipeline(): SD1.5 txt2img with its hires-fix, SD1.5 img2img with
-UltimateSDUpscale, and Flux.1 txt2img, on the GPU.
+"""pipeline(): SD1.5 txt2img with its hires-fix and ADetailer, SD1.5
+img2img with UltimateSDUpscale, and Flux.1 txt2img, on the GPU, with
+progress and previews through ``app.instance.PreviewHook``.
 
 Counterpart of lightdiffusion_next_tpu/pipelines/pipeline.py ``pipeline``
-with three of its flows, dispatched in its order (Flux first, then
-img2img, then SD1.5; so Flux ignores ``hires_fix`` and ``img2img``):
+with its flows, dispatched in its order (Flux first, then img2img, then
+SD1.5; so Flux ignores ``hires_fix``, ``img2img`` and ``adetailer``):
 
 - ``_sd15_generate``: without models given, the checkpoint (Meina V10, or
   DreamShaper 8 with ``realistic_model``) is loaded from the asset root
@@ -18,7 +19,16 @@ img2img, then SD1.5; so Flux ignores ``hires_fix`` and ``img2img``):
   bislerp to twice the size, then ``euler_ancestral_cfgpp`` takes 10 steps
   over the "normal" schedule at cfg 8.0 and denoise 0.45 from a new
   ``random.randint`` seed (MSW-MSA still on, multi-scale off), and the
-  decode is saved under "HiresFix/LD";
+  decode is saved under "HiresFix/LD". With ``adetailer`` the decoded
+  images go through ``_run_adetailer`` before AutoHDR and are saved under
+  "Adetailer/LD-head": a person pass, then a face pass (the files
+  ``yolos/person_yolov8m-seg.pt`` and ``yolos/face_yolov9c.pt``, each
+  skipped when missing or when ``ultralytics`` is not installed), each
+  segment re-diffused by ``detailer.Detailer`` (20 steps of
+  ``dpmpp_2m_cfgpp`` over karras at cfg 7.5, denoise 0.5, the image's
+  seed, differential diffusion) on the MSW-MSA model, its masks refined by
+  SAM (``yolos/sam_vit_b_01ec64.pth``, ``segment_anything``) when both are
+  there; without detector files the images pass through unchanged;
 - ``_img2img_usdu`` (``img2img=True``; the prompt is the image's path):
   the checkpoint as above without the LoRA, CLIP-L with clip-skip -2 on
   fixed prompts, the image upscaled by ``ESRGAN/RealESRGAN_x4plus.pth``
@@ -42,12 +52,25 @@ img2img, then SD1.5; so Flux ignores ``hires_fix`` and ``img2img``):
 Beyond the JAX function's arguments it takes the models (``model``,
 ``clip``, ``vae`` and, for Flux, ``t5``; they are loaded when none is
 given, and only a loaded SD1.5 checkpoint gets the LoRA, in txt2img), an
-optional ``seed`` (txt2img's first pass; the hires-fix and USDU seeds come
-from ``random`` as in the JAX package) and the ``device`` (the GPU by
-default). Arguments whose modules
-are not ported raise ``NotImplementedError`` naming their ROADMAP item,
-before anything is loaded. ``LDT_FLUX_TP`` (the multi-chip Flux of ROADMAP
-Queue 1, item 11) is not read.
+optional ``seed`` (txt2img's first pass and ADetailer's; the hires-fix
+and USDU seeds come from ``random`` as in the JAX package) and the
+``device`` (the GPU by default).
+
+``progress_callback``: a raw callable passes through to every sampling
+stage; one with a ``for_stage`` method (``app.instance.PreviewHook``) gives
+each stage its callback (``_resolve_callback``) from the stage's step count
+(txt2img 20, hires-fix 10, USDU 8, ADetailer 20, Flux 20), the latent
+format and its TAESD decoder (``vae_approx/`` + the format's
+``taesd_decoder_file``: SD1.5 ``taesd_decoder.safetensors``, Flux
+``diffusion_pytorch_model.safetensors`` in diffusers' layout) when the file
+is there, else None and the linear RGB preview. The loop over images, the
+hires pass and the ADetailer pass stop when its ``should_stop`` says so
+(a ``PreviewHook``: its instance was interrupted). The JAX package polls
+a separate ``_stop_requested`` that knows ``PreviewHook`` by type.
+
+``enhance_prompt`` is not ported and raises ``NotImplementedError`` naming
+its ROADMAP item, before anything is loaded. ``LDT_FLUX_TP`` (the
+multi-chip Flux of ROADMAP Queue 1, item 11) is not read.
 """
 
 from __future__ import annotations
@@ -62,6 +85,7 @@ import torch
 
 from lightdiffusion_next_tpu_torch import config as _config
 from lightdiffusion_next_tpu_torch.models import lora as lora_mod
+from lightdiffusion_next_tpu_torch.models import taesd as taesd_mod
 from lightdiffusion_next_tpu_torch.models import vae as vae_mod
 from lightdiffusion_next_tpu_torch.models.clip import facade as clip_facade
 from lightdiffusion_next_tpu_torch.models.clip import t5 as t5_mod
@@ -69,7 +93,8 @@ from lightdiffusion_next_tpu_torch.models.clip import t5_tokenizer
 from lightdiffusion_next_tpu_torch.models.clip import text_encoder as te
 from lightdiffusion_next_tpu_torch.models.clip import tokenizer as clip_tokenizer
 from lightdiffusion_next_tpu_torch.ops import ggml, window
-from lightdiffusion_next_tpu_torch.pipelines import downloader, loader, upscaler
+from lightdiffusion_next_tpu_torch.pipelines import detailer, downloader, loader, upscaler
+from lightdiffusion_next_tpu_torch.pipelines import sam as sam_mod
 from lightdiffusion_next_tpu_torch.sampling import cfg as cfg_mod
 from lightdiffusion_next_tpu_torch.sampling import ksampler as ks
 from lightdiffusion_next_tpu_torch.sampling import samplers as samplers_mod
@@ -89,7 +114,6 @@ DEFAULT_NEGATIVE = (
 )
 
 _NOT_PORTED = {
-    "adetailer": "ADetailer (ROADMAP Queue 1, item 8)",
     "enhance_prompt": "prompt enhancement (ROADMAP Queue 1, item 10)",
 }
 
@@ -154,11 +178,13 @@ def pipeline(
     used) and ``t5`` a ``models.clip.t5.T5XXLModel``. With none of them
     given, they are loaded on ``device`` from the asset root. With ``seed`` given,
     no seed file is read or written; otherwise the JAX package's seed
-    handling applies. ``progress_callback`` is called after every sampler
-    step with the step's dict (``x``, ``i``, ``sigma``, ``denoised``); a
-    ``should_stop`` method on it, when it returns true, stops the run
-    between images, passes and USDU tiles."""
-    requested = {"adetailer": adetailer, "enhance_prompt": enhance_prompt}
+    handling applies. ``progress_callback``: a ``PreviewHook``, or a
+    callable called after every sampler step with the step's dict (``x``,
+    ``i``, ``sigma``, ``denoised``; see ``samplers.sample`` for one that
+    carries ``chunk``); a ``should_stop`` method on it, when it returns
+    true, stops the run between images, passes, USDU tiles and ADetailer
+    segments."""
+    requested = {"enhance_prompt": enhance_prompt}
     for name, on in requested.items():
         if on:
             raise NotImplementedError(f"{name}=True: {_NOT_PORTED[name]} is not ported yet")
@@ -205,9 +231,51 @@ def pipeline(
             saved += _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms,
                                     prio_speed, autohdr, realistic_model, saver,
                                     progress_callback, hidiffusion, model, clip, vae,
-                                    device, hires_fix)
+                                    device, hires_fix, adetailer)
         seed = random.randint(1, 2**63 - 1)
     return saved
+
+
+_TAESD_CACHE: dict = {}
+
+
+def _load_taesd_params(taesd_file, device):
+    """The TAESD decoder ``vae_approx/<taesd_file>`` normalized and on
+    ``device`` in f32, cached per (path, mtime, device); None when the file
+    is missing or not a TAESD decoder (cached too; the previews then use
+    the linear RGB map)."""
+    if not taesd_file:
+        return None
+    path = downloader.asset_path("vae_approx", taesd_file)
+    try:
+        key = (path, os.path.getmtime(path), str(device))
+    except OSError:
+        return None
+    if key not in _TAESD_CACHE:
+        params = None
+        try:
+            params = taesd_mod.normalize_decoder_params(sd_utils.load_torch_file(path))
+        except Exception:
+            logger.exception("TAESD decoder %s not read; previews use the linear RGB map",
+                             path)
+        if params is not None:
+            params = {k: v.to(device=device, dtype=torch.float32)
+                      for k, v in params.items()}
+        _TAESD_CACHE[key] = params
+    return _TAESD_CACHE[key]
+
+
+def _resolve_callback(progress_callback, latent_format, total_steps, device=None):
+    """This stage's callback: ``progress_callback.for_stage`` given the
+    stage's latent format, step count and the format's TAESD decoder on
+    ``device`` (None without its file); a callback without ``for_stage``
+    passes through."""
+    for_stage = getattr(progress_callback, "for_stage", None)
+    if for_stage is None:
+        return progress_callback
+    taesd_params = _load_taesd_params(latent_format.taesd_decoder_file,
+                                      _config.resolve_device(device))
+    return for_stage(latent_format, total_steps, taesd_params)
 
 
 def _load_sd15(realistic_model: bool, device):
@@ -248,8 +316,8 @@ def _apply_lora_add_detail(model, clip):
 
 
 def _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms, prio_speed, autohdr,
-                   realistic_model, saver, callback, hidiffusion, model, clip, vae,
-                   device, hires_fix):
+                   realistic_model, saver, progress_callback, hidiffusion, model, clip, vae,
+                   device, hires_fix, adetailer):
     if model is None:
         model, clip, vae = _load_sd15(realistic_model, device)
         model, clip = _apply_lora_add_detail(model, clip)
@@ -277,9 +345,9 @@ def _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms, prio_speed, a
         latent_image=latent_mod.empty_latent(w, h, batch, device=model.device),
         denoise=1.0,
         ms=ms,
-        callback=callback,
+        callback=_resolve_callback(progress_callback, model.latent_format, 20, model.device),
     )
-    if hires_fix and not samplers_mod.callback_requests_stop(callback):
+    if hires_fix and not samplers_mod.callback_requests_stop(progress_callback):
         up = upscale_mod.bislerp(result.latent, (w * 2) // 8, (h * 2) // 8)
         result = ks.ksample(
             model,
@@ -292,17 +360,62 @@ def _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms, prio_speed, a
             negative=negative,
             latent_image=torch.from_numpy(up).to(model.device),
             denoise=0.45,
-            callback=callback,
+            callback=_resolve_callback(progress_callback, model.latent_format, 10,
+                                       model.device),
         )
     images = vae.decode(result.latent)
+    if adetailer and not samplers_mod.callback_requests_stop(progress_callback):
+        images = torch.from_numpy(_run_adetailer(
+            images.cpu().numpy(), model, vae, positive, negative, seed,
+            progress_callback)).to(images.device)
+        prefix = "Adetailer/LD-head"
+    else:
+        prefix = "HiresFix/LD" if hires_fix else "Classic/LD"
     if autohdr:
         images = hdr_mod.apply_hdr_batch(images)
-    return saver.save_images(images.cpu().numpy(), "HiresFix/LD" if hires_fix else "Classic/LD",
-                             prompt=prompt)
+    return saver.save_images(images.cpu().numpy(), prefix, prompt=prompt)
 
 
-def _img2img_usdu(image_path, autohdr, saver, realistic_model, callback, model, clip, vae,
-                  device):
+def _run_adetailer(images, model, vae, positive, negative, seed, progress_callback=None):
+    """The person pass, then the face pass, over host images (B, H, W, 3)
+    f32 with the generation's conds and seed. SAM and the detectors come
+    from the model cache (variants "sam", "yolo"); each missing file is
+    skipped, and so is a detector or SAM whose package is not installed
+    (logged)."""
+    d = detailer.Detailer(model, vae, detailer.DetailerConfig(denoise=0.5, seed=seed))
+    cb = _resolve_callback(progress_callback, model.latent_format, d.cfg.steps, model.device)
+    cache = loader.get_model_cache()
+
+    sam = None
+    sam_path = downloader.asset_path("yolos", "sam_vit_b_01ec64.pth")
+    if os.path.exists(sam_path):
+        sam = cache.get(sam_path, "sam")
+        if sam is None:
+            try:
+                sam = sam_mod.SAMWrapper(sam_path)
+                cache.put(sam_path, sam, "sam")
+            except RuntimeError as err:
+                logger.warning("ADetailer: SAM %s not used: %s", sam_path, err)
+                sam = None
+
+    for name in ("person_yolov8m-seg.pt", "face_yolov9c.pt"):
+        path = downloader.asset_path("yolos", name)
+        if not os.path.exists(path):
+            continue
+        detector = cache.get(path, "yolo")
+        if detector is None:
+            try:
+                detector = detailer.UltralyticsDetector(path)
+                cache.put(path, detector, "yolo")
+            except RuntimeError as err:
+                logger.warning("ADetailer: %s skipped: %s", path, err)
+                continue
+        images, _ = d.detail(images, detector, positive, negative, sam=sam, callback=cb)
+    return images
+
+
+def _img2img_usdu(image_path, autohdr, saver, realistic_model, progress_callback, model, clip,
+                  vae, device):
     if model is None:
         model, clip, vae = _load_sd15(realistic_model, device)
     clip = clip_facade.CLIPSetLastLayer().set_last_layer(clip, -2)
@@ -318,7 +431,9 @@ def _img2img_usdu(image_path, autohdr, saver, realistic_model, callback, model, 
     usdu = upscaler.UltimateSDUpscale(model, vae, up_model, upscaler.USDUConfig(upscale_by=2.0))
     out = usdu.upscale(image, positive, negative, seed=random.randint(1, 2**63 - 1), steps=8,
                        cfg_scale=6.0, sampler_name="dpmpp_2m_cfgpp", scheduler="karras",
-                       denoise=0.3, callback=callback)
+                       denoise=0.3,
+                       callback=_resolve_callback(progress_callback, model.latent_format, 8,
+                                                  model.device))
     if autohdr:
         out = hdr_mod.apply_hdr_batch(torch.from_numpy(out).to(model.device)).cpu().numpy()
     return saver.save_images(out, "Img2Img/LD", prompt=image_path)
@@ -383,8 +498,8 @@ def _load_flux(device):
     return _get_flux_models(*paths, device)
 
 
-def _flux_txt2img(prompt, w, h, batch, seed, autohdr, saver, callback, model, clip, vae,
-                  t5, device):
+def _flux_txt2img(prompt, w, h, batch, seed, autohdr, saver, progress_callback, model, clip,
+                  vae, t5, device):
     if model is None:
         model, vae, t5, clip = _load_flux(device)
     positive = encode_flux_conditioning(prompt, prompt, guidance=3.0,
@@ -405,7 +520,7 @@ def _flux_txt2img(prompt, w, h, batch, seed, autohdr, saver, callback, model, cl
         latent_image=latent_mod.empty_latent(w, h, batch, channels=16,
                                              device=model.device),
         denoise=1.0,
-        callback=callback,
+        callback=_resolve_callback(progress_callback, latent_mod.FLUX1, 20, model.device),
     )
     images = vae.decode(result.latent)
     if autohdr:

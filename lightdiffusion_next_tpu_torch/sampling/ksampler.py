@@ -4,8 +4,8 @@ loop.
 
 Counterpart of lightdiffusion_next_tpu/sampling/ksampler.py ``ksample``,
 with the FBCache dispatch (``fbcache=`` or the model's ``"fbcache"``
-option). Not ported yet: denoise masks and differential diffusion, which
-ADetailer needs (ROADMAP Queue 1, item 8). Latents are NHWC in and out.
+option) and the denoise mask with differential diffusion
+(``_MaskedDenoiser``, ADetailer's inpainting). Latents are NHWC in and out.
 """
 
 from __future__ import annotations
@@ -17,6 +17,7 @@ import numpy as np
 import torch
 
 from lightdiffusion_next_tpu_torch.models.base import DiffusionModel
+from lightdiffusion_next_tpu_torch.ops import nn
 from lightdiffusion_next_tpu_torch.sampling import cfg as cfg_mod
 from lightdiffusion_next_tpu_torch.sampling import fbcache as fb_mod
 from lightdiffusion_next_tpu_torch.sampling import noise as noise_mod
@@ -63,6 +64,56 @@ class KSampleResult:
     raw: torch.Tensor  # model-space latent
 
 
+class _MaskedDenoiser:
+    """A denoiser whose output is the inner one's inside the mask and the
+    base latent outside: ``den * m + base * (1 - m)`` on the denoised
+    prediction only (the uncond output and an FBCache state pass through).
+    A model call at a reduced resolution (a multi-scale low-res step, a dy
+    half-res step) blends against the mask and the base resized to its
+    shape (bilinear). With ``differential`` the mask is hardened each call:
+    ``m >= thr``, thr = (timestep(max sigma) - ts_to) / max(ts_from - ts_to,
+    1e-9), with ``ts_from`` and ``ts_to`` the host floats of the f32
+    timesteps of the first sigma and of sigma_min, and the call's timestep
+    computed in f32 on the mask's device: no value is read back to the
+    host."""
+
+    def __init__(self, inner, mask, base, model_sampling, sigma_start: float,
+                 differential: bool):
+        self._inner = inner
+        if hasattr(inner, "init_state"):
+            self.init_state = inner.init_state
+        self.mask = mask
+        self.base = base
+        self.differential = differential
+        if differential:
+            self._timestep = model_sampling.timestep
+            ts_from = float(model_sampling.timestep(
+                torch.tensor(float(sigma_start), dtype=torch.float32)))
+            ts_to = float(model_sampling.timestep(
+                torch.tensor(float(model_sampling.sigma_min), dtype=torch.float32)))
+            self._ts_to = torch.tensor(ts_to, dtype=torch.float32, device=mask.device)
+            self._span = torch.tensor(max(ts_from - ts_to, 1e-9), dtype=torch.float32,
+                                      device=mask.device)
+
+    def mask_at(self, sigma, hw):
+        """(mask, base) for a model call at ``sigma`` whose output is
+        ``hw``."""
+        m, base = self.mask, self.base
+        if tuple(m.shape[1:3]) != tuple(hw):
+            m = nn.interpolate_bilinear(m, hw)
+            base = nn.interpolate_bilinear(base, hw)
+        if self.differential:
+            sig = torch.as_tensor(sigma, dtype=torch.float32, device=m.device)
+            thr = (self._timestep(torch.max(sig)) - self._ts_to) / self._span
+            m = (m >= thr).float()
+        return m, base
+
+    def __call__(self, x, sigma, *state):
+        den, *rest = self._inner(x, sigma, *state)
+        m, base = self.mask_at(sigma, den.shape[1:3])
+        return (den * m + base * (1.0 - m), *rest)
+
+
 def ksample(
     model: DiffusionModel,
     *,
@@ -82,8 +133,13 @@ def ksample(
     sampler_opts: Optional[samplers_mod.SamplerOptions] = None,
     callback: Optional[Callable] = None,
     fbcache: Optional[fb_mod.FBCacheConfig] = None,
+    denoise_mask=None,
+    differential_diffusion: bool = False,
 ) -> KSampleResult:
-    """Returns the latent in decoded (VAE) space, on the model's device."""
+    """Returns the latent in decoded (VAE) space, on the model's device.
+    ``denoise_mask``: an NHWC [0, 1] mask at the latent's size (1 =
+    resample, 0 = keep the input latent), hardened along the trajectory
+    with ``differential_diffusion``."""
     lf = model.latent_format
     msampling = model.model_sampling
     device = model.device
@@ -138,6 +194,10 @@ def ksample(
             on_device(negative), cfg_scale,
             attn1_override_factory=model.model_options.get("attn1_override_factory"),
         )
+    if denoise_mask is not None:
+        mask = torch.as_tensor(denoise_mask).to(device=device, dtype=torch.float32)
+        denoise_fn = _MaskedDenoiser(denoise_fn, mask, latent_in, msampling,
+                                     float(sigmas[0]), differential_diffusion)
     out = samplers_mod.sample(
         denoise_fn, x, sigmas, sampler=sampler_name,
         ms=ms if ms is not None else samplers_mod.MultiScale(),

@@ -272,6 +272,23 @@ def _dpmpp_sde_step(carry, cs, denoise, noise1, noise2, *, true_cfgpp, cfg_w):
     return (x, denoised, uncond)
 
 
+def chunk_marks(n_steps: int, flags, dy_extra_steps, chunk: int) -> set:
+    """The step counts after which a callback with ``chunk`` > 1 fires (the
+    ends of the JAX package's compiled chunks): 0 and ``n_steps``, the
+    multi-scale segment bounds, each dy extra step's (i, i + 1), and every
+    ``chunk``-th step. Empty for ``chunk`` <= 1: the callback fires after
+    every step."""
+    if chunk <= 1:
+        return set()
+    marks = {0, n_steps}
+    for i0, i1, _ in segment_flags(flags):
+        marks.update((i0, i1))
+    for i in dy_extra_steps:
+        marks.update((i, i + 1))
+    marks.update(range(chunk, n_steps, chunk))
+    return marks
+
+
 @dataclasses.dataclass(frozen=True)
 class SamplerOptions:
     """The CFG++ schedule (read only with ``true_cfgpp``)."""
@@ -298,7 +315,11 @@ def sample(
     state) -> (denoised, uncond, state)``); ``x`` is the NHWC latent at full
     resolution. ``sde_noise``: dpmpp_sde's (noise1, noise2), each (n_steps,
     *x.shape); ``step_noise``: the ancestral samplers' (n_steps, *x.shape);
-    each moved to x's device once (zeros when not given). Returns the final
+    each moved to x's device once (zeros when not given). ``callback(info)``
+    gets the step's ``x``, ``i``, ``sigma`` and ``denoised`` after every
+    step, or, when it carries ``chunk`` > 1, only after the steps that end
+    a chunk (``chunk_marks``), with ``"chunk"`` in ``info``: the steps the
+    JAX package's chunked mode reports. Returns the final
     latent (f32)."""
     sampler = SAMPLER_ALIASES.get(sampler, sampler)
     if sampler not in SAMPLER_NAMES:
@@ -361,6 +382,8 @@ def sample(
     else:
         step_noise = torch.as_tensor(step_noise).to(device=x.device, dtype=torch.float32)
 
+    chunk = int(getattr(callback, "chunk", 0) or 0)
+    marks = chunk_marks(n_steps, flags, dy_extra_steps, chunk)
     x = x.float()
     nanfill = torch.full_like(x, float("nan"))
     inner = (x, nanfill, nanfill)
@@ -391,10 +414,12 @@ def sample(
             else:
                 inner = _dpmpp_2m_step(inner, cs, den, true_cfgpp=opts.true_cfgpp,
                                        cfg_w=float(cfg_sched[i]))
-        if callback is not None:
+        if callback is not None and (not marks or i + 1 in marks):
+            info = {"x": inner[0], "i": i, "sigma": float(sigmas[i]), "denoised": inner[1]}
+            if marks:
+                info["chunk"] = chunk
             try:
-                callback({"x": inner[0], "i": i, "sigma": float(sigmas[i]),
-                          "denoised": inner[1]})
+                callback(info)
             except SampleInterrupted:
                 break
     return inner[0]

@@ -196,16 +196,19 @@ def test_cli_defaults_end_to_end(runs, capsys):
                                   "--adetailer", "--enhance-prompt"])
 def test_cli_unported_flags_raise(flag, tmp_path, monkeypatch):
     """Each unported flag raises before anything loads; ``--flux``,
-    ``--hires-fix`` and ``--img2img`` are ported and raise
-    FileNotFoundError for their missing files (the Flux assets, the SD1.5
-    checkpoint, which img2img loads before it reads the image)."""
+    ``--preview``, ``--hires-fix``, ``--img2img`` and ``--adetailer`` are
+    ported and raise FileNotFoundError for their missing files (the Flux
+    assets, the SD1.5 checkpoint, which img2img loads before it reads the
+    image)."""
     monkeypatch.setenv("LDT_ASSET_ROOT", str(tmp_path))
     monkeypatch.setenv("LDT_OFFLINE", "1")
     missing = {"--flux": "flux asset missing", "--hires-fix": "checkpoint missing",
-               "--img2img": "checkpoint missing"}
+               "--img2img": "checkpoint missing", "--preview": "checkpoint missing",
+               "--adetailer": "checkpoint missing"}
     if flag in missing:
         with pytest.raises(FileNotFoundError, match=missing[flag]):
-            tcli.main(["a cat", "64", "64", flag], device="cpu")
+            tcli.main(["a cat", "64", "64", flag, "--output-dir", str(tmp_path)],
+                      device="cpu")
         return
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tcli.main(["a cat", "64", "64", flag], device="cpu")
@@ -218,7 +221,7 @@ def test_cli_mutually_exclusive_flags_and_config():
         tcli.main(["a cat", "64", "64", "--w8a8", "--no-w8a8"], device="cpu")
     saved = tconfig.get_config()
     with pytest.raises(NotImplementedError):
-        tcli.main(["a cat", "64", "64", "--no-packed-attn", "--adetailer"], device="cpu")
+        tcli.main(["a cat", "64", "64", "--no-packed-attn", "--enhance-prompt"], device="cpu")
     assert tconfig.get_config() == saved  # the unported flag raised first
     parse = tcli.build_parser().parse_args
     base = tconfig.RuntimeConfig()

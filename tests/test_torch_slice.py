@@ -129,16 +129,17 @@ def test_png_writer_round_trip(tmp_path):
 def test_unported_pipeline_arguments_raise(kwargs, tmp_path, monkeypatch):
     """With every other default and no models, each still-unported argument
     raises before anything is read: the asset root holds no checkpoint, so
-    a load would raise FileNotFoundError instead. Flux, hires-fix and
-    img2img are ported and load, in the JAX package's dispatch order: Flux
-    first (it ignores hires_fix) raises for its missing files, hires-fix and
-    img2img for the missing SD1.5 checkpoint."""
+    a load would raise FileNotFoundError instead. Flux, hires-fix, img2img
+    and ADetailer are ported and load, in the JAX package's dispatch order:
+    Flux first (it ignores hires_fix) raises for its missing files,
+    hires-fix, img2img and ADetailer for the missing SD1.5 checkpoint."""
     monkeypatch.setenv("LDT_ASSET_ROOT", str(tmp_path))
     monkeypatch.setenv("LDT_OFFLINE", "1")
     if kwargs.get("flux_enabled"):
         with pytest.raises(FileNotFoundError, match="flux asset missing"):
             tpipe.pipeline("a cat", 64, 64, seed=1, device="cpu", **kwargs)
-    elif kwargs in (dict(hires_fix=True), dict(img2img=True)):
+    elif kwargs in (dict(hires_fix=True), dict(img2img=True), dict(adetailer=True),
+                    dict(realistic_model=True, adetailer=True)):
         with pytest.raises(FileNotFoundError, match="checkpoint missing"):
             tpipe.pipeline("a cat", 64, 64, seed=1, device="cpu", **kwargs)
     else:

@@ -168,9 +168,28 @@ Phases, in order; any failure exits non-zero:
    the final PNG equal to the run without previews, timed in turns with
    it (plain, preview, preview, plain), TAESD's decode alone; the CLI's
    ``--adetailer --preview`` as a process; the linear RGB previews once
-   the decoder file is gone.
+   the decoder file is gone;
+22. the WebUI on the card (after 21, from phase 17's files): K2 at the
+   shapes ``packed_attn=False`` gives it (d = 40 at level 0) and K4 at the
+   SDE plan's, as above; then Generate through
+   ``webui.generate_images_with_preview`` with every default and previews,
+   its worker thread's launches against phase 17's plan, then in turns
+   with the direct ``pipeline()`` call it makes (the same PNG, bit for
+   bit; the handler's overhead and the poll's share of it); a second
+   Generate refused while one runs, an interrupt that stops the run at the
+   next chunk mark, a disconnect that keeps the lock until the worker
+   ends; the ``sage_attention`` and ``packed_attn`` toggles against their
+   plans; ``enhance_prompt`` against a stand-in Ollama served on
+   127.0.0.1:11434 from a thread (CLIP gets ``QUALITY_PREFIX`` + its
+   reply; a failing stand-in leaves the prompt); the UNet's FBCache forced
+   to hit through ``pipeline(model=...)``, its launches against the plan
+   of its counted hits, threshold 0 bit for bit the run without the cache;
+   ``qkv_fuse`` off (its own unjoined UNet, the same launches, the final
+   latent held to 2e-2 of the joined run's); ``keep_models_loaded`` off
+   (a load per Generate, the cache empty after). The config and the
+   switches are restored after.
 
-Phases 19 to 21 run after phase 17, before the Flux phases. Phases 5 to
+Phases 19 to 22 run after phase 17, before the Flux phases. Phases 5 to
 11 pin ``RuntimeConfig(flux_scan=False)``, so their launch plans
 are the unrolled layout's. K1's and K2's shapes in phase 3 are those of both
 SD1.5 plans (``dpmpp_2m_cfgpp``, ``dpmpp_sde_cfgpp``).
@@ -357,7 +376,7 @@ def gpu_line() -> str:
 
 
 def unet_calls(add, sigmas, lh, lw, batch=1, sampler="dpmpp_2m_cfgpp", ms=None, msw=True,
-               sage=False):
+               sage=False, hits=None):
     """Add to ``add`` the UNet's K1/K2 (or K4) calls, keyed (kernel, B, H, L,
     D, dtype), of one sampler pass over ``sigmas`` at an lh x lw latent:
     CFG batch 2, each step at full or reduced resolution as the multi-scale
@@ -365,7 +384,9 @@ def unet_calls(add, sigmas, lh, lw, batch=1, sampler="dpmpp_2m_cfgpp", ms=None, 
     ``dpmpp_sde_cfgpp``'s midpoint call (every step but the last) at
     ``sde_sigma_mid`` on its step's route, and with ``msw`` the MSW-MSA
     windowing of level 0 where its sigma gate is open. ``sage``: the calls
-    go to K4 and its preparation."""
+    go to K4 and its preparation. ``hits``: FBCache's decision for each
+    model call in order (``fbcache.history``); a hit runs input blocks 0
+    and 1 only, so its one attention is input block 1's."""
     import torch
 
     from lightdiffusion_next_tpu_torch import config
@@ -381,12 +402,16 @@ def unet_calls(add, sigmas, lh, lw, batch=1, sampler="dpmpp_2m_cfgpp", ms=None, 
     flags = (samplers.fullres_flags(steps, ms, lh, lw) if ms is not None
              else [True] * steps)
     bounds = window.msw_gate_bounds(msd)
-    packed = config.get_config().packed_attn
+    packed = config.get_config().resolve_packed_attn("cuda")
+    hits = iter(hits) if hits is not None else None
 
     def model_call(sigma, h, w):
         t = msd.timestep(torch.tensor([sigma] * 2 * batch, dtype=torch.float32))
         active = msw and window.msw_step_state(t, bounds)[1]
+        hit = hits is not None and next(hits)
         for block, level, ch, depth in unet.attention_blocks(unet.SD15_CONFIG):
+            if hit and block != ("input", 1):
+                continue
             hh, ww = h, w
             for _ in range(level):
                 hh, ww = (hh + 1) // 2, (ww + 1) // 2
@@ -417,11 +442,12 @@ def vae_call(add, lh, lw, batch=1):
 
 
 def attention_calls(width=1024, height=1024, batch=1, steps=20, sage=False,
-                    sampler="dpmpp_2m_cfgpp"):
+                    sampler="dpmpp_2m_cfgpp", hits=None):
     """{(kernel, B, H, L, D, dtype): calls per image} for the pipeline's
     SD1.5 txt2img at width x height: 20 karras steps of ``sampler``, the
     default multi-scale plan, MSW-MSA with its sigma gate, CFG batch 2, the
-    VAE's mid-block attention (``unet_calls``, ``vae_call``)."""
+    VAE's mid-block attention (``unet_calls``, ``vae_call``); ``hits``:
+    FBCache's decisions."""
     from lightdiffusion_next_tpu_torch.sampling import ksampler, samplers
     from lightdiffusion_next_tpu_torch.sampling.model_sampling import ModelSamplingDiscrete
 
@@ -429,7 +455,7 @@ def attention_calls(width=1024, height=1024, batch=1, steps=20, sage=False,
     add = _adder(calls)
     sigmas = ksampler.sigmas_for(ModelSamplingDiscrete(), "karras", steps)
     unet_calls(add, sigmas, height // 8, width // 8, batch, sampler,
-               samplers.MultiScale(enabled=True), sage=sage)
+               samplers.MultiScale(enabled=True), sage=sage, hits=hits)
     vae_call(add, height // 8, width // 8, batch)
     return calls
 
@@ -1818,7 +1844,7 @@ def run_preview_pipeline(seed, out, preview_dir=None):
     torch.cuda.synchronize()
     start = time.perf_counter()
     with torch.no_grad():
-        paths = pl.pipeline(DEFAULTS_PROMPT, 1024, 1024, seed=seed, progress_callback=hook,
+        paths = pl.pipeline(DEFAULTS_PROMPT, WEBUI_SIZE, WEBUI_SIZE, seed=seed, progress_callback=hook,
                             output_dir=os.path.join(DEFAULTS_DIR, out))
     torch.cuda.synchronize()
     return paths, time.perf_counter() - start, inst
@@ -2043,6 +2069,386 @@ def phase_adetailer(gpu, per_kernel):
         f"{wall['preview']:.3f} s/image against {wall['plain']:.3f} without, {n_prev} "
         f"previews, {per_preview_ms:.1f} ms each; TAESD decode at 1024^2 {taesd_ms:.3f} ms; "
         f"CLI process {cli_s:.3f} s")
+    return ok, launches, e2e, calls
+
+
+# --------------------------------------------------------------------------
+# The WebUI on the card (phase 22), from phase 17's files
+# --------------------------------------------------------------------------
+
+OLLAMA_REPLY = "an astronaut riding a white horse across the dunes, golden hour, film grain"
+WEBUI_SEED = 2200
+WEBUI_SIZE = 1024  # the image side of every Generate in the phase
+
+
+@contextlib.contextmanager
+def ollama_stub(reply):
+    """A stand-in for Ollama at the enhancer's default host (127.0.0.1:11434),
+    served from a thread: ``/api/chat`` answers ``reply`` after a
+    ``<think>`` block, or HTTP 500 when ``reply`` is None. Yields the
+    requests' bodies."""
+    import http.server
+    import inspect
+    import threading
+    from urllib.parse import urlsplit
+
+    from lightdiffusion_next_tpu_torch.pipelines import enhancer
+
+    host = urlsplit(inspect.signature(enhancer.enhance_prompt).parameters["host"].default)
+    bodies = []
+
+    class Handler(http.server.BaseHTTPRequestHandler):
+        def do_POST(self):
+            bodies.append(json.loads(self.rfile.read(int(self.headers["Content-Length"]))))
+            status, body = ((200, {"message": {"content": f"<think>a plan</think> {reply}"}})
+                            if reply is not None else (500, {"error": "stand-in failure"}))
+            data = json.dumps(body).encode()
+            self.send_response(status)
+            self.send_header("Content-Type", "application/json")
+            self.send_header("Content-Length", str(len(data)))
+            self.end_headers()
+            self.wfile.write(data)
+
+        def log_message(self, *args):
+            pass
+
+    server = http.server.ThreadingHTTPServer((host.hostname, host.port), Handler)
+    thread = threading.Thread(target=server.serve_forever, daemon=True)
+    thread.start()
+    try:
+        yield bodies
+    finally:
+        server.shutdown()
+        server.server_close()
+        thread.join()
+
+
+def run_webui(seed=WEBUI_SEED, out="webui", **kw):
+    """One Generate through ``webui.generate_images_with_preview`` (the
+    prompt at 1024^2, ``seed``, ``**kw``) iterated to its end: the last
+    paths, every status, wall seconds (which the 0.5 s poll rounds up),
+    the seconds until the pipeline returned on the worker thread (device
+    synced), and from then to the handler's last yield, the poll's
+    share."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.app import webui
+    from lightdiffusion_next_tpu_torch.pipelines import pipeline as pl
+
+    real, returned = pl.pipeline, []
+
+    def pipeline(*args, **kwargs):
+        out_paths = real(*args, **kwargs)
+        torch.cuda.synchronize()
+        returned.append(time.perf_counter())
+        return out_paths
+
+    statuses, paths = [], []
+    pl.pipeline = pipeline
+    try:
+        torch.cuda.synchronize()
+        start = time.perf_counter()
+        for paths, status in webui.generate_images_with_preview(
+                output_dir=os.path.join(DEFAULTS_DIR, out), prompt=DEFAULTS_PROMPT,
+                w=WEBUI_SIZE, h=WEBUI_SIZE, seed=seed, **kw):
+            statuses.append(status)
+        end = time.perf_counter()
+    finally:
+        pl.pipeline = real
+    return {"paths": paths, "statuses": statuses, "wall": end - start,
+            "pipeline_s": returned[0] - start if returned else None,
+            "poll_s": end - returned[0] if returned else None}
+
+
+def run_direct(seed=WEBUI_SEED, out="webui_direct", preview=True, **kw):
+    """``pipeline(prompt, 1024, 1024, seed=seed, **kw)`` on this thread as the
+    handler calls it (a ``PreviewHook`` on the app's instance with
+    ``preview``, no ``torch.no_grad``): paths, wall seconds."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.app import instance
+    from lightdiffusion_next_tpu_torch.pipelines import pipeline as pl
+
+    instance.app.clear_interrupt()
+    hook = instance.PreviewHook(instance.app) if preview else None
+    torch.cuda.synchronize()
+    start = time.perf_counter()
+    paths = pl.pipeline(DEFAULTS_PROMPT, WEBUI_SIZE, WEBUI_SIZE, seed=seed, progress_callback=hook,
+                        output_dir=os.path.join(DEFAULTS_DIR, out), **kw)
+    torch.cuda.synchronize()
+    return {"paths": paths, "wall": time.perf_counter() - start}
+
+
+def webui_done(run, label):
+    """A Generate that ended in "done" with one PNG of the phase's size that
+    is not constant, having polled at least once, and no error status."""
+    statuses = run["statuses"]
+    png = read_png(run["paths"][0]) if len(run["paths"]) == 1 else None
+    ok = (statuses[-1] == "done" and not any(s.startswith(("error", "busy")) for s in statuses)
+          and all(s.startswith("generating... ") for s in statuses[:-1]) and len(statuses) > 1
+          and png is not None and png.shape == (WEBUI_SIZE, WEBUI_SIZE, 3)
+          and float(png.std()) > 0)
+    log(f"WebUI {label}: {len(statuses)} statuses ({statuses[0]!r} .. {statuses[-1]!r}), "
+        f"{run['paths']}, {run['wall']:.3f} s: {'ok' if ok else 'FAIL'}")
+    return ok
+
+
+def same_png(a, b):
+    import numpy as np
+
+    return np.array_equal(read_png(a["paths"][0]), read_png(b["paths"][0]))
+
+
+def phase_webui(gpu, per_kernel, def_calls):
+    """Phase 22: the WebUI's Generate handler on the card from phase 17's
+    files, its worker thread launching the kernels. Returns (ok, launches by
+    path, e2e, calls by path)."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch import config
+    from lightdiffusion_next_tpu_torch.app import instance, webui
+    from lightdiffusion_next_tpu_torch.models.clip import facade
+    from lightdiffusion_next_tpu_torch.pipelines import enhancer, loader
+    from lightdiffusion_next_tpu_torch.sampling import fbcache
+
+    flash = ("packed_flash_attention", "flash_attention")
+    with runtime_config(sage_attention=True):
+        sage_calls = attention_calls(sage=True, sampler="dpmpp_sde_cfgpp")
+    with runtime_config(packed_attn=False):
+        unpacked_calls = attention_calls(sampler="dpmpp_sde_cfgpp")
+    log("plan WebUI packed_attn off:",
+        {f"{k[0]} {k[1:]}": v for k, v in sorted(unpacked_calls.items())})
+    new = new_shapes({**sage_calls, **unpacked_calls}, per_kernel)
+    phase_kernels({k: n for k, n in new.items() if k[0] in flash}, per_kernel)
+    if any(k[0] == "sage_attention" for k in new):
+        phase_sage_kernels(new, per_kernel)
+
+    cache = loader.get_model_cache()
+    saved = (config.get_config(), instance.app.preview_dir, webui.SETTINGS_FILE)
+    instance.app.preview_dir = os.path.join(DEFAULTS_DIR, "webui_preview")
+    webui.SETTINGS_FILE = os.path.join(DEFAULTS_DIR, "webui_settings.json")
+    launches, calls, e2e, oks = {}, {}, {"gpu": gpu}, {}
+    with defaults_assets() as records:
+        try:
+            # (a) Generate with every default, previews on: the first (which
+            # loads the checkpoint) against the launch plan, then in turns
+            # with the direct pipeline() call the handler makes (same seed)
+            reset_launches()
+            first = run_webui()
+            launches["webui_sd15_defaults"] = read_launches()
+            calls["webui_sd15_defaults"] = def_calls
+            runs = {"direct": [], "webui": []}
+            for label in ("direct", "webui", "webui", "direct"):
+                runs[label].append(run_direct() if label == "direct" else run_webui())
+            previews = instance.app.get_latest_previews(8)
+            oks["defaults"] = (
+                check_sd15_launches(launches["webui_sd15_defaults"], def_calls,
+                                    "WebUI defaults (worker thread)", flash)
+                and all(webui_done(r, "defaults") for r in [first] + runs["webui"])
+                and all(same_png(r, first) for r in runs["webui"] + runs["direct"])
+                and instance.app.progress.get() == 1.0 and len(previews) == 4)
+            log(f"WebUI defaults: the handler's PNGs equal the direct calls' bit for bit, "
+                f"{len(previews)} previews kept: {'ok' if oks['defaults'] else 'FAIL'}")
+            wall = {k: sum(r["wall"] for r in v) / len(v) for k, v in runs.items()}
+            poll = [r["poll_s"] for r in runs["webui"]]
+            e2e.update(s_per_image=wall["webui"], direct_s_per_image=wall["direct"],
+                       handler_overhead_s=wall["webui"] - wall["direct"], poll_s=poll,
+                       pipeline_s_in_handler=[r["pipeline_s"] for r in runs["webui"]],
+                       first_run_s_with_load=first["wall"],
+                       runs_s={k: [r["wall"] for r in v] for k, v in runs.items()})
+
+            # (b) a second Generate while one runs, an interrupt, a disconnect
+            statuses, busy, at, paths = [], None, None, []
+            for paths, status in webui.generate_images_with_preview(
+                    output_dir=os.path.join(DEFAULTS_DIR, "webui_interrupt"),
+                    prompt=DEFAULTS_PROMPT, w=WEBUI_SIZE, h=WEBUI_SIZE, seed=WEBUI_SEED + 1):
+                statuses.append(status)
+                if busy is None and instance.app.progress.get() > 0:
+                    busy = list(webui.generate_images_with_preview(prompt="x", w=64, h=64))
+                    at = instance.app.progress.get()
+                    instance.app.request_interrupt()
+            end_at = instance.app.progress.get()
+            free = webui._GENERATION_LOCK.acquire(blocking=False)
+            if free:
+                webui._GENERATION_LOCK.release()
+            gen = webui.generate_images_with_preview(
+                output_dir=os.path.join(DEFAULTS_DIR, "webui_interrupt"),
+                prompt=DEFAULTS_PROMPT, w=WEBUI_SIZE, h=WEBUI_SIZE, seed=WEBUI_SEED + 2)
+            next(gen)
+            gen.close()  # the client went away mid-run
+            busy_after_close = list(webui.generate_images_with_preview(prompt="x", w=64, h=64))
+            instance.app.request_interrupt()
+            t0 = time.perf_counter()
+            while not webui._GENERATION_LOCK.acquire(blocking=False):
+                if time.perf_counter() - t0 > 120:
+                    break
+                time.sleep(0.05)
+            else:
+                webui._GENERATION_LOCK.release()
+            released_s = time.perf_counter() - t0
+            refused = [([], "busy: a generation is already in progress")]
+            oks["interrupt"] = (busy == refused and busy_after_close == refused
+                                and statuses[-1] == "done" and len(paths) == 1
+                                and at is not None and at < end_at < 1.0 and free
+                                and released_s < 120)
+            log(f"WebUI interrupt: second Generate {busy}, interrupted at progress {at}, "
+                f"stopped at {end_at} ({statuses[-1]!r}, {paths}), lock free after: {free}; "
+                f"after a disconnect a Generate was {busy_after_close}, the lock came back "
+                f"{released_s:.2f} s after the interrupt: "
+                f"{'ok' if oks['interrupt'] else 'FAIL'}")
+            e2e["interrupt"] = {"progress_at_request": at, "progress_at_stop": end_at,
+                                "disconnect_release_s": released_s}
+
+            # (d) sage_attention from the WebUI: K4 and its preparation
+            reset_launches()
+            sage = run_webui(out="webui_sage", sage_attention=True)
+            launches["webui_sd15_sage"], calls["webui_sd15_sage"] = read_launches(), sage_calls
+            oks["sage"] = (check_sd15_launches(launches["webui_sd15_sage"], sage_calls,
+                                               "WebUI sage_attention",
+                                               ("sage_attention", "sage_prepare",
+                                                "flash_attention"))
+                           and webui_done(sage, "sage_attention")
+                           and webui.load_settings()["sage_attention"] is True)
+            # (e) packed_attn off: no K1, K2 takes level 0
+            reset_launches()
+            unpacked = run_webui(out="webui_unpacked", sage_attention=False, packed_attn=False)
+            launches["webui_sd15_unpacked"] = read_launches()
+            calls["webui_sd15_unpacked"] = unpacked_calls
+            oks["unpacked"] = (check_sd15_launches(launches["webui_sd15_unpacked"],
+                                                   unpacked_calls, "WebUI packed_attn off",
+                                                   ("flash_attention",))
+                               and launches["webui_sd15_unpacked"]["packed_flash_attention"] == 0
+                               and webui_done(unpacked, "packed_attn off"))
+            e2e.update(sage_s_per_image=sage["pipeline_s"],
+                       unpacked_s_per_image=unpacked["pipeline_s"])
+
+            # (h) enhance_prompt against a stand-in Ollama, then a failing one
+            encoded, real_encode = [], facade.CLIPTextEncode.encode
+
+            def spy(self, clip, text):
+                encoded.append(text)
+                return real_encode(self, clip, text)
+
+            facade.CLIPTextEncode.encode = spy
+            try:
+                with ollama_stub(OLLAMA_REPLY) as bodies:
+                    enh = run_webui(out="webui_enhance", packed_attn=True, enhance_prompt=True)
+                got, encoded[:] = list(encoded), []
+                with ollama_stub(None) as failed_bodies:
+                    enh_failed = run_webui(out="webui_enhance", enhance_prompt=True)
+            finally:
+                facade.CLIPTextEncode.encode = real_encode
+            want = enhancer.QUALITY_PREFIX + OLLAMA_REPLY
+            oks["enhance"] = (got[:1] == [want] and encoded[:1] == [DEFAULTS_PROMPT]
+                              and len(bodies) == len(failed_bodies) == 1
+                              and bodies[0]["messages"][1]["content"] == DEFAULTS_PROMPT
+                              and webui_done(enh, "enhance_prompt")
+                              and webui_done(enh_failed, "enhance_prompt, Ollama failing"))
+            log(f"WebUI enhance_prompt: CLIP got {got[:1]} (want {want!r}); with Ollama "
+                f"failing {encoded[:1]}: {'ok' if oks['enhance'] else 'FAIL'}")
+            e2e["enhance_s_per_image"] = enh["pipeline_s"]
+
+            # (g) FBCache on the UNet, forced to hit, through pipeline(model=...)
+            model, clip, vae = loader.CheckpointLoaderSimple().load_checkpoint(
+                DEFAULTS_CKPT, os.path.join(DEFAULTS_DIR, "embeddings"))
+            forced = model.with_options(fbcache=fbcache.FBCacheConfig(**FORCED_HITS))
+            fbcache.history.clear()
+            reset_launches()
+            fb = run_direct(WEBUI_SEED + 3, "webui_fbcache", False, model=forced, clip=clip,
+                            vae=vae)
+            hist = list(fbcache.history)
+            launches["sd15_unet_fbcache_hits"] = read_launches()
+            fb_calls = attention_calls(sampler="dpmpp_sde_cfgpp", hits=hist)
+            calls["sd15_unet_fbcache_hits"] = fb_calls
+            fbcache.history.clear()
+            zero = run_direct(WEBUI_SEED + 3, "webui_fbcache_zero", False, vae=vae, clip=clip,
+                              model=model.with_options(fbcache=fbcache.FBCacheConfig(0.0)))
+            zero_hist = list(fbcache.history)
+            plain = run_direct(WEBUI_SEED + 3, "webui_fbcache_plain", False, model=model,
+                               clip=clip, vae=vae)
+            fb_png = read_png(fb["paths"][0])
+            oks["fbcache"] = (check_sd15_launches(launches["sd15_unet_fbcache_hits"], fb_calls,
+                                                  "SD1.5 UNet FBCache forced hits", flash)
+                              and len(hist) == 39 and 0 < sum(hist) < 39
+                              and zero_hist == [False] * 39 and same_png(zero, plain)
+                              and fb_png.shape == (WEBUI_SIZE, WEBUI_SIZE, 3)
+                              and float(fb_png.std()) > 0)
+            log(f"SD1.5 UNet FBCache forced hits: {sum(hist)} hits of {len(hist)} model calls "
+                f"{hist}, {fb['wall']:.3f} s/image against {plain['wall']:.3f} without the "
+                f"cache; threshold 0: {len(zero_hist)} misses, the PNG bit for bit the run "
+                f"without the cache: {'ok' if oks['fbcache'] else 'FAIL'}")
+            e2e["fbcache"] = {"hits": sum(hist), "model_calls": len(hist), "history": hist,
+                              "s_per_image": fb["wall"], "plain_s_per_image": plain["wall"],
+                              "threshold_0_s_per_image": zero["wall"]}
+            del model, clip, vae, forced
+
+            # (f) qkv_fuse off: its own UNet load, the same launches, the
+            # final latent against the joined run's
+            latents = {}
+
+            def recorder(key):
+                return lambda info: latents.__setitem__(key, info["x"])
+
+            reset_launches()
+            joined = run_webui(out="webui_qkv", progress_callback=recorder("joined"))
+            joined_launches = read_launches()
+            n_loads = records.count("loaded ")
+            reset_launches()
+            unjoined = run_webui(out="webui_qkv", qkv_fuse=False,
+                                 progress_callback=recorder("unjoined"))
+            launches["webui_sd15_qkv_unfused"] = read_launches()
+            calls["webui_sd15_qkv_unfused"] = def_calls
+            x, ref = latents["unjoined"], latents["joined"]
+            rel = ((x - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
+            unfused_model, _, _ = loader.CheckpointLoaderSimple().load_checkpoint(
+                DEFAULTS_CKPT, os.path.join(DEFAULTS_DIR, "embeddings"))
+            layout_ok = ("input_blocks.1.1.transformer_blocks.0.attn1.to_q.weight"
+                         in unfused_model.params
+                         and not any(k.endswith("to_qkv.weight") for k in unfused_model.params))
+            del unfused_model
+            oks["qkv"] = (launches["webui_sd15_qkv_unfused"] == joined_launches
+                          and check_sd15_launches(joined_launches, def_calls, "WebUI qkv_fuse on",
+                                                  flash)
+                          and records.count("loaded ") == n_loads + 1 and layout_ok
+                          and bool(torch.isfinite(x).all()) and rel <= 2e-2
+                          and webui_done(joined, "qkv_fuse on")
+                          and webui_done(unjoined, "qkv_fuse off"))
+            log(f"WebUI qkv_fuse off: final latent against the joined run's: rel RMSE "
+                f"{rel:.4g} (limit 2e-2); launches equal; its own unjoined UNet loaded: "
+                f"{'ok' if oks['qkv'] else 'FAIL'}")
+            e2e.update(qkv_unfused_rel_rmse=rel, qkv_joined_s_per_image=joined["pipeline_s"],
+                       qkv_unfused_s_per_image_with_load=unjoined["pipeline_s"])
+
+            # (c) keep_models_loaded off: every Generate loads the checkpoint
+            n_loads = records.count("loaded ")
+            off = [run_webui(out="webui_reload", qkv_fuse=True, keep_models_loaded=False),
+                   run_webui(out="webui_reload", keep_models_loaded=False)]
+            loads = [m for m in records.messages if m.startswith(f"loaded {DEFAULTS_CKPT}")]
+            reload_s = float(re.search(r" in ([0-9.]+) s$", loads[-1]).group(1))
+            left = cache.get_memory_info()["cached_models"]
+            oks["reload"] = (records.count("loaded ") == n_loads + 2 and left == 0
+                             and cache.keep_models_loaded is False
+                             and all(webui_done(r, "keep_models_loaded off") for r in off))
+            log(f"WebUI keep_models_loaded off: two Generates loaded the checkpoint "
+                f"{records.count('loaded ') - n_loads} times, the second load {reload_s:.3f} s, "
+                f"{off[1]['wall']:.3f} s/image; cached models after: {left}: "
+                f"{'ok' if oks['reload'] else 'FAIL'}")
+            e2e["reload"] = {"s_per_image": off[1]["pipeline_s"], "load_s": reload_s,
+                             "cached_models_after": left}
+        finally:
+            config.set_config(saved[0])
+            instance.app.preview_dir, webui.SETTINGS_FILE = saved[1], saved[2]
+            instance.app.clear_interrupt()
+            cache.set_keep_models_loaded(True)
+    ok = all(oks.values())
+    log(f"WebUI ({gpu}): Generate {e2e['s_per_image']:.3f} s/image against "
+        f"{e2e['direct_s_per_image']:.3f} for the direct call (overhead "
+        f"{e2e['handler_overhead_s']:.3f} s; the pipeline returned after "
+        f"{e2e['pipeline_s_in_handler']} s, the last yield {poll} s later); "
+        f"sage {e2e['sage_s_per_image']:.3f}, packed_attn off "
+        f"{e2e['unpacked_s_per_image']:.3f}, enhance_prompt {e2e['enhance_s_per_image']:.3f}, "
+        f"FBCache forced hits {e2e['fbcache']['s_per_image']:.3f} s/image; reload "
+        f"{e2e['reload']['load_s']:.3f} s; checks {oks}")
     return ok, launches, e2e, calls
 
 
@@ -3520,6 +3926,8 @@ def main() -> int:
         "sd15 img2img", phase_img2img, line, per_kernel, def_e2e["png"])
     ad_ok, ad_launches, ad_e2e, ad_plan = timed(
         "sd15 adetailer", phase_adetailer, line, per_kernel)
+    webui_ok, webui_launches, webui_e2e, webui_calls = timed(
+        "sd15 webui", phase_webui, line, per_kernel, def_calls)
     loader.get_model_cache().clear()
     seeded_sd15_params.cache_clear()
     del sd_models
@@ -3564,7 +3972,7 @@ def main() -> int:
     # (the unfused DiT calls count once)
     path_calls = {"sd15": sd_calls, "sd15_sage": sage_calls, "sd15_defaults": def_calls,
                   "sd15_hires_fix": hires_plan, "sd15_img2img_usdu": i2i_plan,
-                  "sd15_adetailer": ad_plan, "flux": fcalls,
+                  "sd15_adetailer": ad_plan, **webui_calls, "flux": fcalls,
                   "flux_w8a8": w8_calls, "w8a8_dit_call_fused_ew_off": off_plan,
                   "flux_w8a8_scan": scan_calls, "w8a8_scan_dit_call_fused_ew_off": scan_off_plan,
                   "flux_w8a8_scan_fbcache_hits": hit_calls, "flux_files_defaults": files_calls,
@@ -3575,7 +3983,7 @@ def main() -> int:
             all_calls[key] = all_calls.get(key, 0) + n
     paths = {"sd15": sd_launches, "sd15_sage": sage_launches, "sd15_defaults": def_launches,
              "sd15_hires_fix": hires_launches, "sd15_img2img_usdu": i2i_launches,
-             "sd15_adetailer": ad_launches, "flux": flux_launches,
+             "sd15_adetailer": ad_launches, **webui_launches, "flux": flux_launches,
              "flux_w8a8": w8_launches, "w8a8_dit_call_fused_ew_off": off_launches,
              "flux_w8a8_scan": scan_launches,
              "w8a8_scan_dit_call_fused_ew_off": scan_off_launches,
@@ -3610,7 +4018,10 @@ def main() -> int:
                            if any(tuple(s_["key"]) in calls for s_ in shapes)},
             "per": "image: the sum over its main-path shapes of calls x time, over one "
                    "image of each path it runs on (SD1.5 with flash or sage attention, "
-                   "SD1.5 with every default, its hires-fix, img2img and ADetailer, Flux Q8_0, "
+                   "SD1.5 with every default, its hires-fix, img2img and ADetailer, the "
+                   "WebUI's Generate with every default, with sage_attention, with "
+                   "packed_attn off and with qkv_fuse off, SD1.5 with the UNet's FBCache "
+                   "forced to hit, Flux Q8_0, "
                    "Flux W8A8 unrolled and scan, "
                    "Flux W8A8 scan with FBCache forced to hit, Flux from files with every "
                    "default, Flux with a LoRA on the unfused attention) and one missed "
@@ -3619,13 +4030,13 @@ def main() -> int:
         })
     e2e = {"sd15": sd_e2e, "sd15_sage": sage_e2e, "sd15_defaults": def_e2e,
            "sd15_hires_fix": hires_e2e, "sd15_img2img_usdu": i2i_e2e,
-           "sd15_adetailer_previews": ad_e2e, "flux": flux_e2e,
+           "sd15_adetailer_previews": ad_e2e, "sd15_webui": webui_e2e, "flux": flux_e2e,
            "flux_w8a8": w8_e2e,
            "flux_w8a8_scan": scan_e2e, "flux_w8a8_scan_fbcache_hits": hit_e2e,
            "flux_files_defaults": files_e2e["defaults"],
            "flux_lora_unfused_attention": files_e2e["lora_unfused"]}
     ok = (ref_ok and pipe_ok and sage_ok and def_ok and hires_ok and i2i_ok and ad_ok
-          and flux_ref_ok
+          and webui_ok and flux_ref_ok
           and flux_ok and w8_ref_ok and w8_ok and requant_ok and scan_ok and hit_ok and files_ok
           and all(k["ok"] for k in kernels_line))
     record = {"gpu": line, "kernels": kernels_line, "e2e": e2e, "phase_seconds": seconds,

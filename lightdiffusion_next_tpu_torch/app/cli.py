@@ -3,10 +3,10 @@
 Counterpart of lightdiffusion_next_tpu/app/cli.py: the same parser and
 mutual-exclusion checks, on the port's ``pipeline()`` and ``RuntimeConfig``
 (``--w8a8``, ``--sage-attention``, ``--flux-scan``, ``--fused-ew``,
-``--packed-attn``, ``--fused-attn`` and their ``--no-`` forms). The JAX
-flags with no port field (``--stable-fast``, ``--qkv-fuse`` and its
-``--no-`` form: the port always joins the UNet's projections) are accepted
-and change nothing. ``--flux`` runs Flux.1-dev from the four files under
+``--packed-attn``, ``--fused-attn``, ``--qkv-fuse`` and their ``--no-``
+forms). ``--stable-fast`` is accepted and changes nothing, as in the JAX
+package. ``--enhance-prompt`` sends the prompt through a local Ollama
+first (``pipelines/enhancer.py``). ``--flux`` runs Flux.1-dev from the four files under
 the asset root, ``--hires-fix`` adds SD1.5's second pass at twice the
 size, ``--img2img`` takes the prompt as an image's path and upscales it
 twice with UltimateSDUpscale, ``--adetailer`` re-diffuses the people and
@@ -20,9 +20,6 @@ on the GPU. Usage:
     python -m lightdiffusion_next_tpu_torch.app.cli image.png 1024 1024 --img2img
     python -m lightdiffusion_next_tpu_torch.app.cli "a cat" 1024 1024 --flux
     python -m lightdiffusion_next_tpu_torch.app.cli "a cat" 1024 1024 --adetailer --preview
-
-Not ported yet: ``--enhance-prompt`` (ROADMAP Queue 1, item 10); it
-raises.
 """
 
 from __future__ import annotations
@@ -34,13 +31,8 @@ import sys
 
 from lightdiffusion_next_tpu_torch import config as _config
 
-_NOT_PORTED = {
-    "enhance_prompt": "prompt enhancement (ROADMAP Queue 1, item 10)",
-}
-
-# (flag, the RuntimeConfig field it sets or None); each has a --no- form
-_TOGGLES = (("w8a8", "w8a8"), ("flux_scan", "flux_scan"), ("fused_ew", "fused_ew"),
-            ("packed_attn", "packed_attn"), ("fused_attn", "fused_attn"), ("qkv_fuse", None))
+# the RuntimeConfig fields with a flag each, and a --no- form
+_TOGGLES = ("w8a8", "flux_scan", "fused_ew", "packed_attn", "fused_attn", "qkv_fuse")
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -74,19 +66,18 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--preview", action="store_true")
     p.add_argument("--sage-attention", action="store_true",
                    help="SD1.5: the UNet's long-sequence attention in int8")
-    for flag, field in _TOGGLES:
-        name = flag.replace("_", "-")
-        what = ("accepted; the port has no such option" if field is None
-                else f"force RuntimeConfig.{field} on (off with --no-{name})")
-        p.add_argument(f"--{name}", action="store_true", help=what)
+    for field in _TOGGLES:
+        name = field.replace("_", "-")
+        p.add_argument(f"--{name}", action="store_true",
+                       help=f"force RuntimeConfig.{field} on (off with --no-{name})")
         p.add_argument(f"--no-{name}", action="store_true")
     return p
 
 
 def runtime_config(args, base: _config.RuntimeConfig) -> _config.RuntimeConfig:
     """``base`` with the fields the flags force."""
-    changes = {field: getattr(args, flag) for flag, field in _TOGGLES
-               if field and (getattr(args, flag) or getattr(args, f"no_{flag}"))}
+    changes = {field: getattr(args, field) for field in _TOGGLES
+               if getattr(args, field) or getattr(args, f"no_{field}")}
     if args.sage_attention:
         changes["sage_attention"] = True
     return dataclasses.replace(base, **changes)
@@ -96,13 +87,10 @@ def main(argv=None, device: _config.DeviceLike = None) -> int:
     """Parse ``argv``, run ``pipeline()`` on ``device`` (the GPU by
     default), print the saved paths."""
     args = build_parser().parse_args(argv)
-    for flag, _ in _TOGGLES:
-        if getattr(args, flag) and getattr(args, f"no_{flag}"):
-            name = flag.replace("_", "-")
+    for field in _TOGGLES:
+        if getattr(args, field) and getattr(args, f"no_{field}"):
+            name = field.replace("_", "-")
             raise SystemExit(f"--{name} and --no-{name} are mutually exclusive")
-    for flag, what in _NOT_PORTED.items():
-        if getattr(args, flag):
-            raise NotImplementedError(f"--{flag.replace('_', '-')}: {what} is not ported yet")
 
     _config.set_config(runtime_config(args, _config.get_config()))
 
@@ -122,6 +110,7 @@ def main(argv=None, device: _config.DeviceLike = None) -> int:
         batch=args.batch,
         hires_fix=args.hires_fix,
         adetailer=args.adetailer,
+        enhance_prompt=args.enhance_prompt,
         img2img=args.img2img,
         stable_fast=args.stable_fast,
         reuse_seed=args.reuse_seed,

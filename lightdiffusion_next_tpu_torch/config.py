@@ -10,19 +10,27 @@ GPU. What the port consults:
   encoder on the GPU; everything f32 on the CPU. Norms and schedules always
   compute in f32.
 - ``RuntimeConfig``: ``attention_backend``, ``packed_attn`` and
-  ``sage_attention`` (the UNet's attention), ``w8a8`` and ``fused_ew`` (the
-  Flux DiT's int8 path), ``flux_scan`` (the stacked block layout of the
-  Flux DiT and T5), ``fused_attn`` (Flux's attention through K3 on params
-  in the permuted RoPE basis, or the unfused attention).
+  ``sage_attention`` (the UNet's attention), ``qkv_fuse`` (the UNet's
+  joined projections), ``rng_mode`` (the host noise), ``w8a8`` and
+  ``fused_ew`` (the Flux DiT's int8 path), ``flux_scan`` (the stacked block
+  layout of the Flux DiT and T5), ``fused_attn`` (Flux's attention through
+  K3 on params in the permuted RoPE basis, or the unfused attention). A
+  ``RuntimeConfig`` made without them reads the JAX package's seven
+  overrides: ``LDT_W8A8``, ``LDT_PACKED_ATTN``, ``LDT_FLUX_SCAN``,
+  ``LDT_FUSED_ATTN``, ``LDT_QKV_FUSE`` and ``LDT_FUSED_EW`` ("1" on, "0"
+  off, anything else "auto") and ``LDT_SAGE_ATTN`` ("1" on).
 
-The JAX package's ``qkv_fuse`` has no counterpart: the port always joins the
-q|k|v (and k|v) projection weights, once, when the UNet is built
-(``models/unet.fuse_projections``). Its ``rng_mode`` has none either: the
-port draws noise as the "torch" mode does, the only mode ported (ROADMAP
-Queue 1, item 2). Its ``int8_mxu=False`` variant of the W8A8 matmuls and
-of the int8 attention (int8 codes multiplied at the bf16 rate) has none:
-only the int8 tensor-core path is in use, and the kernels implement that
-one.
+What of the JAX ``config.py`` has no counterpart, and why:
+
+- ``LDT_SCOPED_VMEM_KIB`` and ``donate_latents``: options of XLA's
+  compiler, which the port does not run;
+- ``profile_dir``: read nowhere in the JAX package (``utils/profiling
+  .trace`` takes its directory from the caller);
+- ``data_parallel`` and ``model_parallel``: the multi-device path, not
+  ported yet (ROADMAP Queue 1, item 11);
+- the ``int8_mxu=False`` variant of the W8A8 matmuls and of the int8
+  attention (int8 codes multiplied at the bf16 rate): only the int8
+  tensor-core path is in use, and the kernels implement that one.
 """
 
 from __future__ import annotations
@@ -81,13 +89,22 @@ class DtypePolicy:
 
 
 _VALID_ATTENTION = ("flash", "sdpa")
-
+_VALID_RNG = ("torch", "jax")
 
 _TRI_STATE = (True, False, "auto")
 
 
 def _on_gpu(device: DeviceLike) -> bool:
-    return torch.device(device).type == "cuda"
+    """``None`` is the GPU, as everywhere in the port."""
+    return device is None or torch.device(device).type == "cuda"
+
+
+def _tri_state_env(name: str):
+    """A tri-state field's default from the environment, read when the
+    config is made: "1" on, "0" off, anything else (or unset) "auto"."""
+    return dataclasses.field(
+        default_factory=lambda: {"1": True, "0": False}.get(os.environ.get(name, "auto"),
+                                                             "auto"))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -99,6 +116,14 @@ class RuntimeConfig:
       "sdpa" sends everything to ``sdpa`` (the plain reference path).
     packed_attn: head dims up to 64 go to K1 (``packed_flash_attention``),
       otherwise to K2.
+    qkv_fuse: ``models.base.sd15_model`` joins each attention's q|k|v (and
+      k|v) projection weights once (``unet.fuse_projections``), so each runs
+      as one matmul; off, the UNet keeps the checkpoint's separate weights
+      and runs three (two) matmuls. The same contraction per output element
+      either way.
+    rng_mode: "torch" draws the host noise with torch's CPU generator, bit
+      for bit the reference's; "jax" with numpy's Philox generator, bit for
+      bit the JAX package's mode of that name (``sampling/noise.py``).
     sage_attention: opt-in, as in the JAX package. Every long-sequence
       UNet attention goes to the int8 attention K4
       (``ops.sage_attention``) ahead of K1 and K2; the VAE's attention
@@ -122,41 +147,59 @@ class RuntimeConfig:
       runs QKNorm, RoPE and the product in one kernel (K3). Off: the
       unfused attention (QKNorm, ``ops/rope.py``, then K2 for long
       sequences), which LoRA on the q/k projections needs.
-    ``w8a8``, ``fused_ew``, ``flux_scan`` and ``fused_attn`` take True,
-    False or "auto"; "auto" is on for a model (``w8a8``, ``flux_scan``,
-    ``fused_attn``) or an activation (``fused_ew``) on the GPU and off on
-    the CPU, as the JAX package's is on for the TPU and off on the CPU.
+    ``packed_attn``, ``qkv_fuse``, ``w8a8``, ``fused_ew``, ``flux_scan``
+    and ``fused_attn`` take True, False or "auto"; "auto" is on for a model
+    (``w8a8``, ``flux_scan``, ``fused_attn``) or a tensor (``packed_attn``,
+    ``fused_ew``) on the GPU and off on the CPU, as the JAX package's is on
+    for the TPU and off on the CPU; ``qkv_fuse``'s "auto" is on everywhere,
+    as in the JAX package. Each other ``resolve_*`` takes the device
+    (``None``: the GPU).
     """
 
     attention_backend: str = "flash"
-    packed_attn: bool = True
-    sage_attention: bool = False
-    w8a8: object = "auto"
-    fused_ew: object = "auto"
-    flux_scan: object = "auto"
-    fused_attn: object = "auto"
+    rng_mode: str = "torch"
+    packed_attn: object = _tri_state_env("LDT_PACKED_ATTN")
+    sage_attention: bool = dataclasses.field(
+        default_factory=lambda: os.environ.get("LDT_SAGE_ATTN", "") == "1")
+    qkv_fuse: object = _tri_state_env("LDT_QKV_FUSE")
+    w8a8: object = _tri_state_env("LDT_W8A8")
+    fused_ew: object = _tri_state_env("LDT_FUSED_EW")
+    flux_scan: object = _tri_state_env("LDT_FLUX_SCAN")
+    fused_attn: object = _tri_state_env("LDT_FUSED_ATTN")
 
     def __post_init__(self):
         if self.attention_backend not in _VALID_ATTENTION:
             raise ValueError(f"attention_backend must be one of {_VALID_ATTENTION}")
-        for name in ("w8a8", "fused_ew", "flux_scan", "fused_attn"):
+        if self.rng_mode not in _VALID_RNG:
+            raise ValueError(f"rng_mode must be one of {_VALID_RNG}")
+        for name in ("packed_attn", "qkv_fuse", "w8a8", "fused_ew", "flux_scan",
+                     "fused_attn"):
             if getattr(self, name) not in _TRI_STATE:
                 raise ValueError(f'{name} must be True, False or "auto"')
 
-    def resolve_w8a8(self, device: DeviceLike) -> bool:
+    def resolve_packed_attn(self, device: DeviceLike = None) -> bool:
+        """Whether attention on ``device`` with a head dim up to 64 takes K1."""
+        return _on_gpu(device) if self.packed_attn == "auto" else bool(self.packed_attn)
+
+    def resolve_qkv_fuse(self) -> bool:
+        """Whether a UNet joins its projections: "auto" is on everywhere
+        (the math is the same)."""
+        return True if self.qkv_fuse == "auto" else bool(self.qkv_fuse)
+
+    def resolve_w8a8(self, device: DeviceLike = None) -> bool:
         """Whether a Flux model built on ``device`` converts to W8A8."""
         return _on_gpu(device) if self.w8a8 == "auto" else bool(self.w8a8)
 
-    def resolve_fused_ew(self, device: DeviceLike) -> bool:
+    def resolve_fused_ew(self, device: DeviceLike = None) -> bool:
         """Whether an activation on ``device`` takes the fused path."""
         return _on_gpu(device) if self.fused_ew == "auto" else bool(self.fused_ew)
 
-    def resolve_flux_scan(self, device: DeviceLike) -> bool:
+    def resolve_flux_scan(self, device: DeviceLike = None) -> bool:
         """Whether a Flux model or a T5 encoder built on ``device`` takes
         the stacked scan layout."""
         return _on_gpu(device) if self.flux_scan == "auto" else bool(self.flux_scan)
 
-    def resolve_fused_attn(self, device: DeviceLike) -> bool:
+    def resolve_fused_attn(self, device: DeviceLike = None) -> bool:
         """Whether a Flux DiT built on ``device`` takes the fused attention."""
         return _on_gpu(device) if self.fused_attn == "auto" else bool(self.fused_attn)
 

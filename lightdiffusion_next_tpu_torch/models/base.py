@@ -64,21 +64,26 @@ def sd15_model(params: Dict[str, Any], cfg: Optional[unet_mod.UNetConfig] = None
                device: _config.DeviceLike = None) -> DiffusionModel:
     """Assemble an SD1.5-class EPS UNet bundle from checkpoint-keyed params
     (numpy arrays or tensors); the attention projections are joined here,
-    once (``unet.fuse_projections``). ``dtype`` defaults to the device's
-    policy (bf16 on the GPU, f32 on the CPU); the UNet computes in
-    ``cfg.dtype``, which follows it unless ``cfg`` is given."""
+    once (``unet.fuse_projections``), unless ``RuntimeConfig.qkv_fuse`` is
+    off. ``dtype`` defaults to the device's policy (bf16 on the GPU, f32 on
+    the CPU); the UNet computes in ``cfg.dtype``, which follows it unless
+    ``cfg`` is given."""
     dev = _config.resolve_device(device)
     dtype = dtype or _config.DtypePolicy.for_device(dev).param_dtype
     cfg = cfg or dataclasses.replace(unet_mod.SD15_CONFIG, dtype=dtype)
     plan = unet_mod.build_plan(cfg)
 
-    def apply_fn(p, x, t, context, y=None, attn1_override=None):
+    def apply_fn(p, x, t, context, y=None, attn1_override=None, first_block_hook=None):
         return unet_mod.apply_unet(p, x, t, context, cfg=cfg, plan=plan,
-                                   attn1_override=attn1_override)
+                                   attn1_override=attn1_override,
+                                   first_block_hook=first_block_hook)
 
+    params = params_to_device(params, dtype, dev)
+    if _config.get_config().resolve_qkv_fuse():
+        params = unet_mod.fuse_projections(params)
     return DiffusionModel(
         apply_fn=apply_fn,
-        params=unet_mod.fuse_projections(params_to_device(params, dtype, dev)),
+        params=params,
         model_sampling=ms_mod.ModelSamplingDiscrete(),
         latent_format=latent_mod.SD15,
         config=cfg,

@@ -4,7 +4,10 @@ Counterpart of lightdiffusion_next_tpu/models/unet.py: the same static block
 plan, the same checkpoint keys ("input_blocks.1.0.in_layers.2.weight", ...),
 NHWC activations at the boundary, f32 norms, and the MSW-MSA override as an
 explicit functional argument. Conv weights are OIHW; the attention
-projections are joined once at build time (``fuse_projections``).
+projections are joined once at build time (``fuse_projections``) unless
+``RuntimeConfig.qkv_fuse`` is off, and ``cross_attention`` runs whichever
+layout the params hold. ``apply_unet``'s ``first_block_hook`` is FBCache's
+place, after input blocks 0 and 1, as in the JAX UNet.
 """
 
 from __future__ import annotations
@@ -142,14 +145,20 @@ def fuse_projections(params: dict) -> dict:
 
 def cross_attention(p: nn.ParamView, x, context, heads: int,
                     attn_override: Optional[Callable] = None, block=None, hw=None):
-    """Projections without bias (one q|k|v matmul for self-attention; q,
-    then one k|v matmul of the context for cross-attention; see
-    ``fuse_projections``), attention, to_out."""
-    if context is None:
+    """Projections without bias (with joined params, one q|k|v matmul for
+    self-attention and q, then one k|v matmul of the context for
+    cross-attention, see ``fuse_projections``; else the checkpoint's three),
+    attention, to_out."""
+    if context is None and p.has("to_qkv.weight"):
         q, k, v = nn.linear(x, p("to_qkv.weight")).chunk(3, dim=-1)
-    else:
+    elif context is not None and p.has("to_kv.weight"):
         q = nn.linear(x, p("to_q.weight"))
         k, v = nn.linear(context, p("to_kv.weight")).chunk(2, dim=-1)
+    else:
+        ctx = x if context is None else context
+        q = nn.linear(x, p("to_q.weight"))
+        k = nn.linear(ctx, p("to_k.weight"))
+        v = nn.linear(ctx, p("to_v.weight"))
     if attn_override is not None:
         out = attn_override(q, k, v, heads, block=block, hw=hw)
     else:
@@ -222,10 +231,17 @@ def _run_block(mods, params, h, emb, context, cfg, attn1_override, block=None):
 
 def apply_unet(params: dict, x, timesteps, context,
                cfg: UNetConfig = SD15_CONFIG, plan=None,
-               attn1_override: Optional[Callable] = None):
-    """params: from ``fuse_projections``; x: (B, H, W, C) latent;
-    timesteps: (B,) discrete t; context: (B, L, 768). Returns (B, H, W,
-    out_channels) in ``cfg.dtype``."""
+               attn1_override: Optional[Callable] = None,
+               first_block_hook: Optional[Callable] = None):
+    """params: checkpoint-keyed, joined by ``fuse_projections`` or not; x:
+    (B, H, W, C) latent; timesteps: (B,) discrete t; context: (B, L, 768).
+    Returns (B, H, W, out_channels) in ``cfg.dtype``.
+
+    ``first_block_hook(h_prev, h_first, run_rest)``: FBCache's place.
+    ``h_prev`` is input block 0's output (``conv_in``), ``h_first`` input
+    block 1's (the first res block and transformer), and ``run_rest(h)``
+    runs everything after them up to, not including, the ``out`` head; the
+    hook returns the hidden state the head takes."""
     if plan is None:
         plan = build_plan(cfg)
     input_blocks, middle, output_blocks = plan
@@ -240,16 +256,27 @@ def apply_unet(params: dict, x, timesteps, context,
         context = context.to(cfg.dtype)
 
     hs = []
-    for i, mods in enumerate(input_blocks):
-        h = _run_block(mods, params, h, emb, context, cfg, attn1_override,
+
+    def run_rest(h):
+        rest_hs = list(hs)
+        for i, mods in enumerate(input_blocks[2:], start=2):
+            h = _run_block(mods, params, h, emb, context, cfg, attn1_override,
+                           block=("input", i))
+            rest_hs.append(h)
+        h = _run_block(middle, params, h, emb, context, cfg, attn1_override,
+                       block=("middle", 0))
+        for i, mods in enumerate(output_blocks):
+            h = torch.cat([h, rest_hs.pop()], dim=-1)
+            h = _run_block(mods, params, h, emb, context, cfg, attn1_override,
+                           block=("output", i))
+        return h
+
+    for i in (0, 1):
+        h_prev = h
+        h = _run_block(input_blocks[i], params, h, emb, context, cfg, attn1_override,
                        block=("input", i))
         hs.append(h)
-    h = _run_block(middle, params, h, emb, context, cfg, attn1_override,
-                   block=("middle", 0))
-    for i, mods in enumerate(output_blocks):
-        h = torch.cat([h, hs.pop()], dim=-1)
-        h = _run_block(mods, params, h, emb, context, cfg, attn1_override,
-                       block=("output", i))
+    h = run_rest(h) if first_block_hook is None else first_block_hook(h_prev, h, run_rest)
 
     po = nn.ParamView(params, "out.")
     h = nn.silu(nn.group_norm(h, po("0.weight"), po("0.bias")))

@@ -4,7 +4,8 @@ Counterpart of lightdiffusion_next_tpu/ops/attention.py. Long sequences
 (``flash_attention.supported``: Lq, Lk >= 512 and D <= 512) go to the
 hand-written kernels: all of them to the int8 attention K4
 (``sage_attention``) when ``sage_attention`` is on, else head dims up to 64
-to K1 (``packed_flash_attention``) when ``packed_attn`` is on, the rest to
+to K1 (``packed_flash_attention``) when ``packed_attn`` resolves on for the
+tensors' device, the rest to
 K2 (``flash_attention``). The VAE's attention (``vae_attention_core``)
 always takes K2. Everything
 else (cross-attention over 77 text tokens, CLIP's causal attention, the
@@ -57,13 +58,14 @@ def attention_xla(q, k, v, heads: int, mask: Optional[torch.Tensor] = None):
     return _fold_heads(sdpa(q, k, v, mask=mask))
 
 
-def _flash_kernel(head_dim: int):
-    """The long-sequence kernel: K4 when ``sage_attention`` is on (ahead of
-    the packed kernel, as in the JAX package), else K1 or K2."""
+def _flash_kernel(head_dim: int, device: _config.DeviceLike = None):
+    """The long-sequence kernel on ``device`` (None: the GPU): K4 when
+    ``sage_attention`` is on (ahead of the packed kernel, as in the JAX
+    package), else K1 or K2."""
     cfg = _config.get_config()
     if cfg.sage_attention:
         return sa.sage_attention
-    if cfg.packed_attn and fa.pack_group(head_dim) >= 2:
+    if cfg.resolve_packed_attn(device) and fa.pack_group(head_dim) >= 2:
         return fa.packed_flash_attention
     return fa.flash_attention
 
@@ -73,7 +75,7 @@ def attention_heads(q, k, v, mask: Optional[torch.Tensor] = None):
     folded (B, L, H*D)."""
     backend = _config.get_config().attention_backend
     if backend == "flash" and mask is None and fa.supported(q, k, v):
-        return _fold_heads(_flash_kernel(q.shape[-1])(q, k, v))
+        return _fold_heads(_flash_kernel(q.shape[-1], q.device)(q, k, v))
     return _fold_heads(sdpa(q, k, v, mask=mask))
 
 

@@ -12,12 +12,17 @@ source, all at once.
 
 Nothing here runs at import: the CPU tests import every module, and this
 machine may have no ``nvcc``.
+
+Each library built or loaded is logged at DEBUG on this module's logger
+(``utils.profiling.compile_log`` shows them): the port's counterpart of a
+compile.
 """
 
 from __future__ import annotations
 
 import ctypes
 import hashlib
+import logging
 import os
 import shutil
 import subprocess
@@ -174,6 +179,8 @@ NVCC_FLAGS = (
 
 _LOADED: Dict[str, ctypes.CDLL] = {}
 
+logger = logging.getLogger(__name__)
+
 
 def nvcc_path() -> str:
     found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
@@ -232,6 +239,8 @@ def build(names: Optional[Iterable[str]] = None) -> Dict[str, dict]:
         report[source] = {
             "seconds": time.perf_counter() - t0, "log": log, "path": str(out),
         }
+        logger.debug("kernel library built: %s in %.1f s", out.name,
+                     report[source]["seconds"])
     if failed:
         raise RuntimeError("nvcc failed for " + "\n".join(failed))
     return report
@@ -252,6 +261,7 @@ def load(name: str) -> ctypes.CDLL:
         lib.ldt_error_string.argtypes = [ctypes.c_int]
         lib.ldt_error_string.restype = ctypes.c_char_p
         _LOADED[name] = lib
+        logger.debug("kernel library loaded: %s for %s", path.name, name)
     return lib
 
 

@@ -5,17 +5,17 @@ architecture detection and a model cache kept between calls.
 Counterpart of lightdiffusion_next_tpu/pipelines/loader.py, its
 single-device part: ``load_checkpoint_guess_config``,
 ``load_diffusion_model_gguf``, ``ModelCache`` (with
-``evict_other_variants``), ``get_model_cache``,
-``CheckpointLoaderSimple``, and the cache's ``"esrgan"`` entry that the JAX
-``pipeline.py`` keeps (``load_upscale_model``). Each model is built on the
+``evict_other_variants`` and the WebUI's keep-loaded switch),
+``get_model_cache``, ``CheckpointLoaderSimple``, and the cache's
+``"esrgan"`` entry that the JAX ``pipeline.py`` keeps
+(``load_upscale_model``). Each model is built on the
 given device (the GPU by default) in the device's dtype policy: the UNet
 through ``base.sd15_model`` (which joins its attention projections), the
 VAE with its encoder and decoder, ESRGAN in f32, CLIP-L with the
 textual-inversion directory, the Flux DiT through ``base.flux_model``
 (requant, permutation and stacking on the device). A one-file Flux
 checkpoint raises, as in the JAX package. Not ported (ROADMAP Queue 1,
-item 11): the tensor-parallel loads on a mesh; the WebUI's keep-loaded
-switch comes with the WebUI (item 10).
+item 11): the tensor-parallel loads on a mesh.
 """
 
 from __future__ import annotations
@@ -119,10 +119,13 @@ def load_upscale_model(path: str, device: _config.DeviceLike = None) -> esrgan.U
 
 class ModelCache:
     """Keeps built models resident between generations, keyed by the
-    checkpoint's path and mtime (a rewritten file misses)."""
+    checkpoint's path and mtime (a rewritten file misses). With
+    ``keep_models_loaded`` off (the WebUI's switch) it keeps nothing: every
+    ``get`` misses, ``put`` stores nothing, and turning it off empties it."""
 
     def __init__(self):
         self._cache: Dict[str, Tuple] = {}
+        self.keep_models_loaded = True
 
     def _key(self, path: str, variant: str = "") -> str:
         try:
@@ -134,10 +137,16 @@ class ModelCache:
     def get(self, path: str, variant: str = ""):
         """``variant`` tells apart residents of one file built differently
         (another embedding directory, another device)."""
+        if not self.keep_models_loaded:
+            return None
         return self._cache.get(self._key(path, variant))
 
     def put(self, path: str, value, variant: str = "") -> None:
-        self._cache[self._key(path, variant)] = value
+        if self.keep_models_loaded:
+            self._cache[self._key(path, variant)] = value
+
+    def discard(self, path: str, variant: str = "") -> None:
+        self._cache.pop(self._key(path, variant), None)
 
     def evict_other_variants(self, path: str, keep_variant: str = "") -> None:
         """Drop every other variant of ``path`` before a new one loads: one
@@ -150,6 +159,11 @@ class ModelCache:
 
     def clear(self) -> None:
         self._cache.clear()
+
+    def set_keep_models_loaded(self, keep: bool) -> None:
+        self.keep_models_loaded = keep
+        if not keep:
+            self.clear()
 
     def get_memory_info(self) -> Dict:
         """Cached models and the GPU's memory, where there is one."""
@@ -179,11 +193,17 @@ class CheckpointLoaderSimple:
         dev = _config.resolve_device(device)
         cache = get_model_cache()
         # the tokenizer resolves embeddings against its directory, so a
-        # resident built for one directory must not serve another
-        variant = f"dev={dev}" + (f";emb={embedding_directory}" if embedding_directory else "")
+        # resident built for one directory must not serve another; nor may
+        # a UNet whose projections were joined (or not) under the other
+        # qkv_fuse, and only one of those two stays resident
+        joined = f"dev={dev}" + (f";emb={embedding_directory}" if embedding_directory else "")
+        unjoined = joined + ":unfused"
+        variant, other = ((joined, unjoined) if _config.get_config().resolve_qkv_fuse()
+                          else (unjoined, joined))
         hit = cache.get(ckpt_path, variant)
         if hit is not None:
             return hit
+        cache.discard(ckpt_path, other)
         out = load_checkpoint_guess_config(ckpt_path, embedding_directory, dev)
         cache.put(ckpt_path, out, variant)
         return out

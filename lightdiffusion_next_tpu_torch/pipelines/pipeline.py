@@ -68,9 +68,11 @@ hires pass and the ADetailer pass stop when its ``should_stop`` says so
 (a ``PreviewHook``: its instance was interrupted). The JAX package polls
 a separate ``_stop_requested`` that knows ``PreviewHook`` by type.
 
-``enhance_prompt`` is not ported and raises ``NotImplementedError`` naming
-its ROADMAP item, before anything is loaded. ``LDT_FLUX_TP`` (the
-multi-chip Flux of ROADMAP Queue 1, item 11) is not read.
+``enhance_prompt``: the prompt goes through ``enhancer.enhance_prompt``
+(a local Ollama; the prompt itself when that fails) after the parameter
+file is written and before any model is loaded, as in the JAX package.
+``LDT_FLUX_TP`` (the multi-chip Flux of ROADMAP Queue 1, item 11) is not
+read.
 """
 
 from __future__ import annotations
@@ -93,7 +95,8 @@ from lightdiffusion_next_tpu_torch.models.clip import t5_tokenizer
 from lightdiffusion_next_tpu_torch.models.clip import text_encoder as te
 from lightdiffusion_next_tpu_torch.models.clip import tokenizer as clip_tokenizer
 from lightdiffusion_next_tpu_torch.ops import ggml, window
-from lightdiffusion_next_tpu_torch.pipelines import detailer, downloader, loader, upscaler
+from lightdiffusion_next_tpu_torch.pipelines import detailer, downloader, enhancer, loader
+from lightdiffusion_next_tpu_torch.pipelines import upscaler
 from lightdiffusion_next_tpu_torch.pipelines import sam as sam_mod
 from lightdiffusion_next_tpu_torch.sampling import cfg as cfg_mod
 from lightdiffusion_next_tpu_torch.sampling import ksampler as ks
@@ -112,11 +115,6 @@ DEFAULT_NEGATIVE = (
     "comic), (embedding:EasyNegative), (embedding:badhandv4), (embedding:lr), "
     "(embedding:ng_deepnegative_v1_75t)"
 )
-
-_NOT_PORTED = {
-    "enhance_prompt": "prompt enhancement (ROADMAP Queue 1, item 10)",
-}
-
 
 def _seed_file() -> str:
     return os.path.join(_config.asset_root(), "last_seed.txt")
@@ -184,10 +182,6 @@ def pipeline(
     carries ``chunk``); a ``should_stop`` method on it, when it returns
     true, stops the run between images, passes, USDU tiles and ADetailer
     segments."""
-    requested = {"enhance_prompt": enhance_prompt}
-    for name, on in requested.items():
-        if on:
-            raise NotImplementedError(f"{name}=True: {_NOT_PORTED[name]} is not ported yet")
     given = [m is not None for m in (model, clip, vae)] + ([t5 is not None] if flux_enabled
                                                           else [])
     if any(given) and not all(given):
@@ -214,6 +208,8 @@ def pipeline(
         params_io.write_parameters_to_file(prompt, negative_prompt, w, h, 7)
     except OSError:
         pass
+    if enhance_prompt:
+        prompt = enhancer.enhance_prompt(prompt)
 
     saver = image_utils.SaveImage(output_dir=output_dir)
     saved: List[str] = []

@@ -14,7 +14,10 @@ Counterpart of lightdiffusion_next_tpu/sampling/fbcache.py:
   a call on its own state (the dy sampler's extra half-res call) leaves
   the main loop's state untouched.
 
-The JAX package carries the state through its compiled loop and decides
+The cache sits at the model's first-block boundary: Flux's double block 0,
+or the UNet's input blocks 0 and 1 (``unet.apply_unet``'s
+``first_block_hook``). The JAX package carries the state through its
+compiled loop and decides
 with ``lax.cond``; here the loop is eager, so the decision is taken on the
 host, with one ``.item()`` of the f32 ratio per call that can hit, and
 only the branch taken runs. Every decision is appended to ``history``
@@ -128,26 +131,28 @@ class FBCachedDenoiser:
 def for_model(model, cond, uncond, cfg_scale: float,
               fb_cfg: FBCacheConfig = FBCacheConfig()) -> FBCachedDenoiser:
     """A stateful CFG denoiser with the cache at the model's first-block
-    boundary (Flux's double block 0)."""
+    boundary (Flux's double block 0, the UNet's input block 1), with the
+    model's attention override (MSW-MSA) when it has one. The state is
+    f32 in the shape of that boundary's output: Flux's (B, tokens, hidden),
+    the UNet's (B, H, W, model_channels), B doubled under CFG."""
     from lightdiffusion_next_tpu_torch.sampling import cfg as cfg_mod
 
-    if model.model_type != "flux":
-        raise NotImplementedError(
-            "FBCache needs the model's first_block_hook, ported for Flux only; "
-            "the UNet's is not ported yet (ROADMAP Queue 1, item 8)"
-        )
     batched_uncond = uncond is not None and abs(cfg_scale - 1.0) > 1e-9
-    hidden = model.config.hidden_size
+    model_cfg = model.config
 
     def make(hook):
         return cfg_mod.make_cfg_denoiser(
             model.apply_fn, model.params, model.model_sampling, cond, uncond,
             cfg_scale, first_block_hook=hook,
+            attn1_override_factory=model.model_options.get("attn1_override_factory"),
         )
 
     def shapes_fn(x):
         b = x.shape[0] * (2 if batched_uncond else 1)
-        shape = (b, (x.shape[1] // 2) * (x.shape[2] // 2), hidden)
+        if model.model_type == "flux":
+            shape = (b, (x.shape[1] // 2) * (x.shape[2] // 2), model_cfg.hidden_size)
+        else:
+            shape = (b, x.shape[1], x.shape[2], model_cfg.model_channels)
         return shape, shape
 
     return FBCachedDenoiser(make, fb_cfg, model.model_sampling, shapes_fn)

@@ -3,8 +3,8 @@ noise and the SDE samplers' Brownian-tree noise), CFG denoiser, sampler
 loop.
 
 Counterpart of lightdiffusion_next_tpu/sampling/ksampler.py ``ksample``,
-with the FBCache dispatch (``fbcache=`` or the model's ``"fbcache"``
-option) and the denoise mask with differential diffusion
+with the noise in ``RuntimeConfig.rng_mode``, the FBCache dispatch
+(``fbcache=`` or the model's ``"fbcache"`` option, on Flux or the UNet) and the denoise mask with differential diffusion
 (``_MaskedDenoiser``, ADetailer's inpainting). Latents are NHWC in and out.
 """
 
@@ -16,6 +16,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from lightdiffusion_next_tpu_torch import config as _config
 from lightdiffusion_next_tpu_torch.models.base import DiffusionModel
 from lightdiffusion_next_tpu_torch.ops import nn
 from lightdiffusion_next_tpu_torch.sampling import cfg as cfg_mod
@@ -150,10 +151,11 @@ def ksample(
     if len(sigmas) < 2:
         return KSampleResult(latent=latent_image, raw=lf.process_in(latent_image))
 
-    # the JAX package's "torch" rng mode (the only mode ported): drawn on
-    # the CPU in the latent's own NHWC shape, as that package does
+    # drawn on the CPU in the latent's own NHWC shape, in the configured
+    # rng mode, as the JAX package does
+    rng_mode = _config.get_config().rng_mode
     shape = tuple(latent_image.shape)
-    init_noise = noise_mod.prepare_noise(shape, seed)
+    init_noise = noise_mod.prepare_noise(shape, seed, mode=rng_mode)
     opts = (
         dataclasses.replace(sampler_opts, cfg_scale=cfg_scale)
         if sampler_opts is not None
@@ -162,11 +164,11 @@ def ksample(
     sde_noise = step_noise = None
     name = samplers_mod.SAMPLER_ALIASES.get(sampler_name, sampler_name)
     if name in samplers_mod.ANCESTRAL:
-        step_noise = noise_mod.step_noise_batch(shape, len(sigmas) - 1, seed)
+        step_noise = noise_mod.step_noise_batch(shape, len(sigmas) - 1, seed, mode=rng_mode)
     if name in ("dpmpp_sde", "dpmpp_sde_cfgpp"):
         # the Brownian-tree noise of every step, on the host before the loop
         sde_noise = noise_mod.sde_noise_for_steps(
-            shape, sigmas, r=samplers_mod.R, eta=samplers_mod.ETA, seed=seed)
+            shape, sigmas, r=samplers_mod.R, eta=samplers_mod.ETA, seed=seed, mode=rng_mode)
 
     max_denoise = (
         abs(float(msampling.sigma_max) - float(sigmas[0])) < 1e-4

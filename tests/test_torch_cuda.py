@@ -19,6 +19,8 @@ the bf16 limits; K5 states its own (``quant_matmul.MAX_ULPS`` and
 planted faults exceed (``test_*planted_faults*``).
 """
 
+import dataclasses
+
 import pytest
 import torch
 
@@ -973,3 +975,132 @@ def test_sage_dispatch_launches_k4(cuda):
     finally:
         config.set_config(saved)
     assert after == (before[0] + 2, before[1], before[2] + 1)
+
+
+# --- the WebUI's toggles and the UNet's FBCache on the card -------------------
+
+WEBUI_UNET = dict(model_channels=160, channel_mult=(1, 2), num_res_blocks=(1, 1),
+                  transformer_depth=(1, 1), transformer_depth_middle=1, context_dim=64,
+                  num_heads=4)  # level 0: d = 40 over 32 x 32 = 1024 tokens; level 1: sdpa
+
+
+@pytest.fixture(scope="module")
+def webui_models():
+    """A small UNet (K1 or K2 at level 0 only), CLIP and VAE (mid-block at
+    d = 512, K2 in f32) on the card from seeds."""
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU: the CUDA kernels have no CPU mode")
+    from lightdiffusion_next_tpu_torch.models import base, unet
+    from lightdiffusion_next_tpu_torch.models import vae as vae_mod
+    from lightdiffusion_next_tpu_torch.models.clip import facade
+    from lightdiffusion_next_tpu_torch.models.clip import text_encoder as te
+
+    ucfg = unet.UNetConfig(**WEBUI_UNET, dtype=torch.bfloat16)
+    vcfg = vae_mod.VAEConfig(ch=128, ch_mult=(1, 4), num_res_blocks=1)
+    params = unet.init_params(ucfg, seed=0)
+    models = {}
+    for fuse in (True, False):
+        saved = config.get_config()
+        config.set_config(dataclasses.replace(saved, qkv_fuse=fuse))
+        try:
+            models[fuse] = base.sd15_model(params, cfg=ucfg, device="cuda")
+        finally:
+            config.set_config(saved)
+    vae = vae_mod.VAE(vae_mod.init_params(vcfg, seed=1), vcfg, device="cuda")
+    clip = facade.sd1_clip_from_params(te.init_params(num_layers=2, width=64, heads=4, seed=2),
+                                       device="cuda")
+    return models, clip, vae
+
+
+def _webui_generate(tmp_path, models, clip, vae, model=None, **kw):
+    """One Generate through the WebUI handler with the given models (20
+    ``dpmpp_2m_cfgpp`` steps at CFG 7, no multi-scale, no MSW-MSA): the
+    launches of every kernel wrapper during it, the final latent and the
+    statuses. The process-wide config comes back as it was."""
+    from lightdiffusion_next_tpu_torch.app import webui
+    from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
+
+    wrappers = (fa.packed_flash_attention, fa.flash_attention, sa.sage_attention,
+                sa.prepare_kernel)
+    before = [w.launches for w in wrappers]
+    last = {}
+    saved, settings = config.get_config(), webui.SETTINGS_FILE
+    webui.SETTINGS_FILE = str(tmp_path / "webui_settings.json")
+    try:
+        statuses = [s for _, s in webui.generate_images_with_preview(
+            output_dir=str(tmp_path), prompt="a cat", w=256, h=256, seed=7,
+            model=model or models[True], clip=clip, vae=vae, prio_speed=True,
+            enable_multiscale=False, hidiffusion=False, autohdr=False,
+            progress_callback=lambda info: last.update(x=info["x"]), **kw)]
+    finally:
+        config.set_config(saved)
+        webui.SETTINGS_FILE = settings
+    launches = [w.launches - b for w, b in zip(wrappers, before)]
+    return dict(zip(("k1", "k2", "k4", "prepare"), launches)), last["x"], statuses
+
+
+def _level0_sites():
+    from lightdiffusion_next_tpu_torch.models import unet
+
+    cfg = unet.UNetConfig(**WEBUI_UNET)
+    return [block for block, level, _, _ in unet.attention_blocks(cfg) if level == 0]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("toggle", ["defaults", "sage_attention", "packed_attn_off"])
+def test_webui_toggle_launch_plans(cuda, webui_models, tmp_path, toggle):
+    """The toggles from the WebUI's Generate, the kernels launched from its
+    worker thread: 20 model calls x the level-0 attention sites on K1 (K2
+    with ``packed_attn`` off, K4 and its preparation with
+    ``sage_attention``), and the VAE's one f32 K2 call."""
+    models, clip, vae = webui_models
+    kw = {"sage_attention": {"sage_attention": True},
+          "packed_attn_off": {"packed_attn": False}}.get(toggle, {})
+    launches, x, statuses = _webui_generate(tmp_path, models, clip, vae, **kw)
+    n = 20 * len(_level0_sites())
+    want = {"defaults": dict(k1=n, k2=1, k4=0, prepare=0),
+            "sage_attention": dict(k1=0, k2=1, k4=n, prepare=n),
+            "packed_attn_off": dict(k1=0, k2=n + 1, k4=0, prepare=0)}[toggle]
+    assert statuses[-1] == "done" and launches == want
+    assert bool(torch.isfinite(x).all())
+
+
+@pytest.mark.cuda
+def test_webui_qkv_fuse_off_same_launches(cuda, webui_models, tmp_path):
+    """The UNet built with ``qkv_fuse`` off launches what the joined one
+    does, and its final latent stays within 2e-2 relative RMS of the joined
+    run's (bf16 products of other widths)."""
+    models, clip, vae = webui_models
+    joined, ref, _ = _webui_generate(tmp_path, models, clip, vae)
+    unjoined, x, statuses = _webui_generate(tmp_path, models, clip, vae, model=models[False],
+                                            qkv_fuse=False)
+    assert statuses[-1] == "done" and unjoined == joined
+    rel = ((x - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
+    assert rel <= 2e-2, rel
+
+
+@pytest.mark.cuda
+def test_unet_fbcache_hits_launch_plan(cuda, webui_models, tmp_path):
+    """FBCache forced to hit on the UNet: a hit runs input blocks 0 and 1,
+    so it launches K1 once (input block 1's self-attention); a miss
+    launches every level-0 site. Threshold 0 hits never and gives the run
+    without the cache bit for bit."""
+    from lightdiffusion_next_tpu_torch.sampling import fbcache
+
+    models, clip, vae = webui_models
+    forced = models[True].with_options(fbcache=fbcache.FBCacheConfig(
+        residual_diff_threshold=1e30, max_consecutive_cache_hits=2))
+    fbcache.history.clear()
+    launches, x, statuses = _webui_generate(tmp_path, models, clip, vae, model=forced)
+    hits = list(fbcache.history)
+    assert statuses[-1] == "done" and len(hits) == 20 and 0 < sum(hits) < 20
+    sites = len(_level0_sites())
+    assert ("input", 1) in _level0_sites()
+    assert launches == dict(k1=sum(1 if h else sites for h in hits), k2=1, k4=0, prepare=0)
+    assert bool(torch.isfinite(x).all())
+    zero = models[True].with_options(fbcache=fbcache.FBCacheConfig(0.0))
+    fbcache.history.clear()
+    _, x0, _ = _webui_generate(tmp_path, models, clip, vae, model=zero)
+    assert fbcache.history == [False] * 20
+    _, plain, _ = _webui_generate(tmp_path, models, clip, vae)
+    assert torch.equal(x0, plain)

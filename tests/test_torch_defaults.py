@@ -196,15 +196,16 @@ def test_cli_defaults_end_to_end(runs, capsys):
                                   "--adetailer", "--enhance-prompt"])
 def test_cli_unported_flags_raise(flag, tmp_path, monkeypatch):
     """Each unported flag raises before anything loads; ``--flux``,
-    ``--preview``, ``--hires-fix``, ``--img2img`` and ``--adetailer`` are
-    ported and raise FileNotFoundError for their missing files (the Flux
-    assets, the SD1.5 checkpoint, which img2img loads before it reads the
-    image)."""
+    ``--preview``, ``--hires-fix``, ``--img2img``, ``--adetailer`` and
+    ``--enhance-prompt`` are ported and raise FileNotFoundError for their
+    missing files (the Flux assets, the SD1.5 checkpoint, which img2img
+    loads before it reads the image; the enhancer finds no Ollama on
+    127.0.0.1 and keeps the prompt)."""
     monkeypatch.setenv("LDT_ASSET_ROOT", str(tmp_path))
     monkeypatch.setenv("LDT_OFFLINE", "1")
     missing = {"--flux": "flux asset missing", "--hires-fix": "checkpoint missing",
                "--img2img": "checkpoint missing", "--preview": "checkpoint missing",
-               "--adetailer": "checkpoint missing"}
+               "--adetailer": "checkpoint missing", "--enhance-prompt": "checkpoint missing"}
     if flag in missing:
         with pytest.raises(FileNotFoundError, match=missing[flag]):
             tcli.main(["a cat", "64", "64", flag, "--output-dir", str(tmp_path)],
@@ -220,9 +221,10 @@ def test_cli_mutually_exclusive_flags_and_config():
     with pytest.raises(SystemExit, match="mutually exclusive"):
         tcli.main(["a cat", "64", "64", "--w8a8", "--no-w8a8"], device="cpu")
     saved = tconfig.get_config()
-    with pytest.raises(NotImplementedError):
-        tcli.main(["a cat", "64", "64", "--no-packed-attn", "--enhance-prompt"], device="cpu")
-    assert tconfig.get_config() == saved  # the unported flag raised first
+    with pytest.raises(SystemExit, match="mutually exclusive"):
+        tcli.main(["a cat", "64", "64", "--no-packed-attn", "--qkv-fuse", "--no-qkv-fuse"],
+                  device="cpu")
+    assert tconfig.get_config() == saved  # the refused flags changed nothing
     parse = tcli.build_parser().parse_args
     base = tconfig.RuntimeConfig()
     assert tcli.runtime_config(parse(["a", "64", "64"]), base) == base
@@ -231,4 +233,4 @@ def test_cli_mutually_exclusive_flags_and_config():
                                      "--fused-attn", "--no-qkv-fuse", "--stable-fast"]), base)
     assert got == tconfig.RuntimeConfig(packed_attn=False, sage_attention=True,
                                         flux_scan=False, w8a8=True, fused_ew=False,
-                                        fused_attn=True)
+                                        fused_attn=True, qkv_fuse=False)

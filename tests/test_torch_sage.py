@@ -240,10 +240,18 @@ def test_dispatch_sends_long_attention_to_k4(sage_on, monkeypatch):
     vq = _t(rng.standard_normal((1, 32, 16, 64)).astype(np.float32))
     tattn.vae_attention_core(vq, vq, vq)
     assert calls == [("k4", 40, 512), ("k4", 160, 512), ("k2", 64, 512)]
-    tconfig.set_config(dataclasses.replace(tconfig.get_config(), sage_attention=False))
+    # sage off: back to K1 where packed_attn resolves on for the tensors'
+    # device (pinned on here; its "auto" is off on the CPU, where d = 40
+    # takes K2, as in the JAX package)
+    tconfig.set_config(dataclasses.replace(tconfig.get_config(), sage_attention=False,
+                                           packed_attn=True))
     calls.clear()
     tattn.attention(q40, q40, q40, heads=2)
     assert calls == [("k1", 40, 512)]
+    tconfig.set_config(dataclasses.replace(tconfig.get_config(), packed_attn="auto"))
+    calls.clear()
+    tattn.attention(q40, q40, q40, heads=2)
+    assert calls == [("k2", 40, 512)]
 
 
 def test_dispatched_output_matches_jax(sage_on):

@@ -65,9 +65,11 @@ def test_sde_noise_for_steps_bit_for_bit(shape, seed):
 
 
 def test_sde_noise_unported_mode_raises():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    """Both of the JAX package's modes are ported (tests/test_torch_noise_modes.py);
+    a mode neither package has raises."""
+    with pytest.raises(ValueError, match="rng mode"):
         tnoise.sde_noise_for_steps((1, 8, 8, 4), np.array([1.0, 0.0]), 0.5, 1.0, 1,
-                                   mode="jax")
+                                   mode="numpy")
 
 
 @pytest.mark.parametrize("eta,r", [(1.0, 0.5), (0.5, 0.3), (0.0, 0.5)])

@@ -135,7 +135,7 @@ def ablate_k3(torch, F, chip_smoke, fa):
         ref = fa.fused_qkv_attention_plain(qkv, sc[0], sc[1], cos, sin, **kw)
         args = (qkv.data_ptr(), out.data_ptr(), kv_scratch.data_ptr(), sc[0].data_ptr(),
                 sc[1].data_ptr(), sc[2].data_ptr(), sc[3].data_ptr(), cos.data_ptr(),
-                sin.data_ptr(), 1, HEADS, l, l, width, txt_len, 1e-6,
+                sin.data_ptr(), 1, HEADS, l, l, width, txt_len, 0, 1e-6,
                 fa.LOG2E / math.sqrt(128), stream)
 
         def launcher(lib, i):

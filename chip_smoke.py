@@ -127,8 +127,10 @@ Phases, in order; any failure exits non-zero:
    its launches against the plan (K9 "none" and K7 on every quantized
    matmul, K2 at (1, 24, L, 128) for every attention, no K3), a finite
    image, a timed second call, and one double and one single block under
-   the LoRA, bf16 kernels against the f32 plain versions. The files are
-   removed when the phase ends, also on failure;
+   the LoRA, bf16 kernels against the f32 plain versions. It also keeps
+   phase 23's one-device references (one missed DiT call on seeded inputs,
+   the final latent). The files stay for phase 23 and are removed after
+   it, also on failure;
 19. SD1.5 hires-fix (after phase 17, from its files): K1 and K2 at the
    hires pass's new shapes (``hires_calls``: its level-0 windows at 16 384
    tokens, levels 1-3 at 16 384, 4096 and 1024 tokens, the f32 decode at
@@ -187,7 +189,31 @@ Phases, in order; any failure exits non-zero:
    ``qkv_fuse`` off (its own unjoined UNet, the same launches, the final
    latent held to 2e-2 of the joined run's); ``keep_models_loaded`` off
    (a load per Generate, the cache empty after). The config and the
-   switches are restored after.
+   switches are restored after;
+23. Flux tensor-parallel on the one card (after 18, from its files): K3
+   with ``interleaved=True`` at (1, L, H, 128) bf16 for the TP path's
+   shapes (4352 and 1280 tokens, 12 heads, text rows 256 and 0) and at 24
+   and 6 heads, against its plain version, with two planted faults (the
+   proj-major offsets; each head's k and v stripes swapped), timed beside
+   the plain version, ``scaled_dot_product_attention`` and the bound; K9,
+   the stacked K11, K5 and K2 at a rank's new shapes, as their phases hold
+   them; the Q8_0 unfused unrolled DiT on one device for the reference;
+   then two ranks spawned on the card (gloo, a FileStore; NCCL refuses
+   two ranks on one device, and gloo stages every all-reduce through the
+   host, so the times are not NVLink TP's), each loading through the
+   pipeline's loader with ``LDT_FLUX_TP=spmd`` (W8A8, scan, K3
+   interleaved per shard): one missed DiT call against phase 18's one
+   device (both ranks bit for bit equal), its launches against the TP plan
+   and 114 all-reduces of width 3072; ``pipeline(prompt, 1024, 1024,
+   flux_enabled=True)`` with each rank drawing its own seed, rank 0's on
+   both, rank 0's PNG only, the final latent against phase 18's at that
+   seed, the launches and all-reduces against the plan of the counted
+   FBCache hits, the wall time and the device's peak per rank; then
+   ``LDT_FLUX_TP=auto``, the same tensor-parallel load, with the
+   ``w8a8``, ``flux_scan`` and ``fused_attn`` toggles off (Q8_0, unrolled,
+   unfused: K5 and K2 at 12 heads), one missed DiT call against the one
+   device's under the same toggles. A rank that fails or runs past
+   ``TP_TIMEOUT_S`` fails the phase.
 
 Phases 19 to 22 run after phase 17, before the Flux phases. Phases 5 to
 11 pin ``RuntimeConfig(flux_scan=False)``, so their launch plans
@@ -213,6 +239,7 @@ import logging
 import math
 import os
 import re
+import shutil
 import struct
 import subprocess
 import sys
@@ -273,6 +300,14 @@ KERNELS = {
         "route": "cuda",
         "source": "lightdiffusion_next_tpu_torch/csrc/fused_qkv_attention.cu",
         "replaces": "lightdiffusion_next_tpu/ops/flash_attention.py:552",
+    },
+    # K3 with interleaved=True (the TP layout): the same wrapper, counted in
+    # its launches_interleaved
+    "fused_qkv_attention_interleaved": {
+        "route": "cuda",
+        "source": "lightdiffusion_next_tpu_torch/csrc/fused_qkv_attention.cu",
+        "replaces": "lightdiffusion_next_tpu/ops/flash_attention.py:552 (interleaved=True, "
+                    "index maps :610-617)",
     },
     "quant_matmul": {
         "route": "cuda",
@@ -607,6 +642,8 @@ def stack_depth(k, n):
     single blocks' linear1 and linear2, the 19 double blocks'."""
     if k in (4096, 10240):
         return 24
+    if (k, n) in {(kk, nn_) for kk, nn_, _ in TP_DOUBLE}:  # a rank's: double or single
+        return 38
     return 38 if (k, n) in (LINEAR1, LINEAR2) else 19
 
 
@@ -1019,33 +1056,40 @@ def run_pipeline(models, seed):
             "step_times": step_times, "last": last}
 
 
-def kernel_wrappers():
+def kernel_counters():
+    """{KERNELS name: (its wrapper, the wrapper's counter of that kernel)}:
+    K3 counts its proj-major launches in ``launches`` and its interleaved
+    ones in ``launches_interleaved``."""
     from lightdiffusion_next_tpu_torch.ops import flash_attention as fa
     from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
     from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
 
-    return {"packed_flash_attention": fa.packed_flash_attention,
-            "flash_attention": fa.flash_attention,
-            "fused_qkv_attention": fa.fused_qkv_attention,
-            "quant_matmul": qm.quant_matmul,
-            "w8a8_matmul": qm.w8a8_matmul,
-            "row_quantize_fused": qm.row_quantize_fused,
-            "row_quantize_concat_gelu": qm.row_quantize_concat_gelu,
-            "w8a8_matmul_ep": qm.w8a8_matmul_ep,
-            "sage_attention": sa.sage_attention,
-            "sage_prepare": sa.prepare_kernel,
-            "quant_matmul_stacked": qm.quant_matmul_stacked,
-            "w8a8_matmul_stacked": qm.w8a8_matmul_stacked,
-            "w8a8_matmul_ep_stacked": qm.w8a8_matmul_ep_stacked}
+    wrappers = {"packed_flash_attention": fa.packed_flash_attention,
+                "flash_attention": fa.flash_attention,
+                "fused_qkv_attention": fa.fused_qkv_attention,
+                "quant_matmul": qm.quant_matmul,
+                "w8a8_matmul": qm.w8a8_matmul,
+                "row_quantize_fused": qm.row_quantize_fused,
+                "row_quantize_concat_gelu": qm.row_quantize_concat_gelu,
+                "w8a8_matmul_ep": qm.w8a8_matmul_ep,
+                "sage_attention": sa.sage_attention,
+                "sage_prepare": sa.prepare_kernel,
+                "quant_matmul_stacked": qm.quant_matmul_stacked,
+                "w8a8_matmul_stacked": qm.w8a8_matmul_stacked,
+                "w8a8_matmul_ep_stacked": qm.w8a8_matmul_ep_stacked}
+    counters = {name: (fn, "launches") for name, fn in wrappers.items()}
+    counters["fused_qkv_attention_interleaved"] = (fa.fused_qkv_attention,
+                                                   "launches_interleaved")
+    return counters
 
 
 def reset_launches():
-    for fn in kernel_wrappers().values():
-        fn.launches = 0
+    for fn, attr in kernel_counters().values():
+        setattr(fn, attr, 0)
 
 
 def read_launches():
-    return {name: fn.launches for name, fn in kernel_wrappers().items()}
+    return {name: getattr(fn, attr) for name, (fn, attr) in kernel_counters().items()}
 
 
 def check_sd15_output(run, model, vae, label):
@@ -3508,7 +3552,7 @@ class PeakRss:
         self._thread.join()
 
 
-def run_flux_defaults(seed, **kw):
+def run_flux_defaults(seed, out="out", **kw):
     """``pipeline(FLUX_PROMPT, 1024, 1024, flux_enabled=True, seed=...)``
     with every other argument at its default (``kw`` adds the models): the
     paths, wall seconds, the time after each step (device synced), the last
@@ -3530,7 +3574,7 @@ def run_flux_defaults(seed, **kw):
     start = time.perf_counter()
     with torch.no_grad():
         paths = pl.pipeline(FLUX_PROMPT, 1024, 1024, flux_enabled=True, seed=seed,
-                            output_dir=os.path.join(FLUX_DIR, "out"),
+                            output_dir=os.path.join(FLUX_DIR, out),
                             progress_callback=on_step, **kw)
     torch.cuda.synchronize()
     return {"paths": paths, "wall": time.perf_counter() - start, "step_times": step_times,
@@ -3698,7 +3742,7 @@ def flux_files_flow(gpu, scan_latent):
     # the defaults: W8A8, scan, fused attention, FBCache, AutoHDR, from the files
     with counted_reads(reads):
         reset_launches()
-        first = run_flux_defaults(4321)
+        first = run_flux_defaults(FLUX_FILES_SEED)
         launches = read_launches()
     label = "Flux from files, defaults"
     ok, calls = check_flux_launches(first, launches, True, label, scan=True)
@@ -3711,6 +3755,9 @@ def flux_files_flow(gpu, scan_latent):
         f"{'ok' if cfg_ok else 'FAIL'}")
     ok = ok and cfg_ok and check_flux_hdr_output(first, vae, label)
     x = first["last"]["x"]
+    # phase 23's one-device references: this final latent, one missed call
+    tp_reference(model, "spmd")
+    torch.save(x.float().cpu(), os.path.join(TP_DIR, "files_latent.pt"))
     drift = ((x - scan_latent).pow(2).mean().sqrt() / scan_latent.pow(2).mean().sqrt()).item()
     log(f"{label}: final latent against phase 15's (the same seeds in memory; the file "
         f"rounds the Q8_0 scales to f16): rel RMSE {drift:.4g} (logged only)")
@@ -3806,7 +3853,7 @@ def flux_files_flow(gpu, scan_latent):
         lmodel = dataclasses.replace(lmodel, params=params)
         kw = dict(model=lmodel, clip=clip, vae=vae, t5=t5)
         reset_launches()
-        lfirst = run_flux_defaults(4321, **kw)
+        lfirst = run_flux_defaults(FLUX_FILES_SEED, **kw)
         llaunches = read_launches()
         lok, lcalls = check_flux_launches(lfirst, llaunches, True, lora_label,
                                           plan=lora_flux_calls)
@@ -3844,10 +3891,8 @@ def phase_flux_files(gpu, scan_latent, per_kernel):
     (``write_flux_assets``, 28.2 GB), ``pipeline(..., flux_enabled=True)``
     with every default and no models, the CLI's ``--flux``, and the LoRA on
     the unfused path (``flux_files_flow``). The files are removed when the
-    phase ends, also on failure. Returns (ok, the two paths' launches and
-    calls, e2e)."""
-    import shutil
-
+    run of phase 23 ends (``main``), also on failure. Returns (ok, the two
+    paths' launches and calls, e2e)."""
     import torch
 
     phase_kernels({flux_k2_key(4096 + FLUX_TXT): 1, flux_k2_key(1024 + FLUX_TXT): 1},
@@ -3869,9 +3914,422 @@ def phase_flux_files(gpu, scan_latent, per_kernel):
                 os.environ.pop(k, None)
             else:
                 os.environ[k] = v
-        shutil.rmtree(FLUX_DIR, ignore_errors=True)
         torch.cuda.empty_cache()
     return ok, defaults, lora_path, e2e
+
+
+# --------------------------------------------------------------------------
+# Flux tensor-parallel on one card (phase 23), from phase 18's files
+# --------------------------------------------------------------------------
+
+TP = 2  # ranks, both on the one card, gloo between them
+TP_HEADS, TP_H, TP_MLP = FLUX_HEADS // TP, FLUX_H // TP, FLUX_MLP // TP
+TP_DIR = os.path.join(OUT_DIR, "tp")
+TP_TIMEOUT_S = 900  # both ranks, end to end; a rank's collective gives up after
+TP_GLOO_TIMEOUT_S = 300
+FLUX_FILES_SEED = 4321  # phase 18's first pipeline call
+TP_OTHER_DRAW = 777  # rank 1's own seed draw, which rank 0's must replace
+# rel RMSE of the TP forward (bf16, each rank's half) against the one-device
+# forward on the same files: the row-parallel partials are summed in bf16
+# and, on W8A8, each rank row-quantizes its half of an activation row with
+# a scale of its own (2.8e-2 with the card's toggles, 1.4e-2 with Q8_0
+# unfused, on an H100 at 700 W)
+TOL_TP_FORWARD_REL_RMSE = 5e-2
+# rel RMSE of the TP pipeline's final latent against phase 18's, from the
+# same files at the same seed: 6.86e-3 in two runs (H100 80GB HBM3, 700 W),
+# the per-call differences above carried through 20 steps; the limit is
+# about three times that, where a wrong seed or a wrong block moves it by
+# O(1)
+TOL_TP_LATENT_REL_RMSE = 2e-2
+INTERLEAVED_FAULTS = ("proj-major offsets", "k and v stripes swapped")
+# K3 interleaved beyond the TP = 2 path's shapes: 24 and 6 heads (TP = 1, 4)
+TP_EXTRA_K3 = (("fused_qkv_attention_interleaved", 4096 + FLUX_TXT, FLUX_HEADS, FLUX_TXT),
+               ("fused_qkv_attention_interleaved", 4096 + FLUX_TXT, FLUX_HEADS // 4, FLUX_TXT))
+# a rank's matmuls (K, N, K9's prologue): a double block's per stream (qkv,
+# proj, mlp.0, mlp.2), the single block's (linear1_qkv, linear1_mlp,
+# linear2_attn, linear2_mlp); column-parallel N and row-parallel K halved,
+# every K11 without the residual (a bias, or a raw partial to all-reduce)
+TP_DOUBLE = ((FLUX_H, 3 * TP_H, "ln_mod"), (TP_H, FLUX_H, "none"),
+             (FLUX_H, TP_MLP, "ln_mod"), (TP_MLP, FLUX_H, "gelu"))
+TP_SINGLE = ((FLUX_H, 3 * TP_H, "ln_mod"), (FLUX_H, TP_MLP, "ln_mod"),
+             (TP_H, FLUX_H, "none"), (TP_MLP, FLUX_H, "gelu"))
+TP_ALL_REDUCES = 4 * 19 + 38  # per missed DiT call: each double block's 4, each single's 1
+
+
+def tp_matmul_calls(add, rows, mats, n, q8):
+    for k, nn_, prologue in mats:
+        if q8:
+            add(("quant_matmul", rows, k, nn_), n)
+        else:
+            add(("row_quantize_fused", prologue, rows, k), n)
+            add(("w8a8_matmul_ep", rows, k, nn_, False), n)
+
+
+def tp_dit_calls(img, add, n=1, q8=False):
+    """A rank's kernel calls of ``n`` missed DiT calls at ``img`` image
+    tokens under TP = 2: with the card's toggles (W8A8, fused-EW, fused
+    attention) K9 and K11 on its shards and K3 interleaved on its 12
+    heads; with ``q8`` (W8A8 and fused attention off) K5 on its shards
+    and K2 at (1, 12, L, 128)."""
+    joint = img + FLUX_TXT
+    for rows in (img, FLUX_TXT):
+        tp_matmul_calls(add, rows, TP_DOUBLE, 19 * n, q8)
+    tp_matmul_calls(add, joint, TP_SINGLE, 38 * n, q8)
+    if q8:
+        add(("flash_attention", 1, TP_HEADS, joint, 128, "bf16"), 57 * n)
+    else:
+        add(("fused_qkv_attention_interleaved", joint, TP_HEADS, FLUX_TXT), 19 * n)
+        add(("fused_qkv_attention_interleaved", joint, TP_HEADS, 0), 38 * n)
+
+
+def tp_forward_calls(q8=False):
+    """One missed DiT call at 1024^2 on a rank: the card's toggles' in the
+    scan layout, or ``q8``'s unrolled."""
+    calls = {}
+    tp_dit_calls(4096, _adder(calls), 1, q8)
+    return calls if q8 else stacked(calls)
+
+
+def tp_flux_calls(hits=0, misses=20, dy_calls=2):
+    """A rank's calls per image of the TP pipeline under the card's toggles
+    (``flux_calls``' walk):
+    the DiT calls on its shards in the scan layout, a hit running double
+    block 0, T5-XXL (whole on every rank) and the AE decode."""
+    calls = {}
+    add = _adder(calls)
+    tp_dit_calls(4096, add, misses)
+    tp_dit_calls(1024, add, dy_calls)
+    for rows in (4096, FLUX_TXT):
+        tp_matmul_calls(add, rows, TP_DOUBLE, hits, False)
+    add(("fused_qkv_attention_interleaved", 4096 + FLUX_TXT, TP_HEADS, FLUX_TXT), hits)
+    for k, nn_, n in ((4096, 4096, 4), (4096, 10240, 2), (10240, 4096, 1)):
+        add(("quant_matmul", FLUX_TXT, k, nn_), 24 * n)
+    add(("flash_attention", 1, 1, 16384, 512, "f32"), 1)
+    return stacked(calls)
+
+
+def phase_interleaved_kernels(keys, per_kernel):
+    """K3 interleaved at each (L, heads, txt_len) of ``keys``: against its
+    plain version, the two planted faults (the same qkv read at the
+    proj-major offsets; each head's k and v stripes swapped in the input),
+    times beside the plain version and ``scaled_dot_product_attention`` on
+    q and k normed and roped beforehand, the bound."""
+    import torch
+    import torch.nn.functional as F
+
+    from lightdiffusion_next_tpu_torch.ops import flash_attention as fa
+
+    gen = torch.Generator(device="cuda").manual_seed(4)
+    for key in sorted(keys):
+        _, l, h, txt_len = key
+        width = 3 * h * 128
+        qkv = torch.randn((1, l, width), generator=gen, device="cuda").bfloat16()
+        sc = [(1.0 + 0.2 * torch.randn((128,), generator=gen, device="cuda")).float()
+              for _ in range(4)]
+        cos, sin = flux_rope(l)
+        kw = dict(num_heads=h, txt_len=txt_len, txt_q_scale=sc[2], txt_k_scale=sc[3],
+                  interleaved=True)
+        out = fa.fused_qkv_attention(qkv, sc[0], sc[1], cos, sin, **kw)
+        torch.cuda.synchronize()
+        ref = fa.fused_qkv_attention_plain(qkv, sc[0], sc[1], cos, sin, **kw)
+        check = fa.agreement(out, ref)
+        args = (h, txt_len, sc[2], sc[3], 1e-6)
+        swapped = qkv.reshape(1, l, h, 3, 128)[:, :, :, [0, 2, 1]].reshape(qkv.shape)
+        faults = {
+            INTERLEAVED_FAULTS[0]: fault_entry(fa.agreement(
+                fa._launch_fused(qkv, sc[0], sc[1], cos, sin, *args), ref)),
+            INTERLEAVED_FAULTS[1]: fault_entry(fa.agreement(
+                fa._launch_fused(swapped.contiguous(), sc[0], sc[1], cos, sin, *args,
+                                 interleaved=True), ref)),
+        }
+        run = lambda: fa.fused_qkv_attention(qkv, sc[0], sc[1], cos, sin, **kw)  # noqa: E731
+        ms = cuda_ms(run, repeats_for(run))
+        plain_ms = cuda_ms(
+            lambda: fa.fused_qkv_attention_plain(qkv, sc[0], sc[1], cos, sin, **kw), 2)
+        q, k, v = fa.split_qkv(qkv, h, interleaved=True)
+        qn = fa._norm_rope(q, sc[0], sc[2], txt_len, cos, sin, 1e-6).bfloat16().transpose(1, 2)
+        kn = fa._norm_rope(k, sc[1], sc[3], txt_len, cos, sin, 1e-6).bfloat16().transpose(1, 2)
+        vh = v.transpose(1, 2).contiguous()
+        lib = lambda: F.scaled_dot_product_attention(qn, kn, vh)  # noqa: E731
+        library_ms = cuda_ms(lib, repeats_for(lib))
+        bound_ms, bound_by = fused_bound(l, heads=h)
+        record_shape(per_kernel, key, check, faults, {
+            "shape": [1, l, h, 128], "txt_len": txt_len, "dtype": "bf16, interleaved",
+            "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+            "bound_by": bound_by})
+        del qkv, out, ref, swapped, q, k, v, qn, kn, vh
+        torch.cuda.empty_cache()
+
+
+def tp_inputs():
+    """One DiT call's inputs at 1024^2, the same in every process (seeded
+    on the card): latent, sigma, T5 sequence, CLIP pooled, guidance."""
+    import torch
+
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    return (torch.randn((1, 128, 128, 16), generator=gen, device="cuda"),
+            torch.tensor([0.75], device="cuda"),
+            torch.randn((1, FLUX_TXT, 4096), generator=gen, device="cuda") * 0.3,
+            torch.randn((1, 768), generator=gen, device="cuda") * 0.3,
+            torch.tensor([3.0], device="cuda"))
+
+
+def tp_forward(model):
+    """One missed DiT call on ``tp_inputs``: (the output on the host, the
+    launches, the all-reduces and their widths, seconds)."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.parallel import mesh as mesh_mod
+
+    x, t, ctx, y, g = tp_inputs()
+    torch.cuda.synchronize()
+    reset_launches()
+    mesh_mod.reset_counts()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        out = model.apply_fn(model.params, x, t, ctx, y=y, guidance=g)
+    torch.cuda.synchronize()
+    return {"out": out.float().cpu(), "launches": read_launches(),
+            "all_reduces": mesh_mod.all_reduce.calls,
+            "widths": dict(mesh_mod.all_reduce.widths), "s": time.perf_counter() - t0}
+
+
+def tp_reference(model, name):
+    """One device's ``tp_forward`` output, kept under ``TP_DIR`` for phase 23."""
+    import torch
+
+    os.makedirs(TP_DIR, exist_ok=True)
+    torch.save(tp_forward(model)["out"], os.path.join(TP_DIR, f"ref_{name}.pt"))
+
+
+def tp_rank(rank, store):
+    """A rank of phase 23: the process group (gloo), then ``tp_rank_flow``;
+    its results to ``TP_DIR/rank<r>.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, TP), rank=rank, world_size=TP,
+                            timeout=datetime.timedelta(seconds=TP_GLOO_TIMEOUT_S))
+    try:
+        torch.save(tp_rank_flow(rank), os.path.join(TP_DIR, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def tp_rank_flow(rank):
+    """On this rank, from phase 18's files through the pipeline's loader:
+    ``LDT_FLUX_TP=spmd`` (the card's defaults per shard), one missed DiT
+    call; ``pipeline(FLUX_PROMPT, 1024, 1024, flux_enabled=True)`` with no
+    seed, each rank drawing its own; then ``LDT_FLUX_TP=auto`` with the
+    ``w8a8``, ``flux_scan`` and ``fused_attn`` toggles off, one missed DiT
+    call. Launches, all-reduces, seconds and the device's peak."""
+    import random
+
+    import torch
+
+    from lightdiffusion_next_tpu_torch.models import flux
+    from lightdiffusion_next_tpu_torch.ops import ggml
+    from lightdiffusion_next_tpu_torch.parallel import mesh as mesh_mod
+    from lightdiffusion_next_tpu_torch.pipelines import pipeline as pl
+    from lightdiffusion_next_tpu_torch.sampling import ksampler
+
+    os.environ.update(LDT_ASSET_ROOT=FLUX_DIR, LDT_OFFLINE="1", LDT_FLUX_TP="spmd")
+    res = {}
+
+    def load():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        model = pl._get_flux_models(*flux_asset_paths(), "cuda", mesh=pl._flux_mesh())[0]
+        torch.cuda.synchronize()
+        stack = model.params.get(flux.SINGLE_STACK_KEY, {})
+        return model, {"load_s": time.perf_counter() - t0, "tp": model.config.tp_axis is not None,
+                       "fused_attn": model.config.fused_attn, "stacked": flux.is_stacked(model.params),
+                       "w8a8": isinstance(stack.get("linear1_qkv.weight"), ggml.StackedQTensor8W),
+                       "q8_0": isinstance(model.params.get("single_blocks.0.linear1_qkv.weight"),
+                                          ggml.QTensor8T)}
+
+    model, res["spmd_config"] = load()
+    res["spmd_forward"] = tp_forward(model)
+    del model
+
+    seen = {}
+    real = ksampler.ksample
+
+    def recording(model, **kw):
+        seen["seed"] = kw["seed"]
+        return real(model, **kw)
+
+    pl.ks.ksample = recording
+    random.randint = lambda a, b: FLUX_FILES_SEED if rank == 0 else TP_OTHER_DRAW
+    reset_launches()
+    mesh_mod.reset_counts()
+    torch.cuda.reset_peak_memory_stats()
+    run = run_flux_defaults(None, out="out_tp")
+    run.update(seed=seen["seed"], launches=read_launches(), all_reduces=mesh_mod.all_reduce.calls,
+               widths=dict(mesh_mod.all_reduce.widths),
+               peak_gib=torch.cuda.max_memory_allocated() / 2**30,
+               x=run["last"]["x"].float().cpu())
+    del run["last"]
+    res["pipeline"] = run
+    pl.ks.ksample = real
+
+    os.environ["LDT_FLUX_TP"] = "auto"
+    with runtime_config(w8a8=False, flux_scan=False, fused_attn=False):
+        model, res["q8_config"] = load()
+        res["q8_forward"] = tp_forward(model)
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def rel_rmse(out, ref):
+    return ((out - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
+
+
+def tp_launch_check(label, launches, calls):
+    """A rank's launches against ``calls``' prediction."""
+    predicted = predicted_launches(calls)
+    ok = True
+    for name in KERNELS:
+        good = launches[name] == predicted[name]
+        ok = ok and good
+        if launches[name] or predicted[name]:
+            log(f"launches {label} {name}: {launches[name]} (plan predicts {predicted[name]}) "
+                f"{'ok' if good else 'FAIL'}")
+    return ok
+
+
+def run_tp_ranks():
+    """Spawn the two ranks (gloo on a FileStore) and wait for both, at most
+    ``TP_TIMEOUT_S``: a rank that fails or is late fails the phase."""
+    import torch.multiprocessing as mp
+
+    store = os.path.join(TP_DIR, "store")
+    for f in ("store", "rank0.pt", "rank1.pt"):
+        with contextlib.suppress(FileNotFoundError):
+            os.remove(os.path.join(TP_DIR, f))
+    ctx = mp.start_processes(tp_rank, args=(store,), nprocs=TP, join=False,
+                             start_method="spawn")
+    deadline = time.perf_counter() + TP_TIMEOUT_S
+    while not ctx.join(timeout=5.0):
+        if time.perf_counter() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"phase 23: the ranks ran past {TP_TIMEOUT_S} s")
+
+
+def phase_flux_tp(gpu, per_kernel):
+    """Phase 23, from phase 18's files (removed by ``main`` after it): K3
+    interleaved at the TP path's shapes (and at 24 and 6 heads), K9, the
+    stacked K11, K5 and K2 at a rank's new shapes; the Q8_0 unfused
+    unrolled reference on one device (phase 18 kept the W8A8 one); then two
+    ranks on the one card over gloo (``tp_rank_flow``), whose results are
+    held here against the one-device forwards, phase 18's final latent,
+    their plans and each other. Returns (ok, launches and calls per path,
+    e2e)."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.pipelines import loader
+
+    spmd_plan, q8_plan = tp_forward_calls(), tp_forward_calls(q8=True)
+    pipe_plan = tp_flux_calls()
+    new = new_shapes({**spmd_plan, **q8_plan, **pipe_plan}, per_kernel)
+    phase_interleaved_kernels([k for k in new if k[0] == "fused_qkv_attention_interleaved"]
+                              + list(TP_EXTRA_K3), per_kernel)
+    phase_w8a8_kernels({k: n for k, n in new.items() if k[0] == "row_quantize_fused"},
+                       per_kernel)
+    requant_ok = phase_stacked_kernels(
+        {k: n for k, n in new.items() if k[0] == "w8a8_matmul_ep_stacked"}, per_kernel)
+    phase_flux_kernels({k: n for k, n in new.items() if k[0] == "quant_matmul"}, per_kernel)
+    phase_kernels({k: n for k, n in new.items() if k[0] == "flash_attention"}, per_kernel)
+
+    unet_path = flux_asset_paths()[0]
+    loader.get_model_cache().clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+    with runtime_config(w8a8=False, flux_scan=False, fused_attn=False):
+        ref = loader.load_diffusion_model_gguf(unet_path)
+    tp_reference(ref, "q8")
+    del ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    run_tp_ranks()
+    ranks_s = time.perf_counter() - t0
+    res = [torch.load(os.path.join(TP_DIR, f"rank{r}.pt"), weights_only=False)
+           for r in range(TP)]
+    label = "Flux TP"
+    ok = requant_ok
+    paths = {}
+    for mode in ("spmd", "q8"):
+        cfg_ok = all(r[f"{mode}_config"]["tp"] for r in res)
+        want = ((True, True, True, False) if mode == "spmd" else (False, False, False, True))
+        cfg_ok = cfg_ok and all(tuple(r[f"{mode}_config"][f] for f in (
+            "fused_attn", "stacked", "w8a8", "q8_0")) == want for r in res)
+        outs = [r[f"{mode}_forward"]["out"] for r in res]
+        ref = torch.load(os.path.join(TP_DIR, f"ref_{mode}.pt"))
+        rel = rel_rmse(outs[0], ref)
+        same = torch.equal(outs[0], outs[1])
+        fwd_ok = (cfg_ok and same and bool(torch.isfinite(outs[0]).all())
+                  and rel <= TOL_TP_FORWARD_REL_RMSE)
+        log(f"{label} {mode}: config {res[0][f'{mode}_config']}; one missed DiT call against "
+            f"one device's: rel RMSE {rel:.4g} (tol {TOL_TP_FORWARD_REL_RMSE}), the ranks' "
+            f"outputs {'equal' if same else 'DIFFER'}: {'ok' if fwd_ok else 'FAIL'}")
+        ok = ok and fwd_ok
+        for r, rr in enumerate(res):
+            f = rr[f"{mode}_forward"]
+            lok = tp_launch_check(f"{label} {mode} DiT call rank {r}", f["launches"],
+                                  q8_plan if mode == "q8" else spmd_plan)
+            ar_ok = f["all_reduces"] == TP_ALL_REDUCES and f["widths"] == {FLUX_H: TP_ALL_REDUCES}
+            log(f"{label} {mode} rank {r}: {f['all_reduces']} all-reduces {f['widths']} (plan "
+                f"{TP_ALL_REDUCES} of width {FLUX_H}) {'ok' if ar_ok else 'FAIL'}; the call "
+                f"{f['s']:.3f} s ({gpu}; gloo through the host, not NVLink); load "
+                f"{rr[f'{mode}_config']['load_s']:.1f} s")
+            ok = ok and lok and ar_ok
+            paths[f"flux_tp_{mode}_dit_call_rank{r}"] = f["launches"]
+
+    runs = [r["pipeline"] for r in res]
+    hist = runs[0]["hits"]
+    main_hist = [h for i, h in enumerate(hist) if i not in (3, 5)]
+    hits = sum(main_hist)
+    calls = tp_flux_calls(hits=hits, misses=len(main_hist) - hits,
+                          dy_calls=len(hist) - len(main_hist))
+    n_ar = sum(4 if h else TP_ALL_REDUCES for h in hist)
+    drift = rel_rmse(runs[0]["x"], torch.load(os.path.join(TP_DIR, "files_latent.pt")))
+    pipe_ok = (all(r["seed"] == FLUX_FILES_SEED for r in runs) and runs[1]["hits"] == hist
+               and len(hist) == 22 and torch.equal(runs[0]["x"], runs[1]["x"])
+               and len(runs[0]["paths"]) == 1 and runs[1]["paths"] == []
+               and read_png(runs[0]["paths"][0]).shape == (1024, 1024, 3)
+               and drift <= TOL_TP_LATENT_REL_RMSE)
+    log(f"{label} pipeline: seeds {[r['seed'] for r in runs]} (rank 1 drew {TP_OTHER_DRAW}), "
+        f"FBCache {''.join('H' if h else '.' for h in hist)} on both: "
+        f"{runs[1]['hits'] == hist}, PNGs {[r['paths'] for r in runs]}, final latent against "
+        f"phase 18's rel RMSE {drift:.4g} (tol {TOL_TP_LATENT_REL_RMSE}), the ranks' equal: "
+        f"{torch.equal(runs[0]['x'], runs[1]['x'])}: {'ok' if pipe_ok else 'FAIL'}")
+    ok = ok and pipe_ok
+    for r, run in enumerate(runs):
+        lok = tp_launch_check(f"{label} pipeline rank {r}", run["launches"], calls)
+        ar_ok = run["all_reduces"] == n_ar and run["widths"] == {FLUX_H: n_ar}
+        steps = run["step_times"]
+        log(f"{label} pipeline rank {r}: {run['all_reduces']} all-reduces (plan {n_ar}) "
+            f"{'ok' if ar_ok else 'FAIL'}; {run['wall']:.3f} s/image, "
+            f"{(len(steps) - 1) / (steps[-1] - steps[0]):.3f} it/s, device peak "
+            f"{run['peak_gib']:.2f} GiB ({gpu}; two ranks on one card, gloo through the host)")
+        ok = ok and lok and ar_ok
+        paths[f"flux_tp_spmd_pipeline_rank{r}"] = run["launches"]
+    e2e = {"ranks_s": ranks_s, "s_per_image": runs[0]["wall"],
+           "forward_s": {m: res[0][f"{m}_forward"]["s"] for m in ("spmd", "q8")},
+           "load_s": {m: res[0][f"{m}_config"]["load_s"] for m in ("spmd", "q8")},
+           "peak_gib_by_rank": [r["peak_gib"] for r in res], "latent_drift": drift,
+           "fbcache_hits": hits, "gpu": gpu,
+           "note": "two ranks on one card, all-reduces through gloo over the host"}
+    plans = {f"flux_tp_spmd_dit_call_rank{r}": spmd_plan for r in range(TP)}
+    plans.update({f"flux_tp_q8_dit_call_rank{r}": q8_plan for r in range(TP)})
+    plans.update({f"flux_tp_spmd_pipeline_rank{r}": calls for r in range(TP)})
+    return ok, paths, plans, e2e
 
 
 def main() -> int:
@@ -3965,8 +4423,12 @@ def main() -> int:
     del flux_models, w8_refs
     gc.collect()
     torch.cuda.empty_cache()
-    files_ok, (files_launches, files_calls), (lora_launches, lora_calls), files_e2e = timed(
-        "flux files", phase_flux_files, line, scan_latent, per_kernel)
+    try:
+        files_ok, (files_launches, files_calls), (lora_launches, lora_calls), files_e2e = timed(
+            "flux files", phase_flux_files, line, scan_latent, per_kernel)
+        tp_ok, tp_launches, tp_calls, tp_e2e = timed("flux tp", phase_flux_tp, line, per_kernel)
+    finally:
+        shutil.rmtree(FLUX_DIR, ignore_errors=True)
 
     # calls per image of each path, summed over the paths a kernel runs on
     # (the unfused DiT calls count once)
@@ -3976,7 +4438,7 @@ def main() -> int:
                   "flux_w8a8": w8_calls, "w8a8_dit_call_fused_ew_off": off_plan,
                   "flux_w8a8_scan": scan_calls, "w8a8_scan_dit_call_fused_ew_off": scan_off_plan,
                   "flux_w8a8_scan_fbcache_hits": hit_calls, "flux_files_defaults": files_calls,
-                  "flux_lora_unfused_attention": lora_calls}
+                  "flux_lora_unfused_attention": lora_calls, **tp_calls}
     all_calls = {}
     for calls in path_calls.values():
         for key, n in calls.items():
@@ -3988,7 +4450,7 @@ def main() -> int:
              "flux_w8a8_scan": scan_launches,
              "w8a8_scan_dit_call_fused_ew_off": scan_off_launches,
              "flux_w8a8_scan_fbcache_hits": hit_launches, "flux_files_defaults": files_launches,
-             "flux_lora_unfused_attention": lora_launches}
+             "flux_lora_unfused_attention": lora_launches, **tp_launches}
     kernels_line = []
     for name, meta in KERNELS.items():
         entry = per_kernel[name]
@@ -4005,8 +4467,8 @@ def main() -> int:
         bound_shapes = [s_["bound_by"] for s_ in shapes]
         kernels_line.append({
             "name": name, **meta,
-            "launches": sum(launches[name] for launches in paths.values()),
-            "launches_by_path": {path: launches[name] for path, launches in paths.items()},
+            "launches": sum(launches.get(name, 0) for launches in paths.values()),
+            "launches_by_path": {path: launches.get(name, 0) for path, launches in paths.items()},
             "max_abs_err": entry["max_abs_err"],
             "ms": per_image("ms"),
             "plain_ms": per_image("plain_ms"), "bound_ms": per_image("bound_ms"),
@@ -4024,7 +4486,10 @@ def main() -> int:
                    "forced to hit, Flux Q8_0, "
                    "Flux W8A8 unrolled and scan, "
                    "Flux W8A8 scan with FBCache forced to hit, Flux from files with every "
-                   "default, Flux with a LoRA on the unfused attention) and one missed "
+                   "default, Flux with a LoRA on the unfused attention, each rank of Flux "
+                   "tensor-parallel at TP = 2: the spmd pipeline and one missed DiT call "
+                   "with the card's toggles and with w8a8, flux_scan and fused_attn off) "
+                   "and one missed "
                    "W8A8 DiT call with fused_ew off in each layout",
             "shapes": shapes,
         })
@@ -4034,10 +4499,11 @@ def main() -> int:
            "flux_w8a8": w8_e2e,
            "flux_w8a8_scan": scan_e2e, "flux_w8a8_scan_fbcache_hits": hit_e2e,
            "flux_files_defaults": files_e2e["defaults"],
-           "flux_lora_unfused_attention": files_e2e["lora_unfused"]}
+           "flux_lora_unfused_attention": files_e2e["lora_unfused"], "flux_tp": tp_e2e}
     ok = (ref_ok and pipe_ok and sage_ok and def_ok and hires_ok and i2i_ok and ad_ok
           and webui_ok and flux_ref_ok
           and flux_ok and w8_ref_ok and w8_ok and requant_ok and scan_ok and hit_ok and files_ok
+          and tp_ok
           and all(k["ok"] for k in kernels_line))
     record = {"gpu": line, "kernels": kernels_line, "e2e": e2e, "phase_seconds": seconds,
               "seconds": time.perf_counter() - t_start}

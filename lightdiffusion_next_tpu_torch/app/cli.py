@@ -20,6 +20,15 @@ on the GPU. Usage:
     python -m lightdiffusion_next_tpu_torch.app.cli image.png 1024 1024 --img2img
     python -m lightdiffusion_next_tpu_torch.app.cli "a cat" 1024 1024 --flux
     python -m lightdiffusion_next_tpu_torch.app.cli "a cat" 1024 1024 --adetailer --preview
+
+Flux across N GPUs of one host, tensor-parallel (``LDT_FLUX_TP`` "auto",
+the default, or its alias "spmd"; see ``pipelines/pipeline.py``): under
+``torchrun`` (``WORLD_SIZE`` > 1) ``main`` initialises the process group
+itself, nccl on ``LOCAL_RANK``'s GPU, unless one is initialised already;
+only rank 0 prints the paths and writes the PNGs and ``last_seed.txt``:
+
+    torchrun --nproc-per-node 2 \
+        -m lightdiffusion_next_tpu_torch.app.cli "a cat" 1024 1024 --flux
 """
 
 from __future__ import annotations
@@ -83,9 +92,26 @@ def runtime_config(args, base: _config.RuntimeConfig) -> _config.RuntimeConfig:
     return dataclasses.replace(base, **changes)
 
 
+def init_distributed() -> bool:
+    """Under ``torchrun`` (``WORLD_SIZE`` > 1) with no process group yet:
+    nccl on ``LOCAL_RANK``'s GPU, made the current device. Returns whether
+    it initialised the group."""
+    import torch
+    import torch.distributed as dist
+
+    if int(os.environ.get("WORLD_SIZE", "1")) <= 1 or dist.is_initialized():
+        return False
+    local = torch.device("cuda", int(os.environ.get("LOCAL_RANK", "0")))
+    torch.cuda.set_device(local)
+    dist.init_process_group("nccl", device_id=local)
+    return True
+
+
 def main(argv=None, device: _config.DeviceLike = None) -> int:
     """Parse ``argv``, run ``pipeline()`` on ``device`` (the GPU by
-    default), print the saved paths."""
+    default), print the saved paths (rank 0 of a process group only)."""
+    import torch.distributed as dist
+
     args = build_parser().parse_args(argv)
     for field in _TOGGLES:
         if getattr(args, field) and getattr(args, f"no_{field}"):
@@ -95,42 +121,50 @@ def main(argv=None, device: _config.DeviceLike = None) -> int:
     _config.set_config(runtime_config(args, _config.get_config()))
 
     from lightdiffusion_next_tpu_torch.app import instance
+    from lightdiffusion_next_tpu_torch.parallel import inference as par_inf
     from lightdiffusion_next_tpu_torch.pipelines.pipeline import pipeline
 
+    owns_group = init_distributed()
+    writer = par_inf.is_writer()
     progress_callback = None
     if args.preview:
         instance.app.preview_dir = os.path.join(args.output_dir, "preview")
         progress_callback = instance.PreviewHook(instance.app)
 
-    paths = pipeline(
-        args.prompt,
-        args.width,
-        args.height,
-        number=args.number,
-        batch=args.batch,
-        hires_fix=args.hires_fix,
-        adetailer=args.adetailer,
-        enhance_prompt=args.enhance_prompt,
-        img2img=args.img2img,
-        stable_fast=args.stable_fast,
-        reuse_seed=args.reuse_seed,
-        flux_enabled=args.flux,
-        prio_speed=args.prio_speed,
-        autohdr=args.autohdr,
-        realistic_model=args.realistic_model,
-        negative_prompt=args.negative_prompt,
-        multiscale_preset=args.multiscale_preset,
-        enable_multiscale=not args.no_multiscale,
-        multiscale_factor=args.multiscale_factor,
-        multiscale_fullres_start=args.multiscale_fullres_start,
-        multiscale_fullres_end=args.multiscale_fullres_end,
-        multiscale_intermittent_fullres=args.multiscale_intermittent_fullres,
-        output_dir=args.output_dir,
-        progress_callback=progress_callback,
-        device=device,
-    )
-    for path in paths:
-        print(path)
+    try:
+        paths = pipeline(
+            args.prompt,
+            args.width,
+            args.height,
+            number=args.number,
+            batch=args.batch,
+            hires_fix=args.hires_fix,
+            adetailer=args.adetailer,
+            enhance_prompt=args.enhance_prompt,
+            img2img=args.img2img,
+            stable_fast=args.stable_fast,
+            reuse_seed=args.reuse_seed,
+            flux_enabled=args.flux,
+            prio_speed=args.prio_speed,
+            autohdr=args.autohdr,
+            realistic_model=args.realistic_model,
+            negative_prompt=args.negative_prompt,
+            multiscale_preset=args.multiscale_preset,
+            enable_multiscale=not args.no_multiscale,
+            multiscale_factor=args.multiscale_factor,
+            multiscale_fullres_start=args.multiscale_fullres_start,
+            multiscale_fullres_end=args.multiscale_fullres_end,
+            multiscale_intermittent_fullres=args.multiscale_intermittent_fullres,
+            output_dir=args.output_dir,
+            progress_callback=progress_callback,
+            device=device,
+        )
+    finally:
+        if owns_group:
+            dist.destroy_process_group()
+    if writer:
+        for path in paths:
+            print(path)
     return 0
 
 

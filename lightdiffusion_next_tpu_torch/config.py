@@ -26,8 +26,10 @@ What of the JAX ``config.py`` has no counterpart, and why:
   compiler, which the port does not run;
 - ``profile_dir``: read nowhere in the JAX package (``utils/profiling
   .trace`` takes its directory from the caller);
-- ``data_parallel`` and ``model_parallel``: the multi-device path, not
-  ported yet (ROADMAP Queue 1, item 11);
+- ``data_parallel`` and ``model_parallel``: read nowhere in the JAX
+  package either; the port's mesh is the process group's (``torchrun``'s
+  world, a (1, world) mesh for Flux under ``LDT_FLUX_TP``, see
+  ``pipelines/pipeline.py``) or ``parallel.make_mesh``'s arguments;
 - the ``int8_mxu=False`` variant of the W8A8 matmuls and of the int8
   attention (int8 codes multiplied at the bf16 rate): only the int8
   tensor-core path is in use, and the kernels implement that one.

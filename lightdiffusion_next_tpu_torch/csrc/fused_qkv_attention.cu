@@ -3,11 +3,16 @@
 //
 // Replaces: lightdiffusion_next_tpu/ops/flash_attention.py
 //   fused_qkv_attention (pallas_call at :619, kernel body _fused_kernel at
-//   :438), in its non-interleaved layout.
+//   :438), in both of its layouts (the flag `interleaved`, :557, index maps
+//   :610-617).
 //
 // What it computes, per (batch, head): q, k and v are the 128-lane stripes
 // at columns h*128, (H+h)*128 and (2H+h)*128 of the qkv rows (row width W;
-// columns past 3*H*128, such as linear1's MLP lanes, are never read). q and
+// columns past 3*H*128, such as linear1's MLP lanes, are never read), or,
+// with `interleaved` set (the tensor-parallel layout, whose rows are
+// head-major [q_h0 | k_h0 | v_h0 | q_h1 | ...]: each rank holds whole
+// heads), at columns 3h*128, (3h+1)*128 and (3h+2)*128. The output is
+// head-major either way. q and
 // k go through the prologue in f32: RMS over the 128 lanes, times
 // rsqrt(mean + 1e-6), times the txt QKNorm scale for rows < txt_len and the
 // img scale otherwise, then the half-split RoPE x*C + x[j +- 64]*S from the
@@ -96,6 +101,7 @@ struct Params {
   const float* sin;
   long long width;           // qkv's row stride
   int heads, l, lk, txt_len, tiles;
+  int interleaved;           // q, k, v of head h at 128-lane blocks 3h, 3h+1, 3h+2
   float eps, q_scale;
 };
 
@@ -166,9 +172,14 @@ __device__ __forceinline__ void load_scale4(const float* __restrict__ s,
   x[0] = v.x; x[1] = v.y; x[2] = v.z; x[3] = v.w;
 }
 
+// 128-lane block of head h's q (part 0), k (1) or v (2) stripe in a qkv row
+__device__ __forceinline__ long long stripe(int part, int h, int heads, int interleaved) {
+  return static_cast<long long>(interleaved ? 3 * h + part : part * heads + h) * kD;
+}
+
 // The tile images: for every (b, h) and every row l of its tiles' padded
-// rows, K's row l = bf16(norm_rope(k[b, l, (H + h) * 128 : ...])) and V's
-// row l = v[b, l, (2H + h) * 128 : ...], both zero past L.
+// rows, K's row l = bf16(norm_rope(k[b, l, stripe(1, h) : ...])) and V's
+// row l = v[b, l, stripe(2, h) : ...], both zero past L.
 __global__ void __launch_bounds__(kRowsPerBlock * 32)
     norm_rope_kv_kernel(const __nv_bfloat16* __restrict__ qkv,
                         __nv_bfloat16* __restrict__ kv,
@@ -176,7 +187,8 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
                         const float* __restrict__ scale_img,
                         const float* __restrict__ cos,
                         const float* __restrict__ sin, int batch, int heads,
-                        int l, int tiles, long long width, int txt_len, float eps) {
+                        int l, int tiles, long long width, int txt_len,
+                        int interleaved, float eps) {
   const long long item =
       static_cast<long long>(blockIdx.x) * kRowsPerBlock + (threadIdx.x >> 5);
   const long long padded = static_cast<long long>(tiles) * kBN;
@@ -190,13 +202,13 @@ __global__ void __launch_bounds__(kRowsPerBlock * 32)
   if (row < l) {  // uniform across the warp
     const __nv_bfloat16* src = qkv + (static_cast<long long>(b) * l + row) * width;
     float x[4], scale[4], y[4];
-    load_row4(src + static_cast<long long>(heads + h) * kD, x);
+    load_row4(src + stripe(1, h, heads, interleaved), x);
     load_scale4(row < txt_len ? scale_txt : scale_img, scale);
     norm_rope_row(x, scale, cos + static_cast<long long>(row) * kD,
                   sin + static_cast<long long>(row) * kD, eps, y);
     k8.x = pack_bf16(y[0], y[1]);
     k8.y = pack_bf16(y[2], y[3]);
-    v8 = reinterpret_cast<const uint2*>(src + static_cast<long long>(2 * heads + h) * kD)[lane];
+    v8 = reinterpret_cast<const uint2*>(src + stripe(2, h, heads, interleaved))[lane];
   }
   unsigned char* tile = reinterpret_cast<unsigned char*>(
       kv + ((static_cast<long long>(b) * heads + h) * tiles + row / kBN) * 2 * kTileElems);
@@ -282,7 +294,10 @@ __device__ __forceinline__ void consume(const Params& p, unsigned char* smem, ui
   const int b = blockIdx.y / p.heads;
   const int h = blockIdx.y - b * p.heads;
   const int wg = threadIdx.x >> 7;
-  stage_q<C>(smem, p.qkv + static_cast<long long>(b) * p.l * p.width + h * kD, p, q0);
+  stage_q<C>(smem,
+             p.qkv + static_cast<long long>(b) * p.l * p.width +
+                 stripe(0, h, p.heads, p.interleaved),
+             p, q0);
   fence_proxy_async();         // own q stores -> wgmma
   named_barrier(1 + wg, 128);  // the warpgroup's q rows are staged
 
@@ -435,8 +450,8 @@ int dispatch(const Params& p, int batch, cudaStream_t stream) {
 int start(const void* qkv, void* out, void* kv_scratch, const float* q_scale_img,
           const float* k_scale_img, const float* q_scale_txt, const float* k_scale_txt,
           const float* cos, const float* sin, int batch, int heads, int l, int lk,
-          long long width, int txt_len, float eps, float q_scale, cudaStream_t s,
-          Params& p) {
+          long long width, int txt_len, int interleaved, float eps, float q_scale,
+          cudaStream_t s, Params& p) {
   if (batch < 1 || heads < 1 || l < 1 || width < 3LL * heads * kD || width % 8 != 0 ||
       lk > l || lk < 1) {
     return kErrUnsupported;
@@ -446,7 +461,8 @@ int start(const void* qkv, void* out, void* kv_scratch, const float* q_scale_img
   norm_rope_kv_kernel<<<static_cast<unsigned>((rows + kRowsPerBlock - 1) / kRowsPerBlock),
                         kRowsPerBlock * 32, 0, s>>>(
       static_cast<const __nv_bfloat16*>(qkv), static_cast<__nv_bfloat16*>(kv_scratch),
-      k_scale_txt, k_scale_img, cos, sin, batch, heads, l, tiles, width, txt_len, eps);
+      k_scale_txt, k_scale_img, cos, sin, batch, heads, l, tiles, width, txt_len,
+      interleaved, eps);
   p.qkv = static_cast<const __nv_bfloat16*>(qkv);
   p.kv = static_cast<const __nv_bfloat16*>(kv_scratch);
   p.out = static_cast<__nv_bfloat16*>(out);
@@ -460,6 +476,7 @@ int start(const void* qkv, void* out, void* kv_scratch, const float* q_scale_img
   p.lk = lk;
   p.txt_len = txt_len;
   p.tiles = tiles;
+  p.interleaved = interleaved;
   p.eps = eps;
   p.q_scale = q_scale;
   return static_cast<int>(cudaGetLastError());
@@ -472,13 +489,15 @@ int start(const void* qkv, void* out, void* kv_scratch, const float* q_scale_img
       const float *k_scale_img, const float *q_scale_txt,                    \
       const float *k_scale_txt, const float *cos, const float *sin,          \
       int batch, int heads, int l, int lk, long long width, int txt_len,     \
-      float eps, float q_scale, void *stream
+      int interleaved, float eps, float q_scale, void *stream
 #define LDT_FUSED_QKV_START(p)                                                \
   start(qkv, out, kv_scratch, q_scale_img, k_scale_img, q_scale_txt,         \
-        k_scale_txt, cos, sin, batch, heads, l, lk, width, txt_len, eps,     \
-        q_scale, static_cast<cudaStream_t>(stream), p)
+        k_scale_txt, cos, sin, batch, heads, l, lk, width, txt_len,          \
+        interleaved, eps, q_scale, static_cast<cudaStream_t>(stream), p)
 
-// qkv (B, L, W) bf16, W >= 3 * heads * 128 and a multiple of 8; out
+// qkv (B, L, W) bf16, W >= 3 * heads * 128 and a multiple of 8, its heads'
+// stripes proj-major ([q heads | k heads | v heads | ...]) or, with
+// interleaved != 0, head-major ([q_h0 | k_h0 | v_h0 | q_h1 | ...]); out
 // (B, L, heads * 128) bf16; kv_scratch (B, heads, ceil(L / 128) * 128, 256)
 // bf16, 16-byte aligned (the tile images); the four QKNorm scales (128,) f32
 // in the permuted basis; cos and sin (L, 128) f32. lk <= L is the number of

@@ -143,15 +143,27 @@ def flux_model(params: Dict[str, Any], cfg: Optional[flux_mod.FluxConfig] = None
         except ValueError as e:
             logger.warning("fused_attn unavailable for these params (%s); keeping the "
                            "unfused attention path", e)
-    for key in p:
-        if key.endswith(("query_norm.scale", "key_norm.scale")):
-            p[key] = p[key].float().contiguous()
+    p = f32_qk_norms(p)
     if scan:
         try:
             p = flux_mod.stack_block_params(p, cfg)
         except ValueError as e:
             logger.warning("flux_scan unavailable for these params (%s); keeping the "
                            "unrolled forward", e)
+    return flux_bundle(p, cfg, dev)
+
+
+def f32_qk_norms(p: Dict[str, Any]) -> Dict[str, Any]:
+    """The QKNorm scales in contiguous f32 (what K3 and the norms take)."""
+    for key in p:
+        if key.endswith(("query_norm.scale", "key_norm.scale")):
+            p[key] = p[key].float().contiguous()
+    return p
+
+
+def flux_bundle(p: Dict[str, Any], cfg: flux_mod.FluxConfig, device) -> DiffusionModel:
+    """A Flux DiT's ``DiffusionModel`` on built params: ``ModelSamplingFlux``,
+    the FLUX1 latent format, FBCache at 0.120 in the options."""
     return DiffusionModel(
         apply_fn=flux_mod.make_apply_fn(cfg),
         params=p,
@@ -159,6 +171,6 @@ def flux_model(params: Dict[str, Any], cfg: Optional[flux_mod.FluxConfig] = None
         latent_format=latent_mod.FLUX1,
         config=cfg,
         model_options={"fbcache": fb_mod.FBCacheConfig(0.120)},
-        device=dev,
+        device=device,
         model_type="flux",
     )

@@ -21,7 +21,17 @@ are split, normed, roped by ``ops/rope.py`` and attended through
 more). The same BFL checkpoint keys ("double_blocks.0.img_attn.qkv.weight",
 ...), NHWC latent in and out, LayerNorm eps 1e-6, f32 norms.
 
-Not ported yet (ROADMAP Queue 1, item 11): the tensor-parallel layouts.
+Tensor parallelism (``parallel/``): with ``FluxConfig.tp_layout`` the params
+are in the TP layout (``parallel.layout.to_tp_layout``: qkv rows
+head-interleaved, the single blocks' ``linear1`` and ``linear2`` split);
+with ``FluxConfig.tp_axis`` set to the "model" process group they are also
+this rank's shards (``parallel.sharding``), the forward runs the rank's
+``num_heads // tp`` heads (K3 with its ``interleaved`` stripes when fused)
+and sums each row-parallel partial over the group with
+``parallel.mesh.all_reduce`` at the sites where the JAX forward calls
+``jax.lax.psum``: four per double block (each stream's ``proj`` and
+``mlp.2``) and one per single block (``linear2_attn`` + ``linear2_mlp``
+added first); the gate, bias and residual apply after the sum.
 """
 
 from __future__ import annotations
@@ -38,6 +48,7 @@ from lightdiffusion_next_tpu_torch.ops import flash_attention as fa
 from lightdiffusion_next_tpu_torch.ops import ggml, nn
 from lightdiffusion_next_tpu_torch.ops import rope as rope_ops
 from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
+from lightdiffusion_next_tpu_torch.parallel import mesh as mesh_mod
 from lightdiffusion_next_tpu_torch.sampling.schedules import timestep_embedding_flux
 
 
@@ -61,6 +72,15 @@ class FluxConfig:
     # K3; set by models.base.flux_model exactly when it permutes, so config
     # and weights cannot disagree
     fused_attn: bool = False
+    # the params are in the TP layout (parallel.layout.to_tp_layout): qkv
+    # rows head-interleaved, the single blocks' linear1 split into
+    # linear1_qkv + linear1_mlp and linear2 into linear2_attn + linear2_mlp
+    tp_layout: bool = False
+    # the "model" process group whose ranks each hold their shards of the
+    # params (parallel.spmd): the forward runs num_heads // its size heads
+    # and all-reduces the row-parallel partial sums over it. None: one
+    # device holds every param
+    tp_axis: Any = None
 
     @property
     def head_dim(self) -> int:
@@ -120,6 +140,10 @@ def permute_rope_basis(params: Dict, cfg: FluxConfig) -> Dict:
     does) and LoRA-patched weights, as the JAX function does."""
     if is_stacked(params):
         raise ValueError("permute before stacking (the scan layout is not permuted)")
+    if cfg.tp_layout or cfg.tp_axis is not None:
+        raise ValueError("permute_rope_basis takes the checkpoint's layout; the TP load "
+                         "permutes before the interleave (parallel.layout."
+                         "permute_rope_basis_rows)")
     hidden, d = cfg.hidden_size, cfg.head_dim
 
     def take(t, idx, dim):
@@ -202,19 +226,37 @@ def _mod_linear(p: nn.ParamView, key: str, x, scale, shift):
     return nn.linear(xm, w, b)
 
 
-def _gated_out_linear(x_res, h, w, b, gate, gelu: bool = False):
+def _row_parallel(x, w, b, tp_axis):
+    """A row-parallel linear: the local product is a partial sum over the
+    rank's slice of the input dim, summed over ``tp_axis``; the (whole)
+    bias is added once, after."""
+    out = mesh_mod.all_reduce(nn.linear(x, w, None), tp_axis)
+    return out if b is None else out + b.to(out.dtype)
+
+
+def _gated_out_linear(x_res, h, w, b, gate, tp_axis=None, gelu: bool = False):
     """x_res + gate * linear(gelu?(h), w, b); on the fused W8A8 path the
     GELU runs in the row quantization (K9) and the gate, bias and residual
-    in K11's epilogue."""
+    in K11's epilogue. Under ``tp_axis`` the epilogue must come after the
+    sum over the ranks, so K9 and K11 emit the raw local partial, which is
+    all-reduced, and the bias, gate and residual follow."""
     fm = getattr(w, "modulated_matmul", None) if _fused_ew(h) else None
     if fm is not None:
-        y = fm(h, prologue="gelu" if gelu else "none", gate=gate, bias=b,
-               residual=x_res)
-        if y is not None:
-            return y
+        if tp_axis is None:
+            y = fm(h, prologue="gelu" if gelu else "none", gate=gate, bias=b,
+                   residual=x_res)
+            if y is not None:
+                return y
+        else:
+            part = fm(h, prologue="gelu" if gelu else "none")
+            if part is not None:
+                out = mesh_mod.all_reduce(part, tp_axis)
+                return x_res + gate * (out if b is None else out + b.to(out.dtype))
     if gelu:
         h = nn.gelu(h, approximate=True)
-    return x_res + gate * nn.linear(h, w, b)
+    if tp_axis is None:
+        return x_res + gate * nn.linear(h, w, b)
+    return x_res + gate * _row_parallel(h, w, b, tp_axis)
 
 
 def _fused_attention(*args, **kw):
@@ -236,15 +278,29 @@ def _attention(q, k, v, pe):
     return attn_ops.attention_heads(q, k, v)
 
 
-def _split_heads(qkv, num_heads: int):
-    """(B, L, 3 * hidden) -> q, k, v, each a (B, heads, L, head_dim) view."""
+def _split_heads(qkv, num_heads: int, interleaved: bool = False):
+    """(B, L, 3 * heads * head_dim) -> q, k, v, each a (B, heads, L,
+    head_dim) view; ``interleaved``: the rows are head-major [h0: (q, k,
+    v), h1: ...] (the TP layout)."""
     b, l, _ = qkv.shape
-    qkv = qkv.reshape(b, l, 3, num_heads, -1).permute(2, 0, 3, 1, 4)
+    if interleaved:
+        qkv = qkv.reshape(b, l, num_heads, 3, -1).permute(3, 0, 2, 1, 4)
+    else:
+        qkv = qkv.reshape(b, l, 3, num_heads, -1).permute(2, 0, 3, 1, 4)
     return qkv[0], qkv[1], qkv[2]
+
+
+def local_heads(cfg: FluxConfig) -> int:
+    """The heads this rank runs: all of them, or under ``tp_axis`` its
+    num_heads // tp."""
+    if cfg.tp_axis is None:
+        return cfg.num_heads
+    return cfg.num_heads // torch.distributed.get_world_size(cfg.tp_axis)
 
 
 def _double_block(p: nn.ParamView, img, txt, vec, pe, cfg: FluxConfig):
     """DoubleStreamBlock; text rows come first in the joint sequence."""
+    heads = local_heads(cfg)
     im1_shift, im1_scale, im1_gate, im2_shift, im2_scale, im2_gate = _modulation(
         p.scope("img_mod."), vec, 6)
     tx1_shift, tx1_scale, tx1_gate, tx2_shift, tx2_scale, tx2_gate = _modulation(
@@ -257,49 +313,87 @@ def _double_block(p: nn.ParamView, img, txt, vec, pe, cfg: FluxConfig):
         attn = _fused_attention(
             torch.cat([txt_qkv, img_qkv], dim=1),
             p("img_attn.norm.query_norm.scale"), p("img_attn.norm.key_norm.scale"),
-            cos, sin, num_heads=cfg.num_heads, txt_len=txt.shape[1],
+            cos, sin, num_heads=heads, txt_len=txt.shape[1],
             txt_q_scale=p("txt_attn.norm.query_norm.scale"),
             txt_k_scale=p("txt_attn.norm.key_norm.scale"),
+            interleaved=cfg.tp_layout,
         )
     else:
-        img_q, img_k, img_v = _split_heads(img_qkv, cfg.num_heads)
+        img_q, img_k, img_v = _split_heads(img_qkv, heads, cfg.tp_layout)
         img_q, img_k = _qk_norm(p.scope("img_attn.norm."), img_q, img_k)
-        txt_q, txt_k, txt_v = _split_heads(txt_qkv, cfg.num_heads)
+        txt_q, txt_k, txt_v = _split_heads(txt_qkv, heads, cfg.tp_layout)
         txt_q, txt_k = _qk_norm(p.scope("txt_attn.norm."), txt_q, txt_k)
         attn = _attention(torch.cat([txt_q, img_q], dim=2), torch.cat([txt_k, img_k], dim=2),
                           torch.cat([txt_v, img_v], dim=2), pe)
     txt_attn, img_attn = attn[:, :txt.shape[1]], attn[:, txt.shape[1]:]
 
     img = _gated_out_linear(img, img_attn, p("img_attn.proj.weight"),
-                            p("img_attn.proj.bias"), im1_gate)
+                            p("img_attn.proj.bias"), im1_gate, cfg.tp_axis)
     h = _mod_linear(p, "img_mlp.0", img, im2_scale, im2_shift)
     img = _gated_out_linear(img, h, p("img_mlp.2.weight"), p("img_mlp.2.bias"),
-                            im2_gate, gelu=True)
+                            im2_gate, cfg.tp_axis, gelu=True)
 
     txt = _gated_out_linear(txt, txt_attn, p("txt_attn.proj.weight"),
-                            p("txt_attn.proj.bias"), tx1_gate)
+                            p("txt_attn.proj.bias"), tx1_gate, cfg.tp_axis)
     h = _mod_linear(p, "txt_mlp.0", txt, tx2_scale, tx2_shift)
     txt = _gated_out_linear(txt, h, p("txt_mlp.2.weight"), p("txt_mlp.2.bias"),
-                            tx2_gate, gelu=True)
+                            tx2_gate, cfg.tp_axis, gelu=True)
     return img, txt
+
+
+def _tp_linear2(p: nn.ParamView, attn, mlp, x, gate, cfg: FluxConfig):
+    """The single block's output under the TP layout: ``linear2_attn`` on
+    attn plus ``linear2_mlp`` on gelu(mlp), two row-parallel partials added
+    and then all-reduced ONCE under ``tp_axis``, the bias (on
+    ``linear2_attn``) added once after. With fused-EW the two partials come
+    from K9 and K11 ("none" and "gelu" prologues, no epilogue)."""
+    out = None
+    if _fused_ew(x):
+        fm_a = getattr(p("linear2_attn.weight"), "modulated_matmul", None)
+        fm_m = getattr(p("linear2_mlp.weight"), "modulated_matmul", None)
+        if fm_a is not None and fm_m is not None:
+            pa = fm_a(attn, prologue="none")
+            pm = fm_m(mlp, prologue="gelu")
+            if pa is not None and pm is not None:
+                out = pa + pm
+    if out is None:
+        out = (nn.linear(attn, p("linear2_attn.weight"), None)
+               + nn.linear(nn.gelu(mlp, approximate=True), p("linear2_mlp.weight"), None))
+    if cfg.tp_axis is not None:
+        out = mesh_mod.all_reduce(out, cfg.tp_axis)
+    b2 = p.get("linear2_attn.bias")
+    if b2 is not None:
+        out = out + b2.to(out.dtype)
+    return x + gate * out
 
 
 def _single_block(p: nn.ParamView, x, vec, pe, cfg: FluxConfig):
     """SingleStreamBlock. Fused, K3 reads the q/k/v stripes straight out of
-    the full linear1 output (its MLP lanes are never touched)."""
+    the full linear1 output (its MLP lanes are never touched); under the TP
+    layout out of ``linear1_qkv``'s interleaved rows."""
+    heads = local_heads(cfg)
     shift, scale, gate = _modulation(p.scope("modulation."), vec, 3)
     hidden = cfg.hidden_size
-    proj = _mod_linear(p, "linear1", x, scale, shift)
+    if cfg.tp_layout:
+        # two column-parallel matmuls over the one input, each with its own
+        # LayerNorm + modulation prologue
+        qkv = _mod_linear(p, "linear1_qkv", x, scale, shift)
+        mlp = _mod_linear(p, "linear1_mlp", x, scale, shift)
+    else:
+        proj = _mod_linear(p, "linear1", x, scale, shift)
+        qkv = proj[..., :3 * hidden]
     if cfg.fused_attn:
         cos, sin = pe
         attn = _fused_attention(
-            proj, p("norm.query_norm.scale"), p("norm.key_norm.scale"), cos, sin,
-            num_heads=cfg.num_heads,
+            qkv if cfg.tp_layout else proj, p("norm.query_norm.scale"),
+            p("norm.key_norm.scale"), cos, sin, num_heads=heads, interleaved=cfg.tp_layout,
         )
     else:
-        q, k, v = _split_heads(proj[..., :3 * hidden], cfg.num_heads)
+        q, k, v = _split_heads(qkv, heads, cfg.tp_layout)
         q, k = _qk_norm(p.scope("norm."), q, k)
         attn = _attention(q, k, v, pe)
+    if cfg.tp_layout:
+        return _tp_linear2(p, attn, mlp, x, gate, cfg)
     mlp = proj[..., 3 * hidden:]
     w2, b2 = p("linear2.weight"), p("linear2.bias")
     fm = getattr(w2, "modulated_matmul", None) if _fused_ew(x) else None
@@ -360,7 +454,13 @@ def stack_block_params(params: Dict, cfg: FluxConfig) -> Dict:
     family's per-block leaves dropped once its stack exists, so the extra
     device memory peaks at one family's stack (the single blocks'
     ``linear1``: 38 x 21504 x 3072 bytes = 2.5 GB), not a second copy of
-    the model."""
+    the model. Under the TP layout it stacks a rank's shards (``cfg``
+    with its ``tp_axis``, as ``parallel.spmd.to_spmd_model`` gives it),
+    so K6, K8 and the stacked K11 read depth slices whose N or K is the
+    local one; the whole laid-out dict, before it is cut, is refused."""
+    if cfg.tp_layout and cfg.tp_axis is None:
+        raise ValueError("TP-laid-out params stack per rank: cut them into shards first "
+                         "(parallel.spmd.to_spmd_model)")
     if is_stacked(params):
         raise ValueError("the params are stacked already")
     out, fams = group_block_params(params, cfg)
@@ -412,6 +512,12 @@ def apply_flux(params: Dict, x, timesteps, context, y, guidance=None,
     guidance (B,). ``first_block_hook(img_before, img_after_block0,
     run_rest)`` is FBCache's boundary after double block 0. Returns the
     NHWC f32 prediction."""
+    if cfg.fused_attn and cfg.tp_layout and cfg.tp_axis is None:
+        # TP-laid-out params in the permuted basis need K3's interleaved
+        # stripes on a rank's whole heads; a single device would rope them
+        # through the unfused path in the wrong basis
+        raise ValueError("fused_attn + tp_layout requires the tensor-parallel forward "
+                         "(parallel.spmd.make_spmd_apply_fn)")
     b, h, w, c = x.shape
     dtype = cfg.dtype
 

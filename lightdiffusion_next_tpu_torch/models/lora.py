@@ -17,7 +17,11 @@ patch targets a ``qkv`` or ``linear1`` weight: their q/k rows are in the
 permuted RoPE basis and the patch's are not. The JAX package applies such
 a patch in the wrong basis without an error; the port refuses it, and
 refuses Flux DiT params given without their ``model_cfg``, which alone
-tells the two bases apart.
+tells the two bases apart. With ``model_cfg.tp_layout`` the patches move to
+the TP layout's keys first (``parallel.layout.to_tp_layout_patches``), and
+with ``model_cfg.tp_axis`` (the params are this rank's shards) each patch
+is cut as its base is: ``up``'s rows with a column-parallel weight,
+``down``'s columns with a row-parallel one (``parallel.sharding``).
 
 The port's UNet params hold each self-attention's q|k|v weights joined
 as ``attn1.to_qkv.weight`` and each cross-attention's k|v as
@@ -154,6 +158,8 @@ def apply_lora(params: Dict, patches: Dict[Target, Tuple], strength: float = 1.0
                                  and k.endswith(PERMUTED_SUFFIXES) for k in params):
         raise ValueError("LoRA on a Flux DiT needs its model_cfg: whether fused_attn "
                          "permuted the q/k rows decides whether the patch may apply")
+    if getattr(model_cfg, "tp_layout", False):
+        patches = _tp_patches(patches, model_cfg)
     if getattr(model_cfg, "fused_attn", False):
         permuted = sorted(t for t in patches if isinstance(t, str) and t in params
                           and t.endswith(PERMUTED_SUFFIXES))
@@ -192,6 +198,20 @@ def apply_lora(params: Dict, patches: Dict[Target, Tuple], strength: float = 1.0
             copied.add(key)
         w[rows[0]:rows[1]] = (w[rows[0]:rows[1]].float() + delta).to(w.dtype)
     return out
+
+
+def _tp_patches(patches: Dict, cfg) -> Dict:
+    """Flux patches in the TP layout's keys and, under ``cfg.tp_axis``,
+    cut to this rank's slice of their base."""
+    from lightdiffusion_next_tpu_torch.parallel import layout, sharding
+
+    patches = layout.to_tp_layout_patches(patches, cfg)
+    if cfg.tp_axis is None:
+        return patches
+    import torch.distributed as dist
+
+    return sharding.shard_patches(patches, dist.get_rank(cfg.tp_axis),
+                                  dist.get_world_size(cfg.tp_axis))
 
 
 def lora_modules(lora_sd: Dict) -> List[str]:

@@ -46,7 +46,7 @@ _FLASH_ARGTYPES = (
 _FUSED_QKV_ARGTYPES = (
     [ctypes.c_void_p] * 9            # qkv, out, kv scratch, 4 scales, cos, sin
     + [ctypes.c_int] * 4             # batch, heads, l, lk
-    + [ctypes.c_longlong, ctypes.c_int]  # row width, txt_len
+    + [ctypes.c_longlong, ctypes.c_int, ctypes.c_int]  # row width, txt_len, interleaved
     + [ctypes.c_float] * 2           # eps, q_scale
     + [ctypes.c_void_p]              # stream
 )

@@ -9,7 +9,8 @@ points, as there:
   single f32 head at d = 512. Kernel: ``csrc/flash_attention.cu``.
 - ``fused_qkv_attention`` (K3): Flux's joint attention straight off the
   fused qkv projection, with QKNorm and the half-split RoPE in the
-  kernel's prologue. Kernel: ``csrc/fused_qkv_attention.cu``.
+  kernel's prologue; ``interleaved`` reads the head-interleaved rows of
+  the tensor-parallel layout. Kernel: ``csrc/fused_qkv_attention.cu``.
 
 All compute exact non-causal attention the way the TPU kernels do: q is
 pre-scaled by ``LOG2E / sqrt(d)`` in f32 and rounded back to its dtype, the
@@ -353,9 +354,24 @@ def _norm_rope(x, scale_img, scale_txt, txt_len, cos, sin, eps):
     return xf * c + torch.roll(xf, ROPE_DIM // 2, dims=-1) * s
 
 
+def split_qkv(qkv, num_heads, interleaved=False):
+    """The (B, L, H, 128) q, k and v views of a fused projection's first
+    3 * H * 128 columns: proj-major [q heads | k heads | v heads], or
+    head-major [q_h0 | k_h0 | v_h0 | q_h1 | ...] when ``interleaved`` (the
+    JAX kernel's index maps: blocks h, H + h, 2H + h, or 3h, 3h + 1, 3h + 2)."""
+    b, l, _ = qkv.shape
+    h, d = num_heads, ROPE_DIM
+    x = qkv[..., :3 * h * d]
+    if interleaved:
+        x = x.reshape(b, l, h, 3, d)
+        return x[:, :, :, 0], x[:, :, :, 1], x[:, :, :, 2]
+    x = x.reshape(b, l, 3, h, d)
+    return x[:, :, 0], x[:, :, 1], x[:, :, 2]
+
+
 def fused_qkv_attention_plain(qkv, q_scale, k_scale, cos, sin, *, num_heads,
                               txt_len=0, txt_q_scale=None, txt_k_scale=None,
-                              eps=1e-6):
+                              eps=1e-6, interleaved=False):
     """Plain PyTorch version of K3, same arithmetic and roundings: q and k
     normed and roped in f32, q scaled by LOG2E/sqrt(128), both rounded to
     qkv's dtype; then attention with p rounded to that dtype."""
@@ -365,8 +381,7 @@ def fused_qkv_attention_plain(qkv, q_scale, k_scale, cos, sin, *, num_heads,
         raise ValueError(f"qkv width {w} < 3 * {h} * {d}")
     tq = q_scale if txt_q_scale is None else txt_q_scale
     tk = k_scale if txt_k_scale is None else txt_k_scale
-    q, k, v = (qkv[..., i * h * d:(i + 1) * h * d].reshape(b, l, h, d)
-               for i in range(3))
+    q, k, v = split_qkv(qkv, h, interleaved)
     qn = (_norm_rope(q, q_scale, tq, txt_len, cos, sin, eps)
           * (LOG2E / math.sqrt(d))).to(qkv.dtype)
     kn = _norm_rope(k, k_scale, tk, txt_len, cos, sin, eps).to(qkv.dtype)
@@ -383,10 +398,11 @@ def _vec128(x, name):
 
 
 def _launch_fused(qkv, q_scale, k_scale, cos, sin, num_heads, txt_len,
-                  txt_q_scale, txt_k_scale, eps, lk=None):
+                  txt_q_scale, txt_k_scale, eps, lk=None, interleaved=False):
     """Check what K3 takes, allocate the output and its scratch (k normed
     and roped and v, as tiles of 128 rows laid out for the kernel's shared
-    memory), launch. ``lk`` (default L) is the number of kv rows attended."""
+    memory), launch. ``lk`` (default L) is the number of kv rows attended;
+    ``interleaved`` picks the head-major stripes."""
     if not qkv.is_cuda:
         raise ValueError(f"fused_qkv_attention: no kernel for device {qkv.device}")
     if qkv.dtype != torch.bfloat16:
@@ -414,7 +430,7 @@ def _launch_fused(qkv, q_scale, k_scale, cos, sin, num_heads, txt_len,
     rc = cuda_build.entry_point("fused_qkv_attention")(
         qkv.data_ptr(), out.data_ptr(), kv_scratch.data_ptr(),
         *(t.data_ptr() for t in scales), cos.data_ptr(), sin.data_ptr(),
-        b, h, l, l if lk is None else lk, w, txt_len, eps,
+        b, h, l, l if lk is None else lk, w, txt_len, int(interleaved), eps,
         LOG2E / math.sqrt(ROPE_DIM),
         torch.cuda.current_stream(qkv.device).cuda_stream,
     )
@@ -426,11 +442,15 @@ def _launch_fused(qkv, q_scale, k_scale, cos, sin, num_heads, txt_len,
 
 def fused_qkv_attention(qkv, q_scale, k_scale, cos, sin, *, num_heads: int,
                         txt_len: int = 0, txt_q_scale=None, txt_k_scale=None,
-                        eps: float = 1e-6):
+                        eps: float = 1e-6, interleaved: bool = False):
     """K3: joint attention straight off the fused qkv projection.
 
     qkv: (B, L, >= 3*H*128), layout [q heads | k heads | v heads | ...];
     extra trailing columns (the single blocks' MLP lanes) are never read.
+    ``interleaved``: the rows are head-major [q_h0 | k_h0 | v_h0 | q_h1 |
+    ...] (``parallel.layout.to_tp_layout``, where a rank's shard holds
+    whole heads); the output is head-major either way. A launch counts in
+    ``launches``, or in ``launches_interleaved`` with ``interleaved`` set.
     q and k are in the permuted (half-split) RoPE basis
     (``models.flux.permute_rope_basis``). q_scale / k_scale: (128,) f32
     QKNorm scales for image rows; txt_q_scale / txt_k_scale for rows
@@ -439,13 +459,18 @@ def fused_qkv_attention(qkv, q_scale, k_scale, cos, sin, *, num_heads: int,
     if qkv.device.type == "cpu":
         return fused_qkv_attention_plain(
             qkv, q_scale, k_scale, cos, sin, num_heads=num_heads, txt_len=txt_len,
-            txt_q_scale=txt_q_scale, txt_k_scale=txt_k_scale, eps=eps)
+            txt_q_scale=txt_q_scale, txt_k_scale=txt_k_scale, eps=eps,
+            interleaved=interleaved)
     out = _launch_fused(qkv, q_scale, k_scale, cos, sin, num_heads, txt_len,
-                        txt_q_scale, txt_k_scale, eps)
-    fused_qkv_attention.launches += 1
+                        txt_q_scale, txt_k_scale, eps, interleaved=interleaved)
+    if interleaved:
+        fused_qkv_attention.launches_interleaved += 1
+    else:
+        fused_qkv_attention.launches += 1
     return out
 
 
 flash_attention.launches = 0
 packed_flash_attention.launches = 0
 fused_qkv_attention.launches = 0
+fused_qkv_attention.launches_interleaved = 0

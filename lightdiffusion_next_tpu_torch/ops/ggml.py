@@ -27,7 +27,14 @@ the same f32 inputs), and also takes ``QTensor8`` records, and streams
 leaves one at a time when given their layout.
 
 Leaves are torch tensors; a record's ``to`` moves its tensors.
-Not ported (ROADMAP Queue 1, item 11): the tensor-parallel flag.
+
+The JAX records carry a ``tp`` flag: a leaf that is a sharded global array
+under GSPMD takes the partitionable dequantize + dot instead of its
+single-device kernel, and ``shard_map``'s local view clears it. The port
+has no global arrays: under tensor parallelism a rank holds its slice of
+each leaf as an ordinary record of the local shape
+(``parallel.sharding.shard_leaf``), whose matmuls take the kernels
+exactly as a single device's do. So no record here has that flag.
 """
 
 from __future__ import annotations
@@ -451,13 +458,18 @@ def stack_leaves(leaves):
     return torch.stack(leaves)
 
 
-def requant_col(t: QTensor8T) -> QTensor8W:
+def requant_col(t: QTensor8T, reduce_max=None) -> QTensor8W:
     """A Q8_0 ``QTensor8T`` requantized per output column, on its device:
     the weight dequantized in f32, ``cs = max(max_k |w|, 1e-12) * (1/127)``
     per column, codes ``clip(round(w / cs), +-127)`` (the JAX package's
-    law), laid out (N, K)."""
+    law), laid out (N, K). ``reduce_max`` maps the (1, N) column maxima
+    of this K slice to those of the whole weight (a rank's row-parallel
+    shard: ``parallel.spmd.to_w8a8``)."""
     w = qm.dequantize_t(t.qt, t.scales_t, torch.float32)
-    cs = torch.clamp(w.abs().amax(dim=0, keepdim=True), min=1e-12) * qm.INV_QMAX
+    amax = w.abs().amax(dim=0, keepdim=True)
+    if reduce_max is not None:
+        amax = reduce_max(amax)
+    cs = torch.clamp(amax, min=1e-12) * qm.INV_QMAX
     codes = torch.clamp(torch.round(w / cs), -qm.QMAX, qm.QMAX).to(torch.int8)
     del w
     return QTensor8W(q=codes.t().contiguous(), col_scales=cs, shape=t.shape)
@@ -475,7 +487,7 @@ def stack_families(params: Dict[str, Any], families: Dict[Any, list]) -> Dict[An
     return {key: stack_leaves(families.pop(key)) for key in list(families)}
 
 
-def requant_col_stacked(t: StackedQTensor8T) -> StackedQTensor8W:
+def requant_col_stacked(t: StackedQTensor8T, reduce_max=None) -> StackedQTensor8W:
     """A Q8_0 stack requantized per output column, block by block, each
     block exactly as ``requant_col`` requantizes it (so the stacked requant
     equals the unstacked one bit for bit); the f32 temporary is one block."""
@@ -483,7 +495,7 @@ def requant_col_stacked(t: StackedQTensor8T) -> StackedQTensor8W:
     q3 = torch.empty((d, n, k), dtype=torch.int8, device=t.qt3.device)
     cs3 = torch.empty((d, 1, n), dtype=torch.float32, device=t.qt3.device)
     for i in range(d):
-        w = requant_col(QTensor8T(t.qt3[i], t.scales3[i], t.shape))
+        w = requant_col(QTensor8T(t.qt3[i], t.scales3[i], t.shape), reduce_max)
         q3[i], cs3[i] = w.q, w.col_scales
         del w
     return StackedQTensor8W(q3=q3, col_scales3=cs3, shape=t.shape)

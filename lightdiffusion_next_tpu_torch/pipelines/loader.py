@@ -14,8 +14,18 @@ through ``base.sd15_model`` (which joins its attention projections), the
 VAE with its encoder and decoder, ESRGAN in f32, CLIP-L with the
 textual-inversion directory, the Flux DiT through ``base.flux_model``
 (requant, permutation and stacking on the device). A one-file Flux
-checkpoint raises, as in the JAX package. Not ported (ROADMAP Queue 1,
-item 11): the tensor-parallel loads on a mesh.
+checkpoint raises, as in the JAX package.
+
+With ``mesh=`` (``parallel.make_mesh``) the Flux load is tensor-parallel:
+each rank reads the GGUF, lays it out (``parallel.layout``) and uploads
+only its slices (``parallel.sharding``), with the JAX mesh load's checks
+and warnings on fused attention. The port has one tensor-parallel
+forward, the explicit one of ``parallel.spmd`` (the JAX ``shard_map``
+design; JAX's GSPMD load has no counterpart), and the ``RuntimeConfig``
+toggles choose its configuration as on one device: with fused attention
+the RoPE basis is permuted on the host before the interleave for K3, and
+the stacking (``flux_scan``) and the W8A8 requant come after, per shard
+(the JAX pipeline's order).
 """
 
 from __future__ import annotations
@@ -35,6 +45,10 @@ from lightdiffusion_next_tpu_torch.models import flux as flux_mod
 from lightdiffusion_next_tpu_torch.models import vae as vae_mod
 from lightdiffusion_next_tpu_torch.models.clip import facade as clip_facade
 from lightdiffusion_next_tpu_torch.ops import ggml
+from lightdiffusion_next_tpu_torch.parallel import layout as tp_layout
+from lightdiffusion_next_tpu_torch.parallel import mesh as mesh_mod
+from lightdiffusion_next_tpu_torch.parallel import sharding as shard_rules
+from lightdiffusion_next_tpu_torch.parallel import spmd as spmd_mod
 from lightdiffusion_next_tpu_torch.utils import state_dict as sd_utils
 
 logger = logging.getLogger(__name__)
@@ -74,14 +88,16 @@ def load_checkpoint_guess_config(
 
 def load_diffusion_model_gguf(path: str, w8a8: Optional[bool] = None,
                               scan_blocks: Optional[bool] = None,
-                              device: _config.DeviceLike = None) -> base_mod.DiffusionModel:
+                              device: _config.DeviceLike = None,
+                              mesh=None) -> base_mod.DiffusionModel:
     """A Flux GGUF -> its quantized DiT on ``device`` (the GPU by default),
     through ``base.flux_model``: upload, then ``w8a8`` (default:
     ``RuntimeConfig.w8a8`` for the device) requantizes the matmul weights
     per output column, the RoPE basis is permuted when
     ``base.fused_attn_for`` says so, and ``scan_blocks`` (default:
     ``RuntimeConfig.flux_scan``) stacks the blocks on the device. Raises on
-    a GGUF that holds no Flux DiT."""
+    a GGUF that holds no Flux DiT. ``mesh``: this rank's tensor-parallel
+    shards instead (``_load_tp``)."""
     dev = _config.resolve_device(device)
     dtype = _config.DtypePolicy.for_device(dev).compute_dtype
     t0 = time.perf_counter()
@@ -89,13 +105,55 @@ def load_diffusion_model_gguf(path: str, w8a8: Optional[bool] = None,
     if "double_blocks.0.img_attn.qkv.weight" not in sd:
         raise RuntimeError(f"{path} is not a Flux GGUF")
     fcfg = flux_mod.detect_config(sd, dtype=dtype)
-    model = base_mod.flux_model(sd, cfg=fcfg, dtype=dtype, device=dev, w8a8=w8a8,
-                                scan=scan_blocks)
+    if mesh is None:
+        model = base_mod.flux_model(sd, cfg=fcfg, dtype=dtype, device=dev, w8a8=w8a8,
+                                    scan=scan_blocks)
+    else:
+        model = _load_tp(sd, fcfg, mesh, w8a8, scan_blocks, dev)
     del sd
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)
     logger.info("loaded %s (%d bytes) in %.3f s", path, os.path.getsize(path),
                 time.perf_counter() - t0)
+    return model
+
+
+def _load_tp(sd, fcfg, mesh, w8a8, scan_blocks, dev) -> base_mod.DiffusionModel:
+    """The mesh load of the JAX ``load_diffusion_model_gguf`` with
+    ``spmd=True``, and the JAX pipeline's steps after it: with fused
+    attention resolved on, the RoPE basis is permuted in the checkpoint's
+    layout (head dim 128 and heads divisible by the "model" ranks, else a
+    warning and the unfused path); the TP layout; this rank's slices
+    uploaded; the tensor-parallel forward, its shards stacked when
+    ``scan_blocks`` (``spmd.to_spmd_model``), then requantized to W8A8
+    when ``w8a8`` (``spmd.to_w8a8``). ``sd`` is consumed."""
+    rc = _config.get_config()
+    tp = mesh_mod.model_size(mesh)
+    fused = False
+    if rc.resolve_fused_attn(dev):
+        if fcfg.head_dim != 128:
+            logger.warning("fused_attn kernel is 128-lane head_dim only (got %d); keeping the "
+                           "unfused attention path", fcfg.head_dim)
+        elif fcfg.num_heads % tp:
+            logger.warning("fused_attn needs num_heads %% tp == 0 (%d %% %d); keeping the "
+                           "unfused attention path", fcfg.num_heads, tp)
+        else:
+            try:
+                permuted = tp_layout.permute_rope_basis_rows(sd, fcfg)
+                sd.clear()  # the unpermuted rows go now, not with the caller's dict
+                sd, fused = permuted, True
+            except ValueError as e:
+                logger.warning("fused_attn unavailable for this checkpoint (%s); keeping the "
+                               "unfused attention path", e)
+    laid, fcfg = tp_layout.to_tp_layout(sd, fcfg)
+    sd.clear()
+    cfg = spmd_mod.tp_config(dataclasses.replace(fcfg, fused_attn=fused), mesh)
+    p = shard_rules.shard_state_dict(laid, mesh, dtype=fcfg.dtype, device=dev)
+    model = base_mod.flux_bundle(base_mod.f32_qk_norms(p), cfg, dev)
+    model = spmd_mod.to_spmd_model(
+        model, mesh, scan_blocks=rc.resolve_flux_scan(dev) if scan_blocks is None else scan_blocks)
+    if rc.resolve_w8a8(dev) if w8a8 is None else w8a8:
+        model = dataclasses.replace(model, params=spmd_mod.to_w8a8(model.params, model.config))
     return model
 
 

@@ -71,8 +71,19 @@ a separate ``_stop_requested`` that knows ``PreviewHook`` by type.
 ``enhance_prompt``: the prompt goes through ``enhancer.enhance_prompt``
 (a local Ollama; the prompt itself when that fails) after the parameter
 file is written and before any model is loaded, as in the JAX package.
-``LDT_FLUX_TP`` (the multi-chip Flux of ROADMAP Queue 1, item 11) is not
-read.
+
+Several GPUs (one process each, a ``torch.distributed`` process group of
+more than one rank, e.g. under ``torchrun``): unless ``LDT_FLUX_TP`` is
+"off", the Flux DiT loads tensor-parallel over a (1, world) mesh
+(``_flux_mesh``; the JAX pipeline's multi-chip Flux) and runs the explicit
+forward of ``parallel.spmd``, with the ``RuntimeConfig`` toggles' choices
+per shard (on the card W8A8, scan and K3 interleaved). "auto", the
+default, and "spmd" are that one mode; the JAX package's "auto" is its
+GSPMD path, which the port does not build. T5, CLIP-L and the AE are
+whole on every rank. Every rank runs the same flow; the seed and the stop
+flag are rank 0's (``parallel.inference.agree``), and only rank 0 writes
+the PNGs, the seed file and the parameter file. With one rank, or
+``LDT_FLUX_TP=off``, the single-device path runs.
 """
 
 from __future__ import annotations
@@ -84,6 +95,7 @@ import random
 from typing import List, Optional
 
 import torch
+import torch.distributed as dist
 
 from lightdiffusion_next_tpu_torch import config as _config
 from lightdiffusion_next_tpu_torch.models import lora as lora_mod
@@ -95,6 +107,7 @@ from lightdiffusion_next_tpu_torch.models.clip import t5_tokenizer
 from lightdiffusion_next_tpu_torch.models.clip import text_encoder as te
 from lightdiffusion_next_tpu_torch.models.clip import tokenizer as clip_tokenizer
 from lightdiffusion_next_tpu_torch.ops import ggml, window
+from lightdiffusion_next_tpu_torch.parallel import inference as par_inf
 from lightdiffusion_next_tpu_torch.pipelines import detailer, downloader, enhancer, loader
 from lightdiffusion_next_tpu_torch.pipelines import upscaler
 from lightdiffusion_next_tpu_torch.pipelines import sam as sam_mod
@@ -201,20 +214,25 @@ def pipeline(
     if negative_prompt is None or not negative_prompt.strip():
         negative_prompt = DEFAULT_NEGATIVE
 
-    if seed is None:
+    writer = par_inf.is_writer()
+    drawn = seed is None
+    if drawn:
         seed = load_last_seed() if reuse_seed else random.randint(1, 2**63 - 1)
+    seed = par_inf.agree(seed)
+    if drawn and writer:
         save_last_seed(seed)
-    try:
-        params_io.write_parameters_to_file(prompt, negative_prompt, w, h, 7)
-    except OSError:
-        pass
+    if writer:
+        try:
+            params_io.write_parameters_to_file(prompt, negative_prompt, w, h, 7)
+        except OSError:
+            pass
     if enhance_prompt:
         prompt = enhancer.enhance_prompt(prompt)
 
-    saver = image_utils.SaveImage(output_dir=output_dir)
+    saver = image_utils.SaveImage(output_dir=output_dir) if writer else _NoSaver()
     saved: List[str] = []
     for _ in range(number):
-        if samplers_mod.callback_requests_stop(progress_callback):
+        if par_inf.agree(samplers_mod.callback_requests_stop(progress_callback)):
             break
         if flux_enabled:
             saved += _flux_txt2img(prompt, w, h, batch, seed, autohdr, saver,
@@ -228,8 +246,15 @@ def pipeline(
                                     prio_speed, autohdr, realistic_model, saver,
                                     progress_callback, hidiffusion, model, clip, vae,
                                     device, hires_fix, adetailer)
-        seed = random.randint(1, 2**63 - 1)
+        seed = par_inf.agree(random.randint(1, 2**63 - 1))
     return saved
+
+
+class _NoSaver:
+    """The saver of a rank other than 0: rank 0 writes the images."""
+
+    def save_images(self, images, folder, prompt=None):
+        return []
 
 
 _TAESD_CACHE: dict = {}
@@ -435,15 +460,32 @@ def _img2img_usdu(image_path, autohdr, saver, realistic_model, progress_callback
     return saver.save_images(out, "Img2Img/LD", prompt=image_path)
 
 
-def _get_flux_models(unet_path, t5_path, clip_l_path, ae_path, device):
+def _flux_mesh():
+    """The (1, world) mesh the Flux DiT is served tensor-parallel over when
+    ``LDT_FLUX_TP`` is not "off" and the process group has more than one
+    rank, else None. "auto" (the default) and "spmd" are one mode: the
+    port has one tensor-parallel forward (``parallel.spmd``), configured by
+    the ``RuntimeConfig`` toggles."""
+    tp_mode = os.environ.get("LDT_FLUX_TP", "auto")
+    if tp_mode not in ("auto", "spmd", "off"):
+        raise ValueError(f"LDT_FLUX_TP={tp_mode!r}: must be auto or spmd (tensor-parallel) "
+                         "or off (single device)")
+    if tp_mode != "off" and dist.is_initialized() and dist.get_world_size() > 1:
+        return par_inf.inference_mesh(n_model=dist.get_world_size())
+    return None
+
+
+def _get_flux_models(unet_path, t5_path, clip_l_path, ae_path, device, mesh=None):
     """The Flux DiT, AE, T5-XXL and CLIP-L from their files, each through
     the model cache keyed by path, mtime and variant: a second call reads
-    nothing from disk. One resident DiT across its variants (``:w8a8``,
-    ``:scan``, ``:fusedattn``) and one T5 across its layouts."""
+    nothing from disk. One resident DiT across its variants
+    (``:mesh(1, N)``, ``:w8a8``, ``:scan``, ``:fusedattn``) and one T5
+    across its layouts. ``mesh``: this rank's shards of the DiT with the
+    tensor-parallel forward (``loader.load_diffusion_model_gguf(mesh=)``)."""
     dev = _config.resolve_device(device)
     rc = _config.get_config()
     cache = loader.get_model_cache()
-    variant = f"dev={dev}"
+    variant = f"dev={dev}" if mesh is None else f"dev={dev}:mesh{tuple(mesh.shape)}"
     w8a8 = rc.resolve_w8a8(dev)
     scan = rc.resolve_flux_scan(dev)
     if w8a8:
@@ -456,7 +498,7 @@ def _get_flux_models(unet_path, t5_path, clip_l_path, ae_path, device):
     if model is None:
         cache.evict_other_variants(unet_path, keep_variant=variant)
         model = loader.load_diffusion_model_gguf(unet_path, w8a8=w8a8, scan_blocks=scan,
-                                                 device=dev)
+                                                 device=dev, mesh=mesh)
         cache.put(unet_path, model, variant=variant)
 
     vae = cache.get(ae_path, variant=f"dev={dev}")
@@ -491,7 +533,7 @@ def _load_flux(device):
     for p in paths:
         if not os.path.exists(p):
             raise FileNotFoundError(f"flux asset missing: {p}")
-    return _get_flux_models(*paths, device)
+    return _get_flux_models(*paths, device, mesh=_flux_mesh())
 
 
 def _flux_txt2img(prompt, w, h, batch, seed, autohdr, saver, progress_callback, model, clip,

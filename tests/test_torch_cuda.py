@@ -422,6 +422,35 @@ def test_fused_qkv_planted_faults_fail_the_check(cuda):
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("h", [24, 12, 6])
+@pytest.mark.parametrize("txt_len", [0, 256])
+def test_fused_qkv_interleaved_matches_plain(cuda, h, txt_len):
+    """K3's head-interleaved stripes (the TP layout: a rank's whole heads,
+    12 at tp = 2, 6 at tp = 4) at Flux's 4352 tokens against the plain
+    version; the same qkv read with the proj-major offsets fails the
+    check, and so does the input with each head's k and v stripes
+    swapped."""
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    qkv, s, cos, sin, kw = _fused_inputs(4352, 3 * h * 128, txt_len, gen, h=h)
+    launches = fa.fused_qkv_attention.launches
+    interleaved = fa.fused_qkv_attention.launches_interleaved
+    out = fa.fused_qkv_attention(qkv, s[0], s[1], cos, sin, interleaved=True, **kw)
+    torch.cuda.synchronize()
+    assert fa.fused_qkv_attention.launches_interleaved == interleaved + 1
+    assert fa.fused_qkv_attention.launches == launches
+    ref = fa.fused_qkv_attention_plain(qkv, s[0], s[1], cos, sin, interleaved=True, **kw)
+    check = fa.agreement(out, ref)
+    assert check["ok"], check
+    args = (h, txt_len, s[2], s[3], 1e-6)
+    proj_major = fa._launch_fused(qkv, s[0], s[1], cos, sin, *args)
+    assert not fa.agreement(proj_major, ref)["ok"]
+    heads = qkv.reshape(1, 4352, h, 3, 128)
+    swapped = heads[:, :, :, [0, 2, 1]].reshape(qkv.shape).contiguous()
+    kv_swapped = fa._launch_fused(swapped, s[0], s[1], cos, sin, *args, interleaved=True)
+    assert not fa.agreement(kv_swapped, ref)["ok"]
+
+
+@pytest.mark.cuda
 def test_new_kernels_refuse_what_they_do_not_take(cuda):
     x = torch.zeros((8, 256), device="cuda")
     qt = torch.zeros((256, 128), dtype=torch.int8, device="cuda")

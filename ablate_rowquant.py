@@ -31,7 +31,9 @@ rows from device memory as the bound assumes. It also times the wrapper
 ``quant_matmul.row_quantize_fused`` at (256, 3072) on the host, the
 repository's and (``--parent``: DIR's tree) the parent's in turns, each in
 a subprocess: 1000 calls under ``time.perf_counter`` without a sync, beside
-CUDA events over the same calls, and the repository wrapper's parts.
+CUDA events over the same calls, the repository wrapper's parts, and the
+backward guard's share (``grad_guard.no_backward``: the wrapper against
+its body without the guard, in ten turns).
 Prints one line per shape and a JSON object of every time (µs per call).
 Imports nothing of JAX.
 """
@@ -281,6 +283,15 @@ if hasattr(qm, "rowquant_geometry"):
     out["two_empty"] = per_call(lambda: (torch.empty((256, 3072), dtype=torch.int8, device="cuda"),
                                          torch.empty((256, 1), dtype=torch.float32, device="cuda")))
     out["current_stream"] = per_call(lambda: torch.cuda.current_stream(x.device).cuda_stream)
+if hasattr(qm.row_quantize_fused, "__wrapped__"):
+    # the backward guard's share: the wrapper and its body without the
+    # guard, ten turns of each, the medians by host time
+    body = qm.row_quantize_fused.__wrapped__
+    turns = {"guarded": [], "body_unguarded": []}
+    for _ in range(10):
+        turns["guarded"].append(per_call(lambda: qm.row_quantize_fused(x)))
+        turns["body_unguarded"].append(per_call(lambda: body(x)))
+    out.update({k: sorted(v)[len(v) // 2] for k, v in turns.items()})
 print(json.dumps(out))
 """
 

@@ -213,7 +213,24 @@ Phases, in order; any failure exits non-zero:
    ``w8a8``, ``flux_scan`` and ``fused_attn`` toggles off (Q8_0, unrolled,
    unfused: K5 and K2 at 12 heads), one missed DiT call against the one
    device's under the same toggles. A rank that fails or runs past
-   ``TP_TIMEOUT_S`` fails the phase.
+   ``TP_TIMEOUT_S`` fails the phase;
+24. the flow-matching trainer (after 23): ``parallel.trainer`` at
+   Flux.1-dev's full width in f32 with the depth cut to 2 double and 2
+   single blocks (of 19 and 38), a 1024^2 latent and 512 text tokens,
+   batch 1 per "data" rank, weights drawn on the card from a seed, AdamW
+   at a learning rate of 1e-5 (``TRAIN_LR``). On one
+   device: the first step's loss and three gradients, s/step and the peak;
+   the loss's backward under ``attention_backend="flash"`` (K2 in the
+   forward) must raise the backward guard's error. Then two ranks on the one card over gloo: TP
+   1x2 (its first loss within 1e-5 of the one device's, each rank's slice
+   of the gradients within 1e-3 relative RMS, the all-reduces a step
+   against the plan, five steps fed by ``prefetch_to_mesh`` with the last
+   loss below the first, ``save_checkpoint`` after step 2 and
+   ``restore_checkpoint`` into a fresh trainer bit for bit, step 3's loss
+   within 1e-6 of the uninterrupted run's; scan + remat's first loss
+   within 1e-5 and a lower peak), DP 2x1 (both ranks' params equal after a
+   step). No training step launches a kernel. A rank that fails or runs
+   past ``TP_TIMEOUT_S`` fails the phase.
 
 Phases 19 to 22 run after phase 17, before the Flux phases. Phases 5 to
 11 pin ``RuntimeConfig(flux_scan=False)``, so their launch plans
@@ -4332,6 +4349,388 @@ def phase_flux_tp(gpu, per_kernel):
     return ok, paths, plans, e2e
 
 
+# --------------------------------------------------------------------------
+# The flow-matching trainer on one card (phase 24)
+# --------------------------------------------------------------------------
+
+TRAIN_DIR = os.path.join(OUT_DIR, "train")  # the checkpoint; removed after the phase
+TRAIN_DEPTH = (2, 2)  # double and single blocks: Flux.1-dev's 19 and 38 cut to fit
+TRAIN_TXT = 512
+TRAIN_SIDE = 128  # the latent's side: 1024^2 pixels, 4096 image tokens
+TRAIN_SEED = 24  # the weights' draw on the card
+TRAIN_BATCH_SEED = 3
+TRAIN_STEPS = 5
+TRAIN_SAVE_AT = 2  # the checkpoint is written after this step
+# the learning rate of phase 24's AdamW (optax adamw's arithmetic otherwise):
+# at this width adamw(1e-4)'s first step, which moves every weight by ~1e-4
+# in its gradient's sign, took the loss from 3.34 to 33.1 (H100, 700 W),
+# and five steps ended above the first
+TRAIN_LR = 1e-5
+# leaves whose gradients the ranks hold against the one device's
+TRAIN_WATCHED = ("img_in.weight", "double_blocks.1.img_attn.qkv.weight",
+                 "double_blocks.1.img_mod.lin.weight")
+# a step's all-reduces over "model" at TP = 2 and depth (2, 2): forward, the
+# 4 row-parallel sums of each double block and 1 of each single block;
+# backward, as many column-parallel inputs (width 3072) and the QKNorm
+# scales (4 a double block, 2 a single block; width 128); remat recomputes
+# the forward of the blocks after double block 0 (4 + 2 more)
+TRAIN_FORWARD = 4 * TRAIN_DEPTH[0] + TRAIN_DEPTH[1]
+TRAIN_SCALES = 4 * TRAIN_DEPTH[0] + 2 * TRAIN_DEPTH[1]
+TRAIN_REMAT = 4 * (TRAIN_DEPTH[0] - 1) + TRAIN_DEPTH[1]
+# the first loss on 2 ranks against one device's (f32, the row-parallel
+# partials summed in another order), and scan + remat against unrolled
+TOL_TRAIN_LOSS_REL = 1e-5
+# a watched gradient, a rank's slice, against one device's: relative RMS
+# error. f32 sums in another order read ~1e-6 to 1e-4 on the CPU tests'
+# small model; a rank's partial gradient (a missing all-reduce) reads ~0.5
+TOL_TRAIN_GRAD_REL_RMSE = 1e-3
+# step 3's loss after the restore against the uninterrupted run's
+TOL_TRAIN_RESUME_REL = 1e-6
+
+
+def train_config():
+    """Flux.1-dev at full width (hidden 3072, 24 heads, MLP 4.0, T5 width
+    4096, CLIP 768, axes (16, 56, 56)) in f32, depth cut to TRAIN_DEPTH."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.models import flux
+
+    return dataclasses.replace(flux.FLUX_DEV, depth=TRAIN_DEPTH[0],
+                               depth_single_blocks=TRAIN_DEPTH[1], dtype=torch.float32)
+
+
+def train_params(cfg):
+    """``init_params``' distributions (normal(0, in^-0.5) weights, zero
+    biases, unit norm scales) drawn on the card from TRAIN_SEED: the same
+    numbers in every process, 1.02e9 f32 at this depth (a numpy draw would
+    take tens of seconds per process)."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.models import flux
+
+    gen = torch.Generator(device="cuda").manual_seed(TRAIN_SEED)
+    out = {}
+    for key, shape, kind in flux._layout(cfg):
+        if kind == "lin":
+            out[key] = torch.randn(shape, generator=gen, device="cuda") * shape[1] ** -0.5
+        else:
+            out[key] = (torch.ones if kind == "scale" else torch.zeros)(shape, device="cuda")
+    return out
+
+
+def train_trainer(n_data, n_model, cfg, scan_blocks=False, remat=False):
+    """``build_sharded_trainer``'s (mesh, params, opt_state, step,
+    make_batch), built from its parts on ``train_params`` with AdamW at
+    TRAIN_LR, the full draw freed once the rank's leaves are cut from it."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.parallel import mesh as mesh_mod
+    from lightdiffusion_next_tpu_torch.parallel import trainer
+
+    mesh = None if n_data * n_model == 1 else mesh_mod.make_mesh(n_data, n_model)
+    params, cfg = trainer._local(train_params(cfg), cfg, mesh, "cuda", scan_blocks)
+    gc.collect()
+    torch.cuda.empty_cache()
+    cfg = dataclasses.replace(cfg, remat_blocks=remat)
+    optimizer, step = trainer.make_train_step(cfg, trainer.AdamW(learning_rate=TRAIN_LR),
+                                              mesh=mesh)
+    params = trainer._trainable(params)
+    return mesh, params, optimizer.init(params), step, trainer.batch_maker(cfg, mesh, "cuda")
+
+
+def timed_step(step, p, o, batch):
+    """One train step, synced: (params, opt_state, loss, seconds, peak GiB,
+    the "model" all-reduces forward and backward and their widths, the
+    kernels launched)."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.parallel import mesh as mesh_mod
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_launches()
+    mesh_mod.reset_counts()
+    t0 = time.perf_counter()
+    p, o, loss = step(p, o, batch)
+    loss = float(loss)
+    torch.cuda.synchronize()
+    ar = mesh_mod.all_reduce
+    return p, o, loss, {"s": time.perf_counter() - t0,
+                        "peak_gib": torch.cuda.max_memory_allocated() / 2**30,
+                        "forward": ar.calls, "forward_widths": dict(ar.widths),
+                        "backward": ar.backward_calls,
+                        "backward_widths": dict(ar.backward_widths),
+                        "launched": sum(read_launches().values())}
+
+
+def host_state(params, opt_state):
+    """{name: (param, mu, nu)} on the host, and the count."""
+    from lightdiffusion_next_tpu_torch.parallel import trainer
+
+    out = {n: tuple(x.detach().to("cpu", copy=True)
+                    for x in (t, opt_state.state[t]["exp_avg"], opt_state.state[t]["exp_avg_sq"]))
+           for n, t in trainer.leaves(params)}
+    return out, {float(opt_state.state[t]["step"]) for _, t in trainer.leaves(params)}
+
+
+def train_rank(rank, store):
+    """A rank of phase 24: the process group (gloo), ``train_rank_flow``,
+    its results to ``TRAIN_DIR/rank<r>.pt``."""
+    import datetime
+
+    import torch
+    import torch.distributed as dist
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("gloo", store=dist.FileStore(store, TP), rank=rank, world_size=TP,
+                            timeout=datetime.timedelta(seconds=TP_GLOO_TIMEOUT_S))
+    try:
+        torch.save(train_rank_flow(rank), os.path.join(TRAIN_DIR, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def train_rank_flow(rank):
+    """On this rank: TP 1x2, unrolled, TRAIN_STEPS steps on one batch fed
+    by ``prefetch_to_mesh`` (the watched gradients after the first, the
+    checkpoint after TRAIN_SAVE_AT, written and timed); a fresh trainer
+    restored from it, held bit for bit to the state saved and stepped once;
+    scan + remat's first step; DP 2x1's first step, rank 0's params
+    broadcast and held bit for bit to rank 1's."""
+    import torch
+    import torch.distributed as dist
+
+    from lightdiffusion_next_tpu_torch.parallel import data as data_mod
+    from lightdiffusion_next_tpu_torch.parallel import trainer
+
+    cfg = train_config()
+    res = {"steps": []}
+    mesh, p, o, step, make_batch = train_trainer(1, TP, cfg)
+    host_batch = {k: v.cpu() for k, v in make_batch(1, TRAIN_SIDE, TRAIN_SIDE, TRAIN_TXT,
+                                                     seed=TRAIN_BATCH_SEED).items()}
+    loader = data_mod.prefetch_to_mesh((host_batch for _ in range(TRAIN_STEPS)), mesh)
+    ckpt = os.path.join(TRAIN_DIR, "ckpt")
+    for i, batch in enumerate(loader, 1):
+        p, o, loss, info = timed_step(step, p, o, batch)
+        res["steps"].append(dict(info, loss=loss))
+        if i == 1:
+            res["grads"] = {n: p[n].grad.cpu() for n in TRAIN_WATCHED}
+        if i == TRAIN_SAVE_AT:
+            saved, count = host_state(p, o)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            trainer.save_checkpoint(ckpt, p, o, step=i, mesh=mesh)
+            res["save_s"] = time.perf_counter() - t0
+    res["transferred"] = loader.transferred
+    del p, o, step, loader
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    mesh, p, o, step, make_batch = train_trainer(1, TP, cfg)
+    t0 = time.perf_counter()
+    p, o, n = trainer.restore_checkpoint(ckpt, p, o, mesh=mesh)
+    torch.cuda.synchronize()
+    res["restore_s"] = time.perf_counter() - t0
+    restored, rcount = host_state(p, o)
+    res["restored_equal"] = (n == TRAIN_SAVE_AT and rcount == count
+                             and sorted(restored) == sorted(saved)
+                             and all(torch.equal(a, b) for name in saved
+                                     for a, b in zip(saved[name], restored[name])))
+    res["restored_leaves"] = len(restored)
+    del saved, restored
+    p, o, loss, info = timed_step(step, p, o, make_batch(1, TRAIN_SIDE, TRAIN_SIDE, TRAIN_TXT,
+                                                         seed=TRAIN_BATCH_SEED))
+    res["resumed"] = dict(info, loss=loss)
+    del p, o, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _, p, o, step, make_batch = train_trainer(1, TP, cfg, scan_blocks=True, remat=True)
+    p, o, loss, info = timed_step(step, p, o, make_batch(1, TRAIN_SIDE, TRAIN_SIDE, TRAIN_TXT,
+                                                         seed=TRAIN_BATCH_SEED))
+    res["remat"] = dict(info, loss=loss)
+    del p, o, step
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    _, p, o, step, make_batch = train_trainer(TP, 1, cfg)
+    p, o, loss, info = timed_step(step, p, o, make_batch(TP, TRAIN_SIDE, TRAIN_SIDE, TRAIN_TXT,
+                                                         seed=TRAIN_BATCH_SEED))
+    res["dp"] = dict(info, loss=loss)
+    equal = True
+    for _, t in trainer.leaves(p):
+        buf = t.detach().clone() if rank == 0 else torch.empty_like(t)
+        dist.broadcast(buf, src=0)
+        equal = equal and torch.equal(buf, t.detach())
+    res["dp"]["equal_to_rank0"] = equal
+    res["peak_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    return res
+
+
+def run_train_ranks():
+    """Spawn phase 24's two ranks and wait for both, at most
+    ``TP_TIMEOUT_S``: a rank that fails or is late fails the phase."""
+    import torch.multiprocessing as mp
+
+    ctx = mp.start_processes(train_rank, args=(os.path.join(TRAIN_DIR, "store"),), nprocs=TP,
+                             join=False, start_method="spawn")
+    deadline = time.perf_counter() + TP_TIMEOUT_S
+    while not ctx.join(timeout=5.0):
+        if time.perf_counter() > deadline:
+            for p in ctx.processes:
+                p.kill()
+            raise TimeoutError(f"phase 24: the ranks ran past {TP_TIMEOUT_S} s")
+
+
+def grad_slice(name, g, rank, cfg):
+    """Rank ``rank``'s slice, at TP = 2, of a one-device gradient: qkv rows
+    head-interleaved (``layout.to_tp_layout``) and cut; replicated leaves
+    whole."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.parallel import layout, sharding
+
+    spec = sharding.flux_param_spec(name)
+    if name.endswith("attn.qkv.weight"):
+        g = g[torch.as_tensor(layout.qkv_interleave_perm(cfg.num_heads, cfg.head_dim))]
+    return sharding.shard_leaf(g, spec, rank, TP)
+
+
+def phase_train(gpu):
+    """Phase 24: the flow-matching trainer (``parallel.trainer``) at
+    Flux.1-dev's full width in f32, depth cut to TRAIN_DEPTH (2 double, 2
+    single blocks of 19 and 38: 1.02e9 params, 16 B each with the gradient
+    and two moments), a 1024^2 latent (4096 image tokens) and TRAIN_TXT
+    text tokens, batch 1 per "data" rank, weights drawn on the card.
+    (a) one device, 1x1, here: the first step's loss, the watched
+    gradients, s/step and the peak; (c) the loss under
+    ``attention_backend="flash"`` reaches K2 at 4608 tokens and its
+    backward must raise the guard's error. Then, freed, two ranks on the one card over gloo
+    (``train_rank_flow``): (b) TP 1x2 against (a) and the all-reduce plan,
+    five steps from ``prefetch_to_mesh`` (the last loss below the first),
+    the checkpoint round trip, scan + remat (the first loss within 1e-5 of
+    unrolled, a lower peak); (d) DP 2x1, the ranks' params equal after a
+    step. AdamW at TRAIN_LR throughout. No step launches a kernel. Returns
+    (ok, e2e)."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch import config
+    from lightdiffusion_next_tpu_torch.ops import grad_guard
+    from lightdiffusion_next_tpu_torch.parallel import trainer
+
+    cfg = train_config()
+    os.makedirs(TRAIN_DIR, exist_ok=True)
+    label = "train"
+    ok = True
+    try:
+        _, p, o, step, make_batch = train_trainer(1, 1, cfg)
+        batch = make_batch(1, TRAIN_SIDE, TRAIN_SIDE, TRAIN_TXT, seed=TRAIN_BATCH_SEED)
+        p, o, loss, one = timed_step(step, p, o, batch)
+        grads = {n: p[n].grad.cpu() for n in TRAIN_WATCHED}
+        one_ok = math.isfinite(loss) and one["launched"] == 0 and one["forward"] == 0
+        log(f"{label} (a) one device: loss {loss:.8g}, {one['s']:.3f} s/step, peak "
+            f"{one['peak_gib']:.2f} GiB, {one['launched']} kernel launches ({gpu}) "
+            f"{'ok' if one_ok else 'FAIL'}")
+        ok = ok and one_ok
+        launches = None
+        saved = config.get_config()
+        config.set_config(dataclasses.replace(saved, attention_backend="flash"))
+        try:
+            reset_launches()
+            o.zero_grad(set_to_none=True)
+            trainer.flow_matching_loss(p, batch, cfg).backward()
+            guard_ok = False
+            err = "no error"
+        except grad_guard.NoBackwardError as e:
+            launches = read_launches()["flash_attention"]
+            guard_ok = "flash_attention (K2)" in str(e) and launches > 0
+            err = str(e)
+        finally:
+            config.set_config(saved)
+        log(f"{label} (c) attention_backend='flash': {err!r}, K2 launched {launches} times in "
+            f"the forward {'ok' if guard_ok else 'FAIL'}")
+        ok = ok and guard_ok
+        del p, o, step, batch
+        gc.collect()
+        torch.cuda.empty_cache()
+
+        t0 = time.perf_counter()
+        run_train_ranks()
+        ranks_s = time.perf_counter() - t0
+        res = [torch.load(os.path.join(TRAIN_DIR, f"rank{r}.pt"), weights_only=False)
+               for r in range(TP)]
+    finally:
+        shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    plan = {"forward": TRAIN_FORWARD, "forward_widths": {FLUX_H: TRAIN_FORWARD},
+            "backward": TRAIN_FORWARD + TRAIN_SCALES,
+            "backward_widths": {FLUX_H: TRAIN_FORWARD, 128: TRAIN_SCALES}, "launched": 0}
+    remat_plan = dict(plan, forward=TRAIN_FORWARD + TRAIN_REMAT,
+                      forward_widths={FLUX_H: TRAIN_FORWARD + TRAIN_REMAT})
+    for r, rr in enumerate(res):
+        steps = rr["steps"]
+        first = steps[0]["loss"]
+        rel = abs(first - loss) / abs(loss)
+        errs = {n: rel_rmse(rr["grads"][n], grad_slice(n, grads[n], r, cfg))
+                for n in TRAIN_WATCHED}
+        counts_ok = all({k: s[k] for k in plan} == plan for s in steps)
+        b_ok = (rel <= TOL_TRAIN_LOSS_REL and max(errs.values()) <= TOL_TRAIN_GRAD_REL_RMSE
+                and counts_ok and len(steps) == TRAIN_STEPS and rr["transferred"] == TRAIN_STEPS
+                and steps[-1]["loss"] < first)
+        log(f"{label} (b) TP 1x2 rank {r}: first loss {first:.8g} against one device's "
+            f"(rel {rel:.3g}, tol {TOL_TRAIN_LOSS_REL}); gradients' rel RMSE "
+            f"{ {n: f'{e:.3g}' for n, e in errs.items()} } (tol {TOL_TRAIN_GRAD_REL_RMSE}); "
+            f"losses {[s['loss'] for s in steps]} from prefetch_to_mesh "
+            f"({rr['transferred']} batches); all-reduces a step {steps[0]['forward']} forward "
+            f"{steps[0]['forward_widths']}, {steps[0]['backward']} backward "
+            f"{steps[0]['backward_widths']} (plan {plan['forward']} and {plan['backward']}), "
+            f"launches {[s['launched'] for s in steps]}; {[round(s['s'], 3) for s in steps]} "
+            f"s/step, peak {steps[0]['peak_gib']:.2f} GiB ({gpu}; gloo through the host) "
+            f"{'ok' if b_ok else 'FAIL'}")
+        resumed = rr["resumed"]["loss"]
+        uninterrupted = steps[TRAIN_SAVE_AT]["loss"]
+        res_rel = abs(resumed - uninterrupted) / abs(uninterrupted)
+        ck_ok = rr["restored_equal"] and res_rel <= TOL_TRAIN_RESUME_REL
+        log(f"{label} (b) checkpoint rank {r}: written after step {TRAIN_SAVE_AT} in "
+            f"{rr['save_s']:.2f} s, read into a fresh trainer in {rr['restore_s']:.2f} s; "
+            f"{rr['restored_leaves']} leaves with their moments and count bit for bit: "
+            f"{rr['restored_equal']}; step {TRAIN_SAVE_AT + 1} resumed {resumed:.8g} against "
+            f"{uninterrupted:.8g} (rel {res_rel:.3g}, tol {TOL_TRAIN_RESUME_REL}) ({gpu}) "
+            f"{'ok' if ck_ok else 'FAIL'}")
+        rm = rr["remat"]
+        rm_rel = abs(rm["loss"] - first) / abs(first)
+        rm_ok = ({k: rm[k] for k in remat_plan} == remat_plan and rm_rel <= TOL_TRAIN_LOSS_REL
+                 and rm["peak_gib"] < steps[0]["peak_gib"])
+        log(f"{label} (b) scan + remat rank {r}: first loss {rm['loss']:.8g} (rel {rm_rel:.3g} "
+            f"to unrolled), {rm['forward']} forward all-reduces (plan {remat_plan['forward']}), "
+            f"{rm['backward']} backward, peak {rm['peak_gib']:.2f} GiB against unrolled's "
+            f"{steps[0]['peak_gib']:.2f}, {rm['s']:.3f} s/step ({gpu}) {'ok' if rm_ok else 'FAIL'}")
+        dp = rr["dp"]
+        dp_ok = (math.isfinite(dp["loss"]) and dp["equal_to_rank0"] and dp["forward"] == 0
+                 and dp["backward"] == 0 and dp["launched"] == 0)
+        log(f"{label} (d) DP 2x1 rank {r}: loss {dp['loss']:.8g}, params equal to rank 0's "
+            f"bit for bit: {dp['equal_to_rank0']}, {dp['s']:.3f} s/step (gloo's mean "
+            f"all-reduce of 1.02e9 gradients included), peak {dp['peak_gib']:.2f} GiB ({gpu}) "
+            f"{'ok' if dp_ok else 'FAIL'}")
+        ok = ok and b_ok and ck_ok and rm_ok and dp_ok
+    r0 = res[0]
+    e2e = {"one_device_s_per_step": one["s"], "one_device_peak_gib": one["peak_gib"],
+           "one_device_loss": loss,
+           "tp_s_per_step": [[s["s"] for s in rr["steps"]] for rr in res],
+           "tp_peak_gib": [rr["steps"][0]["peak_gib"] for rr in res],
+           "tp_losses": [s["loss"] for s in r0["steps"]],
+           "remat_peak_gib": [rr["remat"]["peak_gib"] for rr in res],
+           "remat_s_per_step": [rr["remat"]["s"] for rr in res],
+           "dp_s_per_step": [rr["dp"]["s"] for rr in res],
+           "dp_peak_gib": [rr["dp"]["peak_gib"] for rr in res],
+           "checkpoint_save_s": [rr["save_s"] for rr in res],
+           "checkpoint_restore_s": [rr["restore_s"] for rr in res],
+           "ranks_s": ranks_s, "gpu": gpu,
+           "note": "two ranks on one card, all-reduces through gloo over the host; "
+                   "not a benchmark metric"}
+    return ok, e2e
+
+
 def main() -> int:
     try:
         import torch
@@ -4429,6 +4828,9 @@ def main() -> int:
         tp_ok, tp_launches, tp_calls, tp_e2e = timed("flux tp", phase_flux_tp, line, per_kernel)
     finally:
         shutil.rmtree(FLUX_DIR, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    train_ok, train_e2e = timed("train", phase_train, line)
 
     # calls per image of each path, summed over the paths a kernel runs on
     # (the unfused DiT calls count once)
@@ -4499,11 +4901,12 @@ def main() -> int:
            "flux_w8a8": w8_e2e,
            "flux_w8a8_scan": scan_e2e, "flux_w8a8_scan_fbcache_hits": hit_e2e,
            "flux_files_defaults": files_e2e["defaults"],
-           "flux_lora_unfused_attention": files_e2e["lora_unfused"], "flux_tp": tp_e2e}
+           "flux_lora_unfused_attention": files_e2e["lora_unfused"], "flux_tp": tp_e2e,
+           "train": train_e2e}
     ok = (ref_ok and pipe_ok and sage_ok and def_ok and hires_ok and i2i_ok and ad_ok
           and webui_ok and flux_ref_ok
           and flux_ok and w8_ref_ok and w8_ok and requant_ok and scan_ok and hit_ok and files_ok
-          and tp_ok
+          and tp_ok and train_ok
           and all(k["ok"] for k in kernels_line))
     record = {"gpu": line, "kernels": kernels_line, "e2e": e2e, "phase_seconds": seconds,
               "seconds": time.perf_counter() - t_start}

@@ -28,10 +28,19 @@ with ``FluxConfig.tp_axis`` set to the "model" process group they are also
 this rank's shards (``parallel.sharding``), the forward runs the rank's
 ``num_heads // tp`` heads (K3 with its ``interleaved`` stripes when fused)
 and sums each row-parallel partial over the group with
-``parallel.mesh.all_reduce`` at the sites where the JAX forward calls
-``jax.lax.psum``: four per double block (each stream's ``proj`` and
+``parallel.mesh.reduce_from_model`` at the sites where the JAX forward
+calls ``jax.lax.psum``: four per double block (each stream's ``proj`` and
 ``mlp.2``) and one per single block (``linear2_attn`` + ``linear2_mlp``
-added first); the gate, bias and residual apply after the sum.
+added first); the gate, bias and residual apply after the sum. For the
+backward (``parallel.trainer``), each column-parallel matmul's input
+passes ``parallel.mesh.copy_to_model`` (four per double block, the
+modulated input of each stream's ``qkv`` and ``mlp.0``; one per single
+block, the input ``linear1_qkv`` and ``linear1_mlp`` share), and so does
+each QKNorm scale, which multiplies only the rank's heads: each all-reduces
+its gradient. With ``FluxConfig.remat_blocks`` on stacked params, the
+blocks after double block 0 run under ``torch.utils.checkpoint``: their
+activations are recomputed in the backward (JAX ``jax.checkpoint`` of the
+scan bodies).
 """
 
 from __future__ import annotations
@@ -41,6 +50,7 @@ from typing import Any, Dict, Tuple
 
 import numpy as np
 import torch
+import torch.utils.checkpoint
 
 from lightdiffusion_next_tpu_torch import config as _config
 from lightdiffusion_next_tpu_torch.ops import attention as attn_ops
@@ -81,6 +91,10 @@ class FluxConfig:
     # and all-reduces the row-parallel partial sums over it. None: one
     # device holds every param
     tp_axis: Any = None
+    # on stacked params, recompute the blocks after double block 0 in the
+    # backward instead of keeping their activations (parallel.trainer's
+    # remat); no effect without grad
+    remat_blocks: bool = False
 
     @property
     def head_dim(self) -> int:
@@ -209,28 +223,43 @@ def _fused_ew(x) -> bool:
     return _config.get_config().resolve_fused_ew(x.device)
 
 
-def _mod_linear(p: nn.ParamView, key: str, x, scale, shift):
-    """layer_norm(x, 1e-6) * (1 + scale) + shift -> linear; on the fused
-    W8A8 path the norm and modulation run in the row quantization (K9
-    "ln_mod") and the bias in K11's epilogue (``modulated_matmul`` returns
-    None where it does not apply, and the unfused ops run)."""
-    w = p(key + ".weight")
-    b = p.get(key + ".bias")
-    fm = getattr(w, "modulated_matmul", None) if _fused_ew(x) else None
-    if fm is not None:
-        y = fm(x, prologue="ln_mod", mod_scale=1.0 + scale.float(), mod_shift=shift,
-               bias=b)
-        if y is not None:
-            return y
-    xm = nn.layer_norm(x, eps=1e-6) * (1 + scale) + shift
-    return nn.linear(xm, w, b)
+def _mod_linears(p: nn.ParamView, keys, x, scale, shift, tp_axis=None):
+    """layer_norm(x, 1e-6) * (1 + scale) + shift -> one linear per key of
+    ``keys``, all on that one modulated input; on the fused W8A8 path the
+    norm and modulation run in the row quantization (K9 "ln_mod") and the
+    bias in K11's epilogue (``modulated_matmul`` returns None where it does
+    not apply, and the unfused ops run). Under ``tp_axis`` the matmuls are
+    column-parallel, so the modulated input passes ``copy_to_model`` once."""
+    out = []
+    xm = None
+    for key in keys:
+        w = p(key + ".weight")
+        b = p.get(key + ".bias")
+        fm = getattr(w, "modulated_matmul", None) if _fused_ew(x) else None
+        if fm is not None:
+            y = fm(x, prologue="ln_mod", mod_scale=1.0 + scale.float(), mod_shift=shift,
+                   bias=b)
+            if y is not None:
+                out.append(y)
+                continue
+        if xm is None:
+            xm = nn.layer_norm(x, eps=1e-6) * (1 + scale) + shift
+            if tp_axis is not None:
+                xm = mesh_mod.copy_to_model(xm, tp_axis)
+        out.append(nn.linear(xm, w, b))
+    return out
+
+
+def _mod_linear(p: nn.ParamView, key: str, x, scale, shift, tp_axis=None):
+    """``_mod_linears`` of one key."""
+    return _mod_linears(p, (key,), x, scale, shift, tp_axis)[0]
 
 
 def _row_parallel(x, w, b, tp_axis):
     """A row-parallel linear: the local product is a partial sum over the
     rank's slice of the input dim, summed over ``tp_axis``; the (whole)
     bias is added once, after."""
-    out = mesh_mod.all_reduce(nn.linear(x, w, None), tp_axis)
+    out = mesh_mod.reduce_from_model(nn.linear(x, w, None), tp_axis)
     return out if b is None else out + b.to(out.dtype)
 
 
@@ -250,7 +279,7 @@ def _gated_out_linear(x_res, h, w, b, gate, tp_axis=None, gelu: bool = False):
         else:
             part = fm(h, prologue="gelu" if gelu else "none")
             if part is not None:
-                out = mesh_mod.all_reduce(part, tp_axis)
+                out = mesh_mod.reduce_from_model(part, tp_axis)
                 return x_res + gate * (out if b is None else out + b.to(out.dtype))
     if gelu:
         h = nn.gelu(h, approximate=True)
@@ -267,9 +296,17 @@ def _fused_attention(*args, **kw):
     return fa.fused_qkv_attention_plain(*args, **kw)
 
 
-def _qk_norm(p: nn.ParamView, q, k):
+def _norm_scale(p: nn.ParamView, key: str, cfg: FluxConfig):
+    """A QKNorm scale; under ``tp_axis`` it multiplies only the rank's
+    heads, so it passes ``copy_to_model``."""
+    s = p(key)
+    return s if cfg.tp_axis is None else mesh_mod.copy_to_model(s, cfg.tp_axis)
+
+
+def _qk_norm(p: nn.ParamView, q, k, cfg: FluxConfig):
     """QKNorm: RMSNorm of each head's q and k with their scales."""
-    return nn.rms_norm(q, p("query_norm.scale")), nn.rms_norm(k, p("key_norm.scale"))
+    return (nn.rms_norm(q, _norm_scale(p, "query_norm.scale", cfg)),
+            nn.rms_norm(k, _norm_scale(p, "key_norm.scale", cfg)))
 
 
 def _attention(q, k, v, pe):
@@ -306,36 +343,37 @@ def _double_block(p: nn.ParamView, img, txt, vec, pe, cfg: FluxConfig):
     tx1_shift, tx1_scale, tx1_gate, tx2_shift, tx2_scale, tx2_gate = _modulation(
         p.scope("txt_mod."), vec, 6)
 
-    img_qkv = _mod_linear(p, "img_attn.qkv", img, im1_scale, im1_shift)
-    txt_qkv = _mod_linear(p, "txt_attn.qkv", txt, tx1_scale, tx1_shift)
+    img_qkv = _mod_linear(p, "img_attn.qkv", img, im1_scale, im1_shift, cfg.tp_axis)
+    txt_qkv = _mod_linear(p, "txt_attn.qkv", txt, tx1_scale, tx1_shift, cfg.tp_axis)
     if cfg.fused_attn:
         cos, sin = pe
         attn = _fused_attention(
             torch.cat([txt_qkv, img_qkv], dim=1),
-            p("img_attn.norm.query_norm.scale"), p("img_attn.norm.key_norm.scale"),
+            _norm_scale(p, "img_attn.norm.query_norm.scale", cfg),
+            _norm_scale(p, "img_attn.norm.key_norm.scale", cfg),
             cos, sin, num_heads=heads, txt_len=txt.shape[1],
-            txt_q_scale=p("txt_attn.norm.query_norm.scale"),
-            txt_k_scale=p("txt_attn.norm.key_norm.scale"),
+            txt_q_scale=_norm_scale(p, "txt_attn.norm.query_norm.scale", cfg),
+            txt_k_scale=_norm_scale(p, "txt_attn.norm.key_norm.scale", cfg),
             interleaved=cfg.tp_layout,
         )
     else:
         img_q, img_k, img_v = _split_heads(img_qkv, heads, cfg.tp_layout)
-        img_q, img_k = _qk_norm(p.scope("img_attn.norm."), img_q, img_k)
+        img_q, img_k = _qk_norm(p.scope("img_attn.norm."), img_q, img_k, cfg)
         txt_q, txt_k, txt_v = _split_heads(txt_qkv, heads, cfg.tp_layout)
-        txt_q, txt_k = _qk_norm(p.scope("txt_attn.norm."), txt_q, txt_k)
+        txt_q, txt_k = _qk_norm(p.scope("txt_attn.norm."), txt_q, txt_k, cfg)
         attn = _attention(torch.cat([txt_q, img_q], dim=2), torch.cat([txt_k, img_k], dim=2),
                           torch.cat([txt_v, img_v], dim=2), pe)
     txt_attn, img_attn = attn[:, :txt.shape[1]], attn[:, txt.shape[1]:]
 
     img = _gated_out_linear(img, img_attn, p("img_attn.proj.weight"),
                             p("img_attn.proj.bias"), im1_gate, cfg.tp_axis)
-    h = _mod_linear(p, "img_mlp.0", img, im2_scale, im2_shift)
+    h = _mod_linear(p, "img_mlp.0", img, im2_scale, im2_shift, cfg.tp_axis)
     img = _gated_out_linear(img, h, p("img_mlp.2.weight"), p("img_mlp.2.bias"),
                             im2_gate, cfg.tp_axis, gelu=True)
 
     txt = _gated_out_linear(txt, txt_attn, p("txt_attn.proj.weight"),
                             p("txt_attn.proj.bias"), tx1_gate, cfg.tp_axis)
-    h = _mod_linear(p, "txt_mlp.0", txt, tx2_scale, tx2_shift)
+    h = _mod_linear(p, "txt_mlp.0", txt, tx2_scale, tx2_shift, cfg.tp_axis)
     txt = _gated_out_linear(txt, h, p("txt_mlp.2.weight"), p("txt_mlp.2.bias"),
                             tx2_gate, cfg.tp_axis, gelu=True)
     return img, txt
@@ -360,7 +398,7 @@ def _tp_linear2(p: nn.ParamView, attn, mlp, x, gate, cfg: FluxConfig):
         out = (nn.linear(attn, p("linear2_attn.weight"), None)
                + nn.linear(nn.gelu(mlp, approximate=True), p("linear2_mlp.weight"), None))
     if cfg.tp_axis is not None:
-        out = mesh_mod.all_reduce(out, cfg.tp_axis)
+        out = mesh_mod.reduce_from_model(out, cfg.tp_axis)
     b2 = p.get("linear2_attn.bias")
     if b2 is not None:
         out = out + b2.to(out.dtype)
@@ -375,22 +413,23 @@ def _single_block(p: nn.ParamView, x, vec, pe, cfg: FluxConfig):
     shift, scale, gate = _modulation(p.scope("modulation."), vec, 3)
     hidden = cfg.hidden_size
     if cfg.tp_layout:
-        # two column-parallel matmuls over the one input, each with its own
-        # LayerNorm + modulation prologue
-        qkv = _mod_linear(p, "linear1_qkv", x, scale, shift)
-        mlp = _mod_linear(p, "linear1_mlp", x, scale, shift)
+        # two column-parallel matmuls over the one input (on the fused W8A8
+        # path each with its own LayerNorm + modulation prologue)
+        qkv, mlp = _mod_linears(p, ("linear1_qkv", "linear1_mlp"), x, scale, shift,
+                                cfg.tp_axis)
     else:
         proj = _mod_linear(p, "linear1", x, scale, shift)
         qkv = proj[..., :3 * hidden]
     if cfg.fused_attn:
         cos, sin = pe
         attn = _fused_attention(
-            qkv if cfg.tp_layout else proj, p("norm.query_norm.scale"),
-            p("norm.key_norm.scale"), cos, sin, num_heads=heads, interleaved=cfg.tp_layout,
+            qkv if cfg.tp_layout else proj, _norm_scale(p, "norm.query_norm.scale", cfg),
+            _norm_scale(p, "norm.key_norm.scale", cfg), cos, sin, num_heads=heads,
+            interleaved=cfg.tp_layout,
         )
     else:
         q, k, v = _split_heads(qkv, heads, cfg.tp_layout)
-        q, k = _qk_norm(p.scope("norm."), q, k)
+        q, k = _qk_norm(p.scope("norm."), q, k, cfg)
         attn = _attention(q, k, v, pe)
     if cfg.tp_layout:
         return _tp_linear2(p, attn, mlp, x, gate, cfg)
@@ -559,16 +598,22 @@ def apply_flux(params: Dict, x, timesteps, context, y, guidance=None,
     img_prev = img
     # double block 0 on its own: FBCache's boundary needs its output
     img, txt = _double_block(double_view(0), img, txt, vec, pe, cfg)
+    remat = cfg.remat_blocks and is_stacked(params) and torch.is_grad_enabled()
+
+    def block(fn, *args):
+        if remat:
+            return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
 
     def run_rest(img):
         """The remaining double blocks and all single blocks; returns the
         image tokens before the final layer."""
         txt_ = txt
         for i in range(1, cfg.depth):
-            img, txt_ = _double_block(double_view(i), img, txt_, vec, pe, cfg)
+            img, txt_ = block(_double_block, double_view(i), img, txt_, vec, pe, cfg)
         xx = torch.cat([txt_, img], dim=1)
         for i in range(cfg.depth_single_blocks):
-            xx = _single_block(single_view(i), xx, vec, pe, cfg)
+            xx = block(_single_block, single_view(i), xx, vec, pe, cfg)
         return xx[:, txt_.shape[1]:]
 
     if first_block_hook is not None:

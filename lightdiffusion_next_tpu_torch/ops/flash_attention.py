@@ -25,7 +25,9 @@ kv tile images laid out for the second's shared memory (``kv_geometry``;
 
 A wrapper takes the plain PyTorch version for a tensor on the CPU (the
 tests) and launches its kernel for a CUDA tensor, or raises. It counts its
-launches in ``<wrapper>.launches``. ``agreement`` is the check that holds a
+launches in ``<wrapper>.launches``. No kernel has a backward: an input that
+requires grad (grad mode on) sends the call through the wrapper's
+``grad_guard.no_backward``, whose backward raises, on the CPU too. ``agreement`` is the check that holds a
 kernel's output against the plain version's on the card.
 
 Layout: (B, H, L, D) in and out, like the JAX functions. The kernels read
@@ -43,7 +45,7 @@ import math
 import torch
 import torch.nn.functional as F
 
-from lightdiffusion_next_tpu_torch.ops import cuda_build
+from lightdiffusion_next_tpu_torch.ops import cuda_build, grad_guard
 
 LOG2E = 1.4426950408889634  # 1/ln(2)
 
@@ -313,6 +315,7 @@ def _launch(name: str, q, k, v, q_scale=None, scratch=None):
     return out.permute(0, 2, 1, 3)
 
 
+@grad_guard.no_backward("flash_attention (K2)")
 def flash_attention(q, k, v):
     """K2: q (B, H, Lq, D), k/v (B, H, Lk, D) -> (B, H, Lq, D), D <= 512."""
     if q.device.type == "cpu":
@@ -322,6 +325,7 @@ def flash_attention(q, k, v):
     return out
 
 
+@grad_guard.no_backward("packed_flash_attention (K1)")
 def packed_flash_attention(q, k, v):
     """K1: as ``flash_attention`` for head dims with ``pack_group(D) >= 2``
     (D <= 64)."""
@@ -440,6 +444,7 @@ def _launch_fused(qkv, q_scale, k_scale, cos, sin, num_heads, txt_len,
     return out
 
 
+@grad_guard.no_backward("fused_qkv_attention (K3)")
 def fused_qkv_attention(qkv, q_scale, k_scale, cos, sin, *, num_heads: int,
                         txt_len: int = 0, txt_q_scale=None, txt_k_scale=None,
                         eps: float = 1e-6, interleaved: bool = False):

@@ -35,7 +35,9 @@ Counterpart of lightdiffusion_next_tpu/ops/quant_matmul.py:
 
 Each wrapper takes the plain version for a tensor on the CPU (the tests)
 and launches its kernel for a CUDA tensor, or raises; it counts its
-launches in ``<wrapper>.launches``. K7's and K8's row quantization is K9's
+launches in ``<wrapper>.launches``; an input that requires grad (grad mode
+on) sends the call through the wrapper's ``grad_guard.no_backward``, whose
+backward raises: no kernel has a backward. K7's and K8's row quantization is K9's
 "none" law, so on the card ``w8a8_matmul`` launches K9 and then K7, and
 ``w8a8_matmul_stacked`` K9 and then K8.
 
@@ -49,7 +51,7 @@ import functools
 
 import torch
 
-from lightdiffusion_next_tpu_torch.ops import cuda_build
+from lightdiffusion_next_tpu_torch.ops import cuda_build, grad_guard
 
 QBLOCK = 32  # Q8_0 quantization block (elements per scale)
 
@@ -119,6 +121,7 @@ def _launch(x2, qt, scales_t, k=None, idx=None):
     return out
 
 
+@grad_guard.no_backward("quant_matmul (K5)")
 def quant_matmul(x, qt, scales_t, out_dtype=None):
     """K5: x (..., K) times the Q8_0 weight -> (..., N) in ``out_dtype``
     (x's dtype). On the GPU, bf16 in and out."""
@@ -149,6 +152,7 @@ def quant_matmul_stacked_plain(x, qt3, scales3, idx, out_dtype=None):
     return quant_matmul_plain(x, qt3[idx], scales3[idx], out_dtype)
 
 
+@grad_guard.no_backward("quant_matmul_stacked (K6)")
 def quant_matmul_stacked(x, qt3, scales3, idx, out_dtype=None):
     """K6: x (..., K) times block ``idx`` of a Q8_0 stack (codes qt3 (D, K,
     N) int8, scales3 (D, K/32, N) f32) -> (..., N), as K5 computes it."""
@@ -415,6 +419,7 @@ def _launch_w8a8(xq, sx, q, cs, bias=None, residual=None, k=None, ep=False, idx=
     return out
 
 
+@grad_guard.no_backward("w8a8_matmul (K7)")
 def w8a8_matmul(x, q, col_scales, out_dtype=None):
     """K7: x (..., K) float times the W8A8 weight (codes q (N, K) int8,
     ``col_scales`` (1, N) f32) -> (..., N) in ``out_dtype`` (x's dtype). On
@@ -440,6 +445,7 @@ def w8a8_matmul_stacked_plain(x, q3, col_scales3, idx, out_dtype=None):
     return w8a8_matmul_plain(x, q3[idx], col_scales3[idx], out_dtype)
 
 
+@grad_guard.no_backward("w8a8_matmul_stacked (K8)")
 def w8a8_matmul_stacked(x, q3, col_scales3, idx, out_dtype=None):
     """K8: x (..., K) float times block ``idx`` of a W8A8 stack (codes q3
     (D, N, K) int8, ``col_scales3`` (D, 1, N) f32) -> (..., N), as K7
@@ -480,6 +486,7 @@ def _residual_rows(residual, n):
     return res2
 
 
+@grad_guard.no_backward("w8a8_matmul_ep (K11)")
 def w8a8_matmul_ep(xq, sx, q, cs_eff, b_eff, residual=None, out_dtype=torch.bfloat16):
     """K11: prequantized xq (..., K) int8 with scales sx (..., 1) times the
     W8A8 codes q (N, K) -> (..., N), epilogue ``(f32(acc) * sx) * cs_eff +
@@ -503,6 +510,7 @@ def w8a8_matmul_ep(xq, sx, q, cs_eff, b_eff, residual=None, out_dtype=torch.bflo
 w8a8_matmul_ep.launches = 0
 
 
+@grad_guard.no_backward("w8a8_matmul_ep_stacked (stacked K11)")
 def w8a8_matmul_ep_stacked(xq, sx, q3, idx, cs_eff, b_eff, residual=None,
                            out_dtype=torch.bfloat16):
     """The stacked K11: ``w8a8_matmul_ep`` on block ``idx`` of the W8A8
@@ -595,6 +603,7 @@ def _launch_rowquant(x2, prologue, mod_scale, mod_shift, eps, center=1, inv_qmax
     return codes, sx
 
 
+@grad_guard.no_backward("row_quantize_fused (K9)")
 def row_quantize_fused(x, mod_scale=None, mod_shift=None, *, prologue="none", eps=1e-6):
     """K9: x (..., K) -> (codes int8 (..., K), scales f32 (..., 1)) with the
     prologue ("none", "gelu" (tanh form) or "ln_mod") fused into the
@@ -648,6 +657,7 @@ def _launch_concat(a2, b2, b_lo, b_hi, gelu=1, geometry=None):
     return codes, sx
 
 
+@grad_guard.no_backward("row_quantize_concat_gelu (K10)")
 def row_quantize_concat_gelu(a, b, b_lo: int, b_hi: int):
     """K10: codes and scales of the rows ``[a ; gelu(b[..., b_lo:b_hi])]``
     (the Flux single block's linear2 input: ``a`` the attention output, ``b``

@@ -36,6 +36,9 @@ and the plain version take the JAX kernel's (``softmax_block``: 1024
 tokens at SD1.5's lengths); the kernel visits a block twice, once for the
 maxima and once for the rest.
 
+Neither kernel has a backward: an input that requires grad goes through
+the wrapper's ``grad_guard.no_backward``, whose backward raises.
+
 Not ported (ROADMAP Queue 2): the ``pv_int8=False`` quality variant (bf16
 P.V on unquantized V) and the ``int8_mxu=False`` variant (the int8 codes
 multiplied at the bf16 rate); the configuration reaches neither.
@@ -49,7 +52,7 @@ from typing import NamedTuple
 import torch
 import torch.nn.functional as F
 
-from lightdiffusion_next_tpu_torch.ops import cuda_build
+from lightdiffusion_next_tpu_torch.ops import cuda_build, grad_guard
 from lightdiffusion_next_tpu_torch.ops import flash_attention as fa
 
 NEG_INF = -1e30  # the masked score, as in the JAX kernel
@@ -352,6 +355,7 @@ def _launch(q, ops: Operands, kv_tiles=None, use_sk=True):
     return out.permute(0, 2, 1, 3)
 
 
+@grad_guard.no_backward("sage_attention (K4)")
 def sage_attention(q, k, v):
     """K4: q (B, H, Lq, D), k/v (B, H, Lk, D) -> (B, H, Lq, D) in q's dtype.
     On the GPU, bf16 in and out: the preparation kernel, then K4."""

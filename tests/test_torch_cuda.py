@@ -1133,3 +1133,68 @@ def test_unet_fbcache_hits_launch_plan(cuda, webui_models, tmp_path):
     assert fbcache.history == [False] * 20
     _, plain, _ = _webui_generate(tmp_path, models, clip, vae)
     assert torch.equal(x0, plain)
+
+
+@pytest.mark.cuda
+def test_kernel_backward_guard_on_the_card(cuda):
+    """Under grad K2 and K5 still launch (their launch counts move, the
+    outputs match the plain versions), the results carry the guard's node,
+    and the backward raises ``NoBackwardError`` instead of handing q, k, v
+    or x a zero gradient."""
+    from lightdiffusion_next_tpu_torch.ops import grad_guard
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    q, k, v = (torch.randn((1, 2, 600, 128), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    q.requires_grad_(True)
+    launches = fa.flash_attention.launches
+    out = fa.flash_attention(q, k, v)
+    assert fa.flash_attention.launches == launches + 1 and out.grad_fn is not None
+    _check(out.detach(), q.detach(), k, v)
+    with pytest.raises(grad_guard.NoBackwardError, match=r"flash_attention \(K2\)"):
+        out.float().sum().backward()
+    x = torch.randn((256, 512), generator=gen, device="cuda").bfloat16().requires_grad_(True)
+    w = ggml.transpose_for_matmul(ggml.quantize(
+        torch.randn((256, 512), generator=gen, device="cuda")))
+    launches = qm.quant_matmul.launches
+    y = qm.quant_matmul(x, w.qt, w.scales_t)
+    assert qm.quant_matmul.launches == launches + 1 and y.grad_fn is not None
+    with pytest.raises(grad_guard.NoBackwardError, match=r"quant_matmul \(K5\)"):
+        y.float().sum().backward()
+
+
+@pytest.mark.cuda
+def test_prefetch_loader_side_stream_and_pinned_copies(cuda, monkeypatch):
+    """On the GPU the loader stages each leaf in pinned host memory and
+    copies it with ``non_blocking=True`` on its side stream, not the
+    consumer's; the consumer's stream waits for the copy and records the
+    batch's use, and the values arrive whole."""
+    import numpy as np
+
+    from lightdiffusion_next_tpu_torch.parallel import data as data_mod
+
+    copies = []
+    real_to = torch.Tensor.to
+
+    def spy(self, *a, **kw):
+        out = real_to(self, *a, **kw)
+        if out.is_cuda and not self.is_cuda:
+            copies.append((self.is_pinned(), kw.get("non_blocking", False),
+                           torch.cuda.current_stream().cuda_stream))
+        return out
+
+    recorded = []
+    real_record = torch.Tensor.record_stream
+    monkeypatch.setattr(torch.Tensor, "to", spy)
+    monkeypatch.setattr(torch.Tensor, "record_stream",
+                        lambda self, s: (recorded.append(s.cuda_stream), real_record(self, s)))
+    src = [{"x": np.full((4, 1024), i, np.float32), "i": np.int32(i)} for i in range(3)]
+    main = torch.cuda.current_stream().cuda_stream
+    seen = []
+    loader = data_mod.PrefetchLoader(iter(src), device="cuda")
+    for b in loader:
+        assert b["x"].is_cuda and b["i"].is_cuda
+        seen.append((float(b["x"].sum().item()), int(b["i"].item())))
+    assert seen == [(4 * 1024 * i, i) for i in range(3)]
+    assert len(copies) == 6 and all(p and nb and s != main for p, nb, s in copies)
+    assert recorded == [main] * 6 and loader.transferred == 3

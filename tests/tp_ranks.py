@@ -100,12 +100,15 @@ def spawn(worker, tmp_path, *args, **kw):
 @dataclasses.dataclass
 class Counts:
     """Collectives made while it is active: the all-reduce wrapper's calls
-    and widths, raw ``dist.all_reduce`` calls and every other collective."""
+    and widths (the forward's; the backward's apart), raw
+    ``dist.all_reduce`` calls and every other collective."""
 
     calls: int = 0
     widths: dict = dataclasses.field(default_factory=dict)
     raw_all_reduce: int = 0
     others: int = 0
+    backward_calls: int = 0
+    backward_widths: dict = dataclasses.field(default_factory=dict)
 
 
 class counting:
@@ -135,6 +138,8 @@ class counting:
             setattr(dist, n, fn)
         self.counts.calls = mesh_mod.all_reduce.calls
         self.counts.widths = dict(mesh_mod.all_reduce.widths)
+        self.counts.backward_calls = mesh_mod.all_reduce.backward_calls
+        self.counts.backward_widths = dict(mesh_mod.all_reduce.backward_widths)
 
 
 @dataclasses.dataclass
@@ -384,3 +389,100 @@ def _kinds(params):
     for v in params.values():
         kinds |= _kinds(v) if isinstance(v, dict) else {type(v).__name__}
     return kinds
+
+
+# the trainer's configurations: unrolled, stacked, stacked with remat
+TRAIN_MODES = {"unrolled": {}, "scan": dict(scan_blocks=True),
+               "remat": dict(scan_blocks=True, remat=True)}
+
+
+def _numpy(t):
+    return t.detach().numpy().copy()
+
+
+def train_snapshot(params, opt_state):
+    """{name: (param, mu, nu, count)} of a train state, as numpy copies."""
+    from lightdiffusion_next_tpu_torch.parallel import trainer
+
+    return {n: tuple(_numpy(x) for x in (t, opt_state.state[t]["exp_avg"],
+                                         opt_state.state[t]["exp_avg_sq"],
+                                         opt_state.state[t]["step"]))
+            for n, t in trainer.leaves(params)}
+
+
+def _wait_for(path, poll=0.05):
+    while not os.path.exists(path):
+        time.sleep(poll)
+    return torch.load(path, weights_only=False)
+
+
+def trainer_worker(rank, data, ckpt):
+    """Every case of ``test_torch_trainer.py`` on this rank: each mode's
+    first step on the (1, 2) and (2, 1) meshes (loss, gradients, the
+    collectives, the params after it); the checkpoint round trip on (1, 2)
+    under ``ckpt``; the JAX state after its first step, once the test has
+    written it, continued by a step."""
+    from lightdiffusion_next_tpu_torch.parallel import trainer
+
+    data = torch.load(data, weights_only=False)
+    cfg = tflux.FluxConfig(**data["cfg"])
+    batch_args = data["batch"]
+    res = {}
+    for shape in ((1, 2), (2, 1)):
+        for mode, kw in TRAIN_MODES.items():
+            mesh, p, o, step, make_batch = trainer.build_sharded_trainer(
+                *shape, cfg, device="cpu", **kw)
+            batch = make_batch(**batch_args)
+            with counting() as counts:
+                p, o, loss = step(p, o, batch)
+            res[shape, mode] = dict(
+                loss=float(loss), counts=counts,
+                grads={n: _numpy(t.grad) for n, t in trainer.leaves(p)},
+                state=train_snapshot(p, o),
+                batch={k: v.numpy() for k, v in batch.items()})
+
+    for mode in ("unrolled", "scan"):
+        mesh, p, o, step, make_batch = trainer.build_sharded_trainer(
+            1, 2, cfg, device="cpu", **TRAIN_MODES[mode])
+        batch = make_batch(**batch_args)
+        p, o, _ = step(p, o, batch)
+        path = os.path.join(ckpt, mode)
+        saved = train_snapshot(p, o)
+        trainer.save_checkpoint(path, p, o, step=1, mesh=mesh)
+        p, o, loss = step(p, o, batch)
+        mesh2, p2, o2, step2, _ = trainer.build_sharded_trainer(
+            1, 2, cfg, device="cpu", **TRAIN_MODES[mode])
+        p2, o2, n = trainer.restore_checkpoint(path, p2, o2, mesh=mesh2)
+        restored = train_snapshot(p2, o2)
+        p2, o2, loss2 = step2(p2, o2, batch)
+        res["checkpoint", mode] = dict(saved=saved, restored=restored, step=n,
+                                       loss=float(loss), resumed_loss=float(loss2))
+
+    jax_state = _wait_for(data["jax_state"])
+    mesh, _, _, step, make_batch = trainer.build_sharded_trainer(1, 2, cfg, device="cpu")
+    p, o, n = trainer.from_jax_state(jax_state["params"], jax_state["opt_state"], 1, cfg,
+                                     mesh, device="cpu")
+    p, o, loss = step(p, o, make_batch(**batch_args))
+    res["from_jax"] = dict(step=n, loss=float(loss), state=train_snapshot(p, o))
+    return res
+
+
+def loader_worker(rank, data):
+    """The cases of ``test_torch_data_loader.py`` that need ranks, on a
+    (2, 1) mesh: the first batch ``prefetch_to_mesh`` hands this rank, and
+    the data-parallel trainer driven by it (each step's loss)."""
+    from lightdiffusion_next_tpu_torch.parallel import data as data_mod
+    from lightdiffusion_next_tpu_torch.parallel import trainer
+
+    data = torch.load(data, weights_only=False)
+    mesh, p, o, step, _ = trainer.build_sharded_trainer(
+        2, 1, tflux.FluxConfig(**data["cfg"]), device="cpu")
+    loader = data_mod.prefetch_to_mesh(iter(data["placed"]), mesh, device="cpu")
+    placed = {k: v.numpy() for k, v in next(iter(loader)).items()}
+    loader.close()
+    losses = []
+    loader = data_mod.prefetch_to_mesh(iter(data["batches"]), mesh, device="cpu")
+    for batch in loader:
+        p, o, loss = step(p, o, batch)
+        losses.append(float(loss))
+    return dict(placed=placed, losses=losses, transferred=loader.transferred)

@@ -230,7 +230,29 @@ Phases, in order; any failure exits non-zero:
    within 1e-6 of the uninterrupted run's; scan + remat's first loss
    within 1e-5 and a lower peak), DP 2x1 (both ranks' params equal after a
    step). No training step launches a kernel. A rank that fails or runs
-   past ``TP_TIMEOUT_S`` fails the phase.
+   past ``TP_TIMEOUT_S`` fails the phase;
+25. kernel variants (after 24): the op-level flags no pipeline sets, at
+   the JAX smoke scripts' shapes (``scripts/smoke_sage.py``,
+   ``scripts/smoke_w8a8.py``): ``sage_attention`` with (int8_mxu,
+   pv_int8) = (False, True), (True, False) and (False, False) at (8, 8,
+   4096, 40), (2, 8, 4096, 80), (2, 8, 1024, 160), (1, 24, 4352, 128) and
+   the ragged (2, 8, 1000, 80); ``w8a8_matmul`` with ``int8_mxu=False`` at
+   (4352, 3072, 3072), (4352, 3072, 12288), (4352, 12288, 3072) and
+   (4352, 3072, 9216), ``w8a8_matmul_stacked`` (the last block of a stack
+   of two), ``w8a8_matmul_ep`` and ``w8a8_matmul_ep_stacked`` with the
+   residual at (256, 12288, 3072). Every counter set to 0, one call of each
+   variant at each shape, the counts read (each variant must launch; every
+   earlier path reads each variant's counter too, and it must stay 0); then
+   each output against its plain version (the sage variants as K4, the W8A8
+   ones at K5's limits, ``quant_matmul.MAX_ULPS`` and ``REL_RMSE_LIMIT``),
+   two planted faults each (the last kv tile or K step skipped; sk or cs
+   not applied), the pv_int8=False
+   preparation's images against ``prepare_plain``, int8_mxu=False against
+   K4's output (logged: bit for bit or the largest difference) and the
+   W8A8 variants against the integer plain version (logged), times beside
+   K4 or K7/K8/K11, the library call and the bound; and the variants' SASS
+   (``cuobjdump``): HMMA and no IMMA or IGMMA in every bf16-rate function,
+   both HMMA and IMMA where Q.K^T stays int8.
 
 Phases 19 to 22 run after phase 17, before the Flux phases. Phases 5 to
 11 pin ``RuntimeConfig(flux_scan=False)``, so their launch plans
@@ -239,7 +261,9 @@ SD1.5 plans (``dpmpp_2m_cfgpp``, ``dpmpp_sde_cfgpp``).
 
 Prints one ``{"kernels": [...]}`` JSON line (``ms``: the kernel's time per
 image, summed over its main-path shapes and over the paths it runs on; K7's
-and K8's paths are one missed DiT call with ``fused_ew`` off), the card's
+and K8's paths are one missed DiT call with ``fused_ew`` off; the flag
+variants', which no pipeline reaches, one call at each of phase 25's
+shapes), the card's
 name and power limit, and as its last line ``{"ok": true, "device": {...}}``.
 Imports nothing of JAX. Needs one CUDA device; exits non-zero without one.
 """
@@ -378,6 +402,74 @@ KERNELS = {
         "replaces": "lightdiffusion_next_tpu/ops/quant_matmul.py:1284",
     },
 }
+
+# The flag variants of K4 and of K7, K8 and K11 (phase 25): name -> the
+# kernels line's fields. A sage row is counted in the wrapper's
+# ``VARIANT_COUNTERS[SAGE_VARIANT_FLAGS[name]]``; a W8A8 row "<wrapper>_bf16_mxu"
+# in that wrapper's ``launches_bf16`` (``kernel_counters``)
+VARIANT_KERNELS = {
+    "sage_attention_bf16_mxu": {
+        "route": "cuda",
+        "source": "lightdiffusion_next_tpu_torch/csrc/sage_attention_variants.cu",
+        "replaces": "lightdiffusion_next_tpu/ops/sage_attention.py:152 (int8_mxu=False: "
+                    ":69-80, :98-104)",
+    },
+    "sage_attention_pv_bf16": {
+        "route": "cuda",
+        "source": "lightdiffusion_next_tpu_torch/csrc/sage_attention_variants.cu",
+        "replaces": "lightdiffusion_next_tpu/ops/sage_attention.py:152 (pv_int8=False: "
+                    ":181-191, :111-119)",
+    },
+    "sage_attention_bf16_mxu_pv_bf16": {
+        "route": "cuda",
+        "source": "lightdiffusion_next_tpu_torch/csrc/sage_attention_variants.cu",
+        "replaces": "lightdiffusion_next_tpu/ops/sage_attention.py:152 (int8_mxu=False, "
+                    "pv_int8=False)",
+    },
+    "w8a8_matmul_bf16_mxu": {
+        "route": "cuda",
+        "source": "lightdiffusion_next_tpu_torch/csrc/w8a8_matmul_bf16.cu",
+        "replaces": "lightdiffusion_next_tpu/ops/quant_matmul.py:623 (int8_mxu=False: "
+                    ":112-124)",
+    },
+    "w8a8_matmul_stacked_bf16_mxu": {
+        "route": "cuda",
+        "source": "lightdiffusion_next_tpu_torch/csrc/w8a8_matmul_bf16.cu",
+        "replaces": "lightdiffusion_next_tpu/ops/quant_matmul.py:742 (int8_mxu=False: "
+                    ":171-185)",
+    },
+    "w8a8_matmul_ep_bf16_mxu": {
+        "route": "cuda",
+        "source": "lightdiffusion_next_tpu_torch/csrc/w8a8_matmul_bf16.cu",
+        "replaces": "lightdiffusion_next_tpu/ops/quant_matmul.py:1155 (int8_mxu=False: "
+                    ":1090-1102)",
+    },
+    "w8a8_matmul_ep_stacked_bf16_mxu": {
+        "route": "cuda",
+        "source": "lightdiffusion_next_tpu_torch/csrc/w8a8_matmul_bf16.cu",
+        "replaces": "lightdiffusion_next_tpu/ops/quant_matmul.py:1155 (stacked :1284; "
+                    "int8_mxu=False: :1090-1102)",
+    },
+}
+# (int8_mxu, pv_int8) of each sage variant
+SAGE_VARIANT_FLAGS = {"sage_attention_bf16_mxu": (False, True),
+                      "sage_attention_pv_bf16": (True, False),
+                      "sage_attention_bf16_mxu_pv_bf16": (False, False)}
+# phase 25's shapes: scripts/smoke_sage.py's SD1.5 and Flux attention (:24-29)
+# and one ragged length; scripts/smoke_w8a8.py's Flux linears (:24-29) for
+# K7, and the text stream's mlp.2 for K8 and K11
+VARIANT_SAGE_SHAPES = ((8, 8, 4096, 40), (2, 8, 4096, 80), (2, 8, 1024, 160),
+                       (1, 24, 4352, 128), (2, 8, 1000, 80))
+VARIANT_W8A8_SHAPES = {"w8a8_matmul_bf16_mxu": ((4352, 3072, 3072), (4352, 3072, 12288),
+                                                (4352, 12288, 3072), (4352, 3072, 9216)),
+                       "w8a8_matmul_stacked_bf16_mxu": ((256, 12288, 3072),),
+                       "w8a8_matmul_ep_bf16_mxu": ((256, 12288, 3072),),
+                       "w8a8_matmul_ep_stacked_bf16_mxu": ((256, 12288, 3072),)}
+VARIANT_W8A8_FAULTS = ("last K step of 64 skipped", "cs not applied")
+# the variants' sources, template names, and whether an instantiation
+# (its mangled name) keeps int8 Q.K^T: "Lb1" first among its bool arguments
+VARIANT_SASS = (("sage_attention_variants.cu", "sage_variant_kernel"),
+                ("w8a8_matmul_bf16.cu", "w8a8_bf16_matmul_kernel"))
 
 # FBCache forced to hit (the hit-path phase): every call the cache may serve
 # is served, at most two in a row, so misses between them refresh the cached
@@ -1074,9 +1166,10 @@ def run_pipeline(models, seed):
 
 
 def kernel_counters():
-    """{KERNELS name: (its wrapper, the wrapper's counter of that kernel)}:
-    K3 counts its proj-major launches in ``launches`` and its interleaved
-    ones in ``launches_interleaved``."""
+    """{KERNELS or VARIANT_KERNELS name: (its wrapper, the wrapper's counter
+    of that kernel)}: K3 counts its proj-major launches in ``launches`` and
+    its interleaved ones in ``launches_interleaved``; the flag variants are
+    counted apart from their defaults (see VARIANT_KERNELS)."""
     from lightdiffusion_next_tpu_torch.ops import flash_attention as fa
     from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
     from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
@@ -1097,6 +1190,11 @@ def kernel_counters():
     counters = {name: (fn, "launches") for name, fn in wrappers.items()}
     counters["fused_qkv_attention_interleaved"] = (fa.fused_qkv_attention,
                                                    "launches_interleaved")
+    for name in VARIANT_KERNELS:
+        if name in SAGE_VARIANT_FLAGS:
+            counters[name] = (sa.sage_attention, sa.VARIANT_COUNTERS[SAGE_VARIANT_FLAGS[name]])
+        else:
+            counters[name] = (wrappers[name.removesuffix("_bf16_mxu")], "launches_bf16")
     return counters
 
 
@@ -4731,6 +4829,266 @@ def phase_train(gpu):
     return ok, e2e
 
 
+def variant_bound(b, h, lq, lk, d, qk_int8):
+    """A sage variant's least time: Q.K^T at the int8 rate (``qk_int8``) or
+    the bf16 rate plus P.V at the bf16 rate, against one exp per score at
+    the SFU rate and the bytes of bf16 q, k, v and out."""
+    ops = 2.0 * b * h * lq * lk * d
+    t_mma = ops / (PEAK_INT8_OPS if qk_int8 else PEAK_BF16_FLOPS) + ops / PEAK_BF16_FLOPS
+    t_ops = max(t_mma, b * h * lq * lk / PEAK_EXP2)
+    t_bytes = 2.0 * b * h * d * (2 * lq + 2 * lk) / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def bf16_rate_bound(m, k, n, bias, residual):
+    """The bf16-rate W8A8 matmul's least time: ``int8_bound``'s bytes,
+    2 M K N operations at the bf16 rate."""
+    nbytes = (m * k + k * n + 4.0 * n * (2 if bias else 1) + 4.0 * m
+              + 2.0 * m * n * (2 if residual else 1))
+    t_ops, t_bytes = 2.0 * m * k * n / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+    return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
+
+
+def check_variant_sass():
+    """The variants' SASS (``cuobjdump --dump-sass`` of their libraries):
+    every instantiation multiplies on the bf16 tensor cores (HMMA or HGMMA)
+    and, unless it keeps Q.K^T in int8 (a sage instantiation whose first
+    bool argument is true), holds no IMMA or IGMMA; the int8 Q.K^T ones hold
+    both HMMA and IMMA. Logs each one's MMA opcodes and ptxas lines;
+    returns whether all pass."""
+    from lightdiffusion_next_tpu_torch.ops import cuda_build
+
+    report = cuda_build.build(["sage_attention_variant", "w8a8_matmul_bf16"])
+    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
+    ok = True
+    for source, kernel in VARIANT_SASS:
+        rep = report[source]
+        funcs = spilled_functions(source, rep, kernel)[0]
+        sass = subprocess.run([cuobjdump, "--dump-sass", rep["path"]], capture_output=True,
+                              text=True, check=True).stdout
+        seen = 0
+        for part in sass.split("Function : ")[1:]:
+            name = part.split(None, 1)[0]
+            if kernel not in name:
+                continue
+            seen += 1
+            ops = SASS_OPCODE.findall(part)
+            count = {kind: sum(op.startswith(kind + ".") for op in ops)
+                     for kind in ("HMMA", "HGMMA", "IMMA", "IGMMA")}
+            bools = re.findall(r"Lb([01])E", name.split(kernel)[-1])
+            int8_qk = bool(bools) and bools[0] == "1"
+            bf16 = count["HMMA"] + count["HGMMA"] > 0
+            int8 = count["IMMA"] + count["IGMMA"] > 0
+            good = bf16 and (int8 if int8_qk else not int8)
+            ok = ok and good
+            log(f"  SASS {kernel} {name.split(kernel)[-1].split('EEv')[0]}: {count}; int8 "
+                f"Q.K^T {int8_qk}: {'ok' if good else 'FAIL'}")
+        if seen != len(funcs) or not seen:
+            log(f"FAIL: {source}: {seen} {kernel} functions in the SASS, {len(funcs)} in ptxas")
+            ok = False
+    return ok
+
+
+def phase_kernel_variants(gpu):
+    """Phase 25: the flag variants at their shapes (see the module's
+    docstring). Returns (ok, {name: per_kernel entry}, the counts of the
+    drive, the calls of the drive)."""
+    import torch
+    import torch.nn.functional as F
+
+    from lightdiffusion_next_tpu_torch.ops import flash_attention as fa
+    from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
+    from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
+
+    log("gpu:", gpu)
+    ok = check_variant_sass()
+    gen = torch.Generator(device="cuda").manual_seed(25)
+
+    def timed(fn):
+        return cuda_ms(fn, repeats_for(fn, budget_ms=150.0))
+
+    sage_inputs = {shape: make_inputs(*shape, "bf16", gen) for shape in VARIANT_SAGE_SHAPES}
+    w8_inputs = {}
+    for name, shapes in VARIANT_W8A8_SHAPES.items():
+        for m, k, n in shapes:
+            x = activations(m, k, gen)
+            if "stacked" in name:
+                q3, cs3 = w8_stack(2, k, n, gen)
+                w = (q3, cs3, 1)
+            else:
+                w8 = w8_weight(k, n, gen)
+                w = (w8.q, w8.col_scales, None)
+            gate = torch.randn((1, n), generator=gen, device="cuda")
+            extra = {"gate": gate, "bias": (0.1 * torch.randn((1, n), generator=gen,
+                                                               device="cuda") * gate),
+                     "r": activations(m, n, gen)}
+            w8_inputs[(name, m, k, n)] = (x, w, extra)
+
+    def ep_operands(x, w, extra):
+        xq, sx = qm.row_quantize_fused(x)
+        q, cs, idx = w
+        cs_blk = cs[idx] if idx is not None else cs
+        cs_eff = (cs_blk * extra["gate"]).reshape(-1).contiguous()
+        return xq, sx, q, idx, cs_eff, extra["bias"].reshape(-1).contiguous()
+
+    def w8_call(name, x, w, extra):
+        q, cs, idx = w
+        if name == "w8a8_matmul_bf16_mxu":
+            return qm.w8a8_matmul(x, q, cs, int8_mxu=False)
+        if name == "w8a8_matmul_stacked_bf16_mxu":
+            return qm.w8a8_matmul_stacked(x, q, cs, idx, int8_mxu=False)
+        xq, sx, q, idx, cs_eff, bias = ep_operands(x, w, extra)
+        operand = q if idx is None else (q, idx)
+        return qm.w8a8_matmul_ep(xq, sx, operand, cs_eff, bias, residual=extra["r"],
+                                 int8_mxu=False)
+
+    # the drive: every count at 0, one call of each variant at each shape
+    reset_launches()
+    outs, calls = {}, {}
+    for shape, (q, k, v) in sage_inputs.items():
+        for name, (int8_mxu, pv_int8) in SAGE_VARIANT_FLAGS.items():
+            outs[(name,) + shape] = sa.sage_attention(q, k, v, int8_mxu=int8_mxu,
+                                                      pv_int8=pv_int8)
+            calls[(name,) + shape + ("bf16",)] = 1
+    for key, (x, w, extra) in w8_inputs.items():
+        outs[key] = w8_call(key[0], x, w, extra)
+        calls[key] = 1
+    torch.cuda.synchronize()
+    launches = read_launches()
+    for name in VARIANT_KERNELS:
+        want = sum(1 for key in calls if key[0] == name)
+        good = launches[name] == want > 0
+        ok = ok and good
+        log(f"launches kernel variants {name}: {launches[name]} (one per shape: {want}) "
+            f"{'ok' if good else 'FAIL'}")
+    log("launches kernel variants, the other counters:",
+        {n: c for n, c in launches.items() if c and n not in VARIANT_KERNELS})
+
+    per_kernel = {}
+
+    def sage_check(out, ref):
+        return fa.agreement(out, ref, max_ulps=sa.MAX_ULPS, rel_rmse_limit=sa.REL_RMSE_LIMIT)
+
+    def w8_check(out, ref):
+        return {**fa.agreement(out, ref, max_ulps=qm.MAX_ULPS, rel_rmse_limit=qm.REL_RMSE_LIMIT),
+                "mismatches": int((out != ref).sum().item())}
+
+    for shape, (q, k, v) in sage_inputs.items():
+        b, h, l, d = shape
+        ops8 = sa.prepare_kernel(q, k, v)
+        k4 = sa._launch(q, ops8)
+        k4_ms = timed(lambda: sa._launch(q, ops8))
+        k4_wrapper_ms = timed(lambda: sa.sage_attention(q, k, v))
+        library_ms = timed(lambda: F.scaled_dot_product_attention(q, k, v))
+        torch.cuda.synchronize()
+        for name, (int8_mxu, pv_int8) in SAGE_VARIANT_FLAGS.items():
+            out = outs[(name,) + shape]
+            ref = sa.sage_attention_plain(q, k, v, pv_int8=pv_int8)
+            check = sage_check(out, ref)
+            ops = ops8 if pv_int8 else sa.prepare_kernel(q, k, v, pv_int8=False)
+            extra = {}
+            if not pv_int8:
+                prep = sa.prep_agreement(ops, sa.prepare_plain(q, k, v, pv_int8=False), d)
+                extra["prepare_bf16_v"] = prep
+                check = {**check, "ok": check["ok"] and prep["ok"]}
+            if not int8_mxu:  # the same integers as with int8_mxu on: logged
+                twin = k4 if pv_int8 else outs[("sage_attention_pv_bf16",) + shape]
+                diff = (out.float() - twin.float()).abs()
+                extra["against_int8_mxu"] = {
+                    "kernel": "K4" if pv_int8 else "sage_attention_pv_bf16",
+                    "bit_for_bit": bool(torch.equal(out, twin)),
+                    "max_abs_diff": diff.max().item(), "differing": int((diff > 0).sum().item())}
+            kt = ops.kvimg.shape[1]
+            faults = {
+                SAGE_FAULTS[0]: fault_entry(sage_check(
+                    sa._launch_variant(q, ops, int8_mxu, pv_int8, kv_tiles=kt - 1), ref)),
+                SAGE_FAULTS[1]: fault_entry(sage_check(
+                    sa._launch_variant(q, ops, int8_mxu, pv_int8, use_sk=False), ref)),
+            }
+            ms = timed(lambda: sa.sage_attention(q, k, v, int8_mxu=int8_mxu, pv_int8=pv_int8))
+            kernel_ms = timed(lambda: sa._launch_variant(q, ops, int8_mxu, pv_int8))
+            plain_ms = cuda_ms(lambda: sa.sage_attention_plain(q, k, v, pv_int8=pv_int8), 1)
+            bound_ms, bound_by = variant_bound(b, h, l, l, d, qk_int8=int8_mxu)
+            record_shape(per_kernel, (name,) + shape + ("bf16",), check, faults, {
+                "shape": list(shape), "dtype": "bf16 in and out", "ms": ms,
+                "kernel_ms": kernel_ms, "k4_ms": k4_ms, "k4_wrapper_ms": k4_wrapper_ms,
+                "plain_ms": plain_ms, "library_ms": library_ms, "bound_ms": bound_ms,
+                "bound_by": bound_by, **extra})
+            del out, ref
+        for name in SAGE_VARIANT_FLAGS:
+            del outs[(name,) + shape]
+        del q, k, v, ops8, k4
+        torch.cuda.empty_cache()
+    sage_inputs.clear()
+
+    for key, (x, w, extra_in) in w8_inputs.items():
+        name, m, k, n = key
+        q, cs, idx = w
+        out = outs.pop(key)
+        lib_codes = qm.row_quantize_fused(x)[0]
+        lib = lambda: torch._int_mm(lib_codes, (q if idx is None else q[idx]).t())  # noqa: E731
+        try:
+            library_ms = timed(lib)
+        except RuntimeError as e:  # the yardstick only; the port never calls it
+            log(f"torch._int_mm at {(m, k, n)}: {e}")
+            library_ms = None
+        if name in ("w8a8_matmul_bf16_mxu", "w8a8_matmul_stacked_bf16_mxu"):
+            xq, sx = qm.row_quantize_fused(x)
+            cs_k = (cs if idx is None else cs[idx]).reshape(-1).contiguous()
+            bias = r = None
+            if idx is None:
+                ref = qm.w8a8_matmul_plain(x, q, cs, int8_mxu=False)
+                exact = qm.w8a8_matmul_plain(x, q, cs)
+            else:
+                ref = qm.w8a8_matmul_stacked_plain(x, q, cs, idx, int8_mxu=False)
+                exact = qm.w8a8_matmul_stacked_plain(x, q, cs, idx)
+            launch_cs = cs_k if idx is None else cs
+            run = lambda: w8_call(name, x, w, extra_in)  # noqa: E731
+        else:
+            xq, sx, q, idx, cs_k, bias = ep_operands(x, w, extra_in)
+            r = extra_in["r"]
+            operand = q if idx is None else (q, idx)
+            ref = qm.w8a8_matmul_ep_plain(xq, sx, operand, cs_k, bias, residual=r,
+                                          int8_mxu=False)
+            exact = qm.w8a8_matmul_ep_plain(xq, sx, operand, cs_k, bias, residual=r)
+            launch_cs = cs_k
+            run = lambda: qm.w8a8_matmul_ep(xq, sx, operand, cs_k, bias,  # noqa: E731
+                                            residual=r, int8_mxu=False)
+        ep = bias is not None
+        sx1 = sx.reshape(-1)
+        check = w8_check(out, ref)
+        ones = torch.ones_like(launch_cs)
+        faults = {
+            VARIANT_W8A8_FAULTS[0]: fault_entry(w8_check(qm._launch_w8a8(
+                xq, sx1, q, launch_cs, bias, r, k=k - qm.W8A8_BF16_BK, ep=ep, idx=idx,
+                int8_mxu=False), ref)),
+            VARIANT_W8A8_FAULTS[1]: fault_entry(w8_check(qm._launch_w8a8(
+                xq, sx1, q, ones, bias, r, ep=ep, idx=idx, int8_mxu=False), ref)),
+        }
+        against = qm.matmul_agreement(out, exact)
+        ms = timed(run)
+        kernel_ms = timed(lambda: qm._launch_w8a8(xq, sx1, q, launch_cs, bias, r, ep=ep,
+                                                  idx=idx, int8_mxu=False))
+        int8_ms = timed(lambda: qm._launch_w8a8(xq, sx1, q, launch_cs, bias, r, ep=ep,
+                                                idx=idx))
+        blk = q if idx is None else q[idx]
+        plain_ms = cuda_ms(lambda: qm._epilogue_plain(xq, sx, blk, cs_k, bias, r,
+                                                      int8_mxu=False), 2)
+        bound_ms, bound_by = bf16_rate_bound(m, k, n, ep, r is not None)
+        record_shape(per_kernel, key, check, faults, {
+            "shape": [m, k, n], "dtype": "int8 codes at the bf16 rate, bf16 out"
+            + (", bf16 residual" if r is not None else ""),
+            "ms": ms, "kernel_ms": kernel_ms, "int8_kernel_ms": int8_ms, "plain_ms": plain_ms,
+            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "against_integer_plain": {k_: against[k_] for k_ in ("max_abs_err", "mismatches",
+                                                                "ok")}})
+        del out, ref, exact
+    w8_inputs.clear()
+    torch.cuda.empty_cache()
+    ok = ok and all(per_kernel[name]["ok"] for name in VARIANT_KERNELS)
+    return ok, per_kernel, launches, calls
+
+
 def main() -> int:
     try:
         import torch
@@ -4831,6 +5189,9 @@ def main() -> int:
     gc.collect()
     torch.cuda.empty_cache()
     train_ok, train_e2e = timed("train", phase_train, line)
+    var_ok, var_kernels, var_launches, var_calls = timed(
+        "kernel variants", phase_kernel_variants, line)
+    per_kernel.update(var_kernels)
 
     # calls per image of each path, summed over the paths a kernel runs on
     # (the unfused DiT calls count once)
@@ -4840,7 +5201,8 @@ def main() -> int:
                   "flux_w8a8": w8_calls, "w8a8_dit_call_fused_ew_off": off_plan,
                   "flux_w8a8_scan": scan_calls, "w8a8_scan_dit_call_fused_ew_off": scan_off_plan,
                   "flux_w8a8_scan_fbcache_hits": hit_calls, "flux_files_defaults": files_calls,
-                  "flux_lora_unfused_attention": lora_calls, **tp_calls}
+                  "flux_lora_unfused_attention": lora_calls, **tp_calls,
+                  "kernel_variants": var_calls}
     all_calls = {}
     for calls in path_calls.values():
         for key, n in calls.items():
@@ -4852,9 +5214,24 @@ def main() -> int:
              "flux_w8a8_scan": scan_launches,
              "w8a8_scan_dit_call_fused_ew_off": scan_off_launches,
              "flux_w8a8_scan_fbcache_hits": hit_launches, "flux_files_defaults": files_launches,
-             "flux_lora_unfused_attention": lora_launches, **tp_launches}
+             "flux_lora_unfused_attention": lora_launches, **tp_launches,
+             "kernel_variants": var_launches}
+    # the defaults launch no flag variant: every earlier path read each
+    # variant's counter, and it stayed at 0
+    defaults_ok = True
+    for path, launches in paths.items():
+        if path == "kernel_variants":
+            continue
+        stray = {name: launches.get(name) for name in VARIANT_KERNELS
+                 if launches.get(name) != 0}
+        if stray:
+            log(f"FAIL: {path} read these flag variants' counters as {stray} (want 0 each)")
+            defaults_ok = False
+    log(f"launches of the flag variants on the {len(paths) - 1} default paths: "
+        f"{'0 each, ok' if defaults_ok else 'FAIL'}")
     kernels_line = []
-    for name, meta in KERNELS.items():
+    metas = {**KERNELS, **VARIANT_KERNELS}
+    for name, meta in metas.items():
         entry = per_kernel[name]
         shapes = entry["shapes"]
         for s_ in shapes:
@@ -4895,6 +5272,9 @@ def main() -> int:
                    "W8A8 DiT call with fused_ew off in each layout",
             "shapes": shapes,
         })
+        if name in VARIANT_KERNELS:
+            kernels_line[-1]["per"] = ("call: no pipeline reaches the flag variant; one call "
+                                       "at each of phase 25's shapes, summed")
     e2e = {"sd15": sd_e2e, "sd15_sage": sage_e2e, "sd15_defaults": def_e2e,
            "sd15_hires_fix": hires_e2e, "sd15_img2img_usdu": i2i_e2e,
            "sd15_adetailer_previews": ad_e2e, "sd15_webui": webui_e2e, "flux": flux_e2e,
@@ -4906,7 +5286,7 @@ def main() -> int:
     ok = (ref_ok and pipe_ok and sage_ok and def_ok and hires_ok and i2i_ok and ad_ok
           and webui_ok and flux_ref_ok
           and flux_ok and w8_ref_ok and w8_ok and requant_ok and scan_ok and hit_ok and files_ok
-          and tp_ok and train_ok
+          and tp_ok and train_ok and var_ok and defaults_ok
           and all(k["ok"] for k in kernels_line))
     record = {"gpu": line, "kernels": kernels_line, "e2e": e2e, "phase_seconds": seconds,
               "seconds": time.perf_counter() - t_start}

@@ -29,10 +29,11 @@ What of the JAX ``config.py`` has no counterpart, and why:
 - ``data_parallel`` and ``model_parallel``: read nowhere in the JAX
   package either; the port's mesh is the process group's (``torchrun``'s
   world, a (1, world) mesh for Flux under ``LDT_FLUX_TP``, see
-  ``pipelines/pipeline.py``) or ``parallel.make_mesh``'s arguments;
-- the ``int8_mxu=False`` variant of the W8A8 matmuls and of the int8
-  attention (int8 codes multiplied at the bf16 rate): only the int8
-  tensor-core path is in use, and the kernels implement that one.
+  ``pipelines/pipeline.py``) or ``parallel.make_mesh``'s arguments.
+
+The JAX package's kernel flags ``int8_mxu`` and ``pv_int8`` are arguments
+of the ops (``ops.quant_matmul``'s W8A8 matmuls, ``ops.sage_attention``),
+not fields here, as there.
 """
 
 from __future__ import annotations

@@ -1,9 +1,12 @@
 // K4: int8 ("sage") attention on integer wgmma, and its preparation.
 //
 // Replaces: lightdiffusion_next_tpu/ops/sage_attention.py sage_attention
-//   (pallas_call at :226, kernel body _kernel at :53), in the configuration
-//   the dispatch calls: int8_mxu=True, pv_int8=True; and the preparation that
-//   function runs before its pallas_call as one XLA pass (:169-222).
+//   (pallas_call at :226, kernel body _kernel at :53) with its defaults,
+//   int8_mxu=True, pv_int8=True (the configuration the dispatch calls; the
+//   three other flag pairs are sage_attention_variants.cu's); and the
+//   preparation that function runs before its pallas_call as one XLA pass
+//   (:169-222), for every flag pair: with pv_int8=False (:187-191) it writes
+//   V centred and rounded to bf16 in place of its codes, and svs = 1.
 //
 // The function, per (batch, head), as the JAX wrapper and kernel compute it:
 // K and V centred over tokens (their means kmu, vmu per channel), Q and the
@@ -37,6 +40,8 @@
 //     past Lk), then V codes transposed, [BN / 32][DV channels][32 bytes],
 //     the 32 tokens of each group stored in the order of kPermNote below;
 //     tokens past Lk and channels past d zero codes. ceil(Lk / BN) images.
+//     With pv_int8=False V is bf16 instead, [d channels][BN tokens], the
+//     tokens of each group of 32 in the same order (unswizzled), zero past Lk.
 // Every 32-byte row lies 32-byte-swizzled (hopper.cuh): chunk j of row r at
 // j ^ ((r >> 2) & 1). DP = d padded to 32 (the k32 step), DV = d with 40
 // padded to 48 (8-bit wgmma has no N = 40), BN = 128 kv tokens for d <= 80,
@@ -121,6 +126,7 @@ struct Cfg {
   static constexpr int SkBytes = BN * 4;
   static constexpr int Pass0Bytes = KBytes + SkBytes;
   static constexpr int Img = Pass0Bytes + DV * BN;   // kv image
+  static constexpr int ImgBf16 = Pass0Bytes + 2 * D * BN;  // kv image, bf16 V (pv_int8=False)
   static constexpr int QImg = kQRows * DP + kQRows * 4;
   static constexpr int Stage = (Img + 1023) / 1024 * 1024;
   static constexpr int QBytes = (2 * QImg + 1023) / 1024 * 1024;
@@ -128,8 +134,14 @@ struct Cfg {
   static constexpr int kBar = kAcc + DV / 2 * kConsumers * 4;
   static constexpr int kSmem = kBar + (2 * kStages + 1) * 8 + kAtom;  // + alignment
   // sage_quantize_kernel: the image, kmu, vmu and sv, the staged k and v rows
-  static constexpr int PrepImg = Img > QImg ? Img : QImg;
-  static constexpr int PrepSmem = PrepImg + 3 * D * 4 + 2 * BN * D * 2;
+  // (pv8: V as int8 codes, else as bf16)
+  __host__ __device__ static constexpr int kv_img(bool pv8) { return pv8 ? Img : ImgBf16; }
+  __host__ __device__ static constexpr int prep_img(bool pv8) {
+    return kv_img(pv8) > QImg ? kv_img(pv8) : QImg;
+  }
+  __host__ __device__ static constexpr int prep_smem(bool pv8) {
+    return prep_img(pv8) + 3 * D * 4 + 2 * BN * D * 2;
+  }
 };
 
 // Byte offset of byte `col` of row `row` in an operand of `rows` rows laid
@@ -287,17 +299,19 @@ __device__ __forceinline__ float quantize_row(const __nv_bfloat16* __restrict__ 
 // The tile images: blocks x < qt write q image x, the others kv image x - qt,
 // of (b, h) = blockIdx.y. The rows are staged in shared memory first, the
 // image is built there (zeroed first) and written out in 16-byte stores.
-template <int D>
+// PV8: V as int8 codes (pv_int8=True), else as centred bf16 and svs = 1.
+template <int D, bool PV8>
 __global__ void __launch_bounds__(kPrepThreads) sage_quantize_kernel(const PrepParams p) {
   using C = Cfg<D>;
+  constexpr int kPrepImg = C::prep_img(PV8);
   extern __shared__ __align__(16) unsigned char img[];
-  float* stat = reinterpret_cast<float*>(img + C::PrepImg);
-  __nv_bfloat16* rows = reinterpret_cast<__nv_bfloat16*>(img + C::PrepImg + 3 * D * 4);
+  float* stat = reinterpret_cast<float*>(img + kPrepImg);
+  __nv_bfloat16* rows = reinterpret_cast<__nv_bfloat16*>(img + kPrepImg + 3 * D * 4);
   const int bh = blockIdx.y;
   const int b = bh / p.heads, h = bh % p.heads;
   const bool is_q = static_cast<int>(blockIdx.x) < p.qt;
   const int item = is_q ? blockIdx.x : blockIdx.x - p.qt;
-  const int bytes = is_q ? C::QImg : C::Img;
+  const int bytes = is_q ? C::QImg : C::kv_img(PV8);
   const int warp = threadIdx.x >> 5;
   for (int i = threadIdx.x * 16; i < bytes; i += kPrepThreads * 16) {
     *reinterpret_cast<uint4*>(img + i) = make_uint4(0u, 0u, 0u, 0u);
@@ -326,7 +340,7 @@ __global__ void __launch_bounds__(kPrepThreads) sage_quantize_kernel(const PrepP
       stat[D + c] = vmu;
       stat[2 * D + c] = sv;
       if (item == 0) {
-        p.svs[bh * D + c] = __fmul_rn(sv, 1.f / 127.f);
+        p.svs[bh * D + c] = PV8 ? __fmul_rn(sv, 1.f / 127.f) : 1.f;
         p.vmu[bh * D + c] = vmu;
       }
     }
@@ -352,9 +366,14 @@ __global__ void __launch_bounds__(kPrepThreads) sage_quantize_kernel(const PrepP
         const int col = (r & ~31) + v_position(r & 31);
         for (int c = lane; c < D; c += 32) {
           const float x = __fsub_rn(__bfloat162float(vrows[r * D + c]), stat[D + c]);
-          const float code =
-              fminf(fmaxf(rintf(__fdiv_rn(x, stat[2 * D + c])), -127.f), 127.f);
-          vimg[sw32(c, col, C::DV)] = static_cast<unsigned char>(static_cast<int>(code) & 0xff);
+          if (PV8) {
+            const float code =
+                fminf(fmaxf(rintf(__fdiv_rn(x, stat[2 * D + c])), -127.f), 127.f);
+            vimg[sw32(c, col, C::DV)] =
+                static_cast<unsigned char>(static_cast<int>(code) & 0xff);
+          } else {
+            reinterpret_cast<__nv_bfloat16*>(vimg)[c * C::BN + col] = __float2bfloat16_rn(x);
+          }
         }
       }
     }
@@ -362,21 +381,21 @@ __global__ void __launch_bounds__(kPrepThreads) sage_quantize_kernel(const PrepP
   __syncthreads();
   unsigned char* dst = is_q
       ? p.qimg + (static_cast<long long>(bh) * p.qt + item) * C::QImg
-      : p.kvimg + (static_cast<long long>(bh) * p.kt + item) * C::Img;
+      : p.kvimg + (static_cast<long long>(bh) * p.kt + item) * C::kv_img(PV8);
   for (int i = threadIdx.x * 16; i < bytes; i += kPrepThreads * 16) {
     *reinterpret_cast<uint4*>(dst + i) = *reinterpret_cast<const uint4*>(img + i);
   }
 }
 
-template <int D>
+template <int D, bool PV8>
 int prepare(const PrepParams& p, int batch, cudaStream_t stream) {
-  using C = Cfg<D>;
-  auto quantize = sage_quantize_kernel<D>;
+  constexpr int kPrepSmem = Cfg<D>::prep_smem(PV8);
+  auto quantize = sage_quantize_kernel<D, PV8>;
   cudaError_t e = cudaFuncSetAttribute(
-      quantize, cudaFuncAttributeMaxDynamicSharedMemorySize, C::PrepSmem);
+      quantize, cudaFuncAttributeMaxDynamicSharedMemorySize, kPrepSmem);
   if (e != cudaSuccess) return static_cast<int>(e);
   sage_stats_kernel<D><<<dim3(p.splits, batch * p.heads), kStatThreads, 0, stream>>>(p);
-  quantize<<<dim3(p.qt + p.kt, batch * p.heads), kPrepThreads, C::PrepSmem, stream>>>(p);
+  quantize<<<dim3(p.qt + p.kt, batch * p.heads), kPrepThreads, kPrepSmem, stream>>>(p);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -784,13 +803,14 @@ bool images_fit(int lq, int lk, int qt, int kt) {
 // header; qt = ceil(Lq / 128) * 2, kt = ceil(Lk / BN)), svs and vmu (B*H, d)
 // f32, using part (B*H, 16, 4, d) f32 as scratch (one slice of the column
 // statistics per 1024 tokens, at most 16). inv_sqrt_d is folded into sq.
+// pv_int8 0: the kv images hold V as centred bf16, and svs is 1.
 extern "C" int ldt_sage_prepare_fwd(const void* q, const void* k, const void* v, void* qimg,
                                     void* kvimg, void* svs, void* vmu, void* part, int batch,
                                     int heads, int lq, int lk, int d, long long qs_b,
                                     long long qs_h, long long qs_l, long long ks_b,
                                     long long ks_h, long long ks_l, long long vs_b,
                                     long long vs_h, long long vs_l, int qt, int kt,
-                                    float inv_sqrt_d, void* stream) {
+                                    float inv_sqrt_d, int pv_int8, void* stream) {
   if (batch < 1 || heads < 1 || lq < 1 || lk < 1 || batch * heads > 65535 || qs_l % 2 || ks_l % 2 || vs_l % 2 || qs_h % 2 || ks_h % 2 || vs_h % 2 ||
       qs_b % 2 || ks_b % 2 || vs_b % 2) {
     return kErrUnsupported;
@@ -806,7 +826,7 @@ extern "C" int ldt_sage_prepare_fwd(const void* q, const void* k, const void* v,
 #define LDT_SAGE_PREP_CASE(DIM)                                   \
   case DIM:                                                        \
     if (!images_fit<DIM>(lq, lk, qt, kt)) return kErrUnsupported;  \
-    return prepare<DIM>(p, batch, s);
+    return pv_int8 ? prepare<DIM, true>(p, batch, s) : prepare<DIM, false>(p, batch, s);
   switch (d) {
     LDT_SAGE_DIMS(LDT_SAGE_PREP_CASE)
     default:

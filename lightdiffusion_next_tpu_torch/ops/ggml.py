@@ -11,7 +11,7 @@ and the W8A8 record ``QTensor8W`` (``to_w8a8``: int8 codes with one f32
 scale per output column) with K7 in ``fused_matmul`` and the fused
 K9/K10 + K11 path in ``modulated_matmul``. Each tensor is read into a
 buffer of its own and Q8_0's 34-byte blocks (f16 scale, 32 int8 codes)
-are split by torch's copies.
+are split by the C++ split of ``utils/native.py``, as the JAX reader's.
 
 The scan layout stacks D same-shaped records along a leading depth axis
 (``stack_leaves``): ``StackedQTensor8T`` (codes (D, K, N), scales (D, K/32,
@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
+from lightdiffusion_next_tpu_torch.utils import native
 
 GGUF_MAGIC = 0x46554747
 
@@ -644,7 +645,8 @@ def _load_tensor(info: GGUFTensorInfo, f, data_start: int):
     """One tensor read from the open file ``f`` with ``readinto`` into a
     buffer of its own (no page of the file stays mapped, and the kernel
     copies from its page cache without a fault per page); Q8_0's 34-byte
-    blocks are split by torch's threaded copies."""
+    blocks are split by ``utils.native.split_q8_0``, the C++ split, as the
+    JAX reader's (``native.split_q8_0_plain`` is torch's copies)."""
     n_elems = math.prod(info.shape)
     nbytes = {GGML_F32: 4 * n_elems, GGML_F16: 2 * n_elems, GGML_BF16: 2 * n_elems,
               GGML_Q8_0: n_elems // 32 * 34}.get(info.ggml_type)
@@ -660,14 +662,11 @@ def _load_tensor(info: GGUFTensorInfo, f, data_start: int):
         return raw.view(torch.float16).reshape(info.shape).float()
     if info.ggml_type == GGML_BF16:
         return raw.view(torch.bfloat16).reshape(info.shape).float()
-    blocks = raw.reshape(-1, 34)
+    q, scales = native.split_q8_0(raw.reshape(-1, 34))
     rows = info.shape[:-1]
     per_row = info.shape[-1] // 32
-    return QTensor8(
-        q=blocks[:, 2:].contiguous().view(torch.int8).reshape(rows + (per_row, 32)),
-        scales=blocks[:, :2].contiguous().view(torch.float16).float().reshape(rows + (per_row,)),
-        shape=tuple(info.shape),
-    )
+    return QTensor8(q=q.reshape(rows + (per_row, 32)), scales=scales.reshape(rows + (per_row,)),
+                    shape=tuple(info.shape))
 
 
 KNOWN_ARCHS = {"flux", "sd1", "sdxl", "t5", "t5encoder"}

@@ -41,6 +41,15 @@ backward raises: no kernel has a backward. K7's and K8's row quantization is K9'
 "none" law, so on the card ``w8a8_matmul`` launches K9 and then K7, and
 ``w8a8_matmul_stacked`` K9 and then K8.
 
+``int8_mxu=False`` on ``w8a8_matmul``, ``w8a8_matmul_stacked``,
+``w8a8_matmul_ep`` and ``w8a8_matmul_ep_stacked`` (default True, as in the
+JAX package, whose pipelines never set it): the same int8 operands
+multiplied at the bf16 rate into an f32 accumulator
+(``csrc/w8a8_matmul_bf16.cu``, ``mma.sync`` on the bf16 tensor cores), with
+the same epilogues; counted in each wrapper's ``launches_bf16``. Its plain
+version multiplies the codes as f32 (``torch.matmul``), exact while a
+partial sum stays below 2^24, so on the CPU it equals the integer one.
+
 Not ported here: the TPU's tile tables and VMEM estimators, which are not
 semantics.
 """
@@ -61,7 +70,12 @@ QBLOCK = 32  # Q8_0 quantization block (elements per scale)
 # main-path shapes: at most one bf16 ulp at max |plain| and a relative RMS
 # error of at most 3.0e-4; the limits are three ulps and 1e-3. The planted
 # faults (the last K tile skipped, each block read with its neighbour's
-# scale row) read 0.064 or more.
+# scale row) read 0.064 or more. The bf16-rate W8A8 kernel (int8_mxu=False)
+# is held to the same limits: its products are exact, and so are its sums
+# below 2^24; past it the card's and the plain version's f32 sums round in
+# another order. Measured on an H100 at chip_smoke.py phase 25's shapes (K
+# up to 12288, codes of random weights and activations): bit for bit; its
+# planted faults (the last K step skipped, cs not applied) fail the limits.
 MAX_ULPS = 3
 REL_RMSE_LIMIT = 1e-3
 
@@ -243,6 +257,10 @@ def supported_w8a8(m: int, k: int, n: int) -> bool:
 # W8A8_STAGES, plus one 1024-byte atom of alignment; the source's header
 # holds the times the choice below came from.
 W8A8_TILES = ((256, 128, 2), (192, 256, 3), (64, 64, 1))
+# The bf16-rate variant's one tile (csrc/w8a8_matmul_bf16.cu): 128 x 128
+# outputs, K steps of 64 codes
+W8A8_BF16_BN = 128
+W8A8_BF16_BK = 64
 W8A8_BK = 128
 W8A8_STAGES = 4
 SMS = 132  # an H100's streaming multiprocessors
@@ -326,14 +344,20 @@ def rowquant_geometry(m: int, k: int, prologue: str = "none") -> tuple:
     return vpt, w, g, min(-(-m // g), SMS * per_sm(g))
 
 
-def _epilogue_plain(xq, sx, q, cs, bias=None, residual=None, out_dtype=torch.bfloat16):
+def _epilogue_plain(xq, sx, q, cs, bias=None, residual=None, out_dtype=torch.bfloat16,
+                    int8_mxu=True):
     """The W8A8 matmul on codes, in plain PyTorch: the int32 accumulator
     exactly (a float64 product of the codes: every partial sum is an integer
     below 2^53), then in f32 ``(acc * sx) * cs``, ``+ bias``, or ``(residual
-    + (acc * sx) * cs) + bias``, each operation rounded."""
+    + (acc * sx) * cs) + bias``, each operation rounded. ``int8_mxu=False``
+    (the bf16-rate variant): the codes as f32 through ``torch.matmul``, an
+    f32 accumulator, exact while every partial sum stays below 2^24."""
     k = xq.shape[-1]
     n = q.shape[0]
-    acc = torch.matmul(xq.reshape(-1, k).double(), q.double().t()).float()
+    if int8_mxu:
+        acc = torch.matmul(xq.reshape(-1, k).double(), q.double().t()).float()
+    else:
+        acc = torch.matmul(xq.reshape(-1, k).float(), q.float().t())
     o = acc * sx.reshape(-1, 1).float() * cs.reshape(1, n).float()
     if residual is not None:
         o = residual.reshape(-1, n).float() + o
@@ -342,10 +366,11 @@ def _epilogue_plain(xq, sx, q, cs, bias=None, residual=None, out_dtype=torch.bfl
     return o.to(out_dtype).reshape(xq.shape[:-1] + (n,))
 
 
-def w8a8_matmul_plain(x, q, col_scales, out_dtype=None):
+def w8a8_matmul_plain(x, q, col_scales, out_dtype=None, int8_mxu=True):
     """Plain PyTorch version of ``w8a8_matmul``."""
     codes, sx = quantize_rows(x)
-    return _epilogue_plain(codes, sx, q, col_scales, out_dtype=out_dtype or x.dtype)
+    return _epilogue_plain(codes, sx, q, col_scales, out_dtype=out_dtype or x.dtype,
+                           int8_mxu=int8_mxu)
 
 
 def _check_matmul_operands(xq, sx, q, cs, stacked=False):
@@ -369,13 +394,31 @@ def _check_matmul_operands(xq, sx, q, cs, stacked=False):
                          "16-byte aligned")
 
 
+def _ep_operands(bias, residual, m, n):
+    """K11's bias and residual as the kernels take them: (bias pointer,
+    residual pointer or None, the residual's row stride)."""
+    if bias is None or bias.dtype != torch.float32 or bias.numel() != n \
+            or not bias.is_contiguous():
+        raise ValueError("w8a8_matmul_ep: the kernel takes a contiguous f32 (N,) bias")
+    if residual is None:
+        return bias.data_ptr(), None, 0
+    if residual.dtype != torch.bfloat16 or residual.shape != (m, n) \
+            or residual.stride(1) != 1 or residual.stride(0) % 8 \
+            or residual.data_ptr() % 16:
+        raise ValueError("w8a8_matmul_ep: the residual must be bf16 (M, N) rows, "
+                         "16-byte aligned")
+    return bias.data_ptr(), residual.data_ptr(), residual.stride(0)
+
+
 def _launch_w8a8(xq, sx, q, cs, bias=None, residual=None, k=None, ep=False, idx=None,
-                 tile=None):
+                 tile=None, int8_mxu=True):
     """Launch K7 (``ep=False``) or K11 on 2-D codes xq (M, K) and q (N, K);
     with ``idx``, K8 or the stacked K11 on block ``idx`` of the (D, N, K)
     stack q (K8: cs the stack's (D, 1, N) column scales, read at ``idx``
     too; K11: cs the folded (N,) vector). ``k`` (default K) is the number
-    of K bytes summed; ``tile`` (default ``w8a8_tile``) the tile's id."""
+    of K bytes summed; ``tile`` (default ``w8a8_tile``) the tile's id.
+    ``int8_mxu=False``: the bf16-rate kernel (``csrc/w8a8_matmul_bf16.cu``,
+    one 128 x 128 tile) in place of the int8 one, on the same operands."""
     stacked = idx is not None
     _check_matmul_operands(xq, sx, q, cs, stacked)
     m, kx = xq.shape
@@ -392,6 +435,9 @@ def _launch_w8a8(xq, sx, q, cs, bias=None, residual=None, k=None, ep=False, idx=
     if cs.numel() != (depth * n if stacked and not ep else n):
         raise ValueError(f"w8a8 matmul: cs {tuple(cs.shape)} for codes {tuple(q.shape)}: K8 "
                          "takes the stack's (D, 1, N) column scales, K7 and K11 (N,)")
+    if not int8_mxu:
+        return _launch_w8a8_bf16(xq, sx, q, cs, bias, residual, out, k, ep, depth,
+                                 idx if stacked else 0, stream)
     if not ep:
         name = "w8a8_matmul_stacked" if stacked else "w8a8_matmul"
         args = (xq.data_ptr(), sx.data_ptr(), q.data_ptr(), cs.data_ptr(), out.data_ptr(),
@@ -399,19 +445,9 @@ def _launch_w8a8(xq, sx, q, cs, bias=None, residual=None, k=None, ep=False, idx=
         rc = cuda_build.entry_point(name)(*args, *((depth, idx) if stacked else ()), stream)
     else:
         name = "w8a8_matmul_ep_stacked" if stacked else "w8a8_matmul_ep"
-        if bias is None or bias.dtype != torch.float32 or bias.numel() != n \
-                or not bias.is_contiguous():
-            raise ValueError("w8a8_matmul_ep: the kernel takes a contiguous f32 (N,) bias")
-        res_ptr, ldr = None, 0
-        if residual is not None:
-            if residual.dtype != torch.bfloat16 or residual.shape != (m, n) \
-                    or residual.stride(1) != 1 or residual.stride(0) % 8 \
-                    or residual.data_ptr() % 16:
-                raise ValueError("w8a8_matmul_ep: the residual must be bf16 (M, N) rows, "
-                                 "16-byte aligned")
-            res_ptr, ldr = residual.data_ptr(), residual.stride(0)
+        bias_ptr, res_ptr, ldr = _ep_operands(bias, residual, m, n)
         rc = cuda_build.entry_point(name)(
-            xq.data_ptr(), sx.data_ptr(), q.data_ptr(), cs.data_ptr(), bias.data_ptr(),
+            xq.data_ptr(), sx.data_ptr(), q.data_ptr(), cs.data_ptr(), bias_ptr,
             res_ptr, out.data_ptr(), m, n, k, kx, kx, ldr, tile,
             *((depth, idx) if stacked else ()), stream)
     if rc != 0:
@@ -419,59 +455,95 @@ def _launch_w8a8(xq, sx, q, cs, bias=None, residual=None, k=None, ep=False, idx=
     return out
 
 
+def _launch_w8a8_bf16(xq, sx, q, cs, bias, residual, out, k, ep, depth, idx, stream):
+    """The bf16-rate K7, K8 or K11 (``int8_mxu=False``) on checked operands:
+    block ``idx`` of ``depth`` (1: a plain weight); K8's column scales read
+    at the block here."""
+    m, kx = xq.shape
+    n = q.shape[-2]
+    if k % W8A8_BF16_BK or n % W8A8_BF16_BN:
+        raise ValueError(f"w8a8 matmul (bf16 rate): K = {k}, N = {n} not taken")
+    bias_ptr, res_ptr, ldr = _ep_operands(bias, residual, m, n) if ep else (None, None, 0)
+    cs_ptr = cs.data_ptr() + (0 if ep else 4 * idx * n)
+    name = "w8a8_matmul_bf16"
+    rc = cuda_build.entry_point(name)(
+        xq.data_ptr(), sx.data_ptr(), q.data_ptr(), cs_ptr, bias_ptr, res_ptr,
+        out.data_ptr(), m, n, k, kx, kx, ldr, depth, idx, stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel failed: " + cuda_build.error_string(name, rc))
+    return out
+
+
+def _count(fn, int8_mxu: bool):
+    """One launch of ``fn``'s kernel: ``launches``, or ``launches_bf16`` for
+    its bf16-rate variant."""
+    if int8_mxu:
+        fn.launches += 1
+    else:
+        fn.launches_bf16 += 1
+
+
 @grad_guard.no_backward("w8a8_matmul (K7)")
-def w8a8_matmul(x, q, col_scales, out_dtype=None):
+def w8a8_matmul(x, q, col_scales, out_dtype=None, int8_mxu=True):
     """K7: x (..., K) float times the W8A8 weight (codes q (N, K) int8,
     ``col_scales`` (1, N) f32) -> (..., N) in ``out_dtype`` (x's dtype). On
-    the GPU, bf16 in and out; x is row-quantized by K9 ("none") first."""
+    the GPU, bf16 in and out; x is row-quantized by K9 ("none") first.
+    ``int8_mxu=False``: the codes multiplied at the bf16 rate
+    (``csrc/w8a8_matmul_bf16.cu``), counted in ``launches_bf16``."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
-        return w8a8_matmul_plain(x, q, col_scales, out_dtype)
+        return w8a8_matmul_plain(x, q, col_scales, out_dtype, int8_mxu)
     if out_dtype != torch.bfloat16:
         raise TypeError("w8a8_matmul: the kernel writes bf16")
     k = x.shape[-1]
     codes, sx = row_quantize_fused(x)
-    out = _launch_w8a8(codes.reshape(-1, k), sx.reshape(-1), q, col_scales.reshape(-1))
-    w8a8_matmul.launches += 1
+    out = _launch_w8a8(codes.reshape(-1, k), sx.reshape(-1), q, col_scales.reshape(-1),
+                       int8_mxu=int8_mxu)
+    _count(w8a8_matmul, int8_mxu)
     return out.reshape(x.shape[:-1] + (q.shape[0],))
 
 
 w8a8_matmul.launches = 0
+w8a8_matmul.launches_bf16 = 0
 
 
-def w8a8_matmul_stacked_plain(x, q3, col_scales3, idx, out_dtype=None):
+def w8a8_matmul_stacked_plain(x, q3, col_scales3, idx, out_dtype=None, int8_mxu=True):
     """Plain PyTorch version of K8: K7's on block ``idx`` of the stack."""
     idx = _stack_index(q3.shape[0], idx)
-    return w8a8_matmul_plain(x, q3[idx], col_scales3[idx], out_dtype)
+    return w8a8_matmul_plain(x, q3[idx], col_scales3[idx], out_dtype, int8_mxu)
 
 
 @grad_guard.no_backward("w8a8_matmul_stacked (K8)")
-def w8a8_matmul_stacked(x, q3, col_scales3, idx, out_dtype=None):
+def w8a8_matmul_stacked(x, q3, col_scales3, idx, out_dtype=None, int8_mxu=True):
     """K8: x (..., K) float times block ``idx`` of a W8A8 stack (codes q3
     (D, N, K) int8, ``col_scales3`` (D, 1, N) f32) -> (..., N), as K7
-    computes it; x is row-quantized by K9 ("none") first."""
+    computes it; x is row-quantized by K9 ("none") first. ``int8_mxu``
+    as for K7."""
     out_dtype = out_dtype or x.dtype
     if x.device.type == "cpu":
-        return w8a8_matmul_stacked_plain(x, q3, col_scales3, idx, out_dtype)
+        return w8a8_matmul_stacked_plain(x, q3, col_scales3, idx, out_dtype, int8_mxu)
     if out_dtype != torch.bfloat16:
         raise TypeError("w8a8_matmul_stacked: the kernel writes bf16")
     k = x.shape[-1]
     codes, sx = row_quantize_fused(x)
-    out = _launch_w8a8(codes.reshape(-1, k), sx.reshape(-1), q3, col_scales3, idx=idx)
-    w8a8_matmul_stacked.launches += 1
+    out = _launch_w8a8(codes.reshape(-1, k), sx.reshape(-1), q3, col_scales3, idx=idx,
+                       int8_mxu=int8_mxu)
+    _count(w8a8_matmul_stacked, int8_mxu)
     return out.reshape(x.shape[:-1] + (q3.shape[1],))
 
 
 w8a8_matmul_stacked.launches = 0
+w8a8_matmul_stacked.launches_bf16 = 0
 
 
-def w8a8_matmul_ep_plain(xq, sx, q, cs_eff, b_eff, residual=None, out_dtype=torch.bfloat16):
+def w8a8_matmul_ep_plain(xq, sx, q, cs_eff, b_eff, residual=None, out_dtype=torch.bfloat16,
+                         int8_mxu=True):
     """Plain PyTorch version of K11 (``_epilogue_plain`` with the bias); a
     ``(q3, idx)`` operand is block ``idx`` of the stack."""
     if isinstance(q, tuple):
         q3, idx = q
         q = q3[_stack_index(q3.shape[0], idx)]
-    return _epilogue_plain(xq, sx, q, cs_eff, b_eff, residual, out_dtype)
+    return _epilogue_plain(xq, sx, q, cs_eff, b_eff, residual, out_dtype, int8_mxu)
 
 
 def _residual_rows(residual, n):
@@ -487,47 +559,54 @@ def _residual_rows(residual, n):
 
 
 @grad_guard.no_backward("w8a8_matmul_ep (K11)")
-def w8a8_matmul_ep(xq, sx, q, cs_eff, b_eff, residual=None, out_dtype=torch.bfloat16):
+def w8a8_matmul_ep(xq, sx, q, cs_eff, b_eff, residual=None, out_dtype=torch.bfloat16,
+                   int8_mxu=True):
     """K11: prequantized xq (..., K) int8 with scales sx (..., 1) times the
     W8A8 codes q (N, K) -> (..., N), epilogue ``(f32(acc) * sx) * cs_eff +
     b_eff`` or ``(residual + (f32(acc) * sx) * cs_eff) + b_eff``. ``cs_eff``
     and ``b_eff`` are (1, N) f32 with the gate folded in by the caller. The
     scan layout's ``(q3, idx)`` operand goes to ``w8a8_matmul_ep_stacked``
-    (which counts that launch)."""
+    (which counts that launch). ``int8_mxu`` as for K7."""
     if isinstance(q, tuple):
-        return w8a8_matmul_ep_stacked(xq, sx, q[0], q[1], cs_eff, b_eff, residual, out_dtype)
+        return w8a8_matmul_ep_stacked(xq, sx, q[0], q[1], cs_eff, b_eff, residual, out_dtype,
+                                      int8_mxu)
     n, k = q.shape
     if xq.device.type == "cpu":
-        return w8a8_matmul_ep_plain(xq, sx, q, cs_eff, b_eff, residual, out_dtype)
+        return w8a8_matmul_ep_plain(xq, sx, q, cs_eff, b_eff, residual, out_dtype, int8_mxu)
     if out_dtype != torch.bfloat16:
         raise TypeError("w8a8_matmul_ep: the kernel writes bf16")
     out = _launch_w8a8(xq.reshape(-1, k), sx.reshape(-1), q, cs_eff.reshape(-1),
-                       b_eff.reshape(-1), _residual_rows(residual, n), ep=True)
-    w8a8_matmul_ep.launches += 1
+                       b_eff.reshape(-1), _residual_rows(residual, n), ep=True,
+                       int8_mxu=int8_mxu)
+    _count(w8a8_matmul_ep, int8_mxu)
     return out.reshape(xq.shape[:-1] + (n,))
 
 
 w8a8_matmul_ep.launches = 0
+w8a8_matmul_ep.launches_bf16 = 0
 
 
 @grad_guard.no_backward("w8a8_matmul_ep_stacked (stacked K11)")
 def w8a8_matmul_ep_stacked(xq, sx, q3, idx, cs_eff, b_eff, residual=None,
-                           out_dtype=torch.bfloat16):
+                           out_dtype=torch.bfloat16, int8_mxu=True):
     """The stacked K11: ``w8a8_matmul_ep`` on block ``idx`` of the W8A8
     codes q3 (D, N, K), read in place; ``cs_eff`` and ``b_eff`` are the
     caller's (1, N) folds of that block's column scales."""
     d, n, k = q3.shape
     if xq.device.type == "cpu":
-        return w8a8_matmul_ep_plain(xq, sx, (q3, idx), cs_eff, b_eff, residual, out_dtype)
+        return w8a8_matmul_ep_plain(xq, sx, (q3, idx), cs_eff, b_eff, residual, out_dtype,
+                                    int8_mxu)
     if out_dtype != torch.bfloat16:
         raise TypeError("w8a8_matmul_ep_stacked: the kernel writes bf16")
     out = _launch_w8a8(xq.reshape(-1, k), sx.reshape(-1), q3, cs_eff.reshape(-1),
-                       b_eff.reshape(-1), _residual_rows(residual, n), ep=True, idx=idx)
-    w8a8_matmul_ep_stacked.launches += 1
+                       b_eff.reshape(-1), _residual_rows(residual, n), ep=True, idx=idx,
+                       int8_mxu=int8_mxu)
+    _count(w8a8_matmul_ep_stacked, int8_mxu)
     return out.reshape(xq.shape[:-1] + (n,))
 
 
 w8a8_matmul_ep_stacked.launches = 0
+w8a8_matmul_ep_stacked.launches_bf16 = 0
 
 
 # --------------------------------------------------------------------------

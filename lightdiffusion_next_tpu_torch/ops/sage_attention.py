@@ -1,11 +1,12 @@
-"""Int8 ("sage") attention: the hand-written CUDA kernel K4, its
-preparation kernel, and their plain versions. Opt-in
+"""Int8 ("sage") attention: the hand-written CUDA kernel K4, its flag
+variants, its preparation kernel, and their plain versions. Opt-in
 (``RuntimeConfig.sage_attention``), as in the JAX package.
 
 Counterpart of lightdiffusion_next_tpu/ops/sage_attention.py
-``sage_attention`` with ``int8_mxu=True, pv_int8=True``, the configuration
-its dispatch calls. The scheme: K and V are centred over tokens (exact for
-the softmax, and V's mean is added back after normalisation); Q and K are
+``sage_attention``; K4 is its default, ``int8_mxu=True, pv_int8=True``,
+the configuration its dispatch calls. The scheme: K and V are centred over
+tokens (exact for the softmax, and V's mean is added back after
+normalisation); Q and K are
 quantized to int8 per token, V per channel, 1/sqrt(d) folded into Q's
 scale; the kernel multiplies int8 by int8 with exact int32 sums, runs the
 online softmax in f32, quantizes P as round(p * 127) and multiplies it by V
@@ -36,12 +37,25 @@ and the plain version take the JAX kernel's (``softmax_block``: 1024
 tokens at SD1.5's lengths); the kernel visits a block twice, once for the
 maxima and once for the rest.
 
-Neither kernel has a backward: an input that requires grad goes through
-the wrapper's ``grad_guard.no_backward``, whose backward raises.
+The flag variants, as the JAX function takes them (only its op-level
+callers set them; the dispatch and the pipelines do not):
 
-Not ported (ROADMAP Queue 2): the ``pv_int8=False`` quality variant (bf16
-P.V on unquantized V) and the ``int8_mxu=False`` variant (the int8 codes
-multiplied at the bf16 rate); the configuration reaches neither.
+- ``int8_mxu=False``: the same int8 codes multiplied at the bf16 rate into
+  f32 accumulators. Every sum is an integer below 2^24, so the function is
+  K4's exactly: the plain version's output is the default's bit for bit;
+- ``pv_int8=False``, the quality variant: Q.K^T on the int8 codes as in
+  K4, then P rounded to bf16 times the centred V rounded to bf16 (no V
+  codes; the preparation writes bf16 V into the kv images,
+  ``kv_image_bytes``, and svs = 1, which the kernel does not read), f32
+  accumulators;
+- both: Q.K^T at the bf16 rate and the bf16 P.V.
+
+On the card the three go to one more kernel (``_launch_variant``,
+csrc/sage_attention_variants.cu, ``mma.sync``) after the same preparation,
+counted in the wrapper's ``VARIANT_COUNTERS[(int8_mxu, pv_int8)]``.
+
+No kernel has a backward: an input that requires grad goes through the
+wrapper's ``grad_guard.no_backward``, whose backward raises.
 """
 
 from __future__ import annotations
@@ -133,12 +147,14 @@ def _quant_rows(x):
     return torch.clamp(torch.round(x / s), -127, 127).to(torch.int8), s
 
 
-def prepare(q, k, v):
+def prepare(q, k, v, pv_int8=True):
     """The JAX wrapper's preparation, in f32: (qq, sq, kq, sk, vq, svs, vmu)
     with Q and the centred K quantized per token (sq holding 1/sqrt(d)),
     the centred V per channel (svs = sv * (1/127), the kernel's P.V scale)
     and V's mean over tokens. Shapes (B, H, L, D) for the codes, (B, H, L,
-    1) for sq and sk, (B, H, 1, D) for svs and vmu."""
+    1) for sq and sk, (B, H, 1, D) for svs and vmu. ``pv_int8=False``: vq is
+    the centred V rounded to bf16 and svs is ones (the JAX wrapper's
+    quality variant)."""
     d = q.shape[-1]
     qf, kf, vf = q.float(), k.float(), v.float()
     kf = kf - kf.mean(dim=2, keepdim=True)
@@ -146,16 +162,23 @@ def prepare(q, k, v):
     vf = vf - vmu
     qq, sq = _quant_rows(qf)
     kq, sk = _quant_rows(kf)
-    sv = torch.clamp(vf.abs().amax(dim=2, keepdim=True), min=1e-12) * (1.0 / 127.0)
-    vq = torch.clamp(torch.round(vf / sv), -127, 127).to(torch.int8)
-    return qq, sq * (1.0 / math.sqrt(d)), kq, sk, vq, sv * (1.0 / 127.0), vmu
+    if pv_int8:
+        sv = torch.clamp(vf.abs().amax(dim=2, keepdim=True), min=1e-12) * (1.0 / 127.0)
+        vq = torch.clamp(torch.round(vf / sv), -127, 127).to(torch.int8)
+        svs = sv * (1.0 / 127.0)
+    else:
+        vq = vf.to(torch.bfloat16)
+        svs = torch.ones_like(vmu)
+    return qq, sq * (1.0 / math.sqrt(d)), kq, sk, vq, svs, vmu
 
 
-def _core_plain(qq, sq, kq, sk, vq, svs, block_k: int, out_dtype):
+def _core_plain(qq, sq, kq, sk, vq, svs, block_k: int, out_dtype, pv_int8=True):
     """The kernel's arithmetic on prepared operands, one kv block of
     ``block_k`` tokens at a time. The int8 products are taken in f32, which
     is exact here: every partial sum is an integer below 2^24 (127 * 127 *
-    160 for Q.K^T, 127 * 127 * 1024 for P.V)."""
+    160 for Q.K^T, 127 * 127 * 1024 for P.V), so ``int8_mxu`` (the rate the
+    card multiplies the codes at) does not enter. ``pv_int8=False``: P
+    rounded to bf16 times the bf16 V ``vq``, summed in f32, unscaled."""
     lk = kq.shape[2]
     qf = qq.float()
     m = torch.full(sq.shape, NEG_INF, dtype=torch.float32, device=qq.device)
@@ -168,20 +191,26 @@ def _core_plain(qq, sq, kq, sk, vq, svs, block_k: int, out_dtype):
         p = torch.exp(s - m_new)
         alpha = torch.exp(m - m_new)
         l = l * alpha + p.sum(dim=-1, keepdim=True)
-        pv = torch.matmul(torch.round(p * 127.0), vq[:, :, k0:k0 + block_k].float())
-        acc = acc * alpha + pv * svs
+        vb = vq[:, :, k0:k0 + block_k].float()
+        if pv_int8:
+            pv = torch.matmul(torch.round(p * 127.0), vb) * svs
+        else:
+            pv = torch.matmul(p.to(torch.bfloat16).float(), vb)
+        acc = acc * alpha + pv
         m = m_new
     return (acc / l).to(out_dtype)
 
 
-def sage_attention_plain(q, k, v, block_k=None):
-    """Plain PyTorch version of K4: q (B, H, Lq, D), k/v (B, H, Lk, D) ->
-    (B, H, Lq, D) in q's dtype, the JAX kernel's f32 arithmetic written as
-    tensor ops over kv blocks of ``block_k`` tokens (``softmax_block`` by
-    default, the kernel's and the JAX kernel's)."""
-    qq, sq, kq, sk, vq, svs, vmu = prepare(q, k, v)
+def sage_attention_plain(q, k, v, block_k=None, pv_int8=True):
+    """Plain PyTorch version of K4 and its flag variants: q (B, H, Lq, D),
+    k/v (B, H, Lk, D) -> (B, H, Lq, D) in q's dtype, the JAX kernel's f32
+    arithmetic written as tensor ops over kv blocks of ``block_k`` tokens
+    (``softmax_block`` by default, the kernel's and the JAX kernel's). It
+    takes no ``int8_mxu``: that flag changes nothing here (see
+    ``_core_plain``)."""
+    qq, sq, kq, sk, vq, svs, vmu = prepare(q, k, v, pv_int8)
     block_k = block_k or softmax_block(k.shape[2])
-    out = _core_plain(qq, sq, kq, sk, vq, svs, block_k, q.dtype)
+    out = _core_plain(qq, sq, kq, sk, vq, svs, block_k, q.dtype, pv_int8)
     return (out + vmu.to(out.dtype)).to(q.dtype)
 
 
@@ -219,9 +248,23 @@ def _bytes(x):
     return x.contiguous().view(torch.uint8)
 
 
+def kv_image_bytes(d: int, pv_int8: bool = True) -> int:
+    """Bytes of one kv image: K's codes, sk, then V's codes ([BN / 32][DV]
+    [32], swizzled) or, with ``pv_int8=False``, V in bf16 ([d][BN], the
+    tokens of each group of 32 in ``_V_ORDER``, unswizzled)."""
+    dp, dv, bn = geometry(d)
+    return bn * (dp + 4) + (dv * bn if pv_int8 else 2 * d * bn)
+
+
+def v_bf16(ops: Operands, d: int) -> bool:
+    """Whether the kv images hold V in bf16 (the ``pv_int8=False`` layout)."""
+    return ops.kvimg.shape[-1] == kv_image_bytes(d, pv_int8=False)
+
+
 def pack_operands(qq, sq, kq, sk, vq, svs, vmu) -> Operands:
     """The plain layout: ``prepare``'s outputs as the preparation kernel
-    writes them (see the module's docstring)."""
+    writes them (see the module's docstring); a bf16 ``vq`` (``pv_int8=
+    False``) goes in as bf16."""
     b, h, lq, d = qq.shape
     lk = kq.shape[2]
     dp, dv, bn = geometry(d)
@@ -233,9 +276,14 @@ def pack_operands(qq, sq, kq, sk, vq, svs, vmu) -> Operands:
     kc = F.pad(kq.reshape(bh, lk, d), (0, dp - d, 0, krows - lk)).view(bh, kt, bn, dp)
     ks = F.pad(sk.reshape(bh, lk), (0, krows - lk), value=1.0).view(bh, kt, bn)
     order = torch.as_tensor(_V_ORDER, device=vq.device)
-    vc = F.pad(vq.reshape(bh, lk, d), (0, dv - d, 0, krows - lk))
-    vc = vc.view(bh, kt, bn // 32, 32, dv)[:, :, :, order].transpose(-1, -2)
-    vimg = _swizzle32(_bytes(vc)).reshape(bh, kt, bn * dv)
+    if vq.dtype == torch.bfloat16:
+        vc = F.pad(vq.reshape(bh, lk, d), (0, 0, 0, krows - lk))
+        vc = vc.view(bh, kt, bn // 32, 32, d)[:, :, :, order].reshape(bh, kt, bn, d)
+        vimg = _bytes(vc.transpose(-1, -2)).reshape(bh, kt, 2 * d * bn)
+    else:
+        vc = F.pad(vq.reshape(bh, lk, d), (0, dv - d, 0, krows - lk))
+        vc = vc.view(bh, kt, bn // 32, 32, dv)[:, :, :, order].transpose(-1, -2)
+        vimg = _swizzle32(_bytes(vc)).reshape(bh, kt, bn * dv)
     kvimg = torch.cat([_swizzle32(_bytes(kc)), _bytes(ks), vimg], dim=-1)
     return Operands(qimg, kvimg, svs.reshape(bh, d).contiguous(),
                     vmu.reshape(bh, d).contiguous(), lk)
@@ -244,8 +292,9 @@ def pack_operands(qq, sq, kq, sk, vq, svs, vmu) -> Operands:
 def unpack_operands(ops: Operands, d: int):
     """The images of head dim ``d`` read back, padding included: q codes
     (B*H, q rows, DP) int8 and sq (B*H, q rows) f32; k codes (B*H, kv rows,
-    DP), sk (B*H, kv rows); v codes (B*H, kv rows, DV) in token order. Rows
-    past the lengths and columns past d are the padding."""
+    DP), sk (B*H, kv rows); v codes (B*H, kv rows, DV) in token order (or
+    the bf16 V, (B*H, kv rows, d)). Rows past the lengths and columns past d
+    are the padding."""
     dp, dv, bn = geometry(d)
     bh, qt, kt = ops.kvimg.shape[0], ops.qimg.shape[1], ops.kvimg.shape[1]
     qcode = Q_ROWS * dp
@@ -254,31 +303,53 @@ def unpack_operands(ops: Operands, d: int):
     kcode = bn * dp
     kc = _unswizzle32(ops.kvimg[..., :kcode], bn, dp).view(torch.int8)
     ks = ops.kvimg[..., kcode:kcode + 4 * bn].contiguous().view(torch.float32)
-    vimg = ops.kvimg[..., kcode + 4 * bn:].reshape(bh, kt, bn // 32, dv * 32)
-    vc = _unswizzle32(vimg, dv, 32).view(torch.int8).transpose(-1, -2)
-    inverse = torch.as_tensor(sorted(range(32), key=_V_ORDER.__getitem__), device=vc.device)
-    vc = vc[:, :, :, inverse].reshape(bh, kt * bn, dv)
+    inverse = torch.as_tensor(sorted(range(32), key=_V_ORDER.__getitem__),
+                              device=ops.kvimg.device)
+    if v_bf16(ops, d):
+        vimg = ops.kvimg[..., kcode + 4 * bn:].contiguous().view(torch.bfloat16)
+        vc = vimg.view(bh, kt, d, bn).transpose(-1, -2).reshape(bh, kt, bn // 32, 32, d)
+        vc = vc[:, :, :, inverse].reshape(bh, kt * bn, d)
+    else:
+        vimg = ops.kvimg[..., kcode + 4 * bn:].reshape(bh, kt, bn // 32, dv * 32)
+        vc = _unswizzle32(vimg, dv, 32).view(torch.int8).transpose(-1, -2)
+        vc = vc[:, :, :, inverse].reshape(bh, kt * bn, dv)
     return (qc.reshape(bh, qt * Q_ROWS, dp), qs.reshape(bh, qt * Q_ROWS),
             kc.reshape(bh, kt * bn, dp), ks.reshape(bh, kt * bn), vc)
 
 
-def prepare_plain(q, k, v) -> Operands:
+def prepare_plain(q, k, v, pv_int8=True) -> Operands:
     """Plain version of the preparation kernel: ``prepare``, then the
     kernel's layout."""
-    return pack_operands(*prepare(q, k, v))
+    return pack_operands(*prepare(q, k, v, pv_int8))
 
 
 def prep_agreement(ops: Operands, ref: Operands, d: int) -> dict:
     """The preparation kernel's images against ``prepare_plain``'s, read
-    back: codes (padding included) and scales, to the limits above."""
+    back: codes (padding included) and scales, to the limits above; a bf16
+    V as codes are (a value counts one step off within one bf16 ulp of
+    either value plus its channel's difference of the means, which moves
+    v - vmu before its rounding; at most PREP_CODE_SHARE of them
+    different), V's mean against the largest |v - vmu| of its channel."""
     got, want = unpack_operands(ops, d), unpack_operands(ref, d)
-    codes = [(g.int() - w.int()).abs() for g, w in zip(got[0::2], want[0::2])]
+    bf16_v = v_bf16(ops, d)
+    ints = list(zip(got[0::2], want[0::2]))[:2 if bf16_v else 3]
+    codes = [(g.int() - w.int()).abs() for g, w in ints]
+    if bf16_v:
+        g, w = got[4].float(), want[4].float()
+        tol = (torch.maximum(g.abs(), w.abs()) * 2.0 ** -7
+               + (ops.vmu - ref.vmu).abs()[:, None, :])
+        diff = (g - w).abs()
+        codes.append((diff > 0).int() + (diff > tol).int())
     max_diff = max(c.max().item() for c in codes)
     share = sum((c > 0).sum().item() for c in codes) / sum(c.numel() for c in codes)
     scales = [(got[1], want[1]), (got[3], want[3]), (ops.svs, ref.svs)]
     ulps = max(((g - w).abs() / (w.abs() * 2.0 ** -23).clamp(min=1e-30)).max().item()
                for g, w in scales)
-    mean_err = ((ops.vmu - ref.vmu).abs() / (ref.svs * (127.0 * 127.0))).max().item()
+    if bf16_v:
+        vmax = want[4].float().abs().amax(dim=1)[:, :d]
+        mean_err = ((ops.vmu - ref.vmu).abs() / vmax.clamp(min=1e-30)).max().item()
+    else:
+        mean_err = ((ops.vmu - ref.vmu).abs() / (ref.svs * (127.0 * 127.0))).max().item()
     ok = (max_diff <= PREP_CODE_MAX_DIFF and share <= PREP_CODE_SHARE
           and ulps <= PREP_SCALE_ULPS and mean_err <= PREP_MEAN_REL)
     return {"max_abs_err": float(max_diff), "code_diff_share": share,
@@ -305,9 +376,10 @@ def _check_inputs(q, k, v):
             raise ValueError("sage_attention: rows must be contiguous and 4-byte aligned")
 
 
-def prepare_kernel(q, k, v) -> Operands:
+def prepare_kernel(q, k, v, pv_int8=True) -> Operands:
     """The preparation kernel: q (B, H, Lq, D), k/v (B, H, Lk, D) bf16 on
-    the card, through their strides, -> the operands K4 takes."""
+    the card, through their strides, -> the operands K4 (or, with
+    ``pv_int8=False``, the quality variant) takes."""
     _check_inputs(q, k, v)
     b, h, lq, d = q.shape
     lk = k.shape[2]
@@ -315,7 +387,7 @@ def prepare_kernel(q, k, v) -> Operands:
     bh, qt, kt = b * h, q_images(lq), -(-lk // bn)
     dev = q.device
     qimg = torch.empty((bh, qt, Q_ROWS * (dp + 4)), dtype=torch.uint8, device=dev)
-    kvimg = torch.empty((bh, kt, bn * (dp + 4 + dv)), dtype=torch.uint8, device=dev)
+    kvimg = torch.empty((bh, kt, kv_image_bytes(d, pv_int8)), dtype=torch.uint8, device=dev)
     svs = torch.empty((bh, d), dtype=torch.float32, device=dev)
     vmu = torch.empty((bh, d), dtype=torch.float32, device=dev)
     part = torch.empty((bh, STAT_SPLITS, 4, d), dtype=torch.float32, device=dev)
@@ -323,7 +395,7 @@ def prepare_kernel(q, k, v) -> Operands:
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qimg.data_ptr(), kvimg.data_ptr(),
         svs.data_ptr(), vmu.data_ptr(), part.data_ptr(), b, h, lq, lk, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], qt, kt,
-        1.0 / math.sqrt(d), torch.cuda.current_stream(dev).cuda_stream)
+        1.0 / math.sqrt(d), int(pv_int8), torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("sage_prepare kernel failed: "
                            + cuda_build.error_string("sage_prepare", rc))
@@ -355,16 +427,58 @@ def _launch(q, ops: Operands, kv_tiles=None, use_sk=True):
     return out.permute(0, 2, 1, 3)
 
 
+def _launch_variant(q, ops: Operands, int8_mxu: bool, pv_int8: bool, kv_tiles=None,
+                    use_sk=True):
+    """Launch the flag variant ``(int8_mxu, pv_int8)`` (not both True: that
+    is K4) on operands prepared with the same ``pv_int8``; the output and
+    the planted faults as for ``_launch``."""
+    b, h, lq, d = q.shape
+    if int8_mxu and pv_int8:
+        raise ValueError("sage_attention: int8_mxu and pv_int8 both on is K4 (_launch)")
+    if not all(t.is_cuda for t in ops[:4]):
+        raise ValueError(f"sage_attention: no kernel for device {q.device}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"sage_attention: head dim {d} not among {HEAD_DIMS}")
+    if v_bf16(ops, d) == pv_int8:
+        raise ValueError("sage_attention: operands prepared with another pv_int8")
+    bn = geometry(d)[2]
+    qt, kt = ops.qimg.shape[1], ops.kvimg.shape[1]
+    out = torch.empty((b, lq, h, d), dtype=torch.bfloat16, device=q.device)
+    name = "sage_attention_variant"
+    rc = cuda_build.entry_point(name)(
+        ops.qimg.data_ptr(), ops.kvimg.data_ptr(), ops.svs.data_ptr(), ops.vmu.data_ptr(),
+        out.data_ptr(), b, h, lq, ops.lk, d, out.stride(0), out.stride(2), out.stride(1),
+        qt, kt, kt if kv_tiles is None else kv_tiles, softmax_block(ops.lk) // bn, int(use_sk),
+        int(int8_mxu), int(pv_int8), torch.cuda.current_stream(q.device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"{name} kernel failed: " + cuda_build.error_string(name, rc))
+    return out.permute(0, 2, 1, 3)
+
+
 @grad_guard.no_backward("sage_attention (K4)")
-def sage_attention(q, k, v):
+def sage_attention(q, k, v, int8_mxu=True, pv_int8=True):
     """K4: q (B, H, Lq, D), k/v (B, H, Lk, D) -> (B, H, Lq, D) in q's dtype.
-    On the GPU, bf16 in and out: the preparation kernel, then K4."""
+    On the GPU, bf16 in and out: the preparation kernel, then K4, or with
+    ``int8_mxu`` or ``pv_int8`` off the variant kernel."""
     if q.device.type == "cpu":
-        return sage_attention_plain(q, k, v)
-    out = _launch(q, prepare_kernel(q, k, v))
-    sage_attention.launches += 1
+        return sage_attention_plain(q, k, v, pv_int8=pv_int8)
+    ops = prepare_kernel(q, k, v, pv_int8)
+    if int8_mxu and pv_int8:
+        out = _launch(q, ops)
+        sage_attention.launches += 1
+    else:
+        out = _launch_variant(q, ops, int8_mxu, pv_int8)
+        counter = VARIANT_COUNTERS[(int8_mxu, pv_int8)]
+        setattr(sage_attention, counter, getattr(sage_attention, counter) + 1)
     return out
 
 
+# The variant kernel's flag pairs, (int8_mxu, pv_int8), and the wrapper's
+# counter of each
+VARIANT_COUNTERS = {(False, True): "launches_bf16_mxu", (True, False): "launches_pv_bf16",
+                    (False, False): "launches_bf16_mxu_pv_bf16"}
+
 sage_attention.launches = 0
+for _counter in VARIANT_COUNTERS.values():
+    setattr(sage_attention, _counter, 0)
 prepare_kernel.launches = 0

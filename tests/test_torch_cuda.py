@@ -1198,3 +1198,137 @@ def test_prefetch_loader_side_stream_and_pinned_copies(cuda, monkeypatch):
     assert seen == [(4 * 1024 * i, i) for i in range(3)]
     assert len(copies) == 6 and all(p and nb and s != main for p, nb, s in copies)
     assert recorded == [main] * 6 and loader.transferred == 3
+
+
+# --- the flag variants: K4's (int8_mxu, pv_int8) and the bf16-rate W8A8 -----
+# The sage variants are held to their plain version at K4's limits; the
+# bf16-rate W8A8 matmuls at K5's limits, ``_q8_check`` (the f32 sums may
+# round past 2^24, in another order than the plain version's).
+
+SAGE_FLAG_PAIRS = [(False, True), (True, False), (False, False)]  # (int8_mxu, pv_int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_mxu,pv_int8", SAGE_FLAG_PAIRS)
+@pytest.mark.parametrize("b,h,lq,lk,d", [
+    (1, 3, 600, 700, 80),       # ragged: masked kv tail, partial q tile
+    (1, 2, 577, 530, 40),       # d = 40: DP 64, int8 V padded to 48 channels
+    (1, 2, 300, 2100, 160),     # kv tiles of 64, three softmax blocks
+    (1, 2, 640, 640, 128),
+    (1, 2, 200, 520, 32),
+    (2, 2, 256, 1024, 64),
+])
+def test_sage_variants_match_plain(cuda, b, h, lq, lk, d, int8_mxu, pv_int8):
+    from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(20)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").bfloat16()
+               for s in ((b, h, lq, d), (b, h, lk, d), (b, h, lk, d)))
+    counter = sa.VARIANT_COUNTERS[(int8_mxu, pv_int8)]
+    launches = (getattr(sa.sage_attention, counter), sa.sage_attention.launches,
+                sa.prepare_kernel.launches)
+    out = sa.sage_attention(q, k, v, int8_mxu=int8_mxu, pv_int8=pv_int8)
+    torch.cuda.synchronize()
+    assert (getattr(sa.sage_attention, counter), sa.sage_attention.launches,
+            sa.prepare_kernel.launches) == (launches[0] + 1, launches[1], launches[2] + 1)
+    assert out.shape == q.shape and out.dtype == torch.bfloat16
+    check = _sage_check(out, sa.sage_attention_plain(q, k, v, pv_int8=pv_int8))
+    assert check["ok"], check
+    if not pv_int8:
+        ops = sa.prepare_kernel(q, k, v, pv_int8=False)
+        prep = sa.prep_agreement(ops, sa.prepare_plain(q, k, v, pv_int8=False), d)
+        assert prep["ok"], prep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("int8_mxu,pv_int8", SAGE_FLAG_PAIRS)
+def test_sage_variant_planted_faults_fail_the_check(cuda, int8_mxu, pv_int8):
+    from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    q, k, v = (torch.randn((2, 4, 4096, 40), generator=gen, device="cuda").bfloat16()
+               for _ in range(3))
+    ref = sa.sage_attention_plain(q, k, v, pv_int8=pv_int8)
+    ops = sa.prepare_kernel(q, k, v, pv_int8=pv_int8)
+    kt = ops.kvimg.shape[1]
+    assert _sage_check(sa._launch_variant(q, ops, int8_mxu, pv_int8), ref)["ok"]
+    assert not _sage_check(sa._launch_variant(q, ops, int8_mxu, pv_int8, kv_tiles=kt - 1),
+                           ref)["ok"]
+    assert not _sage_check(sa._launch_variant(q, ops, int8_mxu, pv_int8, use_sk=False),
+                           ref)["ok"]
+    with pytest.raises(ValueError):  # operands of the other V layout
+        sa._launch_variant(q, sa.prepare_kernel(q, k, v, pv_int8=not pv_int8), int8_mxu,
+                           pv_int8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n,mode", [
+    (1000, 3072, 3072, "k7"),          # ragged M through K9
+    (256, 12288, 3072, "k8"),
+    (1, 3072, 9216, "bias"),           # one row
+    (300, 1024, 384, "residual"),
+    (256, 12288, 3072, "stacked_residual"),
+])
+def test_w8a8_bf16_rate_matches_plain(cuda, m, k, n, mode):
+    gen = torch.Generator(device="cuda").manual_seed(22)
+    x = _activations(m, k, gen)
+    if mode in ("k8", "stacked_residual"):
+        q3 = torch.randint(-127, 128, (2, n, k), generator=gen, device="cuda", dtype=torch.int8)
+        cs3 = (0.5 + torch.rand((2, 1, n), generator=gen, device="cuda")) * (3 / (127 * k**0.5))
+        q, cs, idx = q3, cs3, 1
+    else:
+        w = _w8_weight(k, n, gen)
+        q, cs, idx = w.q, w.col_scales, None
+    if mode == "k7":
+        out = qm.w8a8_matmul(x, q, cs, int8_mxu=False)
+        ref = qm.w8a8_matmul_plain(x, q, cs, int8_mxu=False)
+    elif mode == "k8":
+        out = qm.w8a8_matmul_stacked(x, q, cs, idx, int8_mxu=False)
+        ref = qm.w8a8_matmul_stacked_plain(x, q, cs, idx, int8_mxu=False)
+    else:
+        fn = qm.w8a8_matmul_ep_stacked if idx is not None else qm.w8a8_matmul_ep
+        xq, sx = qm.row_quantize_fused(x)
+        cs_eff = (cs if idx is None else cs[idx]) * 1.5
+        b = 0.1 * torch.randn((1, n), generator=gen, device="cuda")
+        r = _activations(m, n, gen) if "residual" in mode else None
+        operand = q if idx is None else (q, idx)
+        launches = (fn.launches_bf16, fn.launches)
+        out = qm.w8a8_matmul_ep(xq, sx, operand, cs_eff, b, residual=r, int8_mxu=False)
+        torch.cuda.synchronize()
+        assert (fn.launches_bf16, fn.launches) == (launches[0] + 1, launches[1])
+        ref = qm.w8a8_matmul_ep_plain(xq, sx, operand, cs_eff, b, residual=r, int8_mxu=False)
+    assert out.shape == (m, n) and out.dtype == torch.bfloat16
+    check = _q8_check(out, ref)
+    assert check["ok"], check
+
+
+@pytest.mark.cuda
+def test_w8a8_bf16_rate_planted_faults_fail_the_check(cuda):
+    """The last K step of 64 skipped, and cs not applied: both fail the
+    check at the deepest K."""
+    gen = torch.Generator(device="cuda").manual_seed(23)
+    m, k, n = 4352, 15360, 3072
+    w = _w8_weight(k, n, gen)
+    xq, sx = qm.row_quantize_fused(_activations(m, k, gen))
+    cs = w.col_scales.reshape(-1).contiguous()
+    ref = qm._epilogue_plain(xq, sx, w.q, cs, int8_mxu=False)
+    sx1 = sx.reshape(-1)
+    assert _q8_check(qm._launch_w8a8(xq, sx1, w.q, cs, int8_mxu=False), ref)["ok"]
+    skipped = qm._launch_w8a8(xq, sx1, w.q, cs, k=k - qm.W8A8_BF16_BK, int8_mxu=False)
+    assert not _q8_check(skipped, ref)["ok"]
+    unscaled = qm._launch_w8a8(xq, sx1, w.q, torch.ones_like(cs), int8_mxu=False)
+    assert not _q8_check(unscaled, ref)["ok"]
+
+
+@pytest.mark.cuda
+def test_native_split_on_the_card_machine(cuda):
+    """The C++ Q8_0 split builds with this machine's g++ and equals its
+    plain version bit for bit, on blocks enough for several threads."""
+    from lightdiffusion_next_tpu_torch.utils import native
+
+    gen = torch.Generator().manual_seed(24)
+    blocks = torch.randint(0, 256, (300_000, 34), generator=gen, dtype=torch.uint8)
+    blocks[:, 1] &= 0x7B  # finite f16 scales
+    q, s = native.split_q8_0(blocks)
+    pq, ps = native.split_q8_0_plain(blocks)
+    assert torch.equal(q, pq) and torch.equal(s.view(torch.int32), ps.view(torch.int32))

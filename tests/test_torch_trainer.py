@@ -505,10 +505,27 @@ def _wrapper_calls():
         ("w8a8_matmul_ep_stacked (stacked K11)", rnd(4, 1).abs(),
          lambda x: qm.w8a8_matmul_ep_stacked(xq, x, w8[None].repeat(2, 1, 1), 1, cs, bias,
                                              out_dtype=torch.float32)),
+        # the flag variants
+        ("sage_attention (K4)", rnd(1, 2, 600, 40),
+         lambda x: sa.sage_attention(x, kv, kv, int8_mxu=False)),
+        ("sage_attention (K4)", rnd(1, 2, 600, 40),
+         lambda x: sa.sage_attention(x, kv, kv, pv_int8=False)),
+        ("sage_attention (K4)", rnd(1, 2, 600, 40),
+         lambda x: sa.sage_attention(x, kv, kv, int8_mxu=False, pv_int8=False)),
+        ("w8a8_matmul (K7)", rnd(4, 256), lambda x: qm.w8a8_matmul(x, w8, cs, int8_mxu=False)),
+        ("w8a8_matmul_stacked (K8)", rnd(4, 256),
+         lambda x: qm.w8a8_matmul_stacked(x, w8[None].repeat(2, 1, 1),
+                                          cs[None].repeat(2, 1, 1), 0, int8_mxu=False)),
+        ("w8a8_matmul_ep (K11)", rnd(4, 1).abs(),
+         lambda x: qm.w8a8_matmul_ep(xq, x, w8, cs, bias, out_dtype=torch.float32,
+                                     int8_mxu=False)),
+        ("w8a8_matmul_ep_stacked (stacked K11)", rnd(4, 1).abs(),
+         lambda x: qm.w8a8_matmul_ep_stacked(xq, x, w8[None].repeat(2, 1, 1), 1, cs, bias,
+                                             out_dtype=torch.float32, int8_mxu=False)),
     ]
 
 
-@pytest.mark.parametrize("index", range(13))
+@pytest.mark.parametrize("index", range(20))
 def test_kernel_wrapper_backward_raises(index):
     """Each wrapper under grad returns its plain result, bit for bit the
     call without grad, and its backward raises naming the kernel and the

@@ -8,13 +8,14 @@ Phases, in order; any failure exits non-zero:
 1. environment: the card's name and power limit, torch, CUDA and nvcc;
 2. build: every hand-written kernel from ``lightdiffusion_next_tpu_torch/csrc``,
    with each source's register and spill report; the ``wgmma`` kernels (K5's
-   and K6's, K3's attention kernel, K4, K1's and K2's two templates, and the
-   one W8A8 matmul template of K7, K8, K11 and the stacked K11) must
-   spill nothing and, in the built
-   library's SASS (``cuobjdump``), run on ``wgmma`` (HGMMA for bf16, IGMMA
-   for K4's and the W8A8 matmul's int8) with no ``mma.sync`` (HMMA, IMMA)
-   left, or the run fails; K9's and K10's row-quantize kernel must spill
-   nothing too;
+   and K6's, K3's attention kernel, K4 and its flag variants, K1's and K2's
+   two templates, the one W8A8 matmul template of K7, K8, K11 and the
+   stacked K11, and its bf16-rate variant) must spill nothing and, in the
+   built library's SASS (``cuobjdump``), run on ``wgmma`` (HGMMA for bf16,
+   IGMMA for int8: K4 and the W8A8 matmul IGMMA alone, the sage variant
+   with int8 Q.K^T both, the other variants and the bf16-rate W8A8 HGMMA
+   alone) with no ``mma.sync`` (HMMA, IMMA) left, or the run fails; K9's
+   and K10's row-quantize kernel must spill nothing too;
    K4's conversions and exps (I2F, F2I, FRND, MUFU.EX2) are counted;
 3. SD1.5 kernels: K1 and K2 at each shape the SD1.5 1024^2 path gives them
    (derived from the UNet plan, the multi-scale plan and the MSW-MSA gate),
@@ -246,13 +247,14 @@ Phases, in order; any failure exits non-zero:
    each output against its plain version (the sage variants as K4, the W8A8
    ones at K5's limits, ``quant_matmul.MAX_ULPS`` and ``REL_RMSE_LIMIT``),
    two planted faults each (the last kv tile or K step skipped; sk or cs
-   not applied), the pv_int8=False
-   preparation's images against ``prepare_plain``, int8_mxu=False against
-   K4's output (logged: bit for bit or the largest difference) and the
-   W8A8 variants against the integer plain version (logged), times beside
-   K4 or K7/K8/K11, the library call and the bound; and the variants' SASS
-   (``cuobjdump``): HMMA and no IMMA or IGMMA in every bf16-rate function,
-   both HMMA and IMMA where Q.K^T stays int8.
+   not applied), each variant's preparation's images against
+   ``prepare_plain`` with the same flags, int8_mxu=False against K4's
+   output and (False, False) against (True, False), which must be equal
+   bit for bit, and the W8A8 variants against the integer plain version
+   (logged); times beside K4 or K7/K8/K11, the library call
+   (``scaled_dot_product_attention``; ``torch._int_mm``, and ``torch.matmul``
+   on the codes cast to bf16, the same-rate yardstick) and the bound. The
+   variants' SASS is held in the build phase.
 
 Phases 19 to 22 run after phase 17, before the Flux phases. Phases 5 to
 11 pin ``RuntimeConfig(flux_scan=False)``, so their launch plans
@@ -410,19 +412,19 @@ KERNELS = {
 VARIANT_KERNELS = {
     "sage_attention_bf16_mxu": {
         "route": "cuda",
-        "source": "lightdiffusion_next_tpu_torch/csrc/sage_attention_variants.cu",
+        "source": "lightdiffusion_next_tpu_torch/csrc/sage_attention.cu",
         "replaces": "lightdiffusion_next_tpu/ops/sage_attention.py:152 (int8_mxu=False: "
                     ":69-80, :98-104)",
     },
     "sage_attention_pv_bf16": {
         "route": "cuda",
-        "source": "lightdiffusion_next_tpu_torch/csrc/sage_attention_variants.cu",
+        "source": "lightdiffusion_next_tpu_torch/csrc/sage_attention.cu",
         "replaces": "lightdiffusion_next_tpu/ops/sage_attention.py:152 (pv_int8=False: "
                     ":181-191, :111-119)",
     },
     "sage_attention_bf16_mxu_pv_bf16": {
         "route": "cuda",
-        "source": "lightdiffusion_next_tpu_torch/csrc/sage_attention_variants.cu",
+        "source": "lightdiffusion_next_tpu_torch/csrc/sage_attention.cu",
         "replaces": "lightdiffusion_next_tpu/ops/sage_attention.py:152 (int8_mxu=False, "
                     "pv_int8=False)",
     },
@@ -466,27 +468,42 @@ VARIANT_W8A8_SHAPES = {"w8a8_matmul_bf16_mxu": ((4352, 3072, 3072), (4352, 3072,
                        "w8a8_matmul_ep_bf16_mxu": ((256, 12288, 3072),),
                        "w8a8_matmul_ep_stacked_bf16_mxu": ((256, 12288, 3072),)}
 VARIANT_W8A8_FAULTS = ("last K step of 64 skipped", "cs not applied")
-# the variants' sources, template names, and whether an instantiation
-# (its mangled name) keeps int8 Q.K^T: "Lb1" first among its bool arguments
-VARIANT_SASS = (("sage_attention_variants.cu", "sage_variant_kernel"),
-                ("w8a8_matmul_bf16.cu", "w8a8_bf16_matmul_kernel"))
 
 # FBCache forced to hit (the hit-path phase): every call the cache may serve
 # is served, at most two in a row, so misses between them refresh the cached
 # residual
 FORCED_HITS = dict(residual_diff_threshold=1e30, max_consecutive_cache_hits=2)
 
-# The wgmma kernels (source, template name, the SASS of their products, the
-# SASS of mma.sync that must be gone): the build phase fails unless no
-# instantiation spills and each one's SASS holds the first and not the second
-WGMMA_KERNELS = (("quant_matmul.cu", "quant_matmul_kernel", "HGMMA", "HMMA"),
-                 ("fused_qkv_attention.cu", "fused_attention_kernel", "HGMMA", "HMMA"),
-                 ("sage_attention.cu", "sage_attention_kernel", "IGMMA", "IMMA"),
-                 ("packed_flash_attention.cu", "flash_wgmma_kernel", "HGMMA", "HMMA"),
-                 ("packed_flash_attention.cu", "flash_split_kernel", "HGMMA", "HMMA"),
-                 ("flash_attention.cu", "flash_wgmma_kernel", "HGMMA", "HMMA"),
-                 ("flash_attention.cu", "flash_split_kernel", "HGMMA", "HMMA"),
-                 ("w8a8_matmul.cu", "w8a8_matmul_kernel", "IGMMA", "IMMA"))
+# The MMA opcodes of the SASS: wgmma's (HGMMA bf16, IGMMA int8) and
+# mma.sync's (HMMA, IMMA)
+MMA_OPCODES = ("HGMMA", "IGMMA", "HMMA", "IMMA")
+
+
+def sage_opcodes(config):
+    """The wgmma opcodes an instantiation of ``sage_attention_kernel<D,
+    QK8, PV8>`` (``config``: its mangled template arguments) must hold: K4
+    (both true) IGMMA alone; with int8 Q.K^T and bf16 P.V (QK8 alone) IGMMA
+    and HGMMA; with bf16 Q.K^T HGMMA alone."""
+    qk8, pv8 = (b == "1" for b in re.findall(r"Lb([01])E", config + "E"))
+    if qk8 and pv8:
+        return ("IGMMA",)
+    return ("IGMMA", "HGMMA") if qk8 else ("HGMMA",)
+
+
+# The wgmma kernels (source, template name, the MMA opcodes every
+# instantiation must hold, or a function of its mangled template arguments
+# that names them): the build phase fails unless no instantiation spills
+# and each one's SASS holds its opcodes and no other of MMA_OPCODES (no
+# mma.sync left, no product at another rate)
+WGMMA_KERNELS = (("quant_matmul.cu", "quant_matmul_kernel", ("HGMMA",)),
+                 ("fused_qkv_attention.cu", "fused_attention_kernel", ("HGMMA",)),
+                 ("sage_attention.cu", "sage_attention_kernel", sage_opcodes),
+                 ("packed_flash_attention.cu", "flash_wgmma_kernel", ("HGMMA",)),
+                 ("packed_flash_attention.cu", "flash_split_kernel", ("HGMMA",)),
+                 ("flash_attention.cu", "flash_wgmma_kernel", ("HGMMA",)),
+                 ("flash_attention.cu", "flash_split_kernel", ("HGMMA",)),
+                 ("w8a8_matmul.cu", "w8a8_matmul_kernel", ("IGMMA",)),
+                 ("w8a8_matmul_bf16.cu", "w8a8_bf16_matmul_kernel", ("HGMMA",)))
 # Kernels without wgmma whose instantiations must spill nothing either (K9
 # and K10 keep a row's f32 values in registers)
 NO_SPILL_KERNELS = (("row_quantize.cu", "row_quantize_kernel"),)
@@ -844,8 +861,8 @@ def phase_build():
                   if "spill" in ln and not ln.strip().startswith("0 bytes stack")]
         log(f"  {name}: {rep['seconds']:.1f} s; {len(regs)} instantiations; "
             f"{sorted(set(regs))}; spills: {spills or 'none'}")
-    for source, kernel, mma, old_mma in WGMMA_KERNELS:
-        check_wgmma_build(source, report[source], cuda_build.nvcc_path(), kernel, mma, old_mma)
+    for source, kernel, opcodes in WGMMA_KERNELS:
+        check_wgmma_build(source, report[source], cuda_build.nvcc_path(), kernel, opcodes)
     for source, kernel in NO_SPILL_KERNELS:
         spilled = spilled_functions(source, report[source], kernel)[1]
         if spilled:
@@ -884,16 +901,16 @@ def spilled_functions(source, rep, kernel):
     return funcs, spilled
 
 
-def check_wgmma_build(source, rep, nvcc, kernel, mma, old_mma):
+def check_wgmma_build(source, rep, nvcc, kernel, opcodes):
     """A ``wgmma`` kernel's instantiations in the library of ``source``
     (``kernel``: its template's name, e.g. ``quant_matmul_kernel`` for K5
     and K6; ``rep``: the source's build report): log each
     one's registers and spills as ptxas reports them, then read the
     library's SASS (``cuobjdump --dump-sass``) and log each one's MMA
     opcodes and its ``SASS_COUNTED`` instructions. Raises unless every
-    instantiation spills 0 bytes and runs its products on wgmma (``mma``:
-    HGMMA, or IGMMA for int8) with no mma.sync (``old_mma``: HMMA, IMMA)
-    left."""
+    instantiation spills 0 bytes and its SASS holds each of ``opcodes``
+    (HGMMA, IGMMA; or ``opcodes(config)`` of its template arguments) and
+    no other of ``MMA_OPCODES``: no mma.sync (HMMA, IMMA) left."""
     funcs, spilled = spilled_functions(source, rep, kernel)
     for ln in rep["log"].splitlines():
         if "wgmma" in ln:
@@ -901,24 +918,26 @@ def check_wgmma_build(source, rep, nvcc, kernel, mma, old_mma):
     cuobjdump = os.path.join(os.path.dirname(nvcc), "cuobjdump")
     sass = subprocess.run([cuobjdump, "--dump-sass", rep["path"]], capture_output=True,
                           text=True, check=True).stdout
-    counts = {}
+    counts, bad = {}, []
     for part in sass.split("Function : ")[1:]:
         name = part.split(None, 1)[0]
         if kernel in name:
+            config = name.split(kernel)[-1].split("EEEv")[0]
+            want = opcodes(config) if callable(opcodes) else opcodes
             ops = SASS_OPCODE.findall(part)
-            counts[name] = (sum(op.startswith(mma + ".") for op in ops),
-                            sum(op.startswith(old_mma + ".") for op in ops),
-                            sorted({op.split(".")[0] for op in ops if "MMA" in op}),
-                            {c: sum(op == c or op.startswith(c + ".") or op.startswith(c + "P")
-                                    for op in ops) for c in SASS_COUNTED})
-    for name, (new, old, kinds, counted) in sorted(counts.items()):
-        log(f"  SASS {kernel} {name.split(kernel)[-1].split('EEEv')[0]}: "
-            f"{new} {mma}, {old} {old_mma}; MMA opcodes {kinds}; {counted}")
-    bad = [n for n, (new, old, _, _) in counts.items() if new == 0 or old]
+            mma = {kind: sum(op.startswith(kind + ".") for op in ops) for kind in MMA_OPCODES}
+            counts[name] = (mma, {c: sum(op == c or op.startswith(c + ".") or op.startswith(c + "P")
+                                         for op in ops) for c in SASS_COUNTED})
+            good = all(mma[kind] > 0 for kind in want) and not any(
+                mma[kind] for kind in MMA_OPCODES if kind not in want)
+            log(f"  SASS {kernel} {config}: {mma} (want {'+'.join(want)} alone: "
+                f"{'ok' if good else 'FAIL'}); {counts[name][1]}")
+            if not good:
+                bad.append(name)
     if spilled or bad or len(counts) != len(funcs):
-        raise RuntimeError(f"{source}: spills in {spilled}; SASS without {mma} or "
-                           f"with {old_mma} in {bad}; {len(counts)} functions in the SASS, "
-                           f"{len(funcs)} in the ptxas report")
+        raise RuntimeError(f"{source}: spills in {spilled}; SASS off its MMA opcodes in {bad}; "
+                           f"{len(counts)} functions in the SASS, {len(funcs)} in the ptxas "
+                           "report")
 
 
 def cuda_ms(fn, n):
@@ -4849,46 +4868,6 @@ def bf16_rate_bound(m, k, n, bias, residual):
     return max(t_ops, t_bytes) * 1e3, ("operations" if t_ops >= t_bytes else "bytes")
 
 
-def check_variant_sass():
-    """The variants' SASS (``cuobjdump --dump-sass`` of their libraries):
-    every instantiation multiplies on the bf16 tensor cores (HMMA or HGMMA)
-    and, unless it keeps Q.K^T in int8 (a sage instantiation whose first
-    bool argument is true), holds no IMMA or IGMMA; the int8 Q.K^T ones hold
-    both HMMA and IMMA. Logs each one's MMA opcodes and ptxas lines;
-    returns whether all pass."""
-    from lightdiffusion_next_tpu_torch.ops import cuda_build
-
-    report = cuda_build.build(["sage_attention_variant", "w8a8_matmul_bf16"])
-    cuobjdump = os.path.join(os.path.dirname(cuda_build.nvcc_path()), "cuobjdump")
-    ok = True
-    for source, kernel in VARIANT_SASS:
-        rep = report[source]
-        funcs = spilled_functions(source, rep, kernel)[0]
-        sass = subprocess.run([cuobjdump, "--dump-sass", rep["path"]], capture_output=True,
-                              text=True, check=True).stdout
-        seen = 0
-        for part in sass.split("Function : ")[1:]:
-            name = part.split(None, 1)[0]
-            if kernel not in name:
-                continue
-            seen += 1
-            ops = SASS_OPCODE.findall(part)
-            count = {kind: sum(op.startswith(kind + ".") for op in ops)
-                     for kind in ("HMMA", "HGMMA", "IMMA", "IGMMA")}
-            bools = re.findall(r"Lb([01])E", name.split(kernel)[-1])
-            int8_qk = bool(bools) and bools[0] == "1"
-            bf16 = count["HMMA"] + count["HGMMA"] > 0
-            int8 = count["IMMA"] + count["IGMMA"] > 0
-            good = bf16 and (int8 if int8_qk else not int8)
-            ok = ok and good
-            log(f"  SASS {kernel} {name.split(kernel)[-1].split('EEv')[0]}: {count}; int8 "
-                f"Q.K^T {int8_qk}: {'ok' if good else 'FAIL'}")
-        if seen != len(funcs) or not seen:
-            log(f"FAIL: {source}: {seen} {kernel} functions in the SASS, {len(funcs)} in ptxas")
-            ok = False
-    return ok
-
-
 def phase_kernel_variants(gpu):
     """Phase 25: the flag variants at their shapes (see the module's
     docstring). Returns (ok, {name: per_kernel entry}, the counts of the
@@ -4901,7 +4880,7 @@ def phase_kernel_variants(gpu):
     from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
 
     log("gpu:", gpu)
-    ok = check_variant_sass()
+    ok = True
     gen = torch.Generator(device="cuda").manual_seed(25)
 
     def timed(fn):
@@ -4985,19 +4964,22 @@ def phase_kernel_variants(gpu):
             out = outs[(name,) + shape]
             ref = sa.sage_attention_plain(q, k, v, pv_int8=pv_int8)
             check = sage_check(out, ref)
-            ops = ops8 if pv_int8 else sa.prepare_kernel(q, k, v, pv_int8=False)
-            extra = {}
-            if not pv_int8:
-                prep = sa.prep_agreement(ops, sa.prepare_plain(q, k, v, pv_int8=False), d)
-                extra["prepare_bf16_v"] = prep
-                check = {**check, "ok": check["ok"] and prep["ok"]}
-            if not int8_mxu:  # the same integers as with int8_mxu on: logged
+            ops = sa.prepare_kernel(q, k, v, pv_int8=pv_int8, int8_mxu=int8_mxu)
+            prep = sa.prep_agreement(
+                ops, sa.prepare_plain(q, k, v, pv_int8=pv_int8, int8_mxu=int8_mxu), d)
+            extra = {"prepare": prep}
+            check = {**check, "ok": check["ok"] and prep["ok"]}
+            if not int8_mxu:  # the same integers as with int8_mxu on: bit for bit
                 twin = k4 if pv_int8 else outs[("sage_attention_pv_bf16",) + shape]
                 diff = (out.float() - twin.float()).abs()
+                same = bool(torch.equal(out, twin))
                 extra["against_int8_mxu"] = {
                     "kernel": "K4" if pv_int8 else "sage_attention_pv_bf16",
-                    "bit_for_bit": bool(torch.equal(out, twin)),
+                    "bit_for_bit": same,
                     "max_abs_diff": diff.max().item(), "differing": int((diff > 0).sum().item())}
+                if not same:
+                    log(f"FAIL: {name} at {shape} differs from {extra['against_int8_mxu']}")
+                check = {**check, "ok": check["ok"] and same}
             kt = ops.kvimg.shape[1]
             faults = {
                 SAGE_FAULTS[0]: fault_entry(sage_check(
@@ -5032,6 +5014,12 @@ def phase_kernel_variants(gpu):
         except RuntimeError as e:  # the yardstick only; the port never calls it
             log(f"torch._int_mm at {(m, k, n)}: {e}")
             library_ms = None
+        # the same-rate yardstick: torch.matmul on the codes cast to bf16 (no
+        # epilogue, the casts outside the timing)
+        a16 = lib_codes.to(torch.bfloat16)
+        b16 = (q if idx is None else q[idx]).t().to(torch.bfloat16)
+        matmul_bf16_ms = timed(lambda: torch.matmul(a16, b16))
+        del a16, b16
         if name in ("w8a8_matmul_bf16_mxu", "w8a8_matmul_stacked_bf16_mxu"):
             xq, sx = qm.row_quantize_fused(x)
             cs_k = (cs if idx is None else cs[idx]).reshape(-1).contiguous()
@@ -5079,7 +5067,9 @@ def phase_kernel_variants(gpu):
             "shape": [m, k, n], "dtype": "int8 codes at the bf16 rate, bf16 out"
             + (", bf16 residual" if r is not None else ""),
             "ms": ms, "kernel_ms": kernel_ms, "int8_kernel_ms": int8_ms, "plain_ms": plain_ms,
-            "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms, "matmul_bf16_ms": matmul_bf16_ms,
+            "tile": qm.W8A8_BF16_TILES[qm.w8a8_bf16_tile(m, n, k)],
+            "bound_ms": bound_ms, "bound_by": bound_by,
             "against_integer_plain": {k_: against[k_] for k_ in ("max_abs_err", "mismatches",
                                                                 "ok")}})
         del out, ref, exact

@@ -1,10 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
 // (quant_matmul.cu, fused_qkv_attention.cu, sage_attention.cu,
-// flash_attention.cu, packed_flash_attention.cu): cp.async and bulk copies,
-// mbarriers and named barriers, the proxy fence, wgmma's synchronisation and
-// its shared-memory descriptors. The products themselves (m64nNk16 bf16 with
-// f32 accumulators, m64nNk32 s8 with s32 accumulators, all in registers) are
-// generated into wgmma_forms.cuh by wgmma_forms.py.
+// flash_attention.cu, packed_flash_attention.cu, w8a8_matmul.cu,
+// w8a8_matmul_bf16.cu): cp.async and bulk copies, mbarriers and named
+// barriers, the proxy fence, wgmma's synchronisation and its shared-memory
+// descriptors, and the exact int8 -> bf16 conversion of the bf16-rate
+// products. The products themselves (m64nNk16 bf16 with f32 accumulators,
+// m64nNk32 s8 with s32 accumulators, all in registers) are generated into
+// wgmma_forms.cuh by wgmma_forms.py.
 //
 // The bf16 operands use the 128-byte swizzle: an atom is 8 rows of 128 bytes
 // (1024 bytes), and 16-byte chunk j of row r lies at chunk j ^ (r & 7). A
@@ -158,6 +160,25 @@ __device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
 __device__ __forceinline__ uint64_t make_desc_sw32(uint32_t addr) {
   return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) | (1ull << 16) |
          (static_cast<uint64_t>(256 >> 4) << 32) | (3ull << 62);
+}
+
+// Four int8 codes (bytes 0..3 of x) as two bf16 pairs, exactly: a code b is
+// m - 128 s (m its low 7 bits, s its sign bit), and (128 + m) - (128 + 128 s)
+// has both operands exact in bf16 (0x43 followed by m is 128 + m: exponent
+// 7, step 1), so two bf16x2 subtractions give it exactly; no I2F. lo holds
+// bytes 0, 1; hi bytes 2, 3. Read at k offsets 4t..4t+3 of a k16 group, they
+// are the bf16 A fragment's pairs of logical k (2t, 2t+1) and (2t+8, 2t+9):
+// a permutation of the 16 k of a step, which the bf16-rate kernels give
+// both operands alike.
+__device__ __forceinline__ void s8x4_to_bf16(uint32_t x, uint32_t& lo, uint32_t& hi) {
+  constexpr uint32_t k128 = 0x43434343u;
+  const uint32_t m = x & 0x7f7f7f7fu, s = x & 0x80808080u;
+  asm("sub.rn.bf16x2 %0, %1, %2;\n"
+      : "=r"(lo)
+      : "r"(__byte_perm(m, k128, 0x4140)), "r"(__byte_perm(s, k128, 0x4140)));
+  asm("sub.rn.bf16x2 %0, %1, %2;\n"
+      : "=r"(hi)
+      : "r"(__byte_perm(m, k128, 0x4342)), "r"(__byte_perm(s, k128, 0x4342)));
 }
 
 }  // namespace hopper

@@ -28,7 +28,7 @@ HEADER = os.path.join(os.path.dirname(os.path.abspath(__file__)), "wgmma_forms.c
 
 # (kind, N, TNSP_B) of every form a kernel issues
 FORMS = (
-    [("ss", n, 0) for n in (16, 64, 128)]
+    [("ss", n, 0) for n in (16, 64, 128, 256)]
     + [("ss", n, 1) for n in (64, 128)]
     + [("rs", n, 0) for n in (32, 40, 64, 80, 96, 128, 160)]
     + [("rs", n, 1) for n in (64, 128, 256)]

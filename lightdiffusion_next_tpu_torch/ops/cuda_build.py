@@ -4,9 +4,9 @@ Each ``csrc/*.cu`` source is compiled by ``nvcc`` for ``sm_90a`` into its own
 shared library with a plain C interface and loaded with ``ctypes``; a source
 may export several kernels' entry points (``quant_matmul.cu``: K5 and K6;
 ``w8a8_matmul.cu``: K7, K8, K11 and the stacked K11; ``row_quantize.cu``:
-K9 and K10; ``sage_attention.cu``: K4 and its preparation;
-``sage_attention_variants.cu`` and ``w8a8_matmul_bf16.cu``: K4's and the
-W8A8 matmuls' flag variants). The build
+K9 and K10; ``sage_attention.cu``: K4, its flag variants and their
+preparation; ``w8a8_matmul_bf16.cu``: the W8A8 matmuls' flag variant). The
+build
 happens at first use, into ``build/kernels/`` at the repository root
 (listed in ``.gitignore``); the file name carries a hash of the sources and
 flags, so an edited kernel is rebuilt and a built one is reused. ``build()`` starts one ``nvcc`` per
@@ -108,7 +108,8 @@ _SAGE_PREPARE_ARGTYPES = (
     + [ctypes.c_longlong] * 9        # (b, h, l) strides of q, k, v
     + [ctypes.c_int] * 2             # q images, kv images
     + [ctypes.c_float]               # 1 / sqrt(d)
-    + [ctypes.c_int]                 # V as int8 codes (else centred bf16)
+    + [ctypes.c_int] * 2             # Q and K as int8 codes (else widened to bf16),
+                                     # V as codes (else centred bf16)
     + [ctypes.c_void_p]              # stream
 )
 
@@ -116,6 +117,7 @@ _W8A8_BF16_ARGTYPES = (
     [ctypes.c_void_p] * 7            # xq, sx, q, cs, bias, residual, out
     + [ctypes.c_int] * 3             # m, n, k
     + [ctypes.c_longlong] * 3        # row strides of xq, q, residual
+    + [ctypes.c_int]                 # tile id (quant_matmul.w8a8_bf16_tile)
     + _STACK_ARGTYPES                # depth, idx (1, 0: a plain weight)
     + [ctypes.c_void_p]              # stream
 )
@@ -180,7 +182,7 @@ KERNELS = {
         "sage_attention.cu", "ldt_sage_prepare_fwd", _SAGE_PREPARE_ARGTYPES,
     ),
     "sage_attention_variant": (
-        "sage_attention_variants.cu", "ldt_sage_variant_fwd", _SAGE_VARIANT_ARGTYPES,
+        "sage_attention.cu", "ldt_sage_variant_fwd", _SAGE_VARIANT_ARGTYPES,
     ),
     "w8a8_matmul_bf16": (
         "w8a8_matmul_bf16.cu", "ldt_w8a8_bf16_matmul_fwd", _W8A8_BF16_ARGTYPES,

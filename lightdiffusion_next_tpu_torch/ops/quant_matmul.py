@@ -45,8 +45,9 @@ backward raises: no kernel has a backward. K7's and K8's row quantization is K9'
 ``w8a8_matmul_ep`` and ``w8a8_matmul_ep_stacked`` (default True, as in the
 JAX package, whose pipelines never set it): the same int8 operands
 multiplied at the bf16 rate into an f32 accumulator
-(``csrc/w8a8_matmul_bf16.cu``, ``mma.sync`` on the bf16 tensor cores), with
-the same epilogues; counted in each wrapper's ``launches_bf16``. Its plain
+(``csrc/w8a8_matmul_bf16.cu``, ``wgmma`` on the bf16 tensor cores, the
+codes converted to bf16 on the way, tiles by shape), with the same
+epilogues; counted in each wrapper's ``launches_bf16``. Its plain
 version multiplies the codes as f32 (``torch.matmul``), exact while a
 partial sum stays below 2^24, so on the CPU it equals the integer one.
 
@@ -257,10 +258,16 @@ def supported_w8a8(m: int, k: int, n: int) -> bool:
 # W8A8_STAGES, plus one 1024-byte atom of alignment; the source's header
 # holds the times the choice below came from.
 W8A8_TILES = ((256, 128, 2), (192, 256, 3), (64, 64, 1))
-# The bf16-rate variant's one tile (csrc/w8a8_matmul_bf16.cu): 128 x 128
-# outputs, K steps of 64 codes
-W8A8_BF16_BN = 128
+# The bf16-rate variant's tiles by id (csrc/w8a8_matmul_bf16.cu dispatches
+# them the same way): (rows, columns, consumer warpgroups of 64 rows). Each
+# block stages K steps of W8A8_BF16_BK codes of its A and B tiles in a ring
+# of W8A8_BF16_STAGES, converts both into W8A8_BF16_BUFS bf16 buffer sets,
+# plus one 1024-byte atom of alignment. It takes K in multiples of
+# W8A8_BF16_BK.
+W8A8_BF16_TILES = ((128, 256, 2), (128, 128, 2), (64, 64, 1))
 W8A8_BF16_BK = 64
+W8A8_BF16_STAGES = 3
+W8A8_BF16_BUFS = 3
 W8A8_BK = 128
 W8A8_STAGES = 4
 SMS = 132  # an H100's streaming multiprocessors
@@ -287,6 +294,27 @@ def w8a8_tile(m: int, n: int, k: int) -> int:
         if wide % SMS == 0 and wide <= 2 * SMS:
             return 1
     return 0
+
+
+def w8a8_bf16_smem_bytes(tile: int) -> int:
+    """Shared memory of one block of the bf16-rate variant's ``tile``,
+    bytes."""
+    bm, bn, _ = W8A8_BF16_TILES[tile]
+    return ((W8A8_BF16_BUFS * 2 + W8A8_BF16_STAGES) * (bm + bn) * W8A8_BF16_BK
+            + 1024)
+
+
+def w8a8_bf16_tile(m: int, n: int, k: int) -> int:
+    """The tile id the bf16-rate W8A8 kernel takes for (M, K, N): 128 x 256
+    (one block per SM), 128 x 128 where N is not a multiple of 256, and
+    64 x 64 where the larger tile's grid would leave more than a third of
+    the SMs idle (M = 256: 24 blocks at N = 3072)."""
+    del k  # the choice does not depend on K
+    wide = n % 256 == 0
+    blocks = -(-m // 128) * (n // (256 if wide else 128))
+    if 3 * blocks < 2 * SMS:
+        return 2
+    return 0 if wide else 1
 
 
 def supported_rowquant(k: int) -> bool:
@@ -417,14 +445,17 @@ def _launch_w8a8(xq, sx, q, cs, bias=None, residual=None, k=None, ep=False, idx=
     stack q (K8: cs the stack's (D, 1, N) column scales, read at ``idx``
     too; K11: cs the folded (N,) vector). ``k`` (default K) is the number
     of K bytes summed; ``tile`` (default ``w8a8_tile``) the tile's id.
-    ``int8_mxu=False``: the bf16-rate kernel (``csrc/w8a8_matmul_bf16.cu``,
-    one 128 x 128 tile) in place of the int8 one, on the same operands."""
+    ``int8_mxu=False``: the bf16-rate kernel (``csrc/w8a8_matmul_bf16.cu``)
+    in place of the int8 one, on the same operands, its tile an id of
+    ``W8A8_BF16_TILES`` (default ``w8a8_bf16_tile``)."""
     stacked = idx is not None
     _check_matmul_operands(xq, sx, q, cs, stacked)
     m, kx = xq.shape
     n = q.shape[-2]
-    tile = w8a8_tile(m, n, kx) if tile is None else tile
-    if not 0 <= tile < len(W8A8_TILES) or n % W8A8_TILES[tile][1]:
+    tiles = W8A8_TILES if int8_mxu else W8A8_BF16_TILES
+    if tile is None:
+        tile = (w8a8_tile if int8_mxu else w8a8_bf16_tile)(m, n, kx)
+    if not 0 <= tile < len(tiles) or n % tiles[tile][1]:
         raise ValueError(f"w8a8 matmul: tile {tile} does not take N = {n}")
     out = torch.empty((m, n), dtype=torch.bfloat16, device=xq.device)
     stream = torch.cuda.current_stream(xq.device).cuda_stream
@@ -437,7 +468,7 @@ def _launch_w8a8(xq, sx, q, cs, bias=None, residual=None, k=None, ep=False, idx=
                          "takes the stack's (D, 1, N) column scales, K7 and K11 (N,)")
     if not int8_mxu:
         return _launch_w8a8_bf16(xq, sx, q, cs, bias, residual, out, k, ep, depth,
-                                 idx if stacked else 0, stream)
+                                 idx if stacked else 0, tile, stream)
     if not ep:
         name = "w8a8_matmul_stacked" if stacked else "w8a8_matmul"
         args = (xq.data_ptr(), sx.data_ptr(), q.data_ptr(), cs.data_ptr(), out.data_ptr(),
@@ -455,20 +486,20 @@ def _launch_w8a8(xq, sx, q, cs, bias=None, residual=None, k=None, ep=False, idx=
     return out
 
 
-def _launch_w8a8_bf16(xq, sx, q, cs, bias, residual, out, k, ep, depth, idx, stream):
+def _launch_w8a8_bf16(xq, sx, q, cs, bias, residual, out, k, ep, depth, idx, tile, stream):
     """The bf16-rate K7, K8 or K11 (``int8_mxu=False``) on checked operands:
     block ``idx`` of ``depth`` (1: a plain weight); K8's column scales read
     at the block here."""
     m, kx = xq.shape
     n = q.shape[-2]
-    if k % W8A8_BF16_BK or n % W8A8_BF16_BN:
-        raise ValueError(f"w8a8 matmul (bf16 rate): K = {k}, N = {n} not taken")
+    if k % W8A8_BF16_BK or k < W8A8_BF16_BK:
+        raise ValueError(f"w8a8 matmul (bf16 rate): K = {k} not taken")
     bias_ptr, res_ptr, ldr = _ep_operands(bias, residual, m, n) if ep else (None, None, 0)
     cs_ptr = cs.data_ptr() + (0 if ep else 4 * idx * n)
     name = "w8a8_matmul_bf16"
     rc = cuda_build.entry_point(name)(
         xq.data_ptr(), sx.data_ptr(), q.data_ptr(), cs_ptr, bias_ptr, res_ptr,
-        out.data_ptr(), m, n, k, kx, kx, ldr, depth, idx, stream)
+        out.data_ptr(), m, n, k, kx, kx, ldr, tile, depth, idx, stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel failed: " + cuda_build.error_string(name, rc))
     return out

@@ -23,13 +23,18 @@ On the card a call is two hand-written steps (csrc/sage_attention.cu):
   V's mean in f32 before the output's one bf16 rounding.
 
 The images, in bytes per (batch, head): ``q_images(lq)`` q images of 64
-rows (codes [DP / 32][64][32 bytes], then the rows' sq in f32) and
-``ceil(lk / BN)`` kv images of BN tokens (K codes [DP / 32][BN][32 bytes],
-sk[BN] f32, then V transposed, [BN / 32][DV][32 bytes], with each group of
-32 tokens in ``_V_ORDER``), every 32-byte row 32-byte-swizzled (its two
-16-byte halves swap in rows 4-7 of each 8 rows). DP is d padded to 32, DV d
-with 40 padded to 48, BN 128 tokens for d <= 80, else 64 (``geometry``);
-padding holds zero codes, sq 0 and sk 1.
+rows (Q's codes [slices][64][32 bytes], then the rows' sq in f32) and
+``ceil(lk / BN)`` kv images of BN tokens (K's codes [slices][BN][32 bytes],
+sk[BN] f32, then V), every 32-byte row 32-byte-swizzled (its two 16-byte
+halves swap in rows 4-7 of each 8 rows). A slice of Q's and K's rows is 32
+int8 codes (DP = d padded to 32), or with ``int8_mxu=False`` 16 codes
+widened to bf16 (KP = d padded to 16; ``row_elems``). V for K4 is its codes
+transposed, [BN / 32][DV][32 bytes], each group of 32 tokens in
+``_V_ORDER``; for every flag variant it is bf16 transposed, [BN / 16][d][32
+bytes], the tokens in their natural order: the codes widened, or with
+``pv_int8=False`` the centred values. DV is d with 40 padded to 48, BN 128
+tokens for d <= 80, else 64 (``geometry``); padding holds zero codes, sq 0
+and sk 1.
 
 The online softmax quantizes P against the running maximum after each
 block of kv tokens, so the block width is part of the function. The kernel
@@ -50,9 +55,11 @@ callers set them; the dispatch and the pipelines do not):
   accumulators;
 - both: Q.K^T at the bf16 rate and the bf16 P.V.
 
-On the card the three go to one more kernel (``_launch_variant``,
-csrc/sage_attention_variants.cu, ``mma.sync``) after the same preparation,
-counted in the wrapper's ``VARIANT_COUNTERS[(int8_mxu, pv_int8)]``.
+On the card each is an instantiation of K4's kernel with the same
+pipeline and ``wgmma`` at the bf16 rate where the flags ask for it
+(``_launch_variant``, csrc/sage_attention.cu), after the preparation with
+the same flags, counted in the wrapper's ``VARIANT_COUNTERS[(int8_mxu,
+pv_int8)]``.
 
 No kernel has a backward: an input that requires grad goes through the
 wrapper's ``grad_guard.no_backward``, whose backward raises.
@@ -74,9 +81,10 @@ HEAD_DIMS = (32, 40, 64, 80, 128, 160)  # head dims the kernel is built for
 Q_ROWS = 64  # rows of a q image: one consumer warpgroup of K4
 STAT_SPLITS = 16  # the most token slices of the preparation's column statistics
 
-# The kernel's token order of V within each group of 32 (csrc/
-# sage_attention.cu, kPermNote): stored position 4t + i holds token
-# (2t, 2t+1, 8+2t, 9+2t)[i], and 16 + the same in the group's second half.
+# K4's token order of V within each group of 32 (csrc/sage_attention.cu,
+# kPermNote): stored position 4t + i holds token (2t, 2t+1, 8+2t, 9+2t)[i],
+# and 16 + the same in the group's second half. The flag variants' bf16 V
+# keeps the natural order.
 _V_ORDER = [16 * h + (2 * t, 2 * t + 1, 8 + 2 * t, 9 + 2 * t)[i]
             for h in range(2) for t in range(4) for i in range(4)]
 
@@ -106,14 +114,16 @@ PREP_MEAN_REL = 1e-5
 
 
 class Operands(NamedTuple):
-    """What the preparation hands K4: the q and kv images (uint8, (B*H,
-    images, bytes)), V's scale over 127 and its mean ((B*H, d) f32), and
-    the kv length."""
+    """What the preparation hands K4 or a flag variant: the q and kv images
+    (uint8, (B*H, images, bytes)), V's scale over 127 and its mean ((B*H,
+    d) f32), the kv length, and the flags the images were laid out for."""
     qimg: torch.Tensor
     kvimg: torch.Tensor
     svs: torch.Tensor
     vmu: torch.Tensor
     lk: int
+    int8_mxu: bool = True
+    pv_int8: bool = True
 
 
 def _exact_block(length: int, preferred: int) -> int:
@@ -220,6 +230,22 @@ def geometry(d: int):
     return -(-d // 32) * 32, 48 if d == 40 else d, 128 if d <= 80 else 64
 
 
+def row_elems(d: int, int8_mxu: bool = True) -> int:
+    """Codes per q or k row of the images: DP (int8, k32 slices) or, with
+    ``int8_mxu=False``, KP (bf16, k16 slices)."""
+    return -(-d // 32) * 32 if int8_mxu else -(-d // 16) * 16
+
+
+def row_bytes(d: int, int8_mxu: bool = True) -> int:
+    """Bytes per q or k row of the images."""
+    return row_elems(d, int8_mxu) * (1 if int8_mxu else 2)
+
+
+def q_image_bytes(d: int, int8_mxu: bool = True) -> int:
+    """Bytes of one q image: 64 rows of codes, then their sq."""
+    return Q_ROWS * (row_bytes(d, int8_mxu) + 4)
+
+
 def q_images(lq: int) -> int:
     """q images per (batch, head): ceil(lq / 128) pairs of 64 rows."""
     return -(-lq // (2 * Q_ROWS)) * 2
@@ -248,79 +274,102 @@ def _bytes(x):
     return x.contiguous().view(torch.uint8)
 
 
-def kv_image_bytes(d: int, pv_int8: bool = True) -> int:
-    """Bytes of one kv image: K's codes, sk, then V's codes ([BN / 32][DV]
-    [32], swizzled) or, with ``pv_int8=False``, V in bf16 ([d][BN], the
-    tokens of each group of 32 in ``_V_ORDER``, unswizzled)."""
-    dp, dv, bn = geometry(d)
-    return bn * (dp + 4) + (dv * bn if pv_int8 else 2 * d * bn)
+def kv_image_bytes(d: int, pv_int8: bool = True, int8_mxu: bool = True) -> int:
+    """Bytes of one kv image: K's codes, sk, then V: K4's codes ([BN / 32]
+    [DV][32], swizzled, ``_V_ORDER``) or, for every flag variant, bf16
+    ([BN / 16][d][32], swizzled, natural order)."""
+    _, dv, bn = geometry(d)
+    v_bytes = dv * bn if int8_mxu and pv_int8 else 2 * d * bn
+    return bn * (row_bytes(d, int8_mxu) + 4) + v_bytes
 
 
-def v_bf16(ops: Operands, d: int) -> bool:
-    """Whether the kv images hold V in bf16 (the ``pv_int8=False`` layout)."""
-    return ops.kvimg.shape[-1] == kv_image_bytes(d, pv_int8=False)
+def _row_image(codes, int8_mxu: bool):
+    """(..., rows, row_elems) int8 codes -> their slices' bytes: int8, or
+    widened to bf16 (exact)."""
+    return _swizzle32(_bytes(codes if int8_mxu else codes.to(torch.bfloat16)))
 
 
-def pack_operands(qq, sq, kq, sk, vq, svs, vmu) -> Operands:
+def _row_codes(image, rows: int, d: int, int8_mxu: bool):
+    """The inverse of ``_row_image``: (..., rows, row_elems) int8; raises
+    if a widened code is not an integer."""
+    x = _unswizzle32(image, rows, row_bytes(d, int8_mxu))
+    return x.view(torch.int8) if int8_mxu else _exact_codes(x.view(torch.bfloat16))
+
+
+def _exact_codes(x):
+    codes = x.to(torch.int8)
+    if not torch.equal(codes.to(x.dtype), x):
+        raise ValueError("sage_attention: an image holds a bf16 code that is not an integer")
+    return codes
+
+
+def pack_operands(qq, sq, kq, sk, vq, svs, vmu, int8_mxu=True) -> Operands:
     """The plain layout: ``prepare``'s outputs as the preparation kernel
     writes them (see the module's docstring); a bf16 ``vq`` (``pv_int8=
-    False``) goes in as bf16."""
+    False``) goes in as bf16; ``int8_mxu=False`` widens Q's and K's codes
+    to bf16."""
     b, h, lq, d = qq.shape
     lk = kq.shape[2]
-    dp, dv, bn = geometry(d)
+    _, dv, bn = geometry(d)
+    w = row_elems(d, int8_mxu)
+    pv_int8 = vq.dtype != torch.bfloat16
     bh, qt, kt = b * h, q_images(lq), -(-lk // bn)
     qrows, krows = qt * Q_ROWS, kt * bn
-    qc = F.pad(qq.reshape(bh, lq, d), (0, dp - d, 0, qrows - lq)).view(bh, qt, Q_ROWS, dp)
+    qc = F.pad(qq.reshape(bh, lq, d), (0, w - d, 0, qrows - lq)).view(bh, qt, Q_ROWS, w)
     qs = F.pad(sq.reshape(bh, lq), (0, qrows - lq)).view(bh, qt, Q_ROWS)
-    qimg = torch.cat([_swizzle32(_bytes(qc)), _bytes(qs)], dim=-1)
-    kc = F.pad(kq.reshape(bh, lk, d), (0, dp - d, 0, krows - lk)).view(bh, kt, bn, dp)
+    qimg = torch.cat([_row_image(qc, int8_mxu), _bytes(qs)], dim=-1)
+    kc = F.pad(kq.reshape(bh, lk, d), (0, w - d, 0, krows - lk)).view(bh, kt, bn, w)
     ks = F.pad(sk.reshape(bh, lk), (0, krows - lk), value=1.0).view(bh, kt, bn)
-    order = torch.as_tensor(_V_ORDER, device=vq.device)
-    if vq.dtype == torch.bfloat16:
-        vc = F.pad(vq.reshape(bh, lk, d), (0, 0, 0, krows - lk))
-        vc = vc.view(bh, kt, bn // 32, 32, d)[:, :, :, order].reshape(bh, kt, bn, d)
-        vimg = _bytes(vc.transpose(-1, -2)).reshape(bh, kt, 2 * d * bn)
-    else:
+    if int8_mxu and pv_int8:
+        order = torch.as_tensor(_V_ORDER, device=vq.device)
         vc = F.pad(vq.reshape(bh, lk, d), (0, dv - d, 0, krows - lk))
         vc = vc.view(bh, kt, bn // 32, 32, dv)[:, :, :, order].transpose(-1, -2)
         vimg = _swizzle32(_bytes(vc)).reshape(bh, kt, bn * dv)
-    kvimg = torch.cat([_swizzle32(_bytes(kc)), _bytes(ks), vimg], dim=-1)
+    else:
+        vc = F.pad(vq.reshape(bh, lk, d), (0, 0, 0, krows - lk)).to(torch.bfloat16)
+        vc = vc.view(bh, kt, bn, d).transpose(-1, -2)
+        vimg = _swizzle32(_bytes(vc)).reshape(bh, kt, 2 * d * bn)
+    kvimg = torch.cat([_row_image(kc, int8_mxu), _bytes(ks), vimg], dim=-1)
     return Operands(qimg, kvimg, svs.reshape(bh, d).contiguous(),
-                    vmu.reshape(bh, d).contiguous(), lk)
+                    vmu.reshape(bh, d).contiguous(), lk, int8_mxu, pv_int8)
 
 
 def unpack_operands(ops: Operands, d: int):
     """The images of head dim ``d`` read back, padding included: q codes
-    (B*H, q rows, DP) int8 and sq (B*H, q rows) f32; k codes (B*H, kv rows,
-    DP), sk (B*H, kv rows); v codes (B*H, kv rows, DV) in token order (or
-    the bf16 V, (B*H, kv rows, d)). Rows past the lengths and columns past d
-    are the padding."""
-    dp, dv, bn = geometry(d)
+    (B*H, q rows, row_elems) int8 (widened codes narrowed back) and sq (B*H,
+    q rows) f32; k codes (B*H, kv rows, row_elems), sk (B*H, kv rows); v
+    codes in token order, (B*H, kv rows, DV) for K4 and (B*H, kv rows, d)
+    for a variant, or with ``pv_int8=False`` the bf16 V (B*H, kv rows, d).
+    Rows past the lengths and columns past d are the padding."""
+    _, dv, bn = geometry(d)
     bh, qt, kt = ops.kvimg.shape[0], ops.qimg.shape[1], ops.kvimg.shape[1]
-    qcode = Q_ROWS * dp
-    qc = _unswizzle32(ops.qimg[..., :qcode], Q_ROWS, dp).view(torch.int8)
+    w, rb = row_elems(d, ops.int8_mxu), row_bytes(d, ops.int8_mxu)
+    qcode = Q_ROWS * rb
+    qc = _row_codes(ops.qimg[..., :qcode], Q_ROWS, d, ops.int8_mxu)
     qs = ops.qimg[..., qcode:].contiguous().view(torch.float32)
-    kcode = bn * dp
-    kc = _unswizzle32(ops.kvimg[..., :kcode], bn, dp).view(torch.int8)
+    kcode = bn * rb
+    kc = _row_codes(ops.kvimg[..., :kcode], bn, d, ops.int8_mxu)
     ks = ops.kvimg[..., kcode:kcode + 4 * bn].contiguous().view(torch.float32)
-    inverse = torch.as_tensor(sorted(range(32), key=_V_ORDER.__getitem__),
-                              device=ops.kvimg.device)
-    if v_bf16(ops, d):
-        vimg = ops.kvimg[..., kcode + 4 * bn:].contiguous().view(torch.bfloat16)
-        vc = vimg.view(bh, kt, d, bn).transpose(-1, -2).reshape(bh, kt, bn // 32, 32, d)
-        vc = vc[:, :, :, inverse].reshape(bh, kt * bn, d)
-    else:
-        vimg = ops.kvimg[..., kcode + 4 * bn:].reshape(bh, kt, bn // 32, dv * 32)
+    vimg = ops.kvimg[..., kcode + 4 * bn:]
+    if ops.int8_mxu and ops.pv_int8:
+        inverse = torch.as_tensor(sorted(range(32), key=_V_ORDER.__getitem__),
+                                  device=ops.kvimg.device)
+        vimg = vimg.reshape(bh, kt, bn // 32, dv * 32)
         vc = _unswizzle32(vimg, dv, 32).view(torch.int8).transpose(-1, -2)
         vc = vc[:, :, :, inverse].reshape(bh, kt * bn, dv)
-    return (qc.reshape(bh, qt * Q_ROWS, dp), qs.reshape(bh, qt * Q_ROWS),
-            kc.reshape(bh, kt * bn, dp), ks.reshape(bh, kt * bn), vc)
+    else:
+        vc = _unswizzle32(vimg, d, 2 * bn).view(torch.bfloat16).transpose(-1, -2)
+        vc = vc.reshape(bh, kt * bn, d)
+        if ops.pv_int8:
+            vc = _exact_codes(vc)
+    return (qc.reshape(bh, qt * Q_ROWS, w), qs.reshape(bh, qt * Q_ROWS),
+            kc.reshape(bh, kt * bn, w), ks.reshape(bh, kt * bn), vc)
 
 
-def prepare_plain(q, k, v, pv_int8=True) -> Operands:
+def prepare_plain(q, k, v, pv_int8=True, int8_mxu=True) -> Operands:
     """Plain version of the preparation kernel: ``prepare``, then the
-    kernel's layout."""
-    return pack_operands(*prepare(q, k, v, pv_int8))
+    kernel's layout for the flags."""
+    return pack_operands(*prepare(q, k, v, pv_int8), int8_mxu=int8_mxu)
 
 
 def prep_agreement(ops: Operands, ref: Operands, d: int) -> dict:
@@ -331,7 +380,7 @@ def prep_agreement(ops: Operands, ref: Operands, d: int) -> dict:
     v - vmu before its rounding; at most PREP_CODE_SHARE of them
     different), V's mean against the largest |v - vmu| of its channel."""
     got, want = unpack_operands(ops, d), unpack_operands(ref, d)
-    bf16_v = v_bf16(ops, d)
+    bf16_v = not ops.pv_int8
     ints = list(zip(got[0::2], want[0::2]))[:2 if bf16_v else 3]
     codes = [(g.int() - w.int()).abs() for g, w in ints]
     if bf16_v:
@@ -376,18 +425,19 @@ def _check_inputs(q, k, v):
             raise ValueError("sage_attention: rows must be contiguous and 4-byte aligned")
 
 
-def prepare_kernel(q, k, v, pv_int8=True) -> Operands:
+def prepare_kernel(q, k, v, pv_int8=True, int8_mxu=True) -> Operands:
     """The preparation kernel: q (B, H, Lq, D), k/v (B, H, Lk, D) bf16 on
-    the card, through their strides, -> the operands K4 (or, with
-    ``pv_int8=False``, the quality variant) takes."""
+    the card, through their strides, -> the operands K4 (or the flag
+    variant ``(int8_mxu, pv_int8)``) takes."""
     _check_inputs(q, k, v)
     b, h, lq, d = q.shape
     lk = k.shape[2]
-    dp, dv, bn = geometry(d)
+    bn = geometry(d)[2]
     bh, qt, kt = b * h, q_images(lq), -(-lk // bn)
     dev = q.device
-    qimg = torch.empty((bh, qt, Q_ROWS * (dp + 4)), dtype=torch.uint8, device=dev)
-    kvimg = torch.empty((bh, kt, kv_image_bytes(d, pv_int8)), dtype=torch.uint8, device=dev)
+    qimg = torch.empty((bh, qt, q_image_bytes(d, int8_mxu)), dtype=torch.uint8, device=dev)
+    kvimg = torch.empty((bh, kt, kv_image_bytes(d, pv_int8, int8_mxu)), dtype=torch.uint8,
+                        device=dev)
     svs = torch.empty((bh, d), dtype=torch.float32, device=dev)
     vmu = torch.empty((bh, d), dtype=torch.float32, device=dev)
     part = torch.empty((bh, STAT_SPLITS, 4, d), dtype=torch.float32, device=dev)
@@ -395,12 +445,13 @@ def prepare_kernel(q, k, v, pv_int8=True) -> Operands:
         q.data_ptr(), k.data_ptr(), v.data_ptr(), qimg.data_ptr(), kvimg.data_ptr(),
         svs.data_ptr(), vmu.data_ptr(), part.data_ptr(), b, h, lq, lk, d,
         *q.stride()[:3], *k.stride()[:3], *v.stride()[:3], qt, kt,
-        1.0 / math.sqrt(d), int(pv_int8), torch.cuda.current_stream(dev).cuda_stream)
+        1.0 / math.sqrt(d), int(int8_mxu), int(pv_int8),
+        torch.cuda.current_stream(dev).cuda_stream)
     if rc != 0:
         raise RuntimeError("sage_prepare kernel failed: "
                            + cuda_build.error_string("sage_prepare", rc))
     prepare_kernel.launches += 1
-    return Operands(qimg, kvimg, svs, vmu, lk)
+    return Operands(qimg, kvimg, svs, vmu, lk, bool(int8_mxu), bool(pv_int8))
 
 
 def _launch(q, ops: Operands, kv_tiles=None, use_sk=True):
@@ -413,6 +464,8 @@ def _launch(q, ops: Operands, kv_tiles=None, use_sk=True):
         raise ValueError(f"sage_attention: no kernel for device {q.device}")
     if d not in HEAD_DIMS:
         raise ValueError(f"sage_attention: head dim {d} not among {HEAD_DIMS}")
+    if not (ops.int8_mxu and ops.pv_int8):
+        raise ValueError("sage_attention: operands prepared for a flag variant")
     bn = geometry(d)[2]
     qt, kt = ops.qimg.shape[1], ops.kvimg.shape[1]
     out = torch.empty((b, lq, h, d), dtype=torch.bfloat16, device=q.device)
@@ -430,8 +483,8 @@ def _launch(q, ops: Operands, kv_tiles=None, use_sk=True):
 def _launch_variant(q, ops: Operands, int8_mxu: bool, pv_int8: bool, kv_tiles=None,
                     use_sk=True):
     """Launch the flag variant ``(int8_mxu, pv_int8)`` (not both True: that
-    is K4) on operands prepared with the same ``pv_int8``; the output and
-    the planted faults as for ``_launch``."""
+    is K4) on operands prepared with the same flags; the output and the
+    planted faults as for ``_launch``."""
     b, h, lq, d = q.shape
     if int8_mxu and pv_int8:
         raise ValueError("sage_attention: int8_mxu and pv_int8 both on is K4 (_launch)")
@@ -439,8 +492,8 @@ def _launch_variant(q, ops: Operands, int8_mxu: bool, pv_int8: bool, kv_tiles=No
         raise ValueError(f"sage_attention: no kernel for device {q.device}")
     if d not in HEAD_DIMS:
         raise ValueError(f"sage_attention: head dim {d} not among {HEAD_DIMS}")
-    if v_bf16(ops, d) == pv_int8:
-        raise ValueError("sage_attention: operands prepared with another pv_int8")
+    if (ops.int8_mxu, ops.pv_int8) != (bool(int8_mxu), bool(pv_int8)):
+        raise ValueError("sage_attention: operands prepared with other flags")
     bn = geometry(d)[2]
     qt, kt = ops.qimg.shape[1], ops.kvimg.shape[1]
     out = torch.empty((b, lq, h, d), dtype=torch.bfloat16, device=q.device)
@@ -462,7 +515,7 @@ def sage_attention(q, k, v, int8_mxu=True, pv_int8=True):
     ``int8_mxu`` or ``pv_int8`` off the variant kernel."""
     if q.device.type == "cpu":
         return sage_attention_plain(q, k, v, pv_int8=pv_int8)
-    ops = prepare_kernel(q, k, v, pv_int8)
+    ops = prepare_kernel(q, k, v, pv_int8, int8_mxu)
     if int8_mxu and pv_int8:
         out = _launch(q, ops)
         sage_attention.launches += 1

@@ -1234,10 +1234,35 @@ def test_sage_variants_match_plain(cuda, b, h, lq, lk, d, int8_mxu, pv_int8):
     assert out.shape == q.shape and out.dtype == torch.bfloat16
     check = _sage_check(out, sa.sage_attention_plain(q, k, v, pv_int8=pv_int8))
     assert check["ok"], check
-    if not pv_int8:
-        ops = sa.prepare_kernel(q, k, v, pv_int8=False)
-        prep = sa.prep_agreement(ops, sa.prepare_plain(q, k, v, pv_int8=False), d)
-        assert prep["ok"], prep
+    flags = dict(pv_int8=pv_int8, int8_mxu=int8_mxu)
+    ops = sa.prepare_kernel(q, k, v, **flags)
+    prep = sa.prep_agreement(ops, sa.prepare_plain(q, k, v, **flags), d)
+    assert prep["ok"], prep
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("pv_int8", [True, False])
+@pytest.mark.parametrize("b,h,lq,lk,d", [
+    (1, 2, 577, 530, 40),       # ragged: masked kv tail, partial q tile
+    (1, 2, 200, 520, 32),
+    (2, 2, 256, 1024, 64),
+    (1, 3, 600, 2100, 80),      # three softmax blocks of 768
+    (1, 2, 640, 640, 128),
+    (1, 2, 300, 2100, 160),     # kv tiles of 64, the ring of two stages
+])
+def test_sage_bf16_rate_equals_int8_bit_for_bit(cuda, b, h, lq, lk, d, pv_int8):
+    """Q.K^T at the bf16 rate multiplies the same integers exactly, in the
+    same order of f32 operations: int8_mxu=False gives K4's output bit for
+    bit, and (False, False) gives (True, False)'s."""
+    from lightdiffusion_next_tpu_torch.ops import sage_attention as sa
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    q, k, v = (torch.randn(s, generator=gen, device="cuda").bfloat16()
+               for s in ((b, h, lq, d), (b, h, lk, d), (b, h, lk, d)))
+    bf16 = sa.sage_attention(q, k, v, int8_mxu=False, pv_int8=pv_int8)
+    int8 = sa.sage_attention(q, k, v, pv_int8=pv_int8)
+    torch.cuda.synchronize()
+    assert torch.equal(bf16, int8), (bf16.float() - int8.float()).abs().max().item()
 
 
 @pytest.mark.cuda
@@ -1249,7 +1274,7 @@ def test_sage_variant_planted_faults_fail_the_check(cuda, int8_mxu, pv_int8):
     q, k, v = (torch.randn((2, 4, 4096, 40), generator=gen, device="cuda").bfloat16()
                for _ in range(3))
     ref = sa.sage_attention_plain(q, k, v, pv_int8=pv_int8)
-    ops = sa.prepare_kernel(q, k, v, pv_int8=pv_int8)
+    ops = sa.prepare_kernel(q, k, v, pv_int8=pv_int8, int8_mxu=int8_mxu)
     kt = ops.kvimg.shape[1]
     assert _sage_check(sa._launch_variant(q, ops, int8_mxu, pv_int8), ref)["ok"]
     assert not _sage_check(sa._launch_variant(q, ops, int8_mxu, pv_int8, kv_tiles=kt - 1),
@@ -1257,8 +1282,11 @@ def test_sage_variant_planted_faults_fail_the_check(cuda, int8_mxu, pv_int8):
     assert not _sage_check(sa._launch_variant(q, ops, int8_mxu, pv_int8, use_sk=False),
                            ref)["ok"]
     with pytest.raises(ValueError):  # operands of the other V layout
-        sa._launch_variant(q, sa.prepare_kernel(q, k, v, pv_int8=not pv_int8), int8_mxu,
-                           pv_int8)
+        sa._launch_variant(q, sa.prepare_kernel(q, k, v, pv_int8=not pv_int8,
+                                                int8_mxu=int8_mxu), int8_mxu, pv_int8)
+    with pytest.raises(ValueError):  # operands of the other Q and K layout
+        sa._launch_variant(q, sa.prepare_kernel(q, k, v, pv_int8=pv_int8,
+                                                int8_mxu=not int8_mxu), int8_mxu, pv_int8)
 
 
 @pytest.mark.cuda
@@ -1300,6 +1328,26 @@ def test_w8a8_bf16_rate_matches_plain(cuda, m, k, n, mode):
     assert out.shape == (m, n) and out.dtype == torch.bfloat16
     check = _q8_check(out, ref)
     assert check["ok"], check
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["k7", "bias", "residual"])
+@pytest.mark.parametrize("tile", range(len(qm.W8A8_BF16_TILES)))
+def test_w8a8_bf16_rate_every_tile_and_mode_matches_plain(cuda, tile, mode):
+    """Every tile of ``quant_matmul.W8A8_BF16_TILES`` in every epilogue,
+    forced, at a ragged M and an odd number of K steps of 64."""
+    gen = torch.Generator(device="cuda").manual_seed(27)
+    m, n = 1000, 768
+    w, xq, sx, cs, kw = _w8a8_operands(m, 3072, n, mode, gen)
+    k = 3008  # 47 steps of 64 summed: the unrolled pair's second half skipped once
+    out = qm._launch_w8a8(xq, sx.reshape(-1), w.q, cs, k=k, tile=tile, int8_mxu=False, **kw)
+    torch.cuda.synchronize()
+    ref = qm._epilogue_plain(xq[:, :k], sx, w.q[:, :k], cs, kw.get("bias"), kw.get("residual"),
+                             int8_mxu=False)
+    check = _q8_check(out, ref)
+    assert check["ok"], (tile, check)
+    exact = qm._epilogue_plain(xq[:, :k], sx, w.q[:, :k], cs, kw.get("bias"), kw.get("residual"))
+    assert qm.matmul_agreement(out, exact)["ok"], tile
 
 
 @pytest.mark.cuda

@@ -1,8 +1,9 @@
 """K4's flag variants (``int8_mxu=False``, ``pv_int8=False`` and both)
 against the JAX package: the port's plain ``sage_attention`` with each flag
 pair against JAX ``sage_attention`` with the same flags (its Pallas kernel
-in interpret mode on the CPU), the preparation's bf16 V layout, and the
-wrapper's refusals.
+in interpret mode on the CPU), the images of every flag pair (the bf16 V
+and the codes widened to bf16 for int8_mxu=False), and the wrapper's
+refusals.
 
 Inputs come from a numpy seed and go through both packages. Tolerances, as
 ``tests/test_torch_sage.py`` states them for K4: SAGE_REL_RMSE relative RMS
@@ -99,26 +100,80 @@ def test_quality_preparation_matches_jax():
     assert (diff > 0).mean() <= 1e-3
 
 
+def _unswizzle_rows(block, rows):
+    """One 32-byte-swizzled slice of ``rows`` rows, unswizzled by hand:
+    (rows, 32) bytes, the two 16-byte halves swapped back in rows 4-7 of
+    each 8."""
+    t = block.reshape(rows, 2, 16)
+    swap = torch.tensor([(r >> 2) & 1 for r in range(rows)]).bool().view(rows, 1, 1)
+    return torch.where(swap, t.flip(1), t).reshape(rows, 32)
+
+
 @pytest.mark.parametrize("b,h,lq,lk,d", [(2, 3, 70, 100, 40), (1, 1, 130, 200, 160)])
 def test_bf16_v_images_layout(b, h, lq, lk, d):
     """The pv_int8=False kv images (``pack_operands`` of a bf16 V): K's codes
-    and sk as the default's, then V in bf16, [d][BN] per image, the tokens
-    of each group of 32 in the kernel's order; read back, zero past Lk."""
+    and sk as the default's, then V in bf16, [BN / 16][d][32 bytes] per
+    image, the 16 tokens of each k16 slice in their natural order,
+    32-byte-swizzled; read back, zero past Lk."""
     rng = np.random.default_rng(13 + d)
     q, k, v = (_t(a) for a in _qkv(rng, b, h, lq, lk, d))
     ops = tsa.prepare_plain(q, k, v, pv_int8=False)
     ref = tsa.prepare_plain(q, k, v)
     dp, dv, bn = tsa.geometry(d)
     assert ops.kvimg.shape[-1] == tsa.kv_image_bytes(d, False) == bn * (dp + 4) + 2 * d * bn
-    assert tsa.v_bf16(ops, d) and not tsa.v_bf16(ref, d)
+    assert (ops.int8_mxu, ops.pv_int8) == (True, False) and (ref.int8_mxu, ref.pv_int8) == (True, True)
     assert torch.equal(ops.qimg, ref.qimg)
     assert torch.equal(ops.kvimg[..., :bn * (dp + 4)], ref.kvimg[..., :bn * (dp + 4)])
     vc = tsa.unpack_operands(ops, d)[4]
     vq = tsa.prepare(q, k, v, pv_int8=False)[4].reshape(b * h, lk, d)
     assert torch.equal(vc[:, :lk], vq) and not vc[:, lk:].float().any()
-    first = ops.kvimg[0, 0, bn * (dp + 4):].contiguous().view(torch.bfloat16).view(d, bn)
-    assert torch.equal(first[:, :32], vq[0, :32][tsa._V_ORDER].T)
+    # the first k16 slice of the first image, by hand: channel row c holds
+    # tokens 0..15 in order
+    off = bn * (dp + 4)
+    first = _unswizzle_rows(ops.kvimg[0, 0, off:off + 32 * d], d).view(torch.bfloat16)
+    assert torch.equal(first, vq[0, :16].T)
     assert tsa.prep_agreement(ops, ops, d)["ok"]
+
+
+@pytest.mark.parametrize("d", tsa.HEAD_DIMS)
+def test_widened_images_round_trip(d):
+    """int8_mxu=False's images at every head dim, a ragged length: Q's and
+    K's codes widened to bf16 in k16 slices of KP = d padded to 16, V bf16
+    in natural order (its codes widened, or the centred values); read back
+    bit for bit ``prepare``'s codes and the int8 layout's, zero padding, and
+    the raw bytes of a slice are the codes' bf16."""
+    rng = np.random.default_rng(31 + d)
+    lq, lk = 70, 150
+    q, k, v = (_t(a) for a in _qkv(rng, 1, 1, lq, lk, d))
+    _, dv, bn = tsa.geometry(d)
+    kp = -(-d // 16) * 16
+    int8 = tsa.unpack_operands(tsa.prepare_plain(q, k, v), d)
+    for pv_int8 in (True, False):
+        qq, sq, kq, sk, vq, svs, vmu = tsa.prepare(q, k, v, pv_int8)
+        ops = tsa.prepare_plain(q, k, v, pv_int8=pv_int8, int8_mxu=False)
+        assert (ops.int8_mxu, ops.pv_int8) == (False, pv_int8)
+        assert tsa.row_elems(d, False) == kp and tsa.row_bytes(d, False) == 2 * kp
+        assert ops.qimg.shape[-1] == tsa.q_image_bytes(d, False) == 64 * (2 * kp + 4)
+        assert ops.kvimg.shape[-1] == tsa.kv_image_bytes(d, pv_int8, False) \
+            == bn * (2 * kp + 4) + 2 * d * bn
+        qc, qs, kc, ks, vc = tsa.unpack_operands(ops, d)
+        assert qc.dtype == kc.dtype == torch.int8 and qc.shape[-1] == kp
+        assert torch.equal(qc[0, :lq, :d], qq.reshape(lq, d))
+        assert torch.equal(kc[0, :lk, :d], kq.reshape(lk, d))
+        assert torch.equal(qc, int8[0][..., :kp]) and torch.equal(kc, int8[2][..., :kp])
+        assert torch.equal(qs, int8[1]) and torch.equal(ks, int8[3])
+        assert not qc[:, lq:].any() and not qc[..., d:].any() and not kc[:, lk:].any()
+        assert vc.shape == (1, -(-lk // bn) * bn, d) and not vc[:, lk:].float().any()
+        assert torch.equal(vc[0, :lk], vq.reshape(lk, d))
+        # K's first k16 slice of the first image, by hand: row r's 16 codes
+        first = _unswizzle_rows(ops.kvimg[0, 0, :32 * bn], bn).view(torch.bfloat16)
+        want = torch.nn.functional.pad(kq.reshape(lk, d), (0, kp - d))[:bn, :16]
+        assert torch.equal(first, want.to(torch.bfloat16))
+        # V's: channel row c holds tokens 0..15, as codes widened or values
+        off = bn * (2 * kp + 4)
+        first = _unswizzle_rows(ops.kvimg[0, 0, off:off + 32 * d], d).view(torch.bfloat16)
+        assert torch.equal(first, vq.reshape(lk, d)[:16].T.to(torch.bfloat16))
+        assert tsa.prep_agreement(ops, ops, d)["ok"]
 
 
 def test_variant_launch_refuses_what_it_does_not_take():

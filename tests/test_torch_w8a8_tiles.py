@@ -1,4 +1,5 @@
-"""The W8A8 kernel's tile table (``ops.quant_matmul.w8a8_tile``), on the CPU.
+"""The W8A8 kernels' tile tables (``ops.quant_matmul.w8a8_tile`` and, for
+the bf16-rate variant, ``w8a8_bf16_tile``), on the CPU.
 
 The kernel (``csrc/w8a8_matmul.cu``) takes its tile as an id that Python
 chooses; these tests hold the choice to what the kernel can run: a tile
@@ -111,3 +112,66 @@ def test_ablations_find_the_lines_they_replace():
             assert line in SOURCE, name
     tiles = {(w * mt * 64, bn, w) for w, mt, bn in ablate_w8a8.TILES.values()}
     assert set(qm.W8A8_TILES) <= tiles
+
+
+# --- the bf16-rate variant (int8_mxu=False, csrc/w8a8_matmul_bf16.cu) --------
+
+BF16_SOURCE = (cuda_build.CSRC / "w8a8_matmul_bf16.cu").read_text()
+
+
+def _valid_bf16(tile, n):
+    return 0 <= tile < len(qm.W8A8_BF16_TILES) and n % qm.W8A8_BF16_TILES[tile][1] == 0
+
+
+@pytest.mark.parametrize("m", [1, 65, 256, 300, 1000, 4353])
+@pytest.mark.parametrize("n", [128, 384, 3072, 12288])
+def test_bf16_rate_shapes_get_a_tile(m, n):
+    assert _valid_bf16(qm.w8a8_bf16_tile(m, n, 3072), n)
+
+
+@pytest.mark.parametrize("tile", range(len(qm.W8A8_BF16_TILES)))
+def test_every_bf16_rate_tile_fits_one_block(tile):
+    """Each tile's plan fits one H100 block; its warpgroups hold 64 rows
+    each, one m64nBNk16 wgmma with both operands in shared memory (a form
+    the generated header has); the epilogue's f32 tile fits the plan, and
+    the A and B tiles' 16-byte chunks and the output chunks split evenly
+    over the threads."""
+    bm, bn, wgs = qm.W8A8_BF16_TILES[tile]
+    smem = qm.w8a8_bf16_smem_bytes(tile)
+    assert smem <= SMEM_PER_BLOCK
+    assert bm == 64 * wgs and bn % 64 == 0 and bn <= 256
+    assert ("ss", bn, 0) in _forms()
+    assert bm * (bn + 8) * 4 <= smem - 1024
+    chunks = (bm * qm.W8A8_BF16_BK // 16, bn * qm.W8A8_BF16_BK // 16, bm * bn // 8)
+    assert all(c % (128 * wgs) == 0 for c in chunks)  # A and B a step, the output
+
+
+def _forms():
+    import importlib.util
+
+    spec = importlib.util.spec_from_file_location("wgmma_forms", cuda_build.CSRC / "wgmma_forms.py")
+    gen = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(gen)
+    return [(kind, n, tnsp) for kind, n, tnsp in gen.FORMS]
+
+
+def test_bf16_rate_c_dispatch_states_the_python_table():
+    cases = re.findall(r"case (\d+): return run<(\d+), (\d+), MODE>", BF16_SOURCE)
+    table = {int(i): (int(w) * 64, int(bn), int(w)) for i, w, bn in cases}
+    assert table == dict(enumerate(qm.W8A8_BF16_TILES))
+    assert f"constexpr int kBK = {qm.W8A8_BF16_BK};" in BF16_SOURCE
+    assert f"constexpr int kStages = {qm.W8A8_BF16_STAGES};" in BF16_SOURCE
+    assert f"constexpr int kWBufs = {qm.W8A8_BF16_BUFS};" in BF16_SOURCE
+
+
+def test_bf16_rate_tiles_by_shape():
+    """128 x 256 where the grid runs waves, 128 x 128 where N is not a
+    multiple of 256, 64 x 64 at the text stream's M = 256."""
+    assert qm.w8a8_bf16_tile(4352, 12288, 3072) == 0
+    assert qm.w8a8_bf16_tile(4352, 3072, 3072) == 0
+    assert qm.w8a8_bf16_tile(4352, 384, 3072) == 1
+    assert qm.w8a8_bf16_tile(256, 3072, 12288) == 2
+    for m, k, n in [(4352, 3072, 3072), (4352, 3072, 12288), (4352, 12288, 3072),
+                    (4352, 3072, 9216), (256, 12288, 3072)]:
+        bm, bn, _ = qm.W8A8_BF16_TILES[qm.w8a8_bf16_tile(m, n, k)]
+        assert 3 * -(-m // bm) * (n // bn) >= 2 * qm.SMS, (m, k, n)

@@ -254,9 +254,31 @@ Phases, in order; any failure exits non-zero:
    (logged); times beside K4 or K7/K8/K11, the library call
    (``scaled_dot_product_attention``; ``torch._int_mm``, and ``torch.matmul``
    on the codes cast to bf16, the same-rate yardstick) and the bound. The
-   variants' SASS is held in the build phase.
+   variants' SASS is held in the build phase;
+26. the UNet's SD2-class branches (after 25): (a) phase 17's checkpoint
+   rewritten with every transformer ``proj_in``/``proj_out`` as its
+   squeezed 2-D weight and a seeded label embedding (``label_emb.0.0``
+   768 -> 1280, ``label_emb.0.2`` 1280 -> 1280; 768 is the pooled CLIP-L
+   vector the CFG denoiser passes as ``y``), once with ``label_emb.0.2``
+   zeroed and once seeded, each under its own asset root beside phase 17's
+   LoRA and embeddings (removed after); ``pipeline(prompt, 1024, 1024)``
+   with every default, Python's ``random`` seeded as before phase 17's
+   first call: the detected config (linear projections, adm 768), the
+   zeroed file's final latent and PNG against phase 17's
+   (``TOL_LINEAR_*``), K1 and K2 against phase 17's plan, a timed second
+   call, and the seeded file's final latent, which must move; (b) SD2.1's
+   UNet (``SD21_UNET``: Stability AI's v2-inference-v.yaml, 64 channels a
+   head, linear projections, context 1024) from ``init_params(seed=0)`` in
+   bf16 through ``ksample``: 20 karras steps of ``dpmpp_2m_cfgpp`` at
+   1024^2, the pipeline's default multi-scale plan, MSW-MSA, CFG 7.5 on a
+   seeded (1, 77, 1024) context; K1 at d = 64 at each shape of its plan
+   (``sd21_calls``) against its plain version with two planted faults,
+   timed beside ``scaled_dot_product_attention`` and the bound; the
+   launches against the plan, a timed run, and the final latent against
+   the same run on the plain attention route (logged).
 
-Phases 19 to 22 run after phase 17, before the Flux phases. Phases 5 to
+Phases 19 to 22 run after phase 17, before the Flux phases; phase 26
+after phase 25, from phase 17's files. Phases 5 to
 11 pin ``RuntimeConfig(flux_scan=False)``, so their launch plans
 are the unrolled layout's. K1's and K2's shapes in phase 3 are those of both
 SD1.5 plans (``dpmpp_2m_cfgpp``, ``dpmpp_sde_cfgpp``).
@@ -537,7 +559,7 @@ def gpu_line() -> str:
 
 
 def unet_calls(add, sigmas, lh, lw, batch=1, sampler="dpmpp_2m_cfgpp", ms=None, msw=True,
-               sage=False, hits=None):
+               sage=False, hits=None, cfg=None):
     """Add to ``add`` the UNet's K1/K2 (or K4) calls, keyed (kernel, B, H, L,
     D, dtype), of one sampler pass over ``sigmas`` at an lh x lw latent:
     CFG batch 2, each step at full or reduced resolution as the multi-scale
@@ -547,7 +569,8 @@ def unet_calls(add, sigmas, lh, lw, batch=1, sampler="dpmpp_2m_cfgpp", ms=None, 
     windowing of level 0 where its sigma gate is open. ``sage``: the calls
     go to K4 and its preparation. ``hits``: FBCache's decision for each
     model call in order (``fbcache.history``); a hit runs input blocks 0
-    and 1 only, so its one attention is input block 1's."""
+    and 1 only, so its one attention is input block 1's. ``cfg``: the
+    UNet's ``UNetConfig`` (SD1.5's by default), which sets the heads."""
     import torch
 
     from lightdiffusion_next_tpu_torch import config
@@ -565,18 +588,19 @@ def unet_calls(add, sigmas, lh, lw, batch=1, sampler="dpmpp_2m_cfgpp", ms=None, 
     bounds = window.msw_gate_bounds(msd)
     packed = config.get_config().resolve_packed_attn("cuda")
     hits = iter(hits) if hits is not None else None
+    cfg = cfg or unet.SD15_CONFIG
 
     def model_call(sigma, h, w):
         t = msd.timestep(torch.tensor([sigma] * 2 * batch, dtype=torch.float32))
         active = msw and window.msw_step_state(t, bounds)[1]
         hit = hits is not None and next(hits)
-        for block, level, ch, depth in unet.attention_blocks(unet.SD15_CONFIG):
+        for block, level, ch, depth in unet.attention_blocks(cfg):
             if hit and block != ("input", 1):
                 continue
             hh, ww = h, w
             for _ in range(level):
                 hh, ww = (hh + 1) // 2, (ww + 1) // 2
-            heads, d = unet.SD15_CONFIG.heads_for(ch)
+            heads, d = cfg.heads_for(ch)
             b, tokens = 2 * batch, hh * ww
             if active and block in window.SD15_BLOCKS:
                 b, tokens = 4 * b, (((hh + 1) // 2) * ((ww + 1) // 2))
@@ -1404,6 +1428,9 @@ def phase_sage_pipeline(models, flash_latent):
 DEFAULTS_DIR = os.path.join(OUT_DIR, "defaults")  # its own asset root
 DEFAULTS_CKPT = os.path.join(DEFAULTS_DIR, "checkpoints", "Meina V10 - baked VAE.safetensors")
 DEFAULTS_PROMPT = "a photograph of an astronaut riding a horse, (detailed:1.2)"
+# Python's random, seeded before phase 17's first call and phase 26's calls
+# that are compared with it: the pipeline draws its seed from it
+DEFAULTS_RANDOM_SEED = 17
 # the four textual-inversion embeddings DEFAULT_NEGATIVE names, with the
 # vector counts of their published files
 EMBEDDING_VECTORS = {"EasyNegative": 8, "badhandv4": 6, "lr": 2,
@@ -1596,8 +1623,12 @@ def check_hdr_output(run, vae, size=1024, label="SD1.5 defaults"):
 
 
 def phase_sd15_defaults(gpu):
-    """Phase 17: SD1.5 from a checkpoint file with every default. Returns
-    (ok, launches, e2e, calls)."""
+    """Phase 17: SD1.5 from a checkpoint file with every default, its first
+    call after Python's ``random`` is seeded (``DEFAULTS_RANDOM_SEED``), so
+    phase 26 can draw the same seed. Returns (ok, launches, e2e, calls, the
+    first call's final latent and PNG)."""
+    import random
+
     import torch
 
     from lightdiffusion_next_tpu_torch.app import cli
@@ -1622,6 +1653,7 @@ def phase_sd15_defaults(gpu):
     port_log.setLevel(logging.INFO)
     try:
         reset_launches()
+        random.seed(DEFAULTS_RANDOM_SEED)
         first = run_default_pipeline()
         launches = read_launches()
         ok = check_sd15_launches(launches, calls, "SD1.5 defaults",
@@ -1698,7 +1730,7 @@ def phase_sd15_defaults(gpu):
         f"{first['wall']:.3f} s/image; checkpoint load {load_s:.3f} s ({gb / load_s:.3f} "
         f"GB/s); LoRA merge {lora_s:.3f} s; Brownian noise {noise_ms:.1f} ms; AutoHDR "
         f"{hdr_ms:.3f} ms per image; peak memory {peak:.1f} GiB")
-    return ok, launches, e2e, calls
+    return ok, launches, e2e, calls, (first["last"]["x"].float().cpu(), first["paths"][0])
 
 
 # --------------------------------------------------------------------------
@@ -1719,11 +1751,11 @@ def new_shapes(calls, per_kernel):
 
 
 @contextlib.contextmanager
-def defaults_assets():
-    """Phase 17's asset root (``LDT_ASSET_ROOT``, offline) and the port's
-    log records while inside."""
+def defaults_assets(root=DEFAULTS_DIR):
+    """Phase 17's asset root (or ``root``) as ``LDT_ASSET_ROOT``, offline,
+    and the port's log records while inside."""
     saved_env = {k: os.environ.get(k) for k in ("LDT_ASSET_ROOT", "LDT_OFFLINE")}
-    os.environ.update(LDT_ASSET_ROOT=DEFAULTS_DIR, LDT_OFFLINE="1")
+    os.environ.update(LDT_ASSET_ROOT=root, LDT_OFFLINE="1")
     records = LogRecords()
     port_log = logging.getLogger("lightdiffusion_next_tpu_torch")
     port_log.addHandler(records)
@@ -5079,6 +5111,298 @@ def phase_kernel_variants(gpu):
     return ok, per_kernel, launches, calls
 
 
+# --------------------------------------------------------------------------
+# The UNet's SD2-class branches (phase 26)
+# --------------------------------------------------------------------------
+
+LINEAR_DIR = os.path.join(OUT_DIR, "linear")  # phase 26 (a)'s asset roots, removed after
+LINEAR_ROOTS = {"zero": os.path.join(LINEAR_DIR, "zero"), "adm": os.path.join(LINEAR_DIR, "adm")}
+ADM_WIDTH = 768  # the pooled CLIP-L vector the CFG denoiser passes as y
+ADM_SEED = 26
+# Stability AI's v2-inference-v.yaml UNet: heads of 64 channels, linear
+# transformer projections, a 1024-wide context (OpenCLIP-H's, which neither
+# package has: the context is drawn from a seed)
+SD21_UNET = dict(model_channels=320, channel_mult=(1, 2, 4, 4), num_res_blocks=(2, 2, 2, 2),
+                 transformer_depth=(1, 1, 1, 0), transformer_depth_middle=1,
+                 context_dim=1024, num_head_channels=64, use_linear_in_transformer=True)
+SD21_SEED = 0  # init_params' draw
+SD21_NOISE_SEED = 2601
+SD21_CFG = 7.5
+# rel RMSE of phase 26 (a)'s final latent, linear projections with a zeroed
+# label embedding, against phase 17's at the same seed: the same function
+# through a matmul instead of a 1x1 convolution, which may round otherwise
+# (equal bit for bit on an H100 80GB HBM3 at 700 W, torch 2.11.0+cu128; a
+# wrong projection or a y that leaks in moves it by O(0.1))
+TOL_LINEAR_LATENT_REL_RMSE = 2e-2
+# the mean absolute difference of the two PNGs, in 8-bit levels (0 there)
+TOL_LINEAR_PNG_MEAN_LEVELS = 2.0
+
+
+def linear_checkpoint(parts):
+    """Phase 17's checkpoint tensors (``parts``: the file's dict) with every
+    transformer ``proj_in``/``proj_out`` as its squeezed 2-D weight (the same
+    function on the tokens) and a seeded label embedding: ``label_emb.0.0``
+    (768 -> 1280) and ``label_emb.0.2`` (1280 -> 1280), f16 as the rest.
+    Returns (the tensors with ``label_emb.0.2`` zeroed, with it seeded)."""
+    import torch
+
+    pre = "model.diffusion_model."
+    out = {}
+    for key, t in parts.items():
+        if key.startswith(pre) and key.endswith(("proj_in.weight", "proj_out.weight")):
+            t = t[:, :, 0, 0].contiguous()
+        out[key] = t
+    td = out[pre + "time_embed.0.weight"].shape[0]
+    gen = torch.Generator().manual_seed(ADM_SEED)
+    first = {f"{pre}label_emb.0.0.weight": torch.randn(td, ADM_WIDTH, generator=gen)
+             * ADM_WIDTH**-0.5,
+             f"{pre}label_emb.0.0.bias": torch.randn(td, generator=gen) * 0.1}
+    second = {f"{pre}label_emb.0.2.weight": torch.randn(td, td, generator=gen) * td**-0.5,
+              f"{pre}label_emb.0.2.bias": torch.randn(td, generator=gen) * 0.1}
+    first = {k: v.half() for k, v in first.items()}
+    zero = {**out, **first, **{k: torch.zeros_like(v).half() for k, v in second.items()}}
+    return zero, {**out, **first, **{k: v.half() for k, v in second.items()}}
+
+
+def write_linear_assets():
+    """The two checkpoints of phase 26 (a), each under its own asset root
+    beside links to phase 17's LoRA and embeddings. Returns the linear
+    UNet's detected config."""
+    from lightdiffusion_next_tpu_torch.utils import state_dict as sd_utils
+
+    shutil.rmtree(LINEAR_DIR, ignore_errors=True)
+    parts = sd_utils.load_torch_file(DEFAULTS_CKPT)
+    files = dict(zip(("zero", "adm"), linear_checkpoint(parts)))
+    del parts
+    for name, tensors in files.items():
+        root = LINEAR_ROOTS[name]
+        write_safetensors(os.path.join(root, "checkpoints", os.path.basename(DEFAULTS_CKPT)),
+                          tensors)
+        for sub in ("loras", "embeddings"):
+            os.symlink(os.path.join(DEFAULTS_DIR, sub), os.path.join(root, sub))
+    unet_sd, _, _ = sd_utils.split_checkpoint(files["zero"])
+    return sd_utils.detect_unet_config(unet_sd)
+
+
+def rel_rmse_of(x, ref):
+    x, ref = x.double(), ref.double()
+    return ((x - ref).pow(2).mean().sqrt() / ref.pow(2).mean().sqrt()).item()
+
+
+def linear_run(name, label):
+    """One ``pipeline(prompt, 1024, 1024)`` call with every default from the
+    asset root ``name`` after Python's random is seeded as before phase
+    17's first call: the run, its launches, its VAE and its UNet's config."""
+    import random
+
+    from lightdiffusion_next_tpu_torch.pipelines import loader
+
+    root = LINEAR_ROOTS[name]
+    with defaults_assets(root):
+        reset_launches()
+        random.seed(DEFAULTS_RANDOM_SEED)
+        run = run_default_pipeline(out=label)
+        launches = read_launches()
+        model, _, vae = loader.CheckpointLoaderSimple().load_checkpoint(
+            os.path.join(root, "checkpoints", os.path.basename(DEFAULTS_CKPT)),
+            os.path.join(root, "embeddings"))
+    return run, launches, vae, model.config
+
+
+def phase_linear_label_emb(gpu, def_calls, def_first):
+    """Phase 26 (a): SD1.5 at full width from a checkpoint with linear
+    transformer projections and a label embedding (``linear_checkpoint``),
+    ``pipeline(prompt, 1024, 1024)`` with every default: with
+    ``label_emb.0.2`` zeroed the final latent and PNG are phase 17's within
+    ``TOL_LINEAR_*``; with it seeded the final latent moves (``y``
+    arrives); K1 and K2 launch as phase 17's plan says. Returns (ok,
+    launches, e2e)."""
+    import random
+
+    import numpy as np
+    import torch
+
+    from lightdiffusion_next_tpu_torch.pipelines import loader
+
+    t0 = time.perf_counter()
+    detected = write_linear_assets()
+    write_s = time.perf_counter() - t0
+    log(f"SD1.5 linear + label_emb: wrote two {os.path.getsize(DEFAULTS_CKPT) / 1e9:.3f} GB "
+        f"checkpoints in {write_s:.1f} s; detected {detected}")
+    ok = detected.use_linear_in_transformer and detected.adm_in_channels == ADM_WIDTH
+    first, launches, vae, cfg = linear_run("zero", "linear")
+    ok = check_sd15_launches(launches, def_calls, "SD1.5 linear + label_emb",
+                             ("packed_flash_attention", "flash_attention")) and ok
+    out_ok, _ = check_hdr_output(first, vae, label="SD1.5 linear + label_emb")
+    cfg_ok = cfg.use_linear_in_transformer and cfg.adm_in_channels == ADM_WIDTH
+    ok = ok and out_ok and cfg_ok
+    x = first["last"]["x"].float().cpu()
+    ref_x, ref_png = def_first
+    drift = rel_rmse_of(x, ref_x)
+    levels = np.abs(read_png(first["paths"][0]).astype(np.float64)
+                    - read_png(ref_png).astype(np.float64))
+    same = drift <= TOL_LINEAR_LATENT_REL_RMSE and levels.mean() <= TOL_LINEAR_PNG_MEAN_LEVELS
+    log(f"SD1.5 linear + label_emb (label_emb.0.2 zeroed) against phase 17 at the same seed: "
+        f"final latent rel RMSE {drift:.4g} (tol {TOL_LINEAR_LATENT_REL_RMSE}), PNG mean "
+        f"|diff| {levels.mean():.4g} levels (tol {TOL_LINEAR_PNG_MEAN_LEVELS}), max "
+        f"{levels.max():.0f}; the loaded UNet's config {cfg}: {'ok' if same and cfg_ok else 'FAIL'}")
+    ok = ok and same
+
+    torch.cuda.reset_peak_memory_stats()
+    with defaults_assets(LINEAR_ROOTS["zero"]):
+        random.seed(DEFAULTS_RANDOM_SEED)
+        timed = run_default_pipeline(out="linear")
+    steps = timed["step_times"]
+    it_s = (len(steps) - 1) / (steps[-1] - steps[0])
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    repeat = torch.equal(timed["last"]["x"].float().cpu(), x)
+
+    adm, adm_launches, _, _ = linear_run("adm", "linear_adm")
+    adm_ok = check_sd15_launches(adm_launches, def_calls, "SD1.5 linear + seeded label_emb",
+                                 ("packed_flash_attention", "flash_attention"))
+    moved = rel_rmse_of(adm["last"]["x"].float().cpu(), x)
+    adm_x_ok = bool(torch.isfinite(adm["last"]["x"]).all())
+    y_ok = adm_x_ok and moved > TOL_LINEAR_LATENT_REL_RMSE
+    log(f"SD1.5 linear + seeded label_emb: final latent rel RMSE {moved:.4g} against the "
+        f"zeroed run (must exceed {TOL_LINEAR_LATENT_REL_RMSE}: y arrives): "
+        f"{'ok' if y_ok else 'FAIL'}")
+    ok = ok and adm_ok and y_ok
+    loader.get_model_cache().clear()
+    shutil.rmtree(LINEAR_DIR, ignore_errors=True)
+    e2e = {"s_per_image": timed["wall"], "it_per_s": it_s, "peak_gib": peak,
+           "first_run_s_per_image_with_load": first["wall"], "checkpoints_write_s": write_s,
+           "latent_rel_rmse_vs_phase17": drift, "png_mean_abs_levels_vs_phase17": levels.mean(),
+           "png_max_abs_levels_vs_phase17": float(levels.max()),
+           "repeat_bit_for_bit": repeat, "label_emb_latent_rel_rmse": moved,
+           "unet_config": str(detected), "gpu": gpu}
+    log(f"SD1.5 linear + label_emb ({gpu}): {timed['wall']:.3f} s/image end to end; sampler "
+        f"steps 2..{len(steps)}: {it_s:.3f} it/s; first run with the load {first['wall']:.3f} "
+        f"s; peak memory {peak:.1f} GiB; the timed run bit for bit the first: {repeat}")
+    return ok, launches, e2e
+
+
+def sd21_calls(steps=20):
+    """K1's calls of phase 26 (b)'s ``ksample``: SD2.1's UNet at a 128^2
+    latent, ``dpmpp_2m_cfgpp`` over 20 karras steps, the pipeline's default
+    multi-scale plan, MSW-MSA with its gate, CFG batch 2; no VAE."""
+    from lightdiffusion_next_tpu_torch.models import unet
+    from lightdiffusion_next_tpu_torch.sampling import ksampler, samplers
+    from lightdiffusion_next_tpu_torch.sampling.model_sampling import ModelSamplingDiscrete
+
+    calls = {}
+    unet_calls(_adder(calls), ksampler.sigmas_for(ModelSamplingDiscrete(), "karras", steps),
+               128, 128, ms=samplers.MultiScale(enabled=True),
+               cfg=unet.UNetConfig(**SD21_UNET))
+    return calls
+
+
+def sd21_run(model, conds, label):
+    """One ``ksample`` of phase 26 (b): (the final latent, wall s, the time
+    after each step, device synced)."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.sampling import ksampler, samplers
+
+    step_times = []
+
+    def on_step(info):
+        torch.cuda.synchronize()
+        step_times.append(time.perf_counter())
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        res = ksampler.ksample(
+            model, seed=SD21_NOISE_SEED, steps=20, cfg_scale=SD21_CFG,
+            sampler_name="dpmpp_2m_cfgpp", scheduler="karras", positive=conds[0],
+            negative=conds[1], latent_image=torch.zeros(1, 128, 128, 4, device="cuda"),
+            ms=samplers.MultiScale(enabled=True), callback=on_step)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    x = res.raw.float()
+    log(f"SD2.1 UNet ksample ({label}): {wall:.3f} s, final latent {tuple(x.shape)} finite "
+        f"{bool(torch.isfinite(x).all())}")
+    return x, wall, step_times
+
+
+def draw_sd21_params():
+    """``init_params(SD21_UNET, seed=0)`` on a host thread (numpy releases
+    the GIL while it draws): 866 M normal draws take 15-31 s of host time,
+    so ``main`` starts them before phase 24, whose pace the gloo ranks set,
+    and phase 26 (b) takes the result. Returns the future."""
+    import concurrent.futures
+
+    from lightdiffusion_next_tpu_torch.models import unet
+
+    pool = concurrent.futures.ThreadPoolExecutor(max_workers=1)
+    future = pool.submit(unet.init_params, unet.UNetConfig(**SD21_UNET), SD21_SEED)
+    pool.shutdown(wait=False)
+    return future
+
+
+def phase_sd21_heads(gpu, per_kernel, sd21_params):
+    """Phase 26 (b): SD2.1's UNet head layout (``SD21_UNET``, bf16,
+    ``init_params(seed=0)``, drawn by ``draw_sd21_params``: its future is
+    ``sd21_params``) through ``ksample`` at 1024^2: K1 at d = 64 at
+    each shape of its plan held to its plain version (two planted faults,
+    times beside ``scaled_dot_product_attention`` and the bound), the
+    launches against the plan, it/s and s/run, and the final latent against
+    the same run on the plain attention route (logged). Returns (ok,
+    launches, e2e, calls)."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch import config
+    from lightdiffusion_next_tpu_torch.models import base, unet
+    from lightdiffusion_next_tpu_torch.ops import window
+    from lightdiffusion_next_tpu_torch.sampling import cfg as cfg_mod
+
+    calls = sd21_calls()
+    log("plan SD2.1 UNet ksample:", {f"{k[0]} {k[1:]}": v for k, v in sorted(calls.items())})
+    phase_kernels(new_shapes(calls, per_kernel), per_kernel)
+    t0 = time.perf_counter()
+    params = sd21_params.result()
+    waited = time.perf_counter() - t0
+    cfg = unet.UNetConfig(**SD21_UNET, dtype=torch.bfloat16)
+    model = base.sd15_model(params, cfg=cfg)
+    del params
+    model = model.with_options(attn1_override_factory=window.make_msw_msa_factory(
+        model_sampling=model.model_sampling))
+    torch.cuda.synchronize()
+    log(f"SD2.1 UNet: init_params(seed={SD21_SEED}) waited for {waited:.1f} s, on the card "
+        f"in {time.perf_counter() - t0:.1f} s; "
+        f"{sum(p.numel() for p in model.params.values())} params")
+    gen = torch.Generator(device="cuda").manual_seed(SD21_NOISE_SEED)
+    conds = [cfg_mod.CondInput(cross_attn=torch.randn(1, 77, 1024, generator=gen,
+                                                      device="cuda"))
+             for _ in range(2)]
+    reset_launches()
+    x, first_s, _ = sd21_run(model, conds, "first")
+    launches = read_launches()
+    ok = check_sd15_launches(launches, calls, "SD2.1 UNet ksample", ("packed_flash_attention",))
+    shape_ok = tuple(x.shape) == (1, 128, 128, 4) and bool(torch.isfinite(x).all())
+    x2, wall, steps = sd21_run(model, conds, "timed")
+    it_s = (len(steps) - 1) / (steps[-1] - steps[0])
+    saved = config.get_config()
+    try:
+        config.set_config(dataclasses.replace(saved, attention_backend="sdpa"))
+        plain_x, plain_s, _ = sd21_run(model, conds, "plain attention")
+    finally:
+        config.set_config(saved)
+    drift = rel_rmse_of(x, plain_x)
+    log(f"SD2.1 UNet ({gpu}): {wall:.3f} s/run of 20 steps; steps 2..{len(steps)}: "
+        f"{it_s:.3f} it/s; first run {first_s:.3f} s; the run again bit for bit "
+        f"{torch.equal(x, x2)}; final latent rel RMSE against the plain attention route "
+        f"{drift:.4g} (logged; plain run {plain_s:.3f} s); output "
+        f"{'ok' if shape_ok else 'FAIL'}")
+    del model
+    gc.collect()
+    torch.cuda.empty_cache()
+    e2e = {"s_per_run": wall, "it_per_s": it_s, "first_run_s": first_s,
+           "latent_rel_rmse_vs_plain_attention": drift, "plain_attention_run_s": plain_s,
+           "gpu": gpu}
+    return ok and shape_ok, launches, e2e, calls
+
+
 def main() -> int:
     try:
         import torch
@@ -5123,7 +5447,7 @@ def main() -> int:
     timed("sage kernels", phase_sage_kernels, sage_plan, per_kernel)
     sage_ok, sage_launches, sage_e2e, sage_calls = timed(
         "sd15 sage pipeline", phase_sage_pipeline, sd_models, sd_latent)
-    def_ok, def_launches, def_e2e, def_calls = timed(
+    def_ok, def_launches, def_e2e, def_calls, def_first = timed(
         "sd15 defaults", phase_sd15_defaults, line)
     hires_ok, hires_launches, hires_e2e, hires_plan = timed(
         "sd15 hires-fix", phase_hires, line, per_kernel)
@@ -5178,10 +5502,15 @@ def main() -> int:
         shutil.rmtree(FLUX_DIR, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
+    sd21_params = draw_sd21_params()  # phase 26 (b)'s weights, drawn meanwhile
     train_ok, train_e2e = timed("train", phase_train, line)
     var_ok, var_kernels, var_launches, var_calls = timed(
         "kernel variants", phase_kernel_variants, line)
     per_kernel.update(var_kernels)
+    lin_ok, lin_launches, lin_e2e = timed(
+        "sd15 linear label_emb", phase_linear_label_emb, line, def_calls, def_first)
+    sd21_ok, sd21_launches, sd21_e2e, sd21_plan = timed(
+        "sd21 heads", phase_sd21_heads, line, per_kernel, sd21_params)
 
     # calls per image of each path, summed over the paths a kernel runs on
     # (the unfused DiT calls count once)
@@ -5192,7 +5521,8 @@ def main() -> int:
                   "flux_w8a8_scan": scan_calls, "w8a8_scan_dit_call_fused_ew_off": scan_off_plan,
                   "flux_w8a8_scan_fbcache_hits": hit_calls, "flux_files_defaults": files_calls,
                   "flux_lora_unfused_attention": lora_calls, **tp_calls,
-                  "kernel_variants": var_calls}
+                  "kernel_variants": var_calls, "sd15_linear_label_emb": def_calls,
+                  "sd21_unet_ksample": sd21_plan}
     all_calls = {}
     for calls in path_calls.values():
         for key, n in calls.items():
@@ -5205,7 +5535,8 @@ def main() -> int:
              "w8a8_scan_dit_call_fused_ew_off": scan_off_launches,
              "flux_w8a8_scan_fbcache_hits": hit_launches, "flux_files_defaults": files_launches,
              "flux_lora_unfused_attention": lora_launches, **tp_launches,
-             "kernel_variants": var_launches}
+             "kernel_variants": var_launches, "sd15_linear_label_emb": lin_launches,
+             "sd21_unet_ksample": sd21_launches}
     # the defaults launch no flag variant: every earlier path read each
     # variant's counter, and it stayed at 0
     defaults_ok = True
@@ -5257,7 +5588,9 @@ def main() -> int:
                    "Flux W8A8 scan with FBCache forced to hit, Flux from files with every "
                    "default, Flux with a LoRA on the unfused attention, each rank of Flux "
                    "tensor-parallel at TP = 2: the spmd pipeline and one missed DiT call "
-                   "with the card's toggles and with w8a8, flux_scan and fused_attn off) "
+                   "with the card's toggles and with w8a8, flux_scan and fused_attn off, "
+                   "SD1.5 with every default from a checkpoint with linear transformer "
+                   "projections and a label embedding, SD2.1's UNet through ksample) "
                    "and one missed "
                    "W8A8 DiT call with fused_ew off in each layout",
             "shapes": shapes,
@@ -5272,11 +5605,11 @@ def main() -> int:
            "flux_w8a8_scan": scan_e2e, "flux_w8a8_scan_fbcache_hits": hit_e2e,
            "flux_files_defaults": files_e2e["defaults"],
            "flux_lora_unfused_attention": files_e2e["lora_unfused"], "flux_tp": tp_e2e,
-           "train": train_e2e}
+           "train": train_e2e, "sd15_linear_label_emb": lin_e2e, "sd21_unet_ksample": sd21_e2e}
     ok = (ref_ok and pipe_ok and sage_ok and def_ok and hires_ok and i2i_ok and ad_ok
           and webui_ok and flux_ref_ok
           and flux_ok and w8_ref_ok and w8_ok and requant_ok and scan_ok and hit_ok and files_ok
-          and tp_ok and train_ok and var_ok and defaults_ok
+          and tp_ok and train_ok and var_ok and lin_ok and sd21_ok and defaults_ok
           and all(k["ok"] for k in kernels_line))
     record = {"gpu": line, "kernels": kernels_line, "e2e": e2e, "phase_seconds": seconds,
               "seconds": time.perf_counter() - t_start}

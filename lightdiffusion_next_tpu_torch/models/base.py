@@ -62,7 +62,9 @@ class DiffusionModel:
 def sd15_model(params: Dict[str, Any], cfg: Optional[unet_mod.UNetConfig] = None,
                dtype: Optional[torch.dtype] = None,
                device: _config.DeviceLike = None) -> DiffusionModel:
-    """Assemble an SD1.5-class EPS UNet bundle from checkpoint-keyed params
+    """Assemble an SD1.5-class EPS UNet bundle (any ``UNetConfig``: the
+    label embedding reads the pooled vector the CFG denoiser passes as
+    ``y``) from checkpoint-keyed params
     (numpy arrays or tensors); the attention projections are joined here,
     once (``unet.fuse_projections``), unless ``RuntimeConfig.qkv_fuse`` is
     off. ``dtype`` defaults to the device's policy (bf16 on the GPU, f32 on
@@ -74,7 +76,7 @@ def sd15_model(params: Dict[str, Any], cfg: Optional[unet_mod.UNetConfig] = None
     plan = unet_mod.build_plan(cfg)
 
     def apply_fn(p, x, t, context, y=None, attn1_override=None, first_block_hook=None):
-        return unet_mod.apply_unet(p, x, t, context, cfg=cfg, plan=plan,
+        return unet_mod.apply_unet(p, x, t, context, y=y, cfg=cfg, plan=plan,
                                    attn1_override=attn1_override,
                                    first_block_hook=first_block_hook)
 

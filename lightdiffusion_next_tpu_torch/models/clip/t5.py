@@ -9,9 +9,8 @@ pre-RMSNorm residual blocks and the gated tanh-GELU feed-forward. The
 attention over 256 tokens is plain PyTorch (f32 logits and softmax), as
 the JAX package computes it outside any kernel; the Q8_0 matmul weights go
 through K5 (``ops.nn.linear``) and the Q8_0 embedding table through
-``ops.nn.embedding_lookup``.
-
-Not ported: the attention mask.
+``ops.nn.embedding_lookup``. An attention mask adds -1e9 to the padded
+tokens' logits, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -145,17 +144,22 @@ def stack_t5_block_params(params: Dict, cfg: T5Config) -> Dict:
     return out
 
 
-def apply_t5(params: Dict, tokens, intermediate_output: Optional[int] = None,
+def apply_t5(params: Dict, tokens, attention_mask=None,
+             intermediate_output: Optional[int] = None,
              final_layer_norm_intermediate: bool = True, cfg: T5Config = T5_XXL,
              compute_dtype=torch.float32):
     """tokens (B, L) int -> (x, intermediate, None), activations in
-    ``compute_dtype`` (norms and the softmax in f32)."""
+    ``compute_dtype`` (norms and the softmax in f32). ``attention_mask``:
+    (B, L), 1 = attend; the other keys get a -1e9 bias."""
     x = nn.embedding_lookup(tokens, params["shared.weight"], dtype=compute_dtype)
     L = x.shape[1]
     buckets = torch.as_tensor(compute_bias_table(L, L, cfg), device=x.device)
     bias_emb = params[_BIAS_KEY]
     bias = nn.embedding_lookup(buckets.reshape(-1), bias_emb, dtype=torch.float32)
     bias = bias.reshape(L, L, -1).permute(2, 0, 1)[None]  # (1, H, L, L) f32
+    if attention_mask is not None:
+        am = torch.as_tensor(attention_mask, dtype=torch.float32, device=x.device)
+        bias = bias + (1.0 - am)[:, None, None, :] * -1e9
     if intermediate_output is not None and intermediate_output < 0:
         intermediate_output = cfg.num_layers + intermediate_output
     intermediate = None

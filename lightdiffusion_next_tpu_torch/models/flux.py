@@ -102,6 +102,7 @@ class FluxConfig:
 
 
 FLUX_DEV = FluxConfig()
+FLUX_SCHNELL = dataclasses.replace(FLUX_DEV, guidance_embed=False)
 
 # the Q8_0 matmul weights of the published GGUF checkpoints; the other 2-D
 # weights are dense

@@ -1,4 +1,5 @@
-"""SD1.5-class LDM UNet as plain functions over a flat param dict.
+"""LDM UNet (SD1.5 and its SD2-class branches) as plain functions over a
+flat param dict.
 
 Counterpart of lightdiffusion_next_tpu/models/unet.py: the same static block
 plan, the same checkpoint keys ("input_blocks.1.0.in_layers.2.weight", ...),
@@ -7,7 +8,11 @@ explicit functional argument. Conv weights are OIHW; the attention
 projections are joined once at build time (``fuse_projections``) unless
 ``RuntimeConfig.qkv_fuse`` is off, and ``cross_attention`` runs whichever
 layout the params hold. ``apply_unet``'s ``first_block_hook`` is FBCache's
-place, after input blocks 0 and 1, as in the JAX UNet.
+place, after input blocks 0 and 1, as in the JAX UNet. The config's
+``num_head_channels`` (heads set by channels), ``use_linear_in_transformer``
+(linear ``proj_in``/``proj_out`` on the tokens) and the label embedding
+(``label_emb.0.*``, added to the timestep embedding when the params hold
+it and ``y`` is given) follow the JAX UNet.
 """
 
 from __future__ import annotations
@@ -25,8 +30,7 @@ from lightdiffusion_next_tpu_torch.sampling.schedules import timestep_embedding
 
 @dataclasses.dataclass(frozen=True)
 class UNetConfig:
-    """Static architecture description (SD1.5's: a fixed head count, 1x1
-    conv projections around the transformer, no label embedding)."""
+    """Static architecture description."""
 
     in_channels: int = 4
     out_channels: int = 4
@@ -37,11 +41,17 @@ class UNetConfig:
     transformer_depth_middle: int = 1
     context_dim: Optional[int] = 768
     num_heads: int = 8
+    num_head_channels: int = -1
+    use_linear_in_transformer: bool = False
+    adm_in_channels: Optional[int] = None
     dtype: torch.dtype = torch.float32
 
     def heads_for(self, ch: int) -> Tuple[int, int]:
-        """(heads, head dim): SD1.5 keeps the head count fixed."""
-        return self.num_heads, ch // self.num_heads
+        """(heads, head dim): a fixed head count, or with
+        ``num_head_channels`` a fixed head width."""
+        if self.num_head_channels == -1:
+            return self.num_heads, ch // self.num_heads
+        return ch // self.num_head_channels, self.num_head_channels
 
 
 SD15_CONFIG = UNetConfig()
@@ -186,16 +196,23 @@ def basic_transformer_block(p: nn.ParamView, x, context, heads: int,
 
 def spatial_transformer(p: nn.ParamView, x, context, cfg: UNetConfig, depth: int,
                         attn1_override: Optional[Callable] = None, block=None):
-    """GN (eps 1e-6), 1x1 proj_in, tokens, blocks, proj_out, residual."""
+    """GN (eps 1e-6), proj_in (1x1 conv, or linear on the tokens with
+    ``use_linear_in_transformer``), blocks, proj_out, residual."""
     b, hh, ww, c = x.shape
     heads, _ = cfg.heads_for(c)
     x_in = x
     x = nn.group_norm(x, p("norm.weight"), p("norm.bias"), eps=1e-6)
-    x = nn.conv2d(x, p("proj_in.weight"), p("proj_in.bias")).reshape(b, hh * ww, c)
+    if cfg.use_linear_in_transformer:
+        x = nn.linear(x.reshape(b, hh * ww, c), p("proj_in.weight"), p("proj_in.bias"))
+    else:
+        x = nn.conv2d(x, p("proj_in.weight"), p("proj_in.bias")).reshape(b, hh * ww, c)
     for d in range(depth):
         x = basic_transformer_block(p.scope(f"transformer_blocks.{d}."), x, context,
                                     heads, attn1_override, block=block, hw=(hh, ww))
-    x = nn.conv2d(x.reshape(b, hh, ww, c), p("proj_out.weight"), p("proj_out.bias"))
+    if cfg.use_linear_in_transformer:
+        x = nn.linear(x, p("proj_out.weight"), p("proj_out.bias")).reshape(b, hh, ww, c)
+    else:
+        x = nn.conv2d(x.reshape(b, hh, ww, c), p("proj_out.weight"), p("proj_out.bias"))
     return x + x_in
 
 
@@ -229,13 +246,15 @@ def _run_block(mods, params, h, emb, context, cfg, attn1_override, block=None):
     return h
 
 
-def apply_unet(params: dict, x, timesteps, context,
+def apply_unet(params: dict, x, timesteps, context, y=None,
                cfg: UNetConfig = SD15_CONFIG, plan=None,
                attn1_override: Optional[Callable] = None,
                first_block_hook: Optional[Callable] = None):
     """params: checkpoint-keyed, joined by ``fuse_projections`` or not; x:
-    (B, H, W, C) latent; timesteps: (B,) discrete t; context: (B, L, 768).
-    Returns (B, H, W, out_channels) in ``cfg.dtype``.
+    (B, H, W, C) latent; timesteps: (B,) discrete t; context: (B, L,
+    context_dim); y: (B, adm_in_channels), the label embedding's input, used
+    when the params hold ``label_emb.0.0.weight`` (ignored otherwise, as in
+    the JAX UNet). Returns (B, H, W, out_channels) in ``cfg.dtype``.
 
     ``first_block_hook(h_prev, h_first, run_rest)``: FBCache's place.
     ``h_prev`` is input block 0's output (``conv_in``), ``h_first`` input
@@ -250,6 +269,10 @@ def apply_unet(params: dict, x, timesteps, context,
     pt = nn.ParamView(params, "time_embed.")
     emb = nn.linear(t_emb, pt("0.weight"), pt("0.bias"))
     emb = nn.linear(nn.silu(emb), pt("2.weight"), pt("2.bias"))
+    if y is not None and "label_emb.0.0.weight" in params:
+        pl = nn.ParamView(params, "label_emb.0.")
+        le = nn.linear(y.to(cfg.dtype), pl("0.weight"), pl("0.bias"))
+        emb = emb + nn.linear(nn.silu(le), pl("2.weight"), pl("2.bias"))
 
     h = x.to(cfg.dtype)
     if context is not None:
@@ -308,7 +331,9 @@ def attention_blocks(cfg: UNetConfig = SD15_CONFIG):
 def init_params(cfg: UNetConfig = SD15_CONFIG, seed: int = 0):
     """Random flat param dict with checkpoint keys, drawn exactly as the JAX
     package's ``init_params`` draws it (the same numpy generator calls in
-    the same order, HWIO conv shapes), then laid out OIHW. Host numpy f32."""
+    the same order, HWIO conv shapes), then laid out OIHW; the transformer
+    projections linear under ``use_linear_in_transformer``, and, as there,
+    no label embedding. Host numpy f32."""
     rng = np.random.default_rng(seed)
     P = {}
 
@@ -334,8 +359,12 @@ def init_params(cfg: UNetConfig = SD15_CONFIG, seed: int = 0):
 
     def add_st(prefix, ch, depth):
         add_norm(prefix + "norm", ch)
-        add_conv(prefix + "proj_in", ch, ch, k=1)
-        add_conv(prefix + "proj_out", ch, ch, k=1)
+        if cfg.use_linear_in_transformer:
+            add_linear(prefix + "proj_in", ch, ch)
+            add_linear(prefix + "proj_out", ch, ch)
+        else:
+            add_conv(prefix + "proj_in", ch, ch, k=1)
+            add_conv(prefix + "proj_out", ch, ch, k=1)
         for d in range(depth):
             tb = f"{prefix}transformer_blocks.{d}."
             add_norm(tb + "norm1", ch)

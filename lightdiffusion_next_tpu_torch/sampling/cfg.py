@@ -2,11 +2,15 @@
 
 Counterpart of lightdiffusion_next_tpu/sampling/cfg.py: cond and uncond are
 batched into one model call, then combined by the CFG lerp; at cfg 1.0 only
-the cond branch runs. The pooled text vector goes to the model as ``y``
-(Flux's vector input; SD1.5's UNet ignores it, as in the JAX package), and
-Flux's distilled guidance strength as ``guidance``. The JAX package's
-jit-argument bundle and runner cache keys exist for its compiled loops;
-eager PyTorch needs neither.
+the cond branch runs, unless ``disable_cfg1_optimization`` keeps the
+uncond pass. The pooled text vector goes to the model as ``y`` (Flux's
+vector input; a UNet's label embedding when its params hold one, else
+ignored, as in the JAX package), and Flux's distilled guidance strength as
+``guidance``. ``model_wrapper(apply, x, t, context, y)`` (ComfyUI's
+``model_function_wrapper``) wraps every model call. The JAX package's
+jit-argument bundle, runner cache keys and the ``model_uid`` and
+``latent_format`` that only key them exist for its compiled loops; eager
+PyTorch needs none of them.
 """
 
 from __future__ import annotations
@@ -68,12 +72,17 @@ def make_cfg_denoiser(
     cond_scale: float,
     attn1_override_factory: Optional[Callable] = None,
     first_block_hook: Optional[Callable] = None,
+    model_wrapper: Optional[Callable] = None,
+    disable_cfg1_optimization: bool = False,
 ):
     """``denoise(x, sigma) -> (cfg_denoised, uncond_denoised)``: input
     scaling, timestep lookup, one (batched cond/uncond, or cond-only at
-    cfg 1.0) forward, output scaling, CFG lerp. ``x`` is an NHWC f32 latent,
-    ``sigma`` a scalar, or a (B,) f32 tensor on its device."""
-    use_uncond = uncond is not None and abs(cond_scale - 1.0) > 1e-9
+    cfg 1.0 unless ``disable_cfg1_optimization``) forward, through
+    ``model_wrapper`` when given, output scaling, CFG lerp. ``x`` is an
+    NHWC f32 latent, ``sigma`` a scalar, or a (B,) f32 tensor on its
+    device."""
+    use_uncond = uncond is not None and (
+        abs(cond_scale - 1.0) > 1e-9 or disable_cfg1_optimization)
     has_pooled = cond.pooled is not None and (
         not use_uncond or uncond.pooled is not None)
 
@@ -85,6 +94,10 @@ def make_cfg_denoiser(
             extra["first_block_hook"] = first_block_hook
         if guidance is not None:
             extra["guidance"] = guidance
+        if model_wrapper is not None:
+            return model_wrapper(
+                lambda xx, tt, cc, yy: apply_model(params, xx, tt, cc, y=yy, **extra),
+                x, t, context, y)
         return apply_model(params, x, t, context, y=y, **extra)
 
     def denoise(x, sigma):

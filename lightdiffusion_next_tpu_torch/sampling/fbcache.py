@@ -132,19 +132,26 @@ def for_model(model, cond, uncond, cfg_scale: float,
               fb_cfg: FBCacheConfig = FBCacheConfig()) -> FBCachedDenoiser:
     """A stateful CFG denoiser with the cache at the model's first-block
     boundary (Flux's double block 0, the UNet's input block 1), with the
-    model's attention override (MSW-MSA) when it has one. The state is
-    f32 in the shape of that boundary's output: Flux's (B, tokens, hidden),
-    the UNet's (B, H, W, model_channels), B doubled under CFG."""
+    model's options: its attention override (MSW-MSA),
+    ``model_function_wrapper`` and ``disable_cfg1_optimization``. The state
+    is f32 in the shape of that boundary's output: Flux's (B, tokens,
+    hidden), the UNet's (B, H, W, model_channels), B doubled under CFG.
+    The JAX package's cache key has no counterpart: the port keeps no
+    compiled runners to key."""
     from lightdiffusion_next_tpu_torch.sampling import cfg as cfg_mod
 
-    batched_uncond = uncond is not None and abs(cfg_scale - 1.0) > 1e-9
+    opts = model.model_options
+    disable_cfg1 = opts.get("disable_cfg1_optimization", False)
+    batched_uncond = uncond is not None and (abs(cfg_scale - 1.0) > 1e-9 or disable_cfg1)
     model_cfg = model.config
 
     def make(hook):
         return cfg_mod.make_cfg_denoiser(
             model.apply_fn, model.params, model.model_sampling, cond, uncond,
             cfg_scale, first_block_hook=hook,
-            attn1_override_factory=model.model_options.get("attn1_override_factory"),
+            attn1_override_factory=opts.get("attn1_override_factory"),
+            model_wrapper=opts.get("model_function_wrapper"),
+            disable_cfg1_optimization=disable_cfg1,
         )
 
     def shapes_fn(x):

@@ -4,8 +4,12 @@ loop.
 
 Counterpart of lightdiffusion_next_tpu/sampling/ksampler.py ``ksample``,
 with the noise in ``RuntimeConfig.rng_mode``, the FBCache dispatch
-(``fbcache=`` or the model's ``"fbcache"`` option, on Flux or the UNet) and the denoise mask with differential diffusion
-(``_MaskedDenoiser``, ADetailer's inpainting). Latents are NHWC in and out.
+(``fbcache=`` or the model's ``"fbcache"`` option, on Flux or the UNet), the
+denoise mask with differential diffusion (``_MaskedDenoiser``, ADetailer's
+inpainting), and the JAX ``ksample``'s ComfyUI hooks: ``sigmas_override``,
+``disable_noise``, ``model_wrapper`` and the model's
+``model_function_wrapper`` and ``disable_cfg1_optimization`` options.
+Latents are NHWC in and out.
 """
 
 from __future__ import annotations
@@ -136,18 +140,29 @@ def ksample(
     fbcache: Optional[fb_mod.FBCacheConfig] = None,
     denoise_mask=None,
     differential_diffusion: bool = False,
+    disable_noise: bool = False,
+    sigmas_override=None,
+    model_wrapper: Optional[Callable] = None,
 ) -> KSampleResult:
     """Returns the latent in decoded (VAE) space, on the model's device.
     ``denoise_mask``: an NHWC [0, 1] mask at the latent's size (1 =
     resample, 0 = keep the input latent), hardened along the trajectory
-    with ``differential_diffusion``."""
+    with ``differential_diffusion``. ``sigmas_override``: the schedule to
+    run instead of ``scheduler``'s (still trimmed by ``start_step`` and
+    ``last_step``); ``disable_noise``: start from the latent without the
+    initial noise. ``model_wrapper(apply, x, t, context, y)`` (else the
+    model's ``model_function_wrapper`` option) wraps every model call;
+    under FBCache only the option is read, as in the JAX ``ksample``."""
     lf = model.latent_format
     msampling = model.model_sampling
     device = model.device
     latent_image = torch.as_tensor(latent_image).to(device=device, dtype=torch.float32)
 
-    sigmas = trim_sigmas(sigmas_for(msampling, scheduler, steps, denoise),
-                         start_step, last_step, force_full_denoise)
+    if sigmas_override is not None:
+        sigmas = np.asarray(sigmas_override, dtype=np.float32)
+    else:
+        sigmas = sigmas_for(msampling, scheduler, steps, denoise)
+    sigmas = trim_sigmas(sigmas, start_step, last_step, force_full_denoise)
     if len(sigmas) < 2:
         return KSampleResult(latent=latent_image, raw=lf.process_in(latent_image))
 
@@ -155,7 +170,10 @@ def ksample(
     # rng mode, as the JAX package does
     rng_mode = _config.get_config().rng_mode
     shape = tuple(latent_image.shape)
-    init_noise = noise_mod.prepare_noise(shape, seed, mode=rng_mode)
+    if disable_noise:
+        init_noise = torch.zeros(shape, dtype=torch.float32)
+    else:
+        init_noise = noise_mod.prepare_noise(shape, seed, mode=rng_mode)
     opts = (
         dataclasses.replace(sampler_opts, cfg_scale=cfg_scale)
         if sampler_opts is not None
@@ -186,7 +204,8 @@ def ksample(
         return dataclasses.replace(
             c, cross_attn=torch.as_tensor(c.cross_attn).to(device), pooled=pooled)
 
-    fbcache = fbcache or model.model_options.get("fbcache")
+    options = model.model_options
+    fbcache = fbcache or options.get("fbcache")
     if fbcache is not None:
         denoise_fn = fb_mod.for_model(model, on_device(positive), on_device(negative),
                                       cfg_scale, fbcache)
@@ -194,7 +213,9 @@ def ksample(
         denoise_fn = cfg_mod.make_cfg_denoiser(
             model.apply_fn, model.params, msampling, on_device(positive),
             on_device(negative), cfg_scale,
-            attn1_override_factory=model.model_options.get("attn1_override_factory"),
+            attn1_override_factory=options.get("attn1_override_factory"),
+            model_wrapper=model_wrapper or options.get("model_function_wrapper"),
+            disable_cfg1_optimization=options.get("disable_cfg1_optimization", False),
         )
     if denoise_mask is not None:
         mask = torch.as_tensor(denoise_mask).to(device=device, dtype=torch.float32)

@@ -118,9 +118,10 @@ def detect_model_type(unet_sd: Dict) -> str:
 
 def detect_unet_config(unet_sd: Dict) -> UNetConfig:
     """UNetConfig from state-dict shapes (OIHW or HWIO convs), the JAX
-    package's decision data. The port's UNet is SD1.5's: a checkpoint with
-    linear transformer projections (SD2) or a label embedding (SDXL)
-    raises."""
+    package's decision data: linear transformer projections from a 2-D
+    ``proj_in``, ``adm_in_channels`` from ``label_emb.0.0.weight``, and,
+    as there, eight heads whatever the checkpoint (an SD2.x file would want
+    ``num_head_channels = 64``, which nothing detects)."""
 
     def is_hwio(w) -> bool:
         return w.shape[0] == w.shape[1] and w.shape[0] <= 7
@@ -141,9 +142,7 @@ def detect_unet_config(unet_sd: Dict) -> UNetConfig:
     context_dim = next((unet_sd[k].shape[1] for k in unet_sd
                         if k.endswith("attn2.to_k.weight")), None)
     pk = "input_blocks.1.1.proj_in.weight"
-    if (pk in unet_sd and unet_sd[pk].ndim == 2) or "label_emb.0.0.weight" in unet_sd:
-        raise NotImplementedError(
-            "only SD1.5-class UNets are ported (conv projections, no label embedding)")
+    use_linear = pk in unet_sd and unet_sd[pk].ndim == 2
 
     channel_mult, num_res_blocks, transformer_depth = [], [], []
     level_blocks = level_depth = 0
@@ -182,4 +181,7 @@ def detect_unet_config(unet_sd: Dict) -> UNetConfig:
         transformer_depth_middle=dm,
         context_dim=context_dim,
         num_heads=8,
+        use_linear_in_transformer=use_linear,
+        adm_in_channels=(in_ch_of("label_emb.0.0.weight")
+                         if "label_emb.0.0.weight" in unet_sd else None),
     )

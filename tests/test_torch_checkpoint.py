@@ -10,6 +10,7 @@ the JAX package's HWIO convs transposed to OIHW, the port's q|k|v and k|v
 joined).
 """
 
+import dataclasses
 import os
 import sys
 
@@ -102,13 +103,85 @@ def test_split_detect_and_prefix_match_jax(tiny_ckpt):
                 == jsd.state_dict_prefix_replace(sd, {"a.": "c.", "b.": "a."}, filt))
 
 
-def test_detect_refuses_what_the_unet_does_not_run():
-    sd = {"input_blocks.0.0.weight": torch.zeros(32, 4, 3, 3),
-          "out.2.weight": torch.zeros(4, 32, 3, 3),
-          "input_blocks.1.1.proj_in.weight": torch.zeros(32, 32)}
-    with pytest.raises(NotImplementedError):
-        tsd.detect_unet_config(sd)
-    assert tsd.detect_model_type({"double_blocks.0.img_attn.norm.key_norm.scale": 0}) == "flux"
+def _tiny_unet_sd(linear, label_emb, seed=0):
+    """A tiny UNet state dict in the JAX layout (HWIO convs) from the JAX
+    ``init_params``: transformer projections linear or 1x1 convs, with or
+    without a seeded label embedding (adm 24 -> the time dim)."""
+    from lightdiffusion_next_tpu.models import unet as junet
+
+    cfg = junet.UNetConfig(model_channels=32, channel_mult=(1, 2), num_res_blocks=(1, 1),
+                           transformer_depth=(1, 1), context_dim=64, num_heads=2,
+                           use_linear_in_transformer=linear)
+    sd = {k: np.asarray(v, np.float32) for k, v in junet.init_params(cfg, seed=seed).items()}
+    if label_emb:
+        rng = np.random.default_rng(seed + 1)
+        sd["label_emb.0.0.weight"] = rng.standard_normal((128, 24)).astype(np.float32)
+        sd["label_emb.0.0.bias"] = rng.standard_normal(128).astype(np.float32)
+        sd["label_emb.0.2.weight"] = rng.standard_normal((128, 128)).astype(np.float32)
+        sd["label_emb.0.2.bias"] = rng.standard_normal(128).astype(np.float32)
+    return sd
+
+
+@pytest.mark.parametrize("case", ["conv", "linear", "conv+label_emb", "linear+label_emb",
+                                  "unrecognized"])
+def test_detect_refuses_what_the_unet_does_not_run(case):
+    """Detection equals the JAX package's on conv and linear transformer
+    projections, with and without a label embedding (the port's UNet runs
+    all four); what both packages refuse, a state dict of no known model,
+    raises the same ValueError in both."""
+    if case == "unrecognized":
+        sd = {"encoder.layers.0.weight": np.zeros((4, 4), np.float32)}
+        with pytest.raises(ValueError, match="unrecognized"):
+            jsd.detect_model_type(sd)
+        with pytest.raises(ValueError, match="unrecognized"):
+            tsd.detect_model_type({k: torch.from_numpy(v) for k, v in sd.items()})
+        assert tsd.detect_model_type(
+            {"double_blocks.0.img_attn.norm.key_norm.scale": 0}) == "flux"
+        return
+    sd = _tiny_unet_sd("linear" in case, "label_emb" in case)
+    jcfg = jsd.detect_unet_config(sd)
+    tcfg = tsd.detect_unet_config(from_jax(sd))  # OIHW, as the port keeps it
+    fields = [f.name for f in dataclasses.fields(tcfg) if f.name != "dtype"]
+    assert {f.name for f in dataclasses.fields(jcfg)} - {"dtype"} == set(fields)
+    for field in fields:
+        assert getattr(tcfg, field) == getattr(jcfg, field), field
+    assert tcfg.use_linear_in_transformer == ("linear" in case)
+    assert tcfg.adm_in_channels == (24 if "label_emb" in case else None)
+    assert tcfg.num_heads == 8 and tcfg.num_head_channels == -1
+    assert tsd.detect_unet_config({k: torch.from_numpy(v) for k, v in sd.items()}) == tcfg
+    assert tsd.detect_model_type(from_jax(sd)) == jsd.detect_model_type(sd) == "unet"
+
+
+def test_loader_params_equal_jax_linear_label_emb(tiny_ckpt, tmp_path):
+    """A one-file checkpoint whose UNet has linear transformer projections
+    (the tiny checkpoint's 1x1 convs squeezed, the same function) and a
+    label embedding: both loaders detect it alike and build the same
+    params, the 2-D projections and ``label_emb`` carried as they are."""
+    sd = safetensors.numpy.load_file(tiny_ckpt)
+    pre = "model.diffusion_model."
+    for k in list(sd):
+        if k.startswith(pre) and k.endswith(("proj_in.weight", "proj_out.weight")):
+            sd[k] = np.ascontiguousarray(sd[k][:, :, 0, 0])
+    td, _ = sd[pre + "time_embed.0.weight"].shape
+    rng = np.random.default_rng(9)
+    for name, shape in (("0.0", (td, 768)), ("0.2", (td, td))):
+        sd[f"{pre}label_emb.{name}.weight"] = rng.standard_normal(shape).astype(np.float32)
+        sd[f"{pre}label_emb.{name}.bias"] = rng.standard_normal(shape[0]).astype(np.float32)
+    path = str(tmp_path / "linear_adm.safetensors")
+    safetensors.numpy.save_file(sd, path)
+    model, _, _ = tloader.load_checkpoint_guess_config(path, embedding_directory=str(tmp_path),
+                                                       device="cpu")
+    jmodel, _, _ = jloader.load_checkpoint_guess_config(path)
+    assert model.config.use_linear_in_transformer and jmodel.config.use_linear_in_transformer
+    assert model.config.adm_in_channels == jmodel.config.adm_in_channels == 768
+    want = tunet.fuse_projections(from_jax({k: np.asarray(v) for k, v in jmodel.params.items()}))
+    assert set(model.params) == set(want)
+    for k, v in want.items():
+        assert model.params[k].dtype == torch.float32
+        np.testing.assert_array_equal(model.params[k].numpy(), v.numpy(), err_msg=k)
+    assert model.params["input_blocks.1.1.proj_in.weight"].ndim == 2
+    np.testing.assert_array_equal(model.params["label_emb.0.2.weight"].numpy(),
+                                  sd[pre + "label_emb.0.2.weight"])
 
 
 def test_loader_params_equal_jax(tiny_ckpt, tmp_path):

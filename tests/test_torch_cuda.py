@@ -52,6 +52,10 @@ def _check(out, q, k, v):
         ("packed", 2, 8, 1024, 1024, 40, torch.bfloat16),
         ("packed", 1, 2, 600, 700, 40, torch.bfloat16),   # ragged, masked tail
         ("packed", 1, 3, 512, 520, 64, torch.bfloat16),
+        # SD2.1's head layout (64 channels a head): a level-1 self-attention
+        # at 1024^2 and a level-0 MSW-MSA window
+        ("packed", 2, 10, 4096, 4096, 64, torch.bfloat16),
+        ("packed", 8, 5, 4096, 4096, 64, torch.bfloat16),
         ("packed", 1, 2, 530, 650, 24, torch.bfloat16),   # the d <= 32 bucket
         ("packed", 1, 2, 520, 530, 40, torch.float32),    # the split kernel at d <= 64
         ("flash", 2, 8, 1024, 1024, 160, torch.bfloat16),

@@ -1,0 +1,15 @@
+"""K2: ``ops.flash_attention.flash_attention(q, k, v)``, (B, H, L, D), bf16 or f32 (the VAE's,
+counted at the bf16 rate as PERF.md does)."""
+
+from benchmark.rooflines import formulas
+
+TARGET = ("lightdiffusion_next_tpu_torch.ops.flash_attention", "flash_attention")
+
+
+def shapes(q, k, v, *args, **kwargs):
+    return {"b": q.shape[0], "h": q.shape[1], "lq": q.shape[2], "lk": k.shape[2],
+            "d": q.shape[3], "elt": q.element_size()}
+
+
+def bound_s(s):
+    return formulas.attention(s["b"], s["h"], s["lq"], s["lk"], s["d"], s["elt"])

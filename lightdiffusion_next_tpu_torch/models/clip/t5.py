@@ -24,6 +24,7 @@ import torch
 
 from lightdiffusion_next_tpu_torch import config as _config
 from lightdiffusion_next_tpu_torch.ops import ggml, nn
+from lightdiffusion_next_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -153,7 +154,8 @@ def apply_t5(params: Dict, tokens, attention_mask=None,
     (B, L), 1 = attend; the other keys get a -1e9 bias."""
     x = nn.embedding_lookup(tokens, params["shared.weight"], dtype=compute_dtype)
     L = x.shape[1]
-    buckets = torch.as_tensor(compute_bias_table(L, L, cfg), device=x.device)
+    with profiling.span("sync.t5_buckets"):
+        buckets = torch.as_tensor(compute_bias_table(L, L, cfg), device=x.device)
     bias_emb = params[_BIAS_KEY]
     bias = nn.embedding_lookup(buckets.reshape(-1), bias_emb, dtype=torch.float32)
     bias = bias.reshape(L, L, -1).permute(2, 0, 1)[None]  # (1, H, L, L) f32
@@ -223,11 +225,13 @@ class T5XXLModel:
     def encode_token_weights(self, token_weight_pairs):
         """Rows of (token, weight) -> ((B, L, d_model) f32, None); the
         weights are not applied (the Flux flow encodes T5 plainly)."""
-        rows = [[int(a[0]) for a in row] for row in token_weight_pairs]
-        tokens = torch.tensor(rows, dtype=torch.long, device=self.device)
-        out, _, _ = apply_t5(self.params, tokens, cfg=self.cfg,
-                             compute_dtype=self.compute_dtype)
-        return out.float(), None
+        with profiling.span("models.t5"):
+            rows = [[int(a[0]) for a in row] for row in token_weight_pairs]
+            with profiling.span("sync.t5_tokens"):
+                tokens = torch.tensor(rows, dtype=torch.long, device=self.device)
+            out, _, _ = apply_t5(self.params, tokens, cfg=self.cfg,
+                                 compute_dtype=self.compute_dtype)
+            return out.float(), None
 
 
 def _layout(cfg: T5Config):

@@ -20,6 +20,7 @@ from lightdiffusion_next_tpu_torch import config as _config
 from lightdiffusion_next_tpu_torch.models.base import params_to_device
 from lightdiffusion_next_tpu_torch.ops import attention as attn_ops
 from lightdiffusion_next_tpu_torch.ops import nn
+from lightdiffusion_next_tpu_torch.utils import profiling
 
 CLIP_L_LAYERS = 12
 CLIP_L_HEADS = 12
@@ -144,13 +145,15 @@ class SDClipModel:
                 if vec.shape[0] == width:
                     slots.append((i, j))
                     vectors.append(vec)
-        tokens = torch.from_numpy(ids).to(self.device)
+        with profiling.span("sync.clip_tokens"):
+            tokens = torch.from_numpy(ids).to(self.device)
         embeds = table[tokens.clamp(min=0)]
         embeds[tokens < 0] = 0
         if slots:
             rows, cols = zip(*slots)
-            embeds[list(rows), list(cols)] = torch.from_numpy(np.stack(vectors)).to(
-                device=self.device, dtype=embeds.dtype)
+            with profiling.span("sync.clip_embeddings"):
+                embeds[list(rows), list(cols)] = torch.from_numpy(np.stack(vectors)).to(
+                    device=self.device, dtype=embeds.dtype)
         return embeds, tokens
 
     def encode(self, token_rows: List[List]):
@@ -173,36 +176,37 @@ class SDClipModel:
         """Encode all rows plus an empty row, lerp weighted tokens against
         the empty-prompt baseline, concatenate rows on the sequence axis.
         Returns (cond (1, 77*rows, width), pooled (1, width)), f32."""
-        to_encode = []
-        max_len = 0
-        has_weights = False
-        for row in token_weight_pairs:
-            tokens = [a[0] for a in row]
-            max_len = max(max_len, len(tokens))
-            has_weights = has_weights or any(a[1] != 1.0 for a in row)
-            to_encode.append(tokens)
+        with profiling.span("models.clip"):
+            to_encode = []
+            max_len = 0
+            has_weights = False
+            for row in token_weight_pairs:
+                tokens = [a[0] for a in row]
+                max_len = max(max_len, len(tokens))
+                has_weights = has_weights or any(a[1] != 1.0 for a in row)
+                to_encode.append(tokens)
 
-        sections = len(to_encode)
-        if has_weights or sections == 0:
-            to_encode.append(_gen_empty_tokens(self.special_tokens, max_len))
+            sections = len(to_encode)
+            if has_weights or sections == 0:
+                to_encode.append(_gen_empty_tokens(self.special_tokens, max_len))
 
-        out, pooled = self.encode(to_encode)
-        first_pooled = pooled[0:1]
+            out, pooled = self.encode(to_encode)
+            first_pooled = pooled[0:1]
 
-        output = []
-        for k in range(sections):
-            z = out[k : k + 1].clone()
-            if has_weights:
-                z_empty = out[-1]
-                for j in range(z.shape[1]):
-                    weight = token_weight_pairs[k][j][1]
-                    if weight != 1.0:
-                        z[0, j] = (z[0, j] - z_empty[j]) * weight + z_empty[j]
-            output.append(z)
+            output = []
+            for k in range(sections):
+                z = out[k : k + 1].clone()
+                if has_weights:
+                    z_empty = out[-1]
+                    for j in range(z.shape[1]):
+                        weight = token_weight_pairs[k][j][1]
+                        if weight != 1.0:
+                            z[0, j] = (z[0, j] - z_empty[j]) * weight + z_empty[j]
+                output.append(z)
 
-        if not output:
-            return out[-1:], first_pooled
-        return torch.cat(output, dim=-2), first_pooled
+            if not output:
+                return out[-1:], first_pooled
+            return torch.cat(output, dim=-2), first_pooled
 
 
 def _gen_empty_tokens(special_tokens: dict, length: int) -> List[int]:

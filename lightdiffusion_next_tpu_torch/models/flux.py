@@ -60,6 +60,7 @@ from lightdiffusion_next_tpu_torch.ops import rope as rope_ops
 from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
 from lightdiffusion_next_tpu_torch.parallel import mesh as mesh_mod
 from lightdiffusion_next_tpu_torch.sampling.schedules import timestep_embedding_flux
+from lightdiffusion_next_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -542,7 +543,8 @@ def img_ids(batch: int, h: int, w: int, patch: int = 2, device=None):
     ids[..., 1] = np.arange(hh, dtype=np.float32)[:, None]
     ids[..., 2] = np.arange(ww, dtype=np.float32)[None, :]
     ids = np.tile(ids.reshape(1, hh * ww, 3), (batch, 1, 1))
-    return torch.from_numpy(ids).to(device)
+    with profiling.span("sync.img_ids"):
+        return torch.from_numpy(ids).to(device)
 
 
 def apply_flux(params: Dict, x, timesteps, context, y, guidance=None,
@@ -675,8 +677,9 @@ def detect_config(sd: Dict, dtype=None) -> FluxConfig:
 
 def make_apply_fn(cfg: FluxConfig):
     def apply_fn(p, x, t, context, y=None, guidance=None, first_block_hook=None, **_):
-        return apply_flux(p, x, t, context, y, guidance=guidance, cfg=cfg,
-                          first_block_hook=first_block_hook)
+        with profiling.span("models.dit"):
+            return apply_flux(p, x, t, context, y, guidance=guidance, cfg=cfg,
+                              first_block_hook=first_block_hook)
 
     return apply_fn
 

@@ -26,6 +26,7 @@ import torch
 from lightdiffusion_next_tpu_torch.ops import attention as attn_ops
 from lightdiffusion_next_tpu_torch.ops import nn
 from lightdiffusion_next_tpu_torch.sampling.schedules import timestep_embedding
+from lightdiffusion_next_tpu_torch.utils import profiling
 
 
 @dataclasses.dataclass(frozen=True)
@@ -261,49 +262,50 @@ def apply_unet(params: dict, x, timesteps, context, y=None,
     block 1's (the first res block and transformer), and ``run_rest(h)``
     runs everything after them up to, not including, the ``out`` head; the
     hook returns the hidden state the head takes."""
-    if plan is None:
-        plan = build_plan(cfg)
-    input_blocks, middle, output_blocks = plan
+    with profiling.span("models.unet"):
+        if plan is None:
+            plan = build_plan(cfg)
+        input_blocks, middle, output_blocks = plan
 
-    t_emb = timestep_embedding(timesteps, cfg.model_channels).to(cfg.dtype)
-    pt = nn.ParamView(params, "time_embed.")
-    emb = nn.linear(t_emb, pt("0.weight"), pt("0.bias"))
-    emb = nn.linear(nn.silu(emb), pt("2.weight"), pt("2.bias"))
-    if y is not None and "label_emb.0.0.weight" in params:
-        pl = nn.ParamView(params, "label_emb.0.")
-        le = nn.linear(y.to(cfg.dtype), pl("0.weight"), pl("0.bias"))
-        emb = emb + nn.linear(nn.silu(le), pl("2.weight"), pl("2.bias"))
+        t_emb = timestep_embedding(timesteps, cfg.model_channels).to(cfg.dtype)
+        pt = nn.ParamView(params, "time_embed.")
+        emb = nn.linear(t_emb, pt("0.weight"), pt("0.bias"))
+        emb = nn.linear(nn.silu(emb), pt("2.weight"), pt("2.bias"))
+        if y is not None and "label_emb.0.0.weight" in params:
+            pl = nn.ParamView(params, "label_emb.0.")
+            le = nn.linear(y.to(cfg.dtype), pl("0.weight"), pl("0.bias"))
+            emb = emb + nn.linear(nn.silu(le), pl("2.weight"), pl("2.bias"))
 
-    h = x.to(cfg.dtype)
-    if context is not None:
-        context = context.to(cfg.dtype)
+        h = x.to(cfg.dtype)
+        if context is not None:
+            context = context.to(cfg.dtype)
 
-    hs = []
+        hs = []
 
-    def run_rest(h):
-        rest_hs = list(hs)
-        for i, mods in enumerate(input_blocks[2:], start=2):
-            h = _run_block(mods, params, h, emb, context, cfg, attn1_override,
+        def run_rest(h):
+            rest_hs = list(hs)
+            for i, mods in enumerate(input_blocks[2:], start=2):
+                h = _run_block(mods, params, h, emb, context, cfg, attn1_override,
+                               block=("input", i))
+                rest_hs.append(h)
+            h = _run_block(middle, params, h, emb, context, cfg, attn1_override,
+                           block=("middle", 0))
+            for i, mods in enumerate(output_blocks):
+                h = torch.cat([h, rest_hs.pop()], dim=-1)
+                h = _run_block(mods, params, h, emb, context, cfg, attn1_override,
+                               block=("output", i))
+            return h
+
+        for i in (0, 1):
+            h_prev = h
+            h = _run_block(input_blocks[i], params, h, emb, context, cfg, attn1_override,
                            block=("input", i))
-            rest_hs.append(h)
-        h = _run_block(middle, params, h, emb, context, cfg, attn1_override,
-                       block=("middle", 0))
-        for i, mods in enumerate(output_blocks):
-            h = torch.cat([h, rest_hs.pop()], dim=-1)
-            h = _run_block(mods, params, h, emb, context, cfg, attn1_override,
-                           block=("output", i))
-        return h
+            hs.append(h)
+        h = run_rest(h) if first_block_hook is None else first_block_hook(h_prev, h, run_rest)
 
-    for i in (0, 1):
-        h_prev = h
-        h = _run_block(input_blocks[i], params, h, emb, context, cfg, attn1_override,
-                       block=("input", i))
-        hs.append(h)
-    h = run_rest(h) if first_block_hook is None else first_block_hook(h_prev, h, run_rest)
-
-    po = nn.ParamView(params, "out.")
-    h = nn.silu(nn.group_norm(h, po("0.weight"), po("0.bias")))
-    return nn.conv2d(h, po("2.weight"), po("2.bias"), padding=1)
+        po = nn.ParamView(params, "out.")
+        h = nn.silu(nn.group_norm(h, po("0.weight"), po("0.bias")))
+        return nn.conv2d(h, po("2.weight"), po("2.bias"), padding=1)
 
 
 def attention_blocks(cfg: UNetConfig = SD15_CONFIG):

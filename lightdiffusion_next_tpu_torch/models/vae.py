@@ -31,6 +31,7 @@ from lightdiffusion_next_tpu_torch.models.base import params_to_device
 from lightdiffusion_next_tpu_torch.ops import attention as attn_ops
 from lightdiffusion_next_tpu_torch.ops import nn
 from lightdiffusion_next_tpu_torch.utils import tiling
+from lightdiffusion_next_tpu_torch.utils import profiling
 
 logger = logging.getLogger(__name__)
 
@@ -191,20 +192,21 @@ class VAE:
 
     def decode(self, samples):
         """latent NHWC -> images NHWC float32 in [0, 1], on the VAE's device."""
-        z = torch.as_tensor(samples).to(device=self.device, dtype=self.dtype)
-        b = z.shape[0]
-        step = min(self._max_decode_batch(z.shape), b)
-        try:
-            outs = [self._decode_scaled(z[i:i + step]) for i in range(0, b, step)]
-            return outs[0] if len(outs) == 1 else torch.cat(outs)
-        except torch.OutOfMemoryError:
-            # handled below, once this frame's partial results are freed
-            pass
-        logger.warning("VAE decode of %s ran out of device memory; decoding in tiles",
-                       tuple(z.shape))
-        if self.device.type == "cuda":
-            torch.cuda.empty_cache()
-        return self.decode_tiled(z)
+        with profiling.span("models.vae"):
+            z = torch.as_tensor(samples).to(device=self.device, dtype=self.dtype)
+            b = z.shape[0]
+            step = min(self._max_decode_batch(z.shape), b)
+            try:
+                outs = [self._decode_scaled(z[i:i + step]) for i in range(0, b, step)]
+                return outs[0] if len(outs) == 1 else torch.cat(outs)
+            except torch.OutOfMemoryError:
+                # handled below, once this frame's partial results are freed
+                pass
+            logger.warning("VAE decode of %s ran out of device memory; decoding in tiles",
+                           tuple(z.shape))
+            if self.device.type == "cuda":
+                torch.cuda.empty_cache()
+            return self.decode_tiled(z)
 
     def decode_tiled(self, samples, tile: int = 64, overlap: int = 16):
         """The decode in overlapping ``tile`` x ``tile`` latent tiles, blended

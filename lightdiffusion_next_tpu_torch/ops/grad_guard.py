@@ -15,6 +15,11 @@ naming the kernel. The check comes before the wrapper's body, and so before
 its CPU branch: the plain versions the CPU takes refuse the backward too.
 A call with grad mode off, or with no argument that requires grad, runs the
 wrapper's body as before, after one look at each argument.
+
+The body also runs in the span ``kernels.<wrapper's name>``
+(``utils.profiling.kernel_span``): the wrapper's host work, recorded when
+spans are on. The decorated function stays the outermost one, so the
+module global keeps its launch counters.
 """
 
 from __future__ import annotations
@@ -22,6 +27,8 @@ from __future__ import annotations
 import functools
 
 import torch
+
+from lightdiffusion_next_tpu_torch.utils import profiling
 
 
 class NoBackwardError(RuntimeError):
@@ -49,9 +56,12 @@ class _NoBackward(torch.autograd.Function):
 def no_backward(kernel: str):
     """Decorate a kernel's wrapper: a call under grad mode with an argument
     that requires grad becomes a node of the graph whose backward raises
-    ``NoBackwardError`` for ``kernel``."""
+    ``NoBackwardError`` for ``kernel``; every call is the span
+    ``kernels.<wrapper's name>``."""
 
     def wrap(fn):
+        fn = profiling.kernel_span(f"kernels.{fn.__name__}")(fn)
+
         @functools.wraps(fn)
         def guarded(*args, **kw):
             if torch.is_grad_enabled():

@@ -75,6 +75,7 @@ import torch.nn.functional as F
 
 from lightdiffusion_next_tpu_torch.ops import cuda_build, grad_guard
 from lightdiffusion_next_tpu_torch.ops import flash_attention as fa
+from lightdiffusion_next_tpu_torch.utils import profiling
 
 NEG_INF = -1e30  # the masked score, as in the JAX kernel
 HEAD_DIMS = (32, 40, 64, 80, 128, 160)  # head dims the kernel is built for
@@ -425,6 +426,7 @@ def _check_inputs(q, k, v):
             raise ValueError("sage_attention: rows must be contiguous and 4-byte aligned")
 
 
+@profiling.kernel_span("kernels.prepare_kernel")
 def prepare_kernel(q, k, v, pv_int8=True, int8_mxu=True) -> Operands:
     """The preparation kernel: q (B, H, Lq, D), k/v (B, H, Lk, D) bf16 on
     the card, through their strides, -> the operands K4 (or the flag

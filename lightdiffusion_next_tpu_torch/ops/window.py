@@ -18,6 +18,7 @@ import torch
 import torch.nn.functional as F
 
 from lightdiffusion_next_tpu_torch.ops import attention as attn_ops
+from lightdiffusion_next_tpu_torch.utils import profiling
 
 SD15_BLOCKS = (("input", 1), ("input", 2), ("output", 9), ("output", 10), ("output", 11))
 
@@ -110,10 +111,12 @@ def msw_step_state(t, bounds=None) -> Tuple[int, bool]:
     f32 as in the JAX package (a float64 host value can land on the other
     side of a floor or a bound)."""
     tm = torch.max(torch.as_tensor(t).float())
-    idx = int(torch.remainder(torch.floor(tm).to(torch.int32), 4))
+    with profiling.span("sync.msw_shift"):
+        idx = int(torch.remainder(torch.floor(tm).to(torch.int32), 4))
     if bounds is None:
         return idx, True
-    active = bool((tm <= bounds[1]) & (tm >= bounds[0]))
+    with profiling.span("sync.msw_gate"):
+        active = bool((tm <= bounds[1]) & (tm >= bounds[0]))
     return idx, active
 
 

@@ -118,6 +118,7 @@ from lightdiffusion_next_tpu_torch.utils import hdr as hdr_mod
 from lightdiffusion_next_tpu_torch.utils import image as image_utils
 from lightdiffusion_next_tpu_torch.utils import latent as latent_mod
 from lightdiffusion_next_tpu_torch.utils import params_io
+from lightdiffusion_next_tpu_torch.utils import profiling
 from lightdiffusion_next_tpu_torch.utils import state_dict as sd_utils
 from lightdiffusion_next_tpu_torch.utils import upscale as upscale_mod
 
@@ -214,40 +215,41 @@ def pipeline(
     if negative_prompt is None or not negative_prompt.strip():
         negative_prompt = DEFAULT_NEGATIVE
 
-    writer = par_inf.is_writer()
-    drawn = seed is None
-    if drawn:
-        seed = load_last_seed() if reuse_seed else random.randint(1, 2**63 - 1)
-    seed = par_inf.agree(seed)
-    if drawn and writer:
-        save_last_seed(seed)
-    if writer:
-        try:
-            params_io.write_parameters_to_file(prompt, negative_prompt, w, h, 7)
-        except OSError:
-            pass
-    if enhance_prompt:
-        prompt = enhancer.enhance_prompt(prompt)
+    with profiling.request("pipeline"):
+        writer = par_inf.is_writer()
+        drawn = seed is None
+        if drawn:
+            seed = load_last_seed() if reuse_seed else random.randint(1, 2**63 - 1)
+        seed = par_inf.agree(seed)
+        if drawn and writer:
+            save_last_seed(seed)
+        if writer:
+            try:
+                params_io.write_parameters_to_file(prompt, negative_prompt, w, h, 7)
+            except OSError:
+                pass
+        if enhance_prompt:
+            prompt = enhancer.enhance_prompt(prompt)
 
-    saver = image_utils.SaveImage(output_dir=output_dir) if writer else _NoSaver()
-    saved: List[str] = []
-    for _ in range(number):
-        if par_inf.agree(samplers_mod.callback_requests_stop(progress_callback)):
-            break
-        if flux_enabled:
-            saved += _flux_txt2img(prompt, w, h, batch, seed, autohdr, saver,
-                                   progress_callback, model, clip, vae, t5, device)
-        elif img2img:
-            saved += _img2img_usdu(prompt, autohdr, saver, realistic_model, progress_callback,
-                                   model, clip, vae, device)
-            continue
-        else:
-            saved += _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms,
-                                    prio_speed, autohdr, realistic_model, saver,
-                                    progress_callback, hidiffusion, model, clip, vae,
-                                    device, hires_fix, adetailer)
-        seed = par_inf.agree(random.randint(1, 2**63 - 1))
-    return saved
+        saver = image_utils.SaveImage(output_dir=output_dir) if writer else _NoSaver()
+        saved: List[str] = []
+        for _ in range(number):
+            if par_inf.agree(samplers_mod.callback_requests_stop(progress_callback)):
+                break
+            if flux_enabled:
+                saved += _flux_txt2img(prompt, w, h, batch, seed, autohdr, saver,
+                                       progress_callback, model, clip, vae, t5, device)
+            elif img2img:
+                saved += _img2img_usdu(prompt, autohdr, saver, realistic_model, progress_callback,
+                                       model, clip, vae, device)
+                continue
+            else:
+                saved += _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms,
+                                        prio_speed, autohdr, realistic_model, saver,
+                                        progress_callback, hidiffusion, model, clip, vae,
+                                        device, hires_fix, adetailer)
+            seed = par_inf.agree(random.randint(1, 2**63 - 1))
+        return saved
 
 
 class _NoSaver:
@@ -343,9 +345,10 @@ def _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms, prio_speed, a
         model, clip, vae = _load_sd15(realistic_model, device)
         model, clip = _apply_lora_add_detail(model, clip)
     clip = clip_facade.CLIPSetLastLayer().set_last_layer(clip, -2)
-    encode = clip_facade.CLIPTextEncode()
-    positive = encode.encode(clip, prompt)
-    negative = encode.encode(clip, negative_prompt)
+    with profiling.span("pipeline.encode"):
+        encode = clip_facade.CLIPTextEncode()
+        positive = encode.encode(clip, prompt)
+        negative = encode.encode(clip, negative_prompt)
 
     if hidiffusion:
         model = model.with_options(
@@ -369,7 +372,10 @@ def _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms, prio_speed, a
         callback=_resolve_callback(progress_callback, model.latent_format, 20, model.device),
     )
     if hires_fix and not samplers_mod.callback_requests_stop(progress_callback):
-        up = upscale_mod.bislerp(result.latent, (w * 2) // 8, (h * 2) // 8)
+        with profiling.span("pipeline.upscale"):
+            up = upscale_mod.bislerp(result.latent, (w * 2) // 8, (h * 2) // 8)
+            with profiling.span("sync.upscale_upload"):
+                up = torch.from_numpy(up).to(model.device)
         result = ks.ksample(
             model,
             seed=random.randint(1, 2**63 - 1),
@@ -379,12 +385,14 @@ def _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms, prio_speed, a
             scheduler="normal",
             positive=positive,
             negative=negative,
-            latent_image=torch.from_numpy(up).to(model.device),
+            latent_image=up,
             denoise=0.45,
             callback=_resolve_callback(progress_callback, model.latent_format, 10,
                                        model.device),
         )
-    images = vae.decode(result.latent)
+        del up  # not held on the device through the decode
+    with profiling.span("pipeline.decode"):
+        images = vae.decode(result.latent)
     if adetailer and not samplers_mod.callback_requests_stop(progress_callback):
         images = torch.from_numpy(_run_adetailer(
             images.cpu().numpy(), model, vae, positive, negative, seed,
@@ -393,8 +401,17 @@ def _sd15_generate(prompt, negative_prompt, w, h, batch, seed, ms, prio_speed, a
     else:
         prefix = "HiresFix/LD" if hires_fix else "Classic/LD"
     if autohdr:
-        images = hdr_mod.apply_hdr_batch(images)
-    return saver.save_images(images.cpu().numpy(), prefix, prompt=prompt)
+        with profiling.span("pipeline.hdr"):
+            images = hdr_mod.apply_hdr_batch(images)
+    return _save(saver, images, prefix, prompt)
+
+
+def _save(saver, images, prefix, prompt):
+    """The images read back to the host, encoded as PNGs and written."""
+    with profiling.span("pipeline.save"):
+        with profiling.span("sync.readback"):
+            images = images.cpu().numpy()
+        return saver.save_images(images, prefix, prompt=prompt)
 
 
 def _run_adetailer(images, model, vae, positive, negative, seed, progress_callback=None):
@@ -540,12 +557,13 @@ def _flux_txt2img(prompt, w, h, batch, seed, autohdr, saver, progress_callback, 
                   vae, t5, device):
     if model is None:
         model, vae, t5, clip = _load_flux(device)
-    positive = encode_flux_conditioning(prompt, prompt, guidance=3.0,
-                                        t5_model=t5, clip_model=clip)
-    negative = dataclasses.replace(  # ConditioningZeroOut
-        positive, cross_attn=torch.zeros_like(positive.cross_attn),
-        pooled=torch.zeros_like(positive.pooled),
-    )
+    with profiling.span("pipeline.encode"):
+        positive = encode_flux_conditioning(prompt, prompt, guidance=3.0,
+                                            t5_model=t5, clip_model=clip)
+        negative = dataclasses.replace(  # ConditioningZeroOut
+            positive, cross_attn=torch.zeros_like(positive.cross_attn),
+            pooled=torch.zeros_like(positive.pooled),
+        )
     result = ks.ksample(
         model,
         seed=seed,
@@ -560,10 +578,12 @@ def _flux_txt2img(prompt, w, h, batch, seed, autohdr, saver, progress_callback, 
         denoise=1.0,
         callback=_resolve_callback(progress_callback, latent_mod.FLUX1, 20, model.device),
     )
-    images = vae.decode(result.latent)
+    with profiling.span("pipeline.decode"):
+        images = vae.decode(result.latent)
     if autohdr:
-        images = hdr_mod.apply_hdr_batch(images)
-    return saver.save_images(images.cpu().numpy(), "Flux/LD", prompt=prompt)
+        with profiling.span("pipeline.hdr"):
+            images = hdr_mod.apply_hdr_batch(images)
+    return _save(saver, images, "Flux/LD", prompt)
 
 
 def encode_flux_conditioning(clip_l_text: str, t5xxl_text: str, guidance: float = 3.0,

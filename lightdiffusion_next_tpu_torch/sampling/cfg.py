@@ -21,6 +21,8 @@ from typing import Any, Callable, Dict, Optional
 
 import torch
 
+from lightdiffusion_next_tpu_torch.utils import profiling
+
 
 @dataclasses.dataclass
 class CondInput:
@@ -101,7 +103,11 @@ def make_cfg_denoiser(
         return apply_model(params, x, t, context, y=y, **extra)
 
     def denoise(x, sigma):
-        sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
+        if isinstance(sigma, torch.Tensor) and sigma.device == x.device:
+            sigma = sigma.float()
+        else:  # a host value: its copy to the device waits for the device
+            with profiling.span("sync.sigma"):
+                sigma = torch.as_tensor(sigma, dtype=torch.float32, device=x.device)
         if sigma.dim() == 0:
             sigma = sigma.expand(x.shape[0])
         xin = model_sampling.calculate_input(sigma, x)

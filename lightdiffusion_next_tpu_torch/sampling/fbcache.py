@@ -32,6 +32,8 @@ from typing import Any, List, Tuple
 import numpy as np
 import torch
 
+from lightdiffusion_next_tpu_torch.utils import profiling
+
 # every hit (True) or miss (False), in call order; cleared by whoever reads it
 history: List[bool] = []
 
@@ -81,7 +83,8 @@ def make_hook(state_box, cfg: FBCacheConfig, gate: bool):
             mean_diff = (first_residual - state.prev_first_residual).abs().mean()
             mean_prev = state.prev_first_residual.abs().mean()
             diff = mean_diff / torch.clamp(mean_prev, min=1e-12)
-            can_use = bool((diff < cfg.residual_diff_threshold).item())
+            with profiling.span("sync.fbcache_gate"):
+                can_use = bool((diff < cfg.residual_diff_threshold).item())
         history.append(can_use)
         if can_use:
             h = h_first + state.cached_residual.to(h_first.dtype)
@@ -118,7 +121,8 @@ class FBCachedDenoiser:
 
     def __call__(self, x, sigma, state: FBCacheState):
         if isinstance(sigma, torch.Tensor):
-            sig = np.float32(sigma.max().item())
+            with profiling.span("sync.fbcache_sigma"):
+                sig = np.float32(sigma.max().item())
         else:
             sig = np.float32(np.max(sigma))
         # f32 comparisons, as the JAX package compares an f32 sigma

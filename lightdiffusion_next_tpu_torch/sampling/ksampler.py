@@ -28,6 +28,7 @@ from lightdiffusion_next_tpu_torch.sampling import fbcache as fb_mod
 from lightdiffusion_next_tpu_torch.sampling import noise as noise_mod
 from lightdiffusion_next_tpu_torch.sampling import samplers as samplers_mod
 from lightdiffusion_next_tpu_torch.sampling import schedules
+from lightdiffusion_next_tpu_torch.utils import profiling
 
 SAMPLERS = samplers_mod.SAMPLER_NAMES
 SCHEDULERS = schedules.SCHEDULERS
@@ -153,79 +154,86 @@ def ksample(
     initial noise. ``model_wrapper(apply, x, t, context, y)`` (else the
     model's ``model_function_wrapper`` option) wraps every model call;
     under FBCache only the option is read, as in the JAX ``ksample``."""
-    lf = model.latent_format
-    msampling = model.model_sampling
-    device = model.device
-    latent_image = torch.as_tensor(latent_image).to(device=device, dtype=torch.float32)
+    with profiling.span("sampling.ksample"):
+        lf = model.latent_format
+        msampling = model.model_sampling
+        device = model.device
+        latent_image = torch.as_tensor(latent_image).to(device=device, dtype=torch.float32)
 
-    if sigmas_override is not None:
-        sigmas = np.asarray(sigmas_override, dtype=np.float32)
-    else:
-        sigmas = sigmas_for(msampling, scheduler, steps, denoise)
-    sigmas = trim_sigmas(sigmas, start_step, last_step, force_full_denoise)
-    if len(sigmas) < 2:
-        return KSampleResult(latent=latent_image, raw=lf.process_in(latent_image))
+        if sigmas_override is not None:
+            sigmas = np.asarray(sigmas_override, dtype=np.float32)
+        else:
+            sigmas = sigmas_for(msampling, scheduler, steps, denoise)
+        sigmas = trim_sigmas(sigmas, start_step, last_step, force_full_denoise)
+        if len(sigmas) < 2:
+            return KSampleResult(latent=latent_image, raw=lf.process_in(latent_image))
 
-    # drawn on the CPU in the latent's own NHWC shape, in the configured
-    # rng mode, as the JAX package does
-    rng_mode = _config.get_config().rng_mode
-    shape = tuple(latent_image.shape)
-    if disable_noise:
-        init_noise = torch.zeros(shape, dtype=torch.float32)
-    else:
-        init_noise = noise_mod.prepare_noise(shape, seed, mode=rng_mode)
-    opts = (
-        dataclasses.replace(sampler_opts, cfg_scale=cfg_scale)
-        if sampler_opts is not None
-        else samplers_mod.SamplerOptions(cfg_scale=cfg_scale)
-    )
-    sde_noise = step_noise = None
-    name = samplers_mod.SAMPLER_ALIASES.get(sampler_name, sampler_name)
-    if name in samplers_mod.ANCESTRAL:
-        step_noise = noise_mod.step_noise_batch(shape, len(sigmas) - 1, seed, mode=rng_mode)
-    if name in ("dpmpp_sde", "dpmpp_sde_cfgpp"):
-        # the Brownian-tree noise of every step, on the host before the loop
-        sde_noise = noise_mod.sde_noise_for_steps(
-            shape, sigmas, r=samplers_mod.R, eta=samplers_mod.ETA, seed=seed, mode=rng_mode)
-
-    max_denoise = (
-        abs(float(msampling.sigma_max) - float(sigmas[0])) < 1e-4
-        or float(sigmas[0]) > float(msampling.sigma_max)
-    )
-    latent_in = lf.process_in(latent_image)
-    sigma0 = torch.tensor(float(sigmas[0]), dtype=torch.float32, device=device)
-    x = msampling.noise_scaling(sigma0, init_noise.to(device), latent_in,
-                                max_denoise=max_denoise)
-
-    def on_device(c):
-        if c is None:
-            return None
-        pooled = None if c.pooled is None else torch.as_tensor(c.pooled).to(device)
-        return dataclasses.replace(
-            c, cross_attn=torch.as_tensor(c.cross_attn).to(device), pooled=pooled)
-
-    options = model.model_options
-    fbcache = fbcache or options.get("fbcache")
-    if fbcache is not None:
-        denoise_fn = fb_mod.for_model(model, on_device(positive), on_device(negative),
-                                      cfg_scale, fbcache)
-    else:
-        denoise_fn = cfg_mod.make_cfg_denoiser(
-            model.apply_fn, model.params, msampling, on_device(positive),
-            on_device(negative), cfg_scale,
-            attn1_override_factory=options.get("attn1_override_factory"),
-            model_wrapper=model_wrapper or options.get("model_function_wrapper"),
-            disable_cfg1_optimization=options.get("disable_cfg1_optimization", False),
+        # drawn on the CPU in the latent's own NHWC shape, in the configured
+        # rng mode, as the JAX package does
+        rng_mode = _config.get_config().rng_mode
+        shape = tuple(latent_image.shape)
+        opts = (
+            dataclasses.replace(sampler_opts, cfg_scale=cfg_scale)
+            if sampler_opts is not None
+            else samplers_mod.SamplerOptions(cfg_scale=cfg_scale)
         )
-    if denoise_mask is not None:
-        mask = torch.as_tensor(denoise_mask).to(device=device, dtype=torch.float32)
-        denoise_fn = _MaskedDenoiser(denoise_fn, mask, latent_in, msampling,
-                                     float(sigmas[0]), differential_diffusion)
-    out = samplers_mod.sample(
-        denoise_fn, x, sigmas, sampler=sampler_name,
-        ms=ms if ms is not None else samplers_mod.MultiScale(),
-        opts=opts, callback=callback, sde_noise=sde_noise, step_noise=step_noise,
-    )
-    sigma_last = torch.tensor(float(sigmas[-1]), dtype=torch.float32, device=device)
-    raw = msampling.inverse_noise_scaling(sigma_last, out)
-    return KSampleResult(latent=lf.process_out(raw), raw=raw)
+        sde_noise = step_noise = None
+        name = samplers_mod.SAMPLER_ALIASES.get(sampler_name, sampler_name)
+        with profiling.span("sampling.noise"):
+            if disable_noise:
+                init_noise = torch.zeros(shape, dtype=torch.float32)
+            else:
+                init_noise = noise_mod.prepare_noise(shape, seed, mode=rng_mode)
+            if name in samplers_mod.ANCESTRAL:
+                step_noise = noise_mod.step_noise_batch(shape, len(sigmas) - 1, seed,
+                                                        mode=rng_mode)
+            if name in ("dpmpp_sde", "dpmpp_sde_cfgpp"):
+                # the Brownian-tree noise of every step, on the host before the loop
+                sde_noise = noise_mod.sde_noise_for_steps(
+                    shape, sigmas, r=samplers_mod.R, eta=samplers_mod.ETA, seed=seed,
+                    mode=rng_mode)
+
+        max_denoise = (
+            abs(float(msampling.sigma_max) - float(sigmas[0])) < 1e-4
+            or float(sigmas[0]) > float(msampling.sigma_max)
+        )
+        latent_in = lf.process_in(latent_image)
+        with profiling.span("sync.sigma"):
+            sigma0 = torch.tensor(float(sigmas[0]), dtype=torch.float32, device=device)
+        with profiling.span("sync.noise_upload"):
+            x = msampling.noise_scaling(sigma0, init_noise.to(device), latent_in,
+                                        max_denoise=max_denoise)
+
+        def on_device(c):
+            if c is None:
+                return None
+            pooled = None if c.pooled is None else torch.as_tensor(c.pooled).to(device)
+            return dataclasses.replace(
+                c, cross_attn=torch.as_tensor(c.cross_attn).to(device), pooled=pooled)
+
+        options = model.model_options
+        fbcache = fbcache or options.get("fbcache")
+        if fbcache is not None:
+            denoise_fn = fb_mod.for_model(model, on_device(positive), on_device(negative),
+                                          cfg_scale, fbcache)
+        else:
+            denoise_fn = cfg_mod.make_cfg_denoiser(
+                model.apply_fn, model.params, msampling, on_device(positive),
+                on_device(negative), cfg_scale,
+                attn1_override_factory=options.get("attn1_override_factory"),
+                model_wrapper=model_wrapper or options.get("model_function_wrapper"),
+                disable_cfg1_optimization=options.get("disable_cfg1_optimization", False),
+            )
+        if denoise_mask is not None:
+            mask = torch.as_tensor(denoise_mask).to(device=device, dtype=torch.float32)
+            denoise_fn = _MaskedDenoiser(denoise_fn, mask, latent_in, msampling,
+                                         float(sigmas[0]), differential_diffusion)
+        out = samplers_mod.sample(
+            denoise_fn, x, sigmas, sampler=sampler_name,
+            ms=ms if ms is not None else samplers_mod.MultiScale(),
+            opts=opts, callback=callback, sde_noise=sde_noise, step_noise=step_noise,
+        )
+        with profiling.span("sync.sigma"):
+            sigma_last = torch.tensor(float(sigmas[-1]), dtype=torch.float32, device=device)
+        raw = msampling.inverse_noise_scaling(sigma_last, out)
+        return KSampleResult(latent=lf.process_out(raw), raw=raw)

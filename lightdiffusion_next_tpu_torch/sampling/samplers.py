@@ -49,6 +49,7 @@ import torch
 
 from lightdiffusion_next_tpu_torch.ops import nn
 from lightdiffusion_next_tpu_torch.sampling import schedules
+from lightdiffusion_next_tpu_torch.utils import profiling
 
 SAMPLER_NAMES = ("euler", "euler_ancestral", "euler_cfg_pp", "euler_ancestral_cfg_pp",
                  "euler_dy_cfg_pp", "euler_ancestral_dy_cfg_pp", "dpmpp_2m",
@@ -289,6 +290,16 @@ def chunk_marks(n_steps: int, flags, dy_extra_steps, chunk: int) -> set:
     return marks
 
 
+def _upload(noises, device):
+    """Host noises as f32 tensors on ``device``; each copy waits for the
+    device."""
+    out = []
+    for n in noises:
+        with profiling.span("sync.noise_upload"):
+            out.append(torch.as_tensor(n).to(device=device, dtype=torch.float32))
+    return out
+
+
 @dataclasses.dataclass(frozen=True)
 class SamplerOptions:
     """The CFG++ schedule (read only with ``true_cfgpp``)."""
@@ -372,15 +383,14 @@ def sample(
         noise1, noise2 = (
             (torch.zeros((n_steps,) + tuple(x.shape), device=x.device),) * 2
             if sde_noise is None
-            else (torch.as_tensor(n).to(device=x.device, dtype=torch.float32)
-                  for n in sde_noise))
+            else _upload(sde_noise, x.device))
 
     if sampler not in ANCESTRAL:
         step_noise = None
     elif step_noise is None:
         step_noise = torch.zeros((n_steps,) + tuple(x.shape), device=x.device)
     else:
-        step_noise = torch.as_tensor(step_noise).to(device=x.device, dtype=torch.float32)
+        (step_noise,) = _upload([step_noise], x.device)
 
     chunk = int(getattr(callback, "chunk", 0) or 0)
     marks = chunk_marks(n_steps, flags, dy_extra_steps, chunk)
@@ -406,7 +416,8 @@ def sample(
         else:
             cs = {k: float(v[i]) for k, v in consts.items()}
             for key in ("sigma", "sde_sigma_mid"):
-                cs[key] = torch.tensor(cs[key], dtype=torch.float32, device=x.device)
+                with profiling.span("sync.sigma"):
+                    cs[key] = torch.tensor(cs[key], dtype=torch.float32, device=x.device)
             if is_sde:
                 inner = _dpmpp_sde_step(inner, cs, den, noise1[i], noise2[i],
                                         true_cfgpp=opts.true_cfgpp,
@@ -419,7 +430,8 @@ def sample(
             if marks:
                 info["chunk"] = chunk
             try:
-                callback(info)
+                with profiling.span("callback"):
+                    callback(info)
             except SampleInterrupted:
                 break
     return inner[0]

@@ -17,6 +17,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lightdiffusion_next_tpu_torch.utils import profiling
+
 SRGB_TO_XYZ = ((0.4360747, 0.3850649, 0.1430804),
                (0.2225045, 0.7168786, 0.0606169),
                (0.0139322, 0.0971045, 0.7141733))
@@ -107,7 +109,8 @@ def apply_hdr_batch(images, hdr_intensity: float = 0.75, shadow_intensity: float
     same, f32, on their device."""
     rgb_in = torch.as_tensor(images).float().clamp(0.0, 1.0)
     r = torch.where(rgb_in <= 0.04045, rgb_in / 12.92, ((rgb_in + 0.055) / 1.055) ** 2.4)
-    white = torch.tensor(WHITE_D50, dtype=torch.float32, device=rgb_in.device)
+    with profiling.span("sync.hdr_white"):
+        white = torch.tensor(WHITE_D50, dtype=torch.float32, device=rgb_in.device)
     xyz = _mat3(r, SRGB_TO_XYZ) / white
     f = torch.where(xyz > EPS, _cbrt(xyz), (KAPPA * xyz + 16) / 116)
     L = 116 * f[..., 1] - 16

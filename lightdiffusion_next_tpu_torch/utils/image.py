@@ -19,6 +19,8 @@ from typing import List, Optional
 
 import numpy as np
 
+from lightdiffusion_next_tpu_torch.utils import profiling
+
 
 def to_uint8(images) -> np.ndarray:
     """float [0, 1] NHWC -> uint8 NHWC."""
@@ -202,8 +204,10 @@ class SaveImage:
         paths = []
         for img in to_uint8(arr):
             path = os.path.join(folder, f"{filename}_{counter:05}_.png")
+            with profiling.span("pipeline.png"):
+                data = encode_png(img, text)
             with open(path, "wb") as f:
-                f.write(encode_png(img, text))
+                f.write(data)
             paths.append(path)
             counter += 1
         return paths

@@ -13,6 +13,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from lightdiffusion_next_tpu_torch.utils import profiling
+
 
 def _bilinear_1d(arr: np.ndarray, length_new: int) -> np.ndarray:
     """torch ``F.interpolate(mode="bilinear", align_corners=False)`` of a
@@ -62,7 +64,8 @@ def bislerp(samples, width: int, height: int) -> np.ndarray:
     """NHWC spherical-bilinear resize of host numpy (or a tensor, read
     back to the host) to (height, width); returns numpy."""
     if isinstance(samples, torch.Tensor):
-        samples = samples.detach().float().cpu().numpy()
+        with profiling.span("sync.upscale_readback"):
+            samples = samples.detach().float().cpu().numpy()
     x = np.asarray(samples, dtype=np.float32)
     n, h, w, c = x.shape
 

@@ -12,7 +12,6 @@ in the PNG is the enhanced one.
 
 import functools
 import http.server
-import io
 import json
 import logging
 import os
@@ -240,32 +239,13 @@ def test_invalid_tri_states_raise():
 # --- profiling -------------------------------------------------------------------
 
 
-def test_progress_bar_and_switch():
-    out = io.StringIO()
-    bar = profiling.ProgressBar(3, desc="steps", stream=out)
-    bar.update()
-    bar.update_absolute(3)
-    text = out.getvalue()
-    assert "steps 1/3" in text and "steps 3/3" in text and text.endswith("\n")
-    assert bar.it_per_s > 0
-    try:
-        profiling.set_progress_bar_enabled(False)
-        quiet = io.StringIO()
-        profiling.ProgressBar(2, stream=quiet).update(2)
-        assert quiet.getvalue() == ""
-    finally:
-        profiling.set_progress_bar_enabled(True)
-
-
 def test_timed_trace_and_memory_stats(tmp_path, caplog):
     with caplog.at_level(logging.INFO, logger=profiling.logger.name):
-        with profiling.timed("the block"):
-            pass
         with profiling.trace(str(tmp_path / "trace")):
             torch.ones(8, 8) @ torch.ones(8, 8)
         with profiling.trace(None):
             pass
-    assert any(r.getMessage().startswith("the block: ") for r in caplog.records)
+    assert any(r.getMessage().startswith("profiler trace written to ") for r in caplog.records)
     files = os.listdir(tmp_path / "trace")
     assert len(files) == 1 and files[0].endswith(".json")
     with open(tmp_path / "trace" / files[0]) as f:

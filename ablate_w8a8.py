@@ -1,25 +1,32 @@
 #!/usr/bin/env python3
 """What bounds K7 and K11 (``csrc/w8a8_matmul.cu``) on one NVIDIA GPU.
 
-    python3 ablate_w8a8.py              # every main-path shape (16)
+    python3 ablate_w8a8.py              # every shape of chip_smoke.W8A8_TABLE
     python3 ablate_w8a8.py --shapes 10  # the ten that take the most time
+    python3 ablate_w8a8.py --parent DIR # and DIR's kernel beside it, in turns
     python3 ablate_w8a8.py --sass DIR   # the SASS of DIR/w8a8_matmul.cu
 
 Builds variants of the kernel from its source text, each into its own
 library under ``build/ablate/`` (git-ignored), and times them at the
-main-path shapes of the Flux W8A8 image, each with its epilogue (bias or
-gated residual), beside ``torch._int_mm`` on the same codes (the library
+shapes of ``chip_smoke.W8A8_TABLE`` (the Flux W8A8 image's, a TP rank's, a
+ragged M), each with its epilogue (bias or gated residual), beside ``torch._int_mm`` on the same codes (the library
 yardstick, without the epilogue) and the bound:
 
 - the tiles (``TILES``), each checked bit for bit against the plain
   version before it is timed;
 - ablations of the tile ``ops.quant_matmul.w8a8_tile`` picks (timing only:
-  their outputs are wrong): no MMA, no copies, no epilogue (the sums
-  folded into one word instead, so the products stay live), and MMA alone
-  (no copies, no epilogue). An ablation's time is what the remaining work
-  costs by itself;
+  their outputs are wrong): no MMA, no copies (the producer arrives on each
+  stage's mbarrier without a TMA copy), no epilogue (the sums folded into
+  one word instead, so the products stay live), and MMA alone (no copies,
+  no epilogue). An ablation's time is what the remaining work costs by
+  itself;
 - the production entry points, unstacked and on the last block of a stack
-  of two (they launch one kernel instantiation).
+  of two (they launch one kernel instantiation);
+- with ``--parent DIR``, DIR's production entry point (another design of the
+  kernel, e.g. the parent commit's from git archive under scratch_chip/),
+  built by DIR's own ``ops/cuda_build.py`` and given the tile DIR's
+  ``w8a8_tile`` picks, bit for bit against this tree's output and timed in
+  turns with it (DIR's, this, this, DIR's).
 
 The kernel as the wrapper picks it is timed first and last, so the spread
 of one call shows. Prints one line per shape and a JSON object of every
@@ -44,49 +51,48 @@ import subprocess
 import sys
 
 REPO = os.path.dirname(os.path.abspath(__file__))
+sys.path.insert(0, REPO)
+import chip_smoke  # noqa: E402
+
 OUT = os.path.join(REPO, "build", "ablate")
-# (M, K, N, epilogue) of every W8A8 matmul of the Flux 1024^2 path: the ten
-# that take the most time per image first, then the rest
-SHAPES = ((4352, 3072, 21504, "bias"), (4352, 15360, 3072, "residual"),
-          (4096, 12288, 3072, "residual"), (4096, 3072, 12288, "bias"),
-          (4096, 3072, 9216, "bias"), (4096, 3072, 3072, "residual"),
-          (1024, 3072, 3072, "residual"), (1024, 12288, 3072, "residual"),
-          (256, 3072, 3072, "residual"), (256, 12288, 3072, "residual"),
-          (256, 3072, 9216, "bias"), (256, 3072, 12288, "bias"),
-          (1024, 3072, 9216, "bias"), (1024, 3072, 12288, "bias"),
-          (1280, 3072, 21504, "bias"), (1280, 15360, 3072, "residual"))
+SHAPES = chip_smoke.W8A8_TABLE  # (M, K, N, epilogue), the costliest first
 MODES = {"plain": 0, "bias": 1, "residual": 2}
-# name -> (warpgroups, m64 tiles per warpgroup, BN)
-TILES = {"256x128": (2, 2, 128), "192x256": (3, 1, 256), "128x256": (2, 1, 256),
-         "128x128": (2, 1, 128), "64x256": (1, 1, 256), "64x128": (1, 1, 128),
-         "64x64": (1, 1, 64)}
-# source lines an ablation replaces: the copies and the products dropped,
-# the epilogue replaced by a sink that keeps the products live (ptxas drops
-# wgmmas whose sums are never read)
-COPIES = ("    if (s < steps) load_step<WGS, MT, BN>(base, s, s, g, m0, n0);\n",
-          "    if (next < steps) load_step<WGS, MT, BN>(base, next % kStages, next, g, m0, n0);\n")
-MMA = "    mma_step<WGS, MT, BN>(acc, base, t % kStages, t > 0);\n"
-EPILOGUE = "  store_tile<WGS, MT, BN, MODE>(acc, g, m0, n0, smem_raw + (base - raw));\n"
-SINK = ("  {\n    uint32_t x = 0;\n#pragma unroll\n    for (int mt = 0; mt < MT; ++mt)\n"
-        "#pragma unroll\n      for (int j = 0; j < BN / 2; ++j) x ^= acc[mt][j];\n"
-        "    if (x == 0x9E3779B9u) reinterpret_cast<uint32_t*>(g.out)[threadIdx.x] = x;\n  }\n")
-ABLATIONS = {"no_mma": ((MMA, ""),), "no_copies": tuple((c, "") for c in COPIES),
+# name -> (consumer warpgroups, m64 tiles per warpgroup, BN, blocks a
+# cluster, ring stages: as many as fit the block's share of an SM)
+TILES = {"256x128x2": (2, 2, 128, 2, 4), "256x128": (2, 2, 128, 1, 4),
+         "128x128x2": (2, 1, 128, 2, 6), "128x128": (2, 1, 128, 1, 6),
+         "64x128": (1, 1, 128, 1, 4), "64x64": (1, 1, 64, 1, 6)}
+# source lines an ablation replaces: the copies (the producer arrives on the
+# stage's full mbarrier instead, so the consumers still walk the ring) and
+# the products dropped, the epilogue replaced by a sink that keeps the
+# products live (ptxas drops wgmmas whose sums are never read)
+COPIES = ("          load_step<WGS, MT, BN, CL>(ta, tb, base + st * C::kStage, full + 8 * st, t,"
+          " m0, n0,\n                                     rank, g);\n",
+          "          mbar_arrive(full + 8 * st);\n")
+MMA = "        mma_step<WGS, MT, BN, CL>(acc, base + st * C::kStage, wg, t > 0);\n"
+EPILOGUE = ("      store_tile<WGS, MT, BN, MODE>(acc, p, g, to, m0, n0, params + (wg * 2 + parity)"
+            " * 2 * BN,\n                                    outs + wg * C::kOut);\n")
+SINK = ("      {\n        uint32_t x = 0;\n#pragma unroll\n"
+        "        for (int mt = 0; mt < MT; ++mt)\n"
+        "#pragma unroll\n          for (int j = 0; j < BN / 2; ++j) x ^= acc[mt][j];\n"
+        "        if (x == 0x9E3779B9u) reinterpret_cast<uint32_t*>(g.out)[threadIdx.x] = x;\n"
+        "      }\n")
+ABLATIONS = {"no_mma": ((MMA, ""),), "no_copies": (COPIES,),
              "no_epilogue": ((EPILOGUE, SINK),),
-             "mma_alone": tuple((c, "") for c in COPIES) + ((EPILOGUE, SINK),)}
+             "mma_alone": (COPIES, (EPILOGUE, SINK))}
 
 
 def entry(tiles):
     cases = "".join(
-        f"  if (id == {i} && mode == {mode}) return run<{w}, {mt}, {bn}, {mode}>(g, s);\n"
-        for i, (w, mt, bn) in enumerate(tiles) for mode in MODES.values())
+        f"  if (id == {i} && mode == {mode}) return run<{w}, {mt}, {bn}, {cl}, {st}, {mode}>(p, s);\n"
+        for i, (w, mt, bn, cl, st) in enumerate(tiles) for mode in MODES.values())
     return ('\nextern "C" int ablate_launch(int id, int mode, const void* xq, const void* sx, '
             "const void* q, const void* cs, const void* bias, const void* res, void* out, "
             "int m, int n, int k, void* stream) {\n"
-            "  const Args g{static_cast<const int8_t*>(xq), static_cast<const float*>(sx),\n"
-            "               static_cast<const int8_t*>(q), static_cast<const float*>(cs),\n"
-            "               static_cast<const float*>(bias),\n"
-            "               static_cast<const __nv_bfloat16*>(res),\n"
-            "               static_cast<__nv_bfloat16*>(out), m, n, k, k, k, n};\n"
+            "  const Problem p{xq, static_cast<const float*>(sx), q,\n"
+            "                  static_cast<const float*>(cs), static_cast<const float*>(bias),\n"
+            "                  static_cast<const __nv_bfloat16*>(res),\n"
+            "                  static_cast<__nv_bfloat16*>(out), m, n, k, k, k, n, n, 0};\n"
             "  cudaStream_t s = static_cast<cudaStream_t>(stream);\n"
             f"{cases}  return -1;\n}}\n")
 
@@ -133,8 +139,6 @@ def build_all(source, chosen):
 def sass_report(src_dir):
     """The ptxas lines and SASS opcode counts of every w8a8_matmul_kernel
     instantiation built from ``src_dir``/w8a8_matmul.cu."""
-    sys.path.insert(0, REPO)
-    import chip_smoke
     from lightdiffusion_next_tpu_torch.ops import cuda_build
 
     os.makedirs(os.path.join(OUT, "sass"), exist_ok=True)
@@ -178,30 +182,36 @@ def main() -> int:
     parser = argparse.ArgumentParser()
     parser.add_argument("--shapes", type=int, default=len(SHAPES))
     parser.add_argument("--sass", metavar="DIR")
+    parser.add_argument("--parent", metavar="DIR")
     args = parser.parse_args()
     import torch
 
     if not torch.cuda.is_available():
         print("ablate_w8a8: no CUDA device", file=sys.stderr)
         return 2
-    sys.path.insert(0, REPO)
-    import chip_smoke
     from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
 
     print("gpu:", chip_smoke.gpu_line(), flush=True)
     if args.sass:
         return sass_report(args.sass)
     chosen = {qm.w8a8_tile(m, n, k) for m, k, n, _ in SHAPES[:args.shapes]}
-    by_id = {(w * mt * 64, bn, w): name for name, (w, mt, bn) in TILES.items()}
+    by_id = {(w * mt * 64, bn, w, cl, st): name for name, (w, mt, bn, cl, st) in TILES.items()}
     picked = {t: by_id[qm.W8A8_TILES[t]] for t in chosen}
     main_tile = by_id[qm.W8A8_TILES[qm.w8a8_tile(SHAPES[0][0], SHAPES[0][2], SHAPES[0][1])]]
     with open(os.path.join(REPO, "lightdiffusion_next_tpu_torch", "csrc",
                            "w8a8_matmul.cu")) as f:
         libs = build_all(f.read(), main_tile)
+    other = None
+    if args.parent:
+        import compare_builds
+
+        other = compare_builds.load_build(os.path.abspath(args.parent))
+        other.build(["w8a8_matmul_ep"])
     gen = torch.Generator(device="cuda").manual_seed(0)
     stream = torch.cuda.current_stream().cuda_stream
     ids = {name: i for i, name in enumerate(TILES)}
-    results = {"ablated_tile": main_tile, "picked": {str(t): n for t, n in picked.items()}}
+    results = {"ablated_tile": main_tile, "picked": {str(t): n for t, n in picked.items()},
+               "parent": args.parent}
 
     def timed(fn):
         return chip_smoke.cuda_ms(fn, chip_smoke.repeats_for(fn, 200.0))
@@ -226,7 +236,7 @@ def main() -> int:
                 m, n, k, stream)
 
         row = {"tile": tile, "full": timed(launcher(libs["tiles"], ids[tile]))}
-        for name, (w, mt, bn) in TILES.items():
+        for name in TILES:
             if launcher(libs["tiles"], ids[name])() != 0:
                 raise RuntimeError(f"tile {name} failed to launch at {(m, k, n)}")
             check = qm.matmul_agreement(out, ref)
@@ -239,6 +249,25 @@ def main() -> int:
         kw = dict(bias=bias, residual=r, ep=True)
         row["entry"] = timed(lambda: qm._launch_w8a8(xq, sx1, q, cs, **kw))
         row["entry_stacked"] = timed(lambda: qm._launch_w8a8(xq, sx1, q3, cs, idx=1, **kw))
+        if other is not None:
+            ptile = compare_builds.other_tile(args.parent, m, n, k)
+            pout = torch.empty_like(out)
+
+            def parent_entry():
+                rc = other.entry_point("w8a8_matmul_ep")(
+                    xq.data_ptr(), sx1.data_ptr(), q.data_ptr(), cs.data_ptr(), bias.data_ptr(),
+                    None if r is None else r.data_ptr(), pout.data_ptr(), m, n, k, k, k,
+                    n if r is not None else 0, ptile, stream)
+                if rc != 0:
+                    raise RuntimeError(f"the parent's kernel failed at {(m, k, n)}: {rc}")
+            parent_entry()
+            torch.cuda.synchronize()
+            if not torch.equal(pout, qm._launch_w8a8(xq, sx1, q, cs, **kw)):
+                raise RuntimeError(f"the two designs disagree at {(m, k, n)}")
+            this_entry = lambda: qm._launch_w8a8(xq, sx1, q, cs, **kw)  # noqa: E731
+            row["parent_tile"] = ptile
+            row["parent_entry"], row["entry_turn"], row["entry_turn2"], row["parent_entry2"] = (
+                timed(parent_entry), timed(this_entry), timed(this_entry), timed(parent_entry))
         row["full_again"] = timed(launcher(libs["tiles"], ids[tile]))
         row["library"] = timed(lambda: torch._int_mm(xq, q.t()))
         row["bound"] = chip_smoke.int8_bound(m, k, n, True, r is not None)[0]

@@ -3392,6 +3392,161 @@ def stacked_requant_check(gen):
     return ok
 
 
+# (M, K, N, epilogue) of the int8 W8A8 kernel's table: every W8A8 matmul
+# of the Flux 1024^2 path, the ten that take the most time per image first;
+# a TP = 2 rank's (K halved, N cut; every one K11 without the residual on
+# the pipeline); a ragged M. The persistent kernel is held to it bit for bit
+# through all four wrappers in every epilogue (phase "w8a8 persistent", the
+# card tests); compare_builds.py and ablate_w8a8.py time it with the
+# epilogue named here.
+W8A8_TABLE = (
+    (4352, 3072, 21504, "bias"), (4352, 15360, 3072, "residual"),
+    (4096, 12288, 3072, "residual"), (4096, 3072, 12288, "bias"),
+    (4096, 3072, 9216, "bias"), (4096, 3072, 3072, "residual"),
+    (1024, 3072, 3072, "residual"), (1024, 12288, 3072, "residual"),
+    (256, 3072, 3072, "residual"), (256, 12288, 3072, "residual"),
+    (256, 3072, 9216, "bias"), (256, 3072, 12288, "bias"),
+    (1024, 3072, 9216, "bias"), (1024, 3072, 12288, "bias"),
+    (1280, 3072, 21504, "bias"), (1280, 15360, 3072, "residual"),
+    (4352, 1536, 3072, "bias"), (4352, 6144, 3072, "bias"),
+    (4352, 3072, 4608, "bias"), (4352, 3072, 6144, "bias"),
+    (1000, 3072, 3072, "residual"), (4351, 3072, 9216, "bias"))
+W8A8_WRAPPERS = ("w8a8_matmul", "w8a8_matmul_stacked", "w8a8_matmul_ep",
+                 "w8a8_matmul_ep_stacked")
+
+
+def w8a8_tile_plan(calls):
+    """{tile id: launches} of the int8 W8A8 matmuls of ``calls`` by
+    ``quant_matmul.w8a8_tile``, and how many of them have M >= 1024."""
+    from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
+
+    plan, large = {t: 0 for t in qm.W8A8_TILE_LAUNCHES}, 0
+    for key, n in calls.items():
+        if key[0] in W8A8_WRAPPERS:
+            m, k, nn_ = key[1:4]
+            plan[qm.w8a8_tile(m, nn_, k)] += n
+            large += n if m >= 1024 else 0
+    return plan, large
+
+
+def tile_launches_since(before):
+    """The int8 W8A8 launches by tile id since the snapshot ``before``."""
+    from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
+
+    return {t: qm.W8A8_TILE_LAUNCHES[t] - before[t] for t in qm.W8A8_TILE_LAUNCHES}
+
+
+def w8a8_wrappers_check(m, k, n, gen):
+    """The four W8A8 wrappers at (M, K, N) in each of their epilogues: K7
+    and K8 (the plain epilogue, through K9), K11 and the stacked K11 (bias,
+    and the gated residual), on block 1 of a stack of two (the unstacked ones
+    on a copy of it), each against its plain version. Returns ({run:
+    matmul_agreement}, the tile counter's launches, the tile)."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
+
+    q3, cs3 = w8_stack(2, k, n, gen)
+    x = activations(m, k, gen)
+    xq, sx = qm.row_quantize_fused(x)
+    gate = torch.randn((1, n), generator=gen, device="cuda")
+    cs = (cs3[1] * gate).reshape(-1).contiguous()
+    b = (0.1 * torch.randn((1, n), generator=gen, device="cuda") * gate).reshape(-1)
+    r = activations(m, n, gen)
+    q = q3[1].contiguous()
+    before = dict(qm.W8A8_TILE_LAUNCHES)
+    runs = {"K7": (qm.w8a8_matmul(x, q, cs3[1]), qm.w8a8_matmul_plain(x, q, cs3[1])),
+            "K8": (qm.w8a8_matmul_stacked(x, q3, cs3, 1),
+                   qm.w8a8_matmul_stacked_plain(x, q3, cs3, 1))}
+    for res in (None, r):
+        mode = "residual" if res is not None else "bias"
+        runs[f"K11 {mode}"] = (qm.w8a8_matmul_ep(xq, sx, q, cs, b, residual=res),
+                               qm.w8a8_matmul_ep_plain(xq, sx, q, cs, b, residual=res))
+        runs[f"stacked K11 {mode}"] = (
+            qm.w8a8_matmul_ep(xq, sx, (q3, 1), cs, b, residual=res),
+            qm.w8a8_matmul_ep_plain(xq, sx, (q3, 1), cs, b, residual=res))
+    torch.cuda.synchronize()
+    checks = {name: qm.matmul_agreement(out, ref) for name, (out, ref) in runs.items()}
+    return checks, tile_launches_since(before), qm.w8a8_tile(m, n, k)
+
+
+def w8a8_plan_launches(calls, gen):
+    """Each int8 W8A8 matmul of ``calls`` launched at its shape (through the
+    stacked K11, zero bias, the residual where the key has one) as many
+    times as ``calls`` says: the tile counter's launches."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
+
+    before = dict(qm.W8A8_TILE_LAUNCHES)
+    for key, n_calls in sorted(calls.items()):
+        if key[0] not in W8A8_WRAPPERS:
+            continue
+        m, k, n = key[1:4]
+        q3, cs3 = w8_stack(1, k, n, gen)
+        xq, sx = qm.row_quantize_fused(activations(m, k, gen))
+        r = activations(m, n, gen) if len(key) > 4 and key[4] else None
+        zero = torch.zeros((n,), device="cuda")
+        for _ in range(n_calls):
+            qm.w8a8_matmul_ep(xq, sx, (q3, 0), cs3[0].reshape(-1).contiguous(), zero, residual=r)
+        del q3, cs3, xq, sx, r
+    torch.cuda.synchronize()
+    return tile_launches_since(before)
+
+
+def phase_w8a8_persistent(gpu):
+    """The persistent, warp-specialised K7/K8/K11: every shape of
+    W8A8_TABLE through all four wrappers and their epilogues, bit for
+    bit against the plain versions, each launch on the tile ``w8a8_tile``
+    names (the counter per tile id), every M >= 1024 shape on 256 x 128;
+    the stacked K11 at the last block of linear1's 38-deep stack (2.4e9
+    bytes in); the counter against one missed scan DiT call's plan (all 152
+    large-M launches on 256 x 128). Returns (ok, {label: record})."""
+    import torch
+
+    from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
+
+    gen = torch.Generator(device="cuda").manual_seed(26)
+    ok, records = True, {}
+    for m, k, n, _ in W8A8_TABLE:
+        checks, counted, tile = w8a8_wrappers_check(m, k, n, gen)
+        good = (all(c["ok"] for c in checks.values())
+                and counted == {t: (6 if t == tile else 0) for t in counted}
+                and (m < 1024 or tile == 0))
+        ok = ok and good
+        records[f"table {m}x{k}x{n}"] = {"tile": tile, "launches_by_tile": counted,
+                                         "bit_for_bit": {a: c["ok"] for a, c in checks.items()},
+                                         "ok": good}
+        log(f"w8a8 persistent ({m}, {k}, {n}) tile {tile}: "
+            + ", ".join(f"{a} {'ok' if c['ok'] else 'FAIL ' + str(c)}" for a, c in checks.items())
+            + f"; launches by tile {counted} {'ok' if good else 'FAIL'}")
+        torch.cuda.empty_cache()
+    d, m, (k, n) = 38, 4096 + FLUX_TXT, LINEAR1
+    q3, cs3 = w8_stack(d, k, n, gen)
+    xq, sx = qm.row_quantize_fused(activations(m, k, gen))
+    cs = cs3[d - 1].reshape(-1).contiguous()
+    b = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    out = qm.w8a8_matmul_ep(xq, sx, (q3, d - 1), cs, b)
+    check = qm.matmul_agreement(out, qm.w8a8_matmul_ep_plain(xq, sx, (q3, d - 1), cs, b))
+    ok = ok and check["ok"]
+    records["linear1 stack, last block"] = check
+    log(f"w8a8 persistent: stacked K11 at block {d - 1} of linear1's stack "
+        f"({(d - 1) * n * k / 1e9:.2f} GB in): {'ok' if check['ok'] else 'FAIL ' + str(check)}")
+    del q3, cs3, xq, sx, out
+    torch.cuda.empty_cache()
+    plan_calls = flux_calls(misses=1, dy_calls=0, w8a8=True, scan=True)
+    want, large = w8a8_tile_plan(plan_calls)
+    got = w8a8_plan_launches(plan_calls, gen)
+    good = got == want and large == 38 * 2 + 19 * 4 and want[0] >= large
+    ok = ok and good
+    records["one missed scan DiT call"] = {"launches_by_tile": got, "plan": want,
+                                           "large_m": large, "ok": good}
+    log(f"w8a8 persistent: one missed scan DiT call, launches by tile {got} (plan {want}, "
+        f"{large} with M >= 1024) {'ok' if good else 'FAIL'}")
+    log(f"w8a8 persistent on {gpu}: {'ok' if ok else 'FAIL'}")
+    return ok, records
+
+
 def phase_stacked_kernels(calls, per_kernel):
     """K6, K8 and the stacked K11 at every shape of ``calls`` on stacks of
     the real depths, each at its first and last block: against its plain
@@ -3535,6 +3690,8 @@ def phase_flux_scan_pipeline(models, refs):
     stacked models)."""
     import torch
 
+    from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
+
     models, stack_peak = to_scan_models(models)
     model, clip, vae, t5 = models
     # one family's stack at a time: the largest, linear1's, is 2.3 GiB
@@ -3553,9 +3710,16 @@ def phase_flux_scan_pipeline(models, refs):
 
     with runtime_config(fused_ew="auto"):
         reset_launches()
+        tiles_before = dict(qm.W8A8_TILE_LAUNCHES)
         first = run_flux_pipeline(models, 4321)
         launches = read_launches()
+        by_tile = tile_launches_since(tiles_before)
         ok, calls = check_flux_launches(first, launches, True, "Flux W8A8 scan", scan=True)
+        want, large = w8a8_tile_plan(calls)
+        tiles_ok = by_tile == want and want[0] >= large
+        ok = ok and tiles_ok
+        log(f"launches Flux W8A8 scan by tile: {by_tile} (plan predicts {want}, {large} with "
+            f"M >= 1024, all on 256 x 128) {'ok' if tiles_ok else 'FAIL'}")
         ok = check_flux_output(first, model, vae, "flux W8A8 scan") and ok
         eq_latent, close = against(first["last"]["x"], refs["latent"], "final latent")
         ok = ok and close
@@ -5486,6 +5650,7 @@ def main() -> int:
                if k[0] == "quant_matmul_stacked" and k[1] in (4096, 4096 + FLUX_TXT, FLUX_TXT)}
     requant_ok = timed("stacked kernels", phase_stacked_kernels,
                        {**k6_plan, **scan_plan, **scan_off_plan}, per_kernel)
+    persistent_ok, _ = timed("w8a8 persistent", phase_w8a8_persistent, line)
     (scan_ok, scan_launches, scan_e2e, scan_calls, scan_off_launches, flux_models,
      scan_latent) = timed("flux w8a8 scan pipeline", phase_flux_scan_pipeline, flux_models,
                           w8_refs)
@@ -5608,7 +5773,8 @@ def main() -> int:
            "train": train_e2e, "sd15_linear_label_emb": lin_e2e, "sd21_unet_ksample": sd21_e2e}
     ok = (ref_ok and pipe_ok and sage_ok and def_ok and hires_ok and i2i_ok and ad_ok
           and webui_ok and flux_ref_ok
-          and flux_ok and w8_ref_ok and w8_ok and requant_ok and scan_ok and hit_ok and files_ok
+          and flux_ok and w8_ref_ok and w8_ok and requant_ok and persistent_ok and scan_ok
+          and hit_ok and files_ok
           and tp_ok and train_ok and var_ok and lin_ok and sd21_ok and defaults_ok
           and all(k["ok"] for k in kernels_line))
     record = {"gpu": line, "kernels": kernels_line, "e2e": e2e, "phase_seconds": seconds,

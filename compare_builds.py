@@ -3,6 +3,8 @@
 another tree's, on the card, in one process.
 
     python3 compare_builds.py --parent DIR [--out build/compare_builds.json]
+    python3 compare_builds.py --parent DIR --w8a8-table   # the int8 table alone
+    python3 compare_builds.py --parent DIR --w8a8-host    # host us a W8A8 call
 
 DIR is a checkout of another commit (e.g. ``git archive <commit> | tar -x
 -C scratch_chip/parent``); its ``ops/cuda_build.py`` builds its own sources
@@ -20,7 +22,18 @@ At chip_smoke.py phase 25's shapes, on the same seeded inputs:
 - the flag variants (K4's three and the bf16-rate K7/K8/K11), each tree's
   kernel on its own tree's preparation, timed the same way; their outputs
   against each other (K4's int8_mxu=False and the bf16-rate W8A8 are equal
-  bit for bit in both trees; the pv_int8=False P.V sums in another order).
+  bit for bit in both trees; the pv_int8=False P.V sums in another order);
+- the int8 W8A8 table (``chip_smoke.W8A8_TABLE``: every main-path shape of
+  the Flux W8A8 path with its epilogue, a TP rank's, a ragged M): each
+  tree's K11 entry point, called directly, with the tile its own
+  ``w8a8_tile`` picks (``other_tile`` reads DIR's), bit for bit against
+  each other, in turns, beside ``torch._int_mm`` on the same codes (no
+  epilogue) and the bound.
+
+``--w8a8-host`` times the host's side of a W8A8 call instead: each tree's
+stacked K11 entry point at a text-stream shape (the device's work per call
+shorter than the host's), blocks of calls in turns, and this tree's whole
+wrapper (``w8a8_matmul_ep`` on a stack) beside them.
 
 Prints one line per kernel and shape and writes the records as JSON. Needs
 one CUDA device; imports nothing of JAX.
@@ -55,6 +68,22 @@ def load_build(tree):
     mod = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(mod)
     return mod
+
+
+def other_tile(tree, m, n, k):
+    """The tile id ``tree``'s ``quant_matmul.w8a8_tile`` picks for (M, K,
+    N): the function's source run alone (its module imports torch and the
+    package, which the other tree's would shadow)."""
+    import ast
+
+    path = os.path.join(tree, "lightdiffusion_next_tpu_torch", "ops", "quant_matmul.py")
+    with open(path) as f:
+        mod = ast.parse(f.read())
+    fn = next(node for node in mod.body
+              if isinstance(node, ast.FunctionDef) and node.name == "w8a8_tile")
+    space = {"SMS": 132}
+    exec(compile(ast.Module(body=[fn], type_ignores=[]), path, "exec"), space)
+    return space["w8a8_tile"](m, n, k)
 
 
 def ms_of(fn, budget_ms=100.0):
@@ -92,9 +121,15 @@ def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--parent", required=True, help="a checkout of the other tree")
     ap.add_argument("--out", default=os.path.join(REPO, "build", "compare_builds.json"))
+    ap.add_argument("--w8a8-table", action="store_true",
+                    help="only the int8 W8A8 table (chip_smoke.W8A8_TABLE)")
+    ap.add_argument("--w8a8-host", action="store_true",
+                    help="only the host's microseconds a W8A8 call")
     args = ap.parse_args()
 
     import torch
+
+    import chip_smoke
 
     from lightdiffusion_next_tpu_torch.ops import cuda_build
     from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
@@ -109,13 +144,24 @@ def main() -> int:
     other = load_build(os.path.abspath(args.parent))
     names = ["sage_attention", "sage_prepare", "sage_attention_variant", "w8a8_matmul",
              "w8a8_matmul_stacked", "w8a8_matmul_ep_stacked", "w8a8_matmul_bf16"]
+    if args.w8a8_table or args.w8a8_host:
+        names = ["w8a8_matmul"]
     with concurrent.futures.ThreadPoolExecutor(2) as pool:
         for f in [pool.submit(cuda_build.build, names), pool.submit(other.build, names)]:
             f.result()
     stream = lambda: torch.cuda.current_stream().cuda_stream  # noqa: E731
     gen = torch.Generator(device="cuda").manual_seed(21)
-    records = {"gpu": gpu, "sage": [], "w8a8": []}
+    records = {"gpu": gpu, "sage": [], "w8a8": [], "w8a8_table": []}
     ok = True
+    parent = os.path.abspath(args.parent)
+
+    if args.w8a8_host:
+        records["w8a8_host"] = w8a8_host(other, parent, gen, stream())
+        return finish(records, ok, args.out)
+    for m, k, n, ep in chip_smoke.W8A8_TABLE:
+        ok = w8a8_row(records, other, parent, gen, stream, m, k, n, ep) and ok
+    if args.w8a8_table:
+        return finish(records, ok, args.out)
 
     for shape in SAGE_SHAPES:
         b, h, lq, d = shape
@@ -188,7 +234,7 @@ def main() -> int:
         bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
         res = torch.randn((m, n), generator=gen, device="cuda").bfloat16()
         cs_blk = cs[idx].reshape(-1).contiguous()
-        tile = qm.w8a8_tile(m, n, k)
+        tile = other_tile(parent, m, n, k)
 
         def int8_this():
             if kind == "k7":
@@ -235,7 +281,8 @@ def main() -> int:
             return out
 
         same = torch.equal(int8_this(), int8_other())
-        rec = {"kernel": f"{kind} int8", "shape": [m, k, n], "tile": tile,
+        rec = {"kernel": f"{kind} int8", "shape": [m, k, n], "tile": qm.w8a8_tile(m, n, k),
+               "other_tile": tile,
                "output_bit_for_bit": same, **in_turns(int8_other, int8_this)}
         ok = ok and same
         records["w8a8"].append(rec)
@@ -251,9 +298,109 @@ def main() -> int:
         del x, xq, q3, res
         torch.cuda.empty_cache()
 
+    return finish(records, ok, args.out)
+
+
+def w8a8_host(other, parent, gen, stream, m=256, k=3072, n=3072, calls=200, turns=5):
+    """Host microseconds a call of the stacked K11 with its residual at (M,
+    K, N) on block 7 of a stack of 19: each tree's entry point (the tile its
+    own ``w8a8_tile`` picks) in blocks of ``calls`` calls, in turns other,
+    this, this, other, ``turns`` times, the queue drained between blocks;
+    this tree's wrapper the same way. Medians and every block's mean."""
+    import statistics
+    import time
+
+    import torch
+
+    import chip_smoke
+    from lightdiffusion_next_tpu_torch.ops import cuda_build
+    from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
+
+    q3 = torch.randint(-127, 128, (19, n, k), generator=gen, device="cuda", dtype=torch.int8)
+    xq, sx = qm.row_quantize_fused(chip_smoke.activations(m, k, gen))
+    cs = torch.rand((n,), generator=gen, device="cuda") / 1000
+    bias = torch.randn((n,), generator=gen, device="cuda")
+    res = chip_smoke.activations(m, n, gen)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+
+    def entry(build, tile):
+        fn = build.entry_point("w8a8_matmul_ep_stacked")
+        args = (xq.data_ptr(), sx.data_ptr(), q3.data_ptr(), cs.data_ptr(), bias.data_ptr(),
+                res.data_ptr(), out.data_ptr(), m, n, k, k, k, n, tile, 19, 7, stream)
+        return lambda: check(fn(*args), "w8a8 host")
+
+    fns = {"other": entry(other, other_tile(parent, m, n, k)),
+           "this": entry(cuda_build, qm.w8a8_tile(m, n, k)),
+           "this_wrapper": lambda: qm.w8a8_matmul_ep(xq, sx, (q3, 7), cs, bias, residual=res)}
+    us = {name: [] for name in fns}
+
+    def block(name):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(calls):
+            fns[name]()
+        us[name].append((time.perf_counter() - t0) / calls * 1e6)
+
+    for name in fns:  # warm: every map encoded, every kernel loaded
+        block(name)
+        us[name].clear()
+    for _ in range(turns):
+        for name in ("other", "this", "this_wrapper", "this_wrapper", "this", "other"):
+            block(name)
+    torch.cuda.synchronize()
+    rec = {"shape": [m, k, n], "calls_a_block": calls,
+           **{f"{name}_us_median": statistics.median(v) for name, v in us.items()},
+           **{f"{name}_us": v for name, v in us.items()}}
+    print(json.dumps(rec))
+    return rec
+
+
+def w8a8_row(records, other, parent, gen, stream, m, k, n, ep):
+    """One shape of chip_smoke.W8A8_TABLE: both trees' K11 (``ep`` "bias" or
+    "residual") bit for bit and in turns, ``torch._int_mm``, the bound.
+    Returns whether the outputs agree."""
+    import torch
+
+    import chip_smoke
+    from lightdiffusion_next_tpu_torch.ops import cuda_build
+    from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
+
+    xq, sx = qm.row_quantize_fused(chip_smoke.activations(m, k, gen))
+    sx = sx.reshape(-1)
+    q = torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+    cs = (0.5 + torch.rand((n,), generator=gen, device="cuda")) * (3 / (127 * k**0.5))
+    bias = 0.1 * torch.randn((n,), generator=gen, device="cuda")
+    res = chip_smoke.activations(m, n, gen) if ep == "residual" else None
+    tile = other_tile(parent, m, n, k)
+    out = torch.empty((m, n), dtype=torch.bfloat16, device="cuda")
+
+    mine = torch.empty_like(out)
+
+    def launch(build, tile_id, dst):
+        check(build.entry_point("w8a8_matmul_ep")(
+            xq.data_ptr(), sx.data_ptr(), q.data_ptr(), cs.data_ptr(), bias.data_ptr(),
+            None if res is None else res.data_ptr(), dst.data_ptr(), m, n, k, k, k,
+            0 if res is None else n, tile_id, stream()), "w8a8")
+        return dst
+
+    this = lambda: launch(cuda_build, qm.w8a8_tile(m, n, k), mine)  # noqa: E731
+    theirs = lambda: launch(other, tile, out)  # noqa: E731
+    same = torch.equal(this(), theirs())
+    rec = {"kernel": f"k11 {ep}", "shape": [m, k, n], "tile": qm.w8a8_tile(m, n, k),
+           "other_tile": tile, "output_bit_for_bit": same, **in_turns(theirs, this),
+           "int_mm_ms": ms_of(lambda: torch._int_mm(xq, q.t())),
+           "bound_ms": chip_smoke.int8_bound(m, k, n, True, res is not None)[0]}
+    records["w8a8_table"].append(rec)
+    print(json.dumps(rec))
+    del xq, sx, q, res, out, mine
+    torch.cuda.empty_cache()
+    return same
+
+
+def finish(records, ok, out):
     records["ok"] = ok
-    os.makedirs(os.path.dirname(args.out), exist_ok=True)
-    with open(args.out, "w") as f:
+    os.makedirs(os.path.dirname(out), exist_ok=True)
+    with open(out, "w") as f:
         json.dump(records, f, indent=1)
     print("compare_builds:", "ok" if ok else "FAILED: K4 or an int8 W8A8 kernel moved")
     return 0 if ok else 1

@@ -1,12 +1,12 @@
 // Hopper (sm_90a) building blocks shared by the wgmma kernels
 // (quant_matmul.cu, fused_qkv_attention.cu, sage_attention.cu,
 // flash_attention.cu, packed_flash_attention.cu, w8a8_matmul.cu,
-// w8a8_matmul_bf16.cu): cp.async and bulk copies, mbarriers and named
-// barriers, the proxy fence, wgmma's synchronisation and its shared-memory
-// descriptors, and the exact int8 -> bf16 conversion of the bf16-rate
-// products. The products themselves (m64nNk16 bf16 with f32 accumulators,
-// m64nNk32 s8 with s32 accumulators, all in registers) are generated into
-// wgmma_forms.cuh by wgmma_forms.py.
+// w8a8_matmul_bf16.cu): cp.async, bulk and tensor-map (TMA) copies,
+// mbarriers and named barriers, the proxy fence, wgmma's synchronisation
+// and its shared-memory descriptors, and the exact int8 -> bf16 conversion
+// of the bf16-rate products. The products themselves (m64nNk16 bf16 with
+// f32 accumulators, m64nNk32 s8 with s32 accumulators, all in registers)
+// are generated into wgmma_forms.cuh by wgmma_forms.py.
 //
 // The bf16 operands use the 128-byte swizzle: an atom is 8 rows of 128 bytes
 // (1024 bytes), and 16-byte chunk j of row r lies at chunk j ^ (r & 7). A
@@ -62,6 +62,72 @@ __device__ __forceinline__ void bulk_copy(uint32_t dst, const void* src, int byt
       : "memory");
 }
 
+// TMA: the box of the 2-D tensor map `map` (a __grid_constant__ kernel
+// parameter) at element coordinates (c0 innermost, c1) into shared memory at
+// dst, with the map's swizzle; the copy counts its bytes (the whole box, rows
+// past the tensor's end zero-filled) off the transaction count of the
+// mbarrier at `mbar`
+__device__ __forceinline__ void tma_load_2d(uint32_t dst, const void* map, int c0, int c1,
+                                            uint32_t mbar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1, {%2, %3}], [%4];\n"
+      :
+      : "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(mbar)
+      : "memory");
+}
+
+// As tma_load_2d, the box landing at the same offset `dst` in every CTA of
+// the cluster named by `mask` (bit r: rank r), each counting its bytes off
+// its own mbarrier at offset `mbar`
+__device__ __forceinline__ void tma_load_2d_multicast(uint32_t dst, const void* map, int c0,
+                                                      int c1, uint32_t mbar, uint16_t mask) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%2, %3}], [%4], %5;\n"
+      :
+      : "r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(mbar), "h"(mask)
+      : "memory");
+}
+
+__device__ __forceinline__ void prefetch_tensormap(const void* map) {
+  asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");
+}
+
+// TMA store: the box of `map` at (c0, c1) from shared memory at src, with the
+// map's swizzle (rows past the tensor's end are not written), in this
+// thread's bulk group; bulk_commit closes the group, bulk_wait_read<N> waits
+// until at most N groups still read their shared memory, bulk_wait<N> until
+// at most N groups are still writing
+__device__ __forceinline__ void tma_store_2d(const void* map, uint32_t src, int c0, int c1) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.global.shared::cta.bulk_group [%0, {%2, %3}], [%1];\n"
+      :
+      : "l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// `bytes` (a multiple of 16) contiguous bytes from global memory into L2,
+// asynchronously
+__device__ __forceinline__ void prefetch_l2(const void* src, int bytes) {
+  asm volatile("cp.async.bulk.prefetch.L2.global [%0], %1;\n" ::"l"(src), "r"(bytes)
+               : "memory");
+}
+
 // mbarriers in shared memory: initialised by one thread, then
 // mbar_init_fence() and a barrier before any thread uses them
 __device__ __forceinline__ void mbar_init(uint32_t mbar, int count) {
@@ -82,6 +148,30 @@ __device__ __forceinline__ void mbar_expect_tx(uint32_t mbar, int bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(mbar),
                "r"(bytes)
                : "memory");
+}
+
+// arrive on the mbarrier at offset `mbar` of CTA `rank` of the cluster
+// (this CTA's own, or another's), as CUTLASS's ClusterBarrier does: with the
+// default (CTA-scope) release; the cluster-scope release halved the W8A8
+// kernel's rate (csrc/w8a8_matmul.cu)
+__device__ __forceinline__ void mbar_arrive_cluster(uint32_t mbar, uint32_t rank) {
+  uint32_t remote;
+  asm volatile("mapa.shared::cluster.u32 %0, %1, %2;\n" : "=r"(remote) : "r"(mbar), "r"(rank));
+  asm volatile("mbarrier.arrive.shared::cluster.b64 _, [%0];\n" ::"r"(remote) : "memory");
+}
+
+// this CTA's rank in its cluster
+__device__ __forceinline__ uint32_t cluster_rank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// every thread of every CTA of the cluster: wait for all of them
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile(
+      "barrier.cluster.arrive.release.aligned;\n"
+      "barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
 }
 
 // wait until the phase of parity `parity` has completed (no bound on the

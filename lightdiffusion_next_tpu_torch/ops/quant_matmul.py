@@ -31,12 +31,14 @@ Counterpart of lightdiffusion_next_tpu/ops/quant_matmul.py:
   (D, N, K) codes, each block the port's (N, K) layout, and (D, 1, N)
   column scales. A block of the largest stack (the single blocks'
   ``linear1``: 38 x 21504 x 3072 bytes) lies past 2^31 bytes, so the
-  kernels compute block offsets in 64 bits.
+  kernels compute block offsets in 64 bits (the W8A8 kernel: the block as a
+  row offset into the whole stack's tensor map).
 
 Each wrapper takes the plain version for a tensor on the CPU (the tests)
 and launches its kernel for a CUDA tensor, or raises; it counts its
-launches in ``<wrapper>.launches``; an input that requires grad (grad mode
-on) sends the call through the wrapper's ``grad_guard.no_backward``, whose
+launches in ``<wrapper>.launches`` (the int8 W8A8 kernel's launches of all
+four also by tile id in ``W8A8_TILE_LAUNCHES``); an input that requires grad
+(grad mode on) sends the call through the wrapper's ``grad_guard.no_backward``, whose
 backward raises: no kernel has a backward. K7's and K8's row quantization is K9's
 "none" law, so on the card ``w8a8_matmul`` launches K9 and then K7, and
 ``w8a8_matmul_stacked`` K9 and then K8.
@@ -253,11 +255,14 @@ def supported_w8a8(m: int, k: int, n: int) -> bool:
 
 
 # The W8A8 kernel's tiles by id, as csrc/w8a8_matmul.cu dispatches them:
-# (rows, columns, consumer warpgroups). Each block stages K steps of
-# W8A8_BK codes of its A (rows x BK) and B (columns x BK) tiles in a ring of
-# W8A8_STAGES, plus one 1024-byte atom of alignment; the source's header
-# holds the times the choice below came from.
-W8A8_TILES = ((256, 128, 2), (192, 256, 3), (64, 64, 1))
+# (rows, columns, consumer warpgroups, blocks a cluster: two on neighbouring
+# column tiles share each A tile, each copying half of it for both, ring
+# stages). A block (two to an SM where it has one consumer warpgroup)
+# walks the output tiles and stages K steps of W8A8_BK codes of its A (rows
+# x BK) and B (columns x BK) tiles in its ring, beside the output's staging
+# and the epilogue's column scales and bias; the source's header holds the
+# times the choice below came from, and its static_asserts the fit.
+W8A8_TILES = ((256, 128, 2, 2, 4), (64, 64, 1, 1, 6))
 # The bf16-rate variant's tiles by id (csrc/w8a8_matmul_bf16.cu dispatches
 # them the same way): (rows, columns, consumer warpgroups of 64 rows). Each
 # block stages K steps of W8A8_BF16_BK codes of its A and B tiles in a ring
@@ -269,30 +274,22 @@ W8A8_BF16_BK = 64
 W8A8_BF16_STAGES = 3
 W8A8_BF16_BUFS = 3
 W8A8_BK = 128
-W8A8_STAGES = 4
 SMS = 132  # an H100's streaming multiprocessors
-
-
-def w8a8_smem_bytes(tile: int) -> int:
-    """Shared memory of one block of ``tile``, bytes."""
-    bm, bn, _ = W8A8_TILES[tile]
-    return W8A8_STAGES * (bm + bn) * W8A8_BK + 1024
+# Launches of the int8 W8A8 kernel by tile id, over all four wrappers (and
+# ``_launch_w8a8`` called directly): which tile, so which design, each call
+# took.
+W8A8_TILE_LAUNCHES = {tile: 0 for tile in range(len(W8A8_TILES))}
 
 
 def w8a8_tile(m: int, n: int, k: int) -> int:
-    """The tile id the W8A8 kernel takes for (M, K, N): 256 x 128 (one
-    block per SM); 192 x 256 where its grid is one or two whole waves of
-    the SMs (the N = 3072 matmuls at M = 4096: 264 blocks, where 256 x 128
-    leaves its third wave partly empty); 64 x 64 where a 256 x 128 grid
-    would leave more than a third of the SMs idle (M = 256)."""
+    """The tile id the W8A8 kernel takes for (M, K, N): 256 x 128 in pairs
+    wherever its tiles cover half the SMs or more (every Flux shape with
+    M >= 1024, and M = 256 at N >= 9216); 64 x 64 where they would leave
+    more than half of them idle (M = 256 at N = 3072)."""
     del k  # the choice does not depend on K at the path's shapes
     blocks = -(-m // 256) * (n // 128)
-    if 3 * blocks < 2 * SMS:
-        return 2
-    if n % 256 == 0:
-        wide = -(-m // 192) * (n // 256)
-        if wide % SMS == 0 and wide <= 2 * SMS:
-            return 1
+    if 2 * blocks < SMS:
+        return 1
     return 0
 
 
@@ -483,6 +480,7 @@ def _launch_w8a8(xq, sx, q, cs, bias=None, residual=None, k=None, ep=False, idx=
             *((depth, idx) if stacked else ()), stream)
     if rc != 0:
         raise RuntimeError(f"{name} kernel failed: " + cuda_build.error_string(name, rc))
+    W8A8_TILE_LAUNCHES[tile] += 1
     return out
 
 

@@ -716,9 +716,22 @@ def test_w8a8_kernels_refuse_what_they_do_not_take(cuda):
     with pytest.raises(ValueError):
         qm._launch_w8a8(xq, torch.ones((8,), device="cuda"), q, ones)  # K % 128
     xq2, q2 = xq[:, :128].contiguous(), q[:, :128].contiguous()
-    with pytest.raises(ValueError):  # a 256-column tile on N = 128
+    wide = [t[1] for t in qm.W8A8_TILES].index(128)
+    with pytest.raises(ValueError):  # a 128-column tile on N = 64
+        qm._launch_w8a8(xq2, torch.ones((8,), device="cuda"), q2[:64].contiguous(), ones[:64],
+                        tile=wide)
+    with pytest.raises(ValueError):  # a tile id outside the table
         qm._launch_w8a8(xq2, torch.ones((8,), device="cuda"), q2, ones,
-                        tile=[t[1] for t in qm.W8A8_TILES].index(256))
+                        tile=len(qm.W8A8_TILES))
+    # the kernel's own refusal, which a cluster's column tiles rely on: the
+    # entry point called past the wrapper with that tile on N = 64
+    from lightdiffusion_next_tpu_torch.ops import cuda_build
+
+    out = torch.empty((8, 64), dtype=torch.bfloat16, device="cuda")
+    rc = cuda_build.entry_point("w8a8_matmul")(
+        xq2.data_ptr(), ones.data_ptr(), q2.data_ptr(), ones.data_ptr(), out.data_ptr(),
+        8, 64, 128, 128, 128, wide, torch.cuda.current_stream().cuda_stream)
+    assert cuda_build.error_string("w8a8_matmul", rc) == "shape not supported"
     with pytest.raises(TypeError):
         qm.row_quantize_fused(torch.zeros((8, 256), device="cuda"))  # f32 x
     with pytest.raises(ValueError):
@@ -851,6 +864,50 @@ def test_w8a8_stacked_equals_unstacked_at_first_and_last_block(cuda, tile, mode)
         assert torch.equal(out, alone), (tile, idx)
         check = qm.matmul_agreement(out, ref)
         assert check["ok"], (tile, idx, check)
+
+
+# The persistent, warp-specialised kernel at every shape of the table in
+# csrc/w8a8_matmul.cu's header, a TP = 2 rank's (K halved or N cut) and a
+# ragged M, through all four wrappers in each of their epilogues, bit for
+# bit; the tile counter (quant_matmul.W8A8_TILE_LAUNCHES) names the tile of
+# each launch. The checks are chip_smoke.py's (phase "w8a8 persistent").
+
+
+def _chip_smoke():
+    import os
+    import sys
+
+    sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+    try:
+        import chip_smoke
+    finally:
+        sys.path.pop(0)
+    return chip_smoke
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("m,k,n", [shape[:3] for shape in _chip_smoke().W8A8_TABLE])
+def test_w8a8_every_wrapper_and_epilogue_at_the_table_shapes(cuda, m, k, n):
+    gen = torch.Generator(device="cuda").manual_seed(19)
+    checks, counted, tile = _chip_smoke().w8a8_wrappers_check(m, k, n, gen)
+    for name, check in checks.items():
+        assert check["ok"], (name, check)
+    assert counted == {t: (6 if t == tile else 0) for t in counted}, (tile, counted)
+    assert m < 1024 or tile == 0  # every large-M shape on the 256 x 128 tile
+
+
+@pytest.mark.cuda
+def test_w8a8_tile_counter_follows_the_flux_plan(cuda):
+    """One missed DiT call of the scan layout as ``chip_smoke`` plans it,
+    each W8A8 matmul launched at its shape: the counter per tile id reads
+    the plan's launches by ``w8a8_tile``, all 152 large-M ones (38 x 2 +
+    19 x 4) on the 256 x 128 tile."""
+    cs = _chip_smoke()
+    calls = cs.flux_calls(misses=1, dy_calls=0, w8a8=True, scan=True)
+    want, large = cs.w8a8_tile_plan(calls)
+    got = cs.w8a8_plan_launches(calls, torch.Generator(device="cuda").manual_seed(20))
+    assert got == want
+    assert large == 38 * 2 + 19 * 4 and want[0] >= large
 
 
 @pytest.mark.cuda

@@ -4,8 +4,9 @@ the bf16-rate variant, ``w8a8_bf16_tile``), on the CPU.
 The kernel (``csrc/w8a8_matmul.cu``) takes its tile as an id that Python
 chooses; these tests hold the choice to what the kernel can run: a tile
 for every shape the Flux W8A8 path gives it, whose width divides N, whose
-shared-memory ring fits one H100 block, and the C dispatch table equal to
-the Python one. The kernel itself runs only on the card
+shared memory (the ring of TMA stages and their mbarriers, the epilogue's
+output staging, column scales and bias) fits one H100 block, and the C dispatch table and stage
+count equal to the Python ones. The kernel itself runs only on the card
 (``tests/test_torch_cuda.py``).
 """
 
@@ -21,6 +22,8 @@ from lightdiffusion_next_tpu_torch.ops import quant_matmul as qm
 REPO = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 SOURCE = (cuda_build.CSRC / "w8a8_matmul.cu").read_text()
 SMEM_PER_BLOCK = 232448  # the shared memory one H100 block can use, bytes
+SMEM_PER_SM = 233472     # the shared memory of one H100 SM, bytes
+CHUNK = 32               # the W8A8 kernel's output columns per TMA store
 W8A8_KERNELS = ("w8a8_matmul", "w8a8_matmul_ep", "w8a8_matmul_stacked", "w8a8_matmul_ep_stacked")
 
 
@@ -61,40 +64,96 @@ def test_ragged_shapes_get_a_tile(m, n):
     assert _valid(qm.w8a8_tile(m, n, 3072), n)
 
 
+def _smem_bytes(tile):
+    """The dynamic shared memory of one block of ``tile``, bytes: its ring
+    (the A and B tiles of a K step a stage, on 1024-byte atoms), the output's
+    staging (CHUNK bf16 columns of each row), each consumer warpgroup's
+    column scales and bias for two tiles (f32), a full and an empty mbarrier
+    a stage, and one atom of alignment."""
+    bm, bn, wgs, _, stages = qm.W8A8_TILES[tile]
+    return stages * (bm + bn) * qm.W8A8_BK + bm * CHUNK * 2 + wgs * 16 * bn + 16 * stages + 1024
+
+
 @pytest.mark.parametrize("tile", range(len(qm.W8A8_TILES)))
 def test_every_tile_fits_one_block(tile):
-    bm, bn, wgs = qm.W8A8_TILES[tile]
-    assert qm.w8a8_smem_bytes(tile) <= SMEM_PER_BLOCK
+    """The block fits one H100 block's shared memory, and where it has one
+    consumer warpgroup two of them (each with its own 1024 bytes) fit an SM;
+    the ring holds more than the two stages the consumers hold while the
+    next lands, and the tile has an m64nBNk32 s8 form."""
+    bm, bn, wgs, cluster, stages = qm.W8A8_TILES[tile]
+    blocks = 2 if wgs == 1 else 1
+    assert _smem_bytes(tile) <= SMEM_PER_BLOCK
+    assert (_smem_bytes(tile) + 1024) * blocks <= SMEM_PER_SM
+    assert stages >= 3
+    assert bm * qm.W8A8_BK % 1024 == 0 and bn * qm.W8A8_BK % 1024 == 0  # TMA's 128-byte swizzle
+    assert bn <= 128  # a consumer thread holds one column's scale and bias
+    assert bn % CHUNK == 0 and CHUNK * 2 == 64  # the store's 64-byte rows
     assert bm % (64 * wgs) == 0 and bn % 64 == 0 and bn <= 256  # m64 tiles, wgmma's N
-    # the epilogue's f32 tile (rows padded by 8 floats) fits the ring, and
-    # every thread stores the same number of its 16-byte output chunks
-    assert bm * (bn + 8) * 4 <= qm.W8A8_STAGES * (bm + bn) * qm.W8A8_BK
-    assert bm * bn // 8 % (128 * wgs) == 0
+    assert bm <= 256 and bn <= 256  # a TMA box's rows
+    assert cluster in (1, 2) and bm % (16 * cluster) == 0  # a pair's halves of the A tile
+    assert ("ss_s8", bn, 0) in _forms()
+    # the producer's 40 registers and the consumers' 232 share an SM's 64K
+    assert 128 * 40 + 128 * wgs * 232 <= 65536 or wgs == 1
 
 
 def test_c_dispatch_states_the_python_table():
-    cases = re.findall(r"case (\d+): return run<(\d+), (\d+), (\d+), MODE>", SOURCE)
-    table = {int(i): (int(w) * int(mt) * 64, int(bn), int(w)) for i, w, mt, bn in cases}
+    cases = re.findall(r"case (\d+): return run<(\d+), (\d+), (\d+), (\d+), (\d+), MODE>",
+                       SOURCE)
+    table = {int(i): (int(w) * int(mt) * 64, int(bn), int(w), int(cl), int(st))
+             for i, w, mt, bn, cl, st in cases}
     assert table == dict(enumerate(qm.W8A8_TILES))
     assert f"constexpr int kBK = {qm.W8A8_BK};" in SOURCE
-    assert f"constexpr int kStages = {qm.W8A8_STAGES};" in SOURCE
+    # the plan _smem_bytes states, and the fit the kernel asserts at build time
+    assert f"constexpr int kSmemLimit = {SMEM_PER_BLOCK};" in SOURCE
+    assert f"constexpr int kSmemSM = {SMEM_PER_SM};" in SOURCE
+    assert f"constexpr int kChunk = {CHUNK};" in SOURCE
+    assert "static constexpr int kBlocks = WGS == 1 ? 2 : 1;" in SOURCE
+    assert "static constexpr int kParams = WGS * 2 * 2 * BN * 4;" in SOURCE
+    assert "return stages * kStage + WGS * kOut + kParams + 16 * stages + kAtom;" in SOURCE
+    assert "static_assert(C::fits(S)," in SOURCE
+    # the tensor maps: the 128-byte swizzle wgmma's descriptors read, the
+    # encoder reached through the runtime (the library links no libcuda)
+    assert "CU_TENSOR_MAP_SWIZZLE_128B" in SOURCE
+    assert "CU_TENSOR_MAP_SWIZZLE_64B" in SOURCE  # the output's staging
+    assert 'cudaGetDriverEntryPoint("cuTensorMapEncodeTiled"' in SOURCE
+    assert "setmaxnreg.dec.sync.aligned.u32 40;" in SOURCE
+    assert "setmaxnreg.inc.sync.aligned.u32 232;" in SOURCE
 
 
 def test_stacked_entry_points_launch_the_unstacked_kernel():
     """One kernel template, with no stacked parameter: the stacked entry
-    points offset the block on the host and call the same launch."""
+    points name the block as a row offset into the stack's map (D x N
+    rows) and call the same launch."""
     assert "STACKED" not in SOURCE
     assert len(re.findall(r"__global__", SOURCE)) == 1
     for entry in ("ldt_w8a8_matmul_stacked_fwd", "ldt_w8a8_matmul_ep_stacked_fwd"):
         body = SOURCE.split(f'extern "C" int {entry}(')[1].split("\n}\n")[0]
-        assert "block_offset(depth, idx, n, ldb)" in body and "return launch(" in body
+        assert "stack_rows(depth, idx, n, rows, row0)" in body and "return launch(" in body
+
+
+@pytest.mark.parametrize("m,k,n", [(4352, 3072, 21504), (4352, 15360, 3072),
+                                   (4096, 12288, 3072), (4096, 3072, 12288),
+                                   (4096, 3072, 9216), (4096, 3072, 3072),
+                                   (1024, 12288, 3072), (1024, 3072, 3072),
+                                   (1280, 3072, 21504), (1280, 15360, 3072),
+                                   (4352, 1536, 3072), (4352, 6144, 3072)])
+def test_large_m_shapes_take_the_main_tile(m, k, n):
+    """Every main-path shape with M >= 1024, a TP rank's among them, takes
+    256 x 128: the counter per tile id then shows each of them on it."""
+    assert qm.w8a8_tile(m, n, k) == 0
+
+
+def test_tile_launches_are_counted_by_id():
+    assert set(qm.W8A8_TILE_LAUNCHES) == set(range(len(qm.W8A8_TILES)))
+    assert all(isinstance(v, int) for v in qm.W8A8_TILE_LAUNCHES.values())
 
 
 def test_tile_choice_fills_the_card_at_the_large_shapes():
-    """At M >= 4096 the chosen tile's grid covers every SM at least once."""
+    """At M >= 4096 the chosen tile's tiles cover every SM at least once
+    (the persistent grid is min(tiles, SMs) blocks)."""
     for m, k, n in _main_path_shapes():
         if m >= 4096:
-            bm, bn, _ = qm.W8A8_TILES[qm.w8a8_tile(m, n, k)]
+            bm, bn, _, _, _ = qm.W8A8_TILES[qm.w8a8_tile(m, n, k)]
             assert -(-m // bm) * (n // bn) >= qm.SMS, (m, k, n)
 
 
@@ -110,7 +169,7 @@ def test_ablations_find_the_lines_they_replace():
     for name, edits in ablate_w8a8.ABLATIONS.items():
         for line, _ in edits:
             assert line in SOURCE, name
-    tiles = {(w * mt * 64, bn, w) for w, mt, bn in ablate_w8a8.TILES.values()}
+    tiles = {(w * mt * 64, bn, w, cl, st) for w, mt, bn, cl, st in ablate_w8a8.TILES.values()}
     assert set(qm.W8A8_TILES) <= tiles
 
 
